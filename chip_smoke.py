@@ -1,22 +1,28 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py       # one card, about a minute
+    python3 chip_smoke.py       # one card, a few minutes
 
 Phases, each of which fails the run:
   1. device: require CUDA; print the card's name and power limit.
-  2. build: compile every kernel of the port from ``csrc/`` with nvcc.
+  2. build: compile every kernel of the port from ``csrc/`` with nvcc, one
+     process per source, and print each one's registers, spills and shared
+     memory.
   3. kernels: hold each kernel against its plain PyTorch version on the
      card, at the shape the main path gives it and at the other cases of
-     its table (``K1_CASES``, which tests/test_torch_kernels_cuda.py runs
-     too), and time kernel, plain version and the roofline bound.
-  4. main path: TimeMamba-B inference (batch 8, 16 frames, 224², bf16,
-     random weights from a seed) through ``build_timemamba_b``; launch
-     counts are zeroed just before and read just after, and every kernel
-     of the path must have launched (K1: 12 per forward). Then a
-     torch.profiler window of two forwards: device time by kernel and the
-     device's busy share.
-  5. card against CPU: one clip at full width in fp32 (TF32 off), the card
-     through the kernels against the CPU through the plain versions.
+     its table (``K1_CASES``, ``K2_CASES``, which
+     tests/test_torch_kernels_cuda.py runs too), and time kernel, plain
+     version and the roofline bound.
+  4. inference: TimeMamba-B (batch 8, 16 frames, 224², bf16, random
+     weights from a seed) through ``build_timemamba_b``; launch counts are
+     zeroed just before and read just after (K1: 12 per forward). Then a
+     torch.profiler window of two forwards.
+  5. train step: the same model and batch through ``train_step`` with
+     AdamW (lr 1e-4, weight decay 1e-4); 12 K1 and 12 K2 launches per step,
+     a finite loss that falls; ms/step, clips/s, MFU, peak memory, and a
+     torch.profiler window of two steps.
+  6. card against CPU: one clip at full width in fp32 (TF32 off), the card
+     through the kernels against the CPU through the plain versions: the
+     forward at depth 12, the gradients of every parameter at depth 2.
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 """
 
@@ -24,6 +30,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -36,8 +43,11 @@ BF16_TC_FLOP_PER_S = 989e12
 
 BATCH = 8                        # clips per main-path request
 FORWARDS = 10                    # timed main-path batches (requests)
+TRAIN_STEPS = 10                 # timed train steps
 K1_SOURCE = "video_mamba_suite_torch/csrc/short_bidir_fwd.cu"
 K1_REPLACES = "video_mamba_suite_tpu/ops/selective_scan_pallas.py:1244"
+K2_SOURCE = "video_mamba_suite_torch/csrc/short_bidir_bwd.cu"
+K2_REPLACES = "video_mamba_suite_tpu/ops/selective_scan_pallas.py:1292"
 # K1 against its plain version: (label, (batch, seqlen, dim, dstate), I/O
 # dtype, with D and z). tests/test_torch_kernels_cuda.py runs the same cases.
 K1_CASES = [
@@ -48,9 +58,20 @@ K1_CASES = [
 # fp32 as the JAX kernel tests; bf16 output one to two bf16 ulps apart
 # (both round an fp32 result; sums differ in order)
 K1_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 2e-2)}
+# K2 against its plain version, at K1's cases: each gradient within
+# atol · (its largest magnitude) + rtol · |value|. fp32 as K1; bf16 outputs
+# (du, ddt, dz, dB, dC) one to two bf16 ulps apart, the fp32 sums (dA, dD,
+# dbias) in another order.
+K2_CASES = K1_CASES
+K2_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 2e-2)}
 # full-width fp32 forward, card against CPU, relative to the output scale:
 # read 9.2e-7 on an H100 80GB HBM3 (PERF.md), held at about ten times that
 CARD_CPU_REL_TOL = 1e-5
+# full-width fp32 gradients at depth 2, card against CPU, each parameter's
+# largest difference over its largest CPU gradient: read 3.7e-6 on an H100
+# 80GB HBM3 (PERF.md), held at about ten times that
+CARD_CPU_GRAD_REL_TOL = 4e-5
+GRAD_DEPTH = 2
 
 
 def log(*a):
@@ -202,7 +223,121 @@ def check_k1():
 
 
 # ---------------------------------------------------------------------------
-# the main path and the card-vs-CPU check
+# K2: its adjoint
+
+
+def k2_inputs(shape, dtype, seed, has_dz=True, device="cuda"):
+    """K1's inputs at one of ``K2_CASES`` and the two cotangents."""
+    import torch
+
+    args = k1_inputs(shape, dtype, seed, has_dz, device)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    batch, seqlen, dim, _ = shape
+    cot = {k: torch.randn(batch, seqlen, dim, device=device,
+                          generator=g).to(getattr(torch, dtype))
+           for k in ("gf", "gb")}
+    return args, cot
+
+
+def k2_check(label, shape, dtype, has_dz):
+    """Launch K2 once on the card at one of ``K2_CASES`` and hold its 16
+    gradients against the plain version's. Returns (inputs, cotangents,
+    gradients, max_abs_err); raises AssertionError on a miss."""
+    import torch
+    from video_mamba_suite_torch.ops import (
+        LAUNCHES,
+        selective_scan_bidir_bwd,
+        selective_scan_bidir_bwd_ref,
+    )
+
+    args, cot = k2_inputs(shape, dtype, seed=sum(shape) + 7, has_dz=has_dz)
+    n0 = LAUNCHES["short_bidir_bwd"]
+    got = selective_scan_bidir_bwd(**args, **cot)
+    torch.cuda.synchronize()
+    if LAUNCHES["short_bidir_bwd"] != n0 + 1:
+        raise AssertionError("K2's wrapper did not count its launch")
+    want = selective_scan_bidir_bwd_ref(**args, **cot)
+    atol, rtol = K2_TOL[dtype]
+    names = [n + s for s in "fb"
+             for n in ("du", "ddt", "dA", "dB", "dC", "dD", "dz", "dbias")]
+    abs_err, rel, worst, ok = 0.0, 0.0, "", True
+    for name, g, w in zip(names, got, want):
+        if (g is None) != (w is None):
+            raise AssertionError(f"K2 at {label}: {name} is {g} against "
+                                 f"{w}")
+        if g is None:
+            continue
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"K2 at {label}: {name} {g.dtype} "
+                                 f"{tuple(g.shape)}, want {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        d = (g.float() - w.float()).abs()
+        scale = w.float().abs().max().item()
+        bad = d > atol * scale + rtol * w.float().abs()
+        if bad.any() or not torch.isfinite(g).all():
+            ok = False
+            log(f"[k2] {label}: {name} misses at {int(bad.sum())} of "
+                f"{g.numel()} (max abs err {d.max().item():.3e}, scale "
+                f"{scale:.3e})")
+        abs_err = max(abs_err, d.max().item())
+        if d.max().item() / max(scale, 1e-30) >= rel:
+            rel, worst = d.max().item() / max(scale, 1e-30), name
+    log(f"[k2] {label} {shape} {dtype}{'' if has_dz else ' no D/z'}: "
+        f"max_abs_err {abs_err:.3e}, largest error over scale {rel:.3e} "
+        f"({worst}) (tol atol {atol}·scale, rtol {rtol}) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"K2 disagrees with its plain version at "
+                             f"{label} {shape}")
+    return args, cot, got, abs_err
+
+
+def k2_bound_ms(args, cot, grads):
+    """Least time for the work and what sets it: each input and cotangent
+    read once and each gradient written once over HBM, against 20 fp32
+    operations per state update and direction (the forward state, the
+    gate's y, and the adjoint step's dh, dA, ddt, dB, dC and du terms)."""
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*args.values(), *cot.values()))
+    nbytes += sum(t.numel() * t.element_size() for t in grads
+                  if t is not None)
+    batch, seqlen, dim = args["uf"].shape
+    ops = 2 * 20.0 * batch * seqlen * dim * args["Bf"].shape[-1]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    log(f"[k2] bound: {nbytes / 1e6:.1f} MB over 3.35 TB/s = "
+        f"{1e3 * t_bytes:.4f} ms; {ops / 1e9:.2f} GFLOP over 67 TFLOP/s = "
+        f"{1e3 * t_ops:.4f} ms")
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def check_k2():
+    """Every case of ``K2_CASES``; the main-path case is also timed."""
+    from video_mamba_suite_torch.ops import (
+        selective_scan_bidir_bwd,
+        selective_scan_bidir_bwd_ref,
+    )
+
+    result = {}
+    for case in K2_CASES:
+        args, cot, got, err = k2_check(*case)
+        if case[0] == "main":
+            result["max_abs_err"] = err
+            result["ms"] = cuda_time_ms(
+                lambda: selective_scan_bidir_bwd(**args, **cot), iters=20)
+            result["plain_ms"] = cuda_time_ms(
+                lambda: selective_scan_bidir_bwd_ref(**args, **cot),
+                iters=3, warmup=1)
+            result["bound_ms"], result["bound_by"] = k2_bound_ms(
+                args, cot, got)
+            log(f"[k2] main: kernel {result['ms']:.4f} ms, plain "
+                f"{result['plain_ms']:.4f} ms, bound "
+                f"{result['bound_ms']:.4f} ms ({result['bound_by']})")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# the main paths and the card-vs-CPU checks
 
 
 def run_main_path():
@@ -246,37 +381,92 @@ def run_main_path():
         f"{1e3 * times[-1]:.2f}), {clips:.2f} clips/s at the median, "
         f"{flops / 1e9:.1f} GFLOP/clip, MFU {100 * mfu:.2f}% of "
         f"989 TFLOP/s; launches {launches}")
-    profile_forward(model, x)
-    return launches
+    with torch.inference_mode():
+        profile("fwd", lambda: model(x))
 
 
-def profile_forward(model, x):
-    """Device time over two forwards: the busy share, the kernels, and the
-    torch ops that launched them (each op's own kernels only, so the op
-    rows do not overlap)."""
+def profile(what, fn, tag="profile"):
+    """Device time over two calls of ``fn``: the busy share, the kernels,
+    and the torch ops that launched them (each op's own kernels only, so
+    the op rows do not overlap)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with torch.inference_mode(), profile(activities=acts) as prof:
+    with torch_profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
-            model(x)
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     stats = prof.key_averages()
+    # a range annotated on the device (the optimizer's step) overlaps the
+    # kernels it holds, so it is not counted as a kernel
     kernels = [e for e in stats
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
     ops = [e for e in stats
            if e.device_type == torch.autograd.DeviceType.CPU
            and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    log(f"[profile] 2 forwards: wall {1e3 * wall:.2f} ms, device busy "
+    log(f"[{tag}] 2 x {what}: wall {1e3 * wall:.2f} ms, device busy "
         f"{1e3 * busy:.2f} ms ({100 * busy / wall:.1f}%)")
     for kind, events in (("kernel", kernels), ("op", ops)):
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
-            log(f"[profile] {kind} {e.self_device_time_total / 2e3:9.3f} "
-                f"ms/fwd {e.count // 2:5d}x  {e.key[:100]}")
+            log(f"[{tag}] {kind} {e.self_device_time_total / 2e3:9.3f} "
+                f"ms/{what} {e.count // 2:5d}x  {e.key[:100]}")
+
+
+def run_train_step():
+    """The slice's main path: TimeMamba-B train steps on one batch."""
+    import torch
+    from video_mamba_suite_torch import (
+        build_timemamba_b,
+        make_optimizer,
+        train_step,
+    )
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+
+    model = build_timemamba_b(device="cuda", dtype=torch.bfloat16, seed=0)
+    opt = make_optimizer(model, "adamw", lr=1e-4, weight_decay=1e-4)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(BATCH, *clip_shape(), device="cuda",
+                    generator=g).to(torch.bfloat16)
+    y = torch.randn(BATCH, 512, device="cuda", generator=g)
+    losses = [train_step(model, opt, x, y) for _ in range(2)]   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times = []
+    for _ in range(TRAIN_STEPS):     # each step ends with its update done
+        t0 = time.perf_counter()
+        losses.append(train_step(model, opt, x, y))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [v.item() for v in losses]
+    want = 12 * TRAIN_STEPS
+    for name in ("short_bidir_fwd", "short_bidir_bwd"):
+        if launches.get(name, 0) != want:
+            raise AssertionError(f"{name} launched {launches} times in "
+                                 f"{TRAIN_STEPS} train steps, want {want}")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    times.sort()
+    median = statistics.median(times)
+    flops = 3 * model.flops_per_clip() * BATCH
+    log(f"[train] {TRAIN_STEPS} steps of {BATCH} clips: median "
+        f"{1e3 * median:.2f} ms/step (min {1e3 * times[0]:.2f}, max "
+        f"{1e3 * times[-1]:.2f}), {BATCH / median:.2f} clips/s, "
+        f"{flops / 1e12:.2f} TFLOP/step (3 x forward), MFU "
+        f"{100 * flops / median / BF16_TC_FLOP_PER_S:.2f}% of 989 TFLOP/s; "
+        f"peak memory {peak / 2**30:.2f} GiB; launches {launches}")
+    log(f"[train] loss by step: {' '.join(f'{v:.5f}' for v in losses)}")
+    profile("step", lambda: train_step(model, opt, x, y), tag="profile-train")
+    return launches
 
 
 def card_against_cpu():
@@ -302,6 +492,53 @@ def card_against_cpu():
         raise AssertionError("card and CPU forwards disagree")
 
 
+def card_against_cpu_grads():
+    """One clip's loss gradient at full width and depth ``GRAD_DEPTH`` in
+    fp32: the card through K1 and K2, the CPU through the plain versions."""
+    import torch
+    from video_mamba_suite_torch import build_timemamba_b
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = build_timemamba_b(device="cpu", dtype=None, seed=3,
+                            depth=GRAD_DEPTH)
+    card = copy.deepcopy(cpu).to("cuda")
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(1, *clip_shape(), generator=g)
+    y = torch.randn(1, 512, generator=g)
+    t0 = time.perf_counter()
+    reset_launches()
+    for model, dev in ((cpu, "cpu"), (card, "cuda")):
+        model.train()
+        loss = torch.mean((model(x.to(dev)) - y.to(dev)) ** 2)
+        loss.backward()
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    if launches != {"short_bidir_fwd": GRAD_DEPTH,
+                    "short_bidir_bwd": GRAD_DEPTH}:
+        raise AssertionError(f"the card's backward launched {launches}")
+    worst, worst_name, missing = 0.0, "", []
+    cpu_params = dict(cpu.named_parameters())
+    for name, p in card.named_parameters():
+        want = cpu_params[name].grad
+        if p.grad is None or want is None or \
+                not torch.isfinite(p.grad).all():
+            missing.append(name)
+            continue
+        rel = ((p.grad.cpu() - want).abs().max()
+               / want.abs().max().clamp_min(1e-30)).item()
+        if rel >= worst:
+            worst, worst_name = rel, name
+    log(f"[card-vs-cpu] fp32 gradients, full width, depth {GRAD_DEPTH}, "
+        f"TF32 off: largest difference over the CPU gradient's scale "
+        f"{worst:.3e} ({worst_name}; tol {CARD_CPU_GRAD_REL_TOL}) over "
+        f"{len(cpu_params)} parameters in {time.perf_counter() - t0:.1f} s")
+    if missing or worst > CARD_CPU_GRAD_REL_TOL:
+        raise AssertionError(f"card and CPU gradients disagree (no or "
+                             f"non-finite gradient: {missing})")
+
+
 def main() -> int:
     import torch
 
@@ -315,23 +552,30 @@ def main() -> int:
         f"{torch.version.cuda}")
 
     t0 = time.perf_counter()
-    _build.build("short_bidir_fwd")
-    log(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log("short_bidir_fwd").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] short_bidir_fwd: {line.strip()}")
+    built = _build.build_all()
+    log(f"[build] kernels built in {time.perf_counter() - t0:.1f} s "
+        f"(one nvcc per source, in parallel)")
+    for name in built:
+        for line in _build.build_log(name).splitlines():
+            if any(w in line for w in ("registers", "spill", "smem",
+                                       "stack frame")):
+                log(f"[build] {name}: {line.strip()}")
 
     k1 = check_k1()
-    launches = run_main_path()
+    k2 = check_k2()
+    run_main_path()
+    launches = run_train_step()
     card_against_cpu()
+    card_against_cpu_grads()
 
     kernels = [dict(
-        name="short_bidir_fwd", route="cuda", source=K1_SOURCE,
-        replaces=K1_REPLACES, launches=launches["short_bidir_fwd"],
-        max_abs_err=k1["max_abs_err"], ms=k1["ms"],
-        plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-        bound_by=k1["bound_by"],
-        library_ms=None)]
+        name=name, route="cuda", source=source, replaces=replaces,
+        launches=launches[name], max_abs_err=k["max_abs_err"], ms=k["ms"],
+        plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+        bound_by=k["bound_by"], library_ms=None)
+        for name, source, replaces, k in (
+            ("short_bidir_fwd", K1_SOURCE, K1_REPLACES, k1),
+            ("short_bidir_bwd", K2_SOURCE, K2_REPLACES, k2))]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

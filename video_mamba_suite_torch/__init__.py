@@ -8,5 +8,8 @@ Entry points build on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from .models import MambaVim, TimeMamba, build_timemamba_b
+from .train import train_step
+from .utils import make_optimizer
 
-__all__ = ["MambaVim", "TimeMamba", "build_timemamba_b"]
+__all__ = ["MambaVim", "TimeMamba", "build_timemamba_b", "make_optimizer",
+           "train_step"]

@@ -59,6 +59,22 @@ def _compute_dtype(dtype, *tensors) -> torch.dtype:
     return out
 
 
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: each element kept with probability 1 - rate and
+    scaled by 1 / (1 - rate), the mask drawn from ``generator`` (on x's
+    device). The identity in eval mode and at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    if generator is None:
+        raise ValueError("dropout in training mode needs a torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
 class Dense(nn.Module):
     """flax ``nn.Dense``: weight (out, in), optional bias, input and
     parameters cast to the compute dtype before the product."""

@@ -5,7 +5,9 @@ adapters (counterpart of the JAX package's ``models/timemamba.py``:
 Input (B, T, H, W, 3); output (B, output_dim) fp32.
 The cls token travels as (B, 1, D) and the patch grid as (B, n, t, D),
 patch-major, so the temporal Mamba runs on (B·n, t, D) with a reshape.
-Dropout and drop-path are inference no-ops and are not kept.
+Dropout (``drop_rate``) and drop-path (``drop_path_rate``) act in training
+mode only, with masks drawn from the ``torch.Generator`` passed to
+``forward``; at rate 0 and in eval mode they are the identity.
 """
 
 from __future__ import annotations
@@ -17,25 +19,38 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import Dense, FusedMHA, LayerNorm, PatchifyConv, resolve_device
+from .common import (
+    Dense,
+    FusedMHA,
+    LayerNorm,
+    PatchifyConv,
+    dropout,
+    resolve_device,
+)
 from .mamba import MambaVim
 
 ATTENTION_STYLES = ("frozen-in-time", "timesformer-div", "frozen-joint")
 
 
 class Mlp(nn.Module):
-    """fc1 → GELU → fc2. GELU takes the tanh form under bf16 and the exact
-    erf form otherwise, as the JAX package does."""
+    """fc1 → GELU → dropout → fc2 → dropout. GELU takes the tanh form under
+    bf16 and the exact erf form otherwise, as the JAX package does.
+    ``generator`` draws the initial weights; ``forward``'s draws the
+    dropout masks."""
 
-    def __init__(self, dim: int, hidden: int, *,
+    def __init__(self, dim: int, hidden: int, *, drop: float = 0.0,
                  dtype: Optional[torch.dtype], generator: torch.Generator):
         super().__init__()
+        self.drop = drop
         self.fc1 = Dense(dim, hidden, dtype=dtype, generator=generator)
         self.fc2 = Dense(hidden, dim, dtype=dtype, generator=generator)
         self.approximate = "tanh" if dtype == torch.bfloat16 else "none"
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = F.gelu(self.fc1(x), approximate=self.approximate)
+        x = dropout(x, self.drop, self.training, generator)
+        return dropout(self.fc2(x), self.drop, self.training, generator)
 
 
 class SpaceTimeBlock(nn.Module):
@@ -47,9 +62,12 @@ class SpaceTimeBlock(nn.Module):
     only; the residual is the block input), "timesformer-div" (the temporal
     residual stays in the stream) or "frozen-joint" (the Mamba scans the
     joint n·t sequence; on CUDA that needs the chunked scan, not ported yet).
+    ``drop`` is the Mlp's dropout rate; ``drop_path`` drops the whole MLP
+    branch (cls and patches together) per sample in training mode.
     """
 
     def __init__(self, dim: int, num_heads: int, *,
+                 drop: float = 0.0, drop_path: float = 0.0,
                  is_tanh_gating: bool = False,
                  attention_style: str = "frozen-in-time",
                  dtype: Optional[torch.dtype] = None,
@@ -58,6 +76,7 @@ class SpaceTimeBlock(nn.Module):
         if attention_style not in ATTENTION_STYLES:
             raise ValueError(f"unknown attention_style {attention_style!r}")
         self.attention_style = attention_style
+        self.drop_path = drop_path
         self.norm3 = LayerNorm(dim, dtype)
         self.time_mamba = MambaVim(d_model=dim, expand=1, dtype=dtype,
                                    device="cpu", generator=generator)
@@ -66,10 +85,13 @@ class SpaceTimeBlock(nn.Module):
         self.norm1 = LayerNorm(dim, dtype)
         self.attn = FusedMHA(dim, num_heads, dtype=dtype, generator=generator)
         self.norm2 = LayerNorm(dim, dtype)
-        self.mlp = Mlp(dim, 4 * dim, dtype=dtype, generator=generator)
+        self.mlp = Mlp(dim, 4 * dim, drop=drop, dtype=dtype,
+                       generator=generator)
 
-    def forward(self, cls: torch.Tensor, patches: torch.Tensor):
-        """cls (B, 1, D); patches (B, n, t, D). Returns (cls, patches)."""
+    def forward(self, cls: torch.Tensor, patches: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        """cls (B, 1, D); patches (B, n, t, D). Returns (cls, patches).
+        ``generator`` draws the dropout and drop-path masks in training."""
         B, n, t, D = patches.shape
         if self.attention_style == "frozen-joint":
             ht = patches.reshape(B, n * t, D)
@@ -87,9 +109,19 @@ class SpaceTimeBlock(nn.Module):
         cls = cls + space_out[:, 0].mean(dim=1, keepdim=True)
         base = tr if self.attention_style == "timesformer-div" else patches
         patches = base + space_out[:, 1:]
-        cls = cls + self.mlp(self.norm2(cls))
-        patches = patches + self.mlp(self.norm2(patches))
-        return cls, patches
+        mlp_cls = self.mlp(self.norm2(cls), generator)
+        mlp_patch = self.mlp(self.norm2(patches), generator)
+        if self.training and self.drop_path > 0.0:
+            if generator is None:
+                raise ValueError("drop-path in training mode needs a "
+                                 "torch.Generator")
+            # one decision per sample for the whole branch
+            keep = 1.0 - self.drop_path
+            mask = torch.rand(B, 1, 1, device=cls.device,
+                              generator=generator) < keep
+            mlp_cls = torch.where(mask, mlp_cls / keep, 0.0)
+            mlp_patch = torch.where(mask[..., None], mlp_patch / keep, 0.0)
+        return cls + mlp_cls, patches + mlp_patch
 
 
 class TimeMamba(nn.Module):
@@ -99,7 +131,9 @@ class TimeMamba(nn.Module):
     ``dtype`` is the compute dtype (parameters stay fp32); the final norm
     and projection run in fp32, as in the JAX package. Built on ``device``
     ("cuda" unless the caller asks for "cpu") from ``torch.Generator``
-    seeded with ``seed``.
+    seeded with ``seed``. ``drop_rate`` is the dropout after the patch
+    embedding and in each Mlp; block i drops its MLP branch at
+    ``drop_path_rate · i / (depth - 1)``, the JAX package's schedule.
     """
 
     def __init__(self, img_size: int = 224, patch_size: int = 16,
@@ -107,7 +141,8 @@ class TimeMamba(nn.Module):
                  num_frames: int = 8, ln_pre: bool = False,
                  is_tanh_gating: bool = False,
                  attention_style: str = "frozen-in-time",
-                 output_dim: int = 512,
+                 output_dim: int = 512, drop_rate: float = 0.0,
+                 drop_path_rate: float = 0.0,
                  dtype: Optional[torch.dtype] = None, device="cuda",
                  seed: int = 0):
         super().__init__()
@@ -115,6 +150,7 @@ class TimeMamba(nn.Module):
         g = torch.Generator().manual_seed(seed)
         self.num_frames = num_frames
         self.embed_dim = embed_dim
+        self.drop_rate = drop_rate
         self.patch_embed = PatchifyConv(3, embed_dim, patch_size,
                                         bias=not ln_pre, dtype=dtype,
                                         generator=g)
@@ -127,18 +163,22 @@ class TimeMamba(nn.Module):
             generator=g))
         self.ln_pre = LayerNorm(embed_dim, dtype) if ln_pre else None
         self.blocks = nn.ModuleList(
-            SpaceTimeBlock(embed_dim, num_heads,
+            SpaceTimeBlock(embed_dim, num_heads, drop=drop_rate,
+                           drop_path=drop_path_rate * i / max(depth - 1, 1),
                            is_tanh_gating=is_tanh_gating,
                            attention_style=attention_style, dtype=dtype,
                            generator=g)
-            for _ in range(depth))
+            for i in range(depth))
         self.norm = LayerNorm(embed_dim)
         self.image_projection = nn.Parameter(nn.init.normal_(
             torch.empty(embed_dim, output_dim), 0.0, embed_dim ** -0.5,
             generator=g))
         self.to(device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x (B, T, H, W, 3) → (B, output_dim) fp32. ``generator`` (on x's
+        device) draws the dropout and drop-path masks in training mode."""
         B, T, H, W, C = x.shape
         feat = self.patch_embed(x.reshape(B * T, H, W, C))
         BT, hh, ww, D = feat.shape
@@ -150,8 +190,11 @@ class TimeMamba(nn.Module):
         patches = feat[:, 1:].reshape(B, T, n, D).permute(0, 2, 1, 3)
         if self.ln_pre is not None:
             cls_tokens, patches = self.ln_pre(cls_tokens), self.ln_pre(patches)
+        cls_tokens = dropout(cls_tokens, self.drop_rate, self.training,
+                             generator)
+        patches = dropout(patches, self.drop_rate, self.training, generator)
         for blk in self.blocks:
-            cls_tokens, patches = blk(cls_tokens, patches)
+            cls_tokens, patches = blk(cls_tokens, patches, generator)
         h = self.norm(cls_tokens)[:, 0]                      # fp32
         return h @ self.image_projection
 

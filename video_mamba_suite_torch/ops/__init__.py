@@ -11,11 +11,14 @@ from .selective_scan import selective_scan_ref
 from .selective_scan_bidir import (
     SHORT_SEQ_MAX,
     selective_scan_bidir,
+    selective_scan_bidir_bwd,
+    selective_scan_bidir_bwd_ref,
     selective_scan_bidir_ref,
 )
 
 __all__ = [
     "LAUNCHES", "MASKED_DELTA", "SHORT_SEQ_MAX", "causal_conv1d",
     "mamba_inner_bidir", "reset_launches", "selective_scan_bidir",
+    "selective_scan_bidir_bwd", "selective_scan_bidir_bwd_ref",
     "selective_scan_bidir_ref", "selective_scan_ref",
 ]

@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -59,25 +59,44 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{key}.so"
 
 
+def build_all(names: Iterable[str] = ()) -> Dict[str, Path]:
+    """Compile the named sources (every ``csrc/*.cu`` when none are named)
+    that are not built yet, one nvcc process per source, all started
+    together, and return each library's path. nvcc's output (register,
+    spill and shared-memory report) is kept in ``<library>.log``."""
+    names = list(names) or sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+    targets = {name: _target(name) for name in names}
+    todo = [name for name, target in targets.items() if not target.exists()]
+    if not todo:
+        return targets
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = {}
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp)
+    failed = []
+    for name, (proc, tmp) in jobs.items():
+        out, _ = proc.communicate()
+        Path(str(targets[name]) + ".log").write_text(out)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed for {name}:\n{out}")
+        else:
+            os.replace(tmp, targets[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return targets
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless it is built already and return the
-    library's path. nvcc's output (register and shared-memory use) is kept
-    in ``<library>.log``."""
-    target = _target(name)
-    if target.exists():
-        return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    Path(str(target) + ".log").write_text(proc.stdout)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
-    os.replace(tmp, target)
-    return target
+    library's path."""
+    return build_all([name])[name]
 
 
 def build_log(name: str) -> str:

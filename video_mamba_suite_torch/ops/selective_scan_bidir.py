@@ -1,15 +1,19 @@
-"""Fused bidirectional short selective scan (kernel K1).
+"""Fused bidirectional short selective scan (kernels K1 and K2).
 
 Counterpart of the JAX package's ``selective_scan_pallas_bidir`` and its
-Pallas kernel ``_short_bidir_fwd_kernel``
-(``video_mamba_suite_tpu/ops/selective_scan_pallas.py``). Both directions of
-a bidirectional mixer run in one launch: direction f scans causally,
+Pallas kernels ``_short_bidir_fwd_kernel`` and ``_short_bidir_bwd_kernel``
+(``video_mamba_suite_tpu/ops/selective_scan_pallas.py``). Both directions
+of a bidirectional mixer run in one launch: direction f scans causally,
 direction b anti-causally (the same function as flip∘scan∘flip). All inputs
 and both outputs are in forward time order.
 
-``selective_scan_bidir`` launches the hand-written CUDA kernel
-(``csrc/short_bidir_fwd.cu``) for tensors on a CUDA device and takes the
-plain version ``selective_scan_bidir_ref`` only for tensors on the CPU.
+``selective_scan_bidir`` takes the plain version ``selective_scan_bidir_ref``
+(and its autograd) for tensors on the CPU. For tensors on a CUDA device it
+goes through an autograd Function whose forward launches K1
+(``csrc/short_bidir_fwd.cu``) and whose backward launches K2
+(``csrc/short_bidir_bwd.cu``) through ``selective_scan_bidir_bwd``. The
+Function keeps the inputs, not the scan's states, so the backward does not
+run K1 again.
 """
 
 from __future__ import annotations
@@ -23,10 +27,19 @@ from ._build import LAUNCHES, load
 from .selective_scan import selective_scan_ref
 
 KERNEL = "short_bidir_fwd"
-SHORT_SEQ_MAX = 64   # longest sequence the kernel takes
-MAX_DSTATE = 16      # largest state size the kernel takes
+BWD_KERNEL = "short_bidir_bwd"
+SHORT_SEQ_MAX = 64   # longest sequence the kernels take
+MAX_DSTATE = 16      # largest state size the kernels take
+BWD_ROW_GROUPS = 256  # most row groups (partials of dA, dD, dbias) of K2
+BWD_CHANNELS = 128   # channels per K2 block (one partial of dB, dC each)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The 16 inputs, in the order of ``selective_scan_bidir``'s parameters.
+INPUTS = ("uf", "dtf", "Af", "Bf", "Cf", "ub", "dtb", "Ab", "Bb", "Cb",
+          "Df", "zf", "biasf", "Db", "zb", "biasb")
+# The 8 gradients of one direction, in the JAX package's order.
+GRADS = ("u", "dt", "A", "B", "C", "D", "z", "bias")
 
 
 def _flip(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -46,8 +59,31 @@ def selective_scan_bidir_ref(
     return out_f, out_b
 
 
+def selective_scan_bidir_bwd_ref(
+    uf, dtf, Af, Bf, Cf, ub, dtb, Ab, Bb, Cb,
+    Df=None, zf=None, biasf=None, Db=None, zb=None, biasb=None, *, gf, gb,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """Plain version of K2: the VJP of ``selective_scan_bidir_ref`` at the
+    16 inputs for the cotangents ``gf`` and ``gb`` of its two outputs.
+
+    Returns 16 gradients, ``(du, ddt, dA, dB, dC, dD, dz, dbias)`` of
+    direction f and then of direction b, each in its input's dtype (dB and
+    dC are summed in fp32 before the cast), None for an input that is None.
+    ``zf`` and ``zb`` get a gradient each even when they are one tensor.
+    """
+    given = dict(zip(INPUTS, (uf, dtf, Af, Bf, Cf, ub, dtb, Ab, Bb, Cb,
+                              Df, zf, biasf, Db, zb, biasb)))
+    with torch.enable_grad():
+        leaves = {k: v.detach().requires_grad_()
+                  for k, v in given.items() if v is not None}
+        outs = selective_scan_bidir_ref(**{k: leaves.get(k) for k in INPUTS})
+        found = torch.autograd.grad(outs, list(leaves.values()), (gf, gb))
+    found = dict(zip(leaves, found))
+    return tuple(found.get(name + s) for s in "fb" for name in GRADS)
+
+
 def _check_cuda_args(uf, dtf, Af, Bf, Cf, ub, dtb, Ab, Bb, Cb,
-                     Df, zf, biasf, Db, zb, biasb):
+                     Df, zf, biasf, Db, zb, biasb, gf=None, gb=None):
     if uf.dim() != 3:
         raise ValueError(f"u must be (batch, seqlen, dim), got "
                          f"{tuple(uf.shape)}")
@@ -69,12 +105,12 @@ def _check_cuda_args(uf, dtf, Af, Bf, Cf, ub, dtb, Ab, Bb, Cb,
         "u": (batch, seqlen, dim), "dt": (batch, seqlen, dim),
         "z": (batch, seqlen, dim), "B": (batch, seqlen, dstate),
         "C": (batch, seqlen, dstate), "A": (dim, dstate), "D": (dim,),
-        "bias": (dim,),
+        "bias": (dim,), "g": (batch, seqlen, dim),
     }
     named = {
         "uf": uf, "dtf": dtf, "zf": zf, "Bf": Bf, "Cf": Cf, "Af": Af,
-        "Df": Df, "biasf": biasf, "ub": ub, "dtb": dtb, "zb": zb, "Bb": Bb,
-        "Cb": Cb, "Ab": Ab, "Db": Db, "biasb": biasb,
+        "Df": Df, "biasf": biasf, "gf": gf, "ub": ub, "dtb": dtb, "zb": zb,
+        "Bb": Bb, "Cb": Cb, "Ab": Ab, "Db": Db, "biasb": biasb, "gb": gb,
     }
     for name, t in named.items():
         if t is None:
@@ -93,19 +129,37 @@ def _check_cuda_args(uf, dtf, Af, Bf, Cf, ub, dtb, Ab, Bb, Cb,
     return batch, seqlen, dim, dstate
 
 
-def _library() -> ctypes.CDLL:
-    lib = load(KERNEL)
-    fn = lib.short_bidir_fwd
+def _library(name: str, n_ints: int, n_ptrs: int) -> ctypes.CDLL:
+    lib = load(name)
+    fn = getattr(lib, name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 19)
-    lib.short_bidir_fwd_error_string.restype = ctypes.c_char_p
-    lib.short_bidir_fwd_error_string.argtypes = [ctypes.c_int]
+    fn.argtypes = ([ctypes.c_int, ctypes.c_longlong]
+                   + [ctypes.c_int] * (n_ints - 2)
+                   + [ctypes.c_void_p] * n_ptrs)
+    err = getattr(lib, name + "_error_string")
+    err.restype = ctypes.c_char_p
+    err.argtypes = [ctypes.c_int]
     return lib
 
 
-def _launch(uf, dtf, Af, Bf, Cf, ub, dtb, Ab, Bb, Cb,
-            Df, zf, biasf, Db, zb, biasb):
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _call(name: str, lib: ctypes.CDLL, device, *args) -> None:
+    """Call the C entry ``name`` on the current stream of ``device``; raise
+    if it reports an error. Counts the launch."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        msg = getattr(lib, name + "_error_string")(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
+    LAUNCHES[name] += 1
+
+
+def _launch_fwd(uf, dtf, Af, Bf, Cf, ub, dtb, Ab, Bb, Cb,
+                Df, zf, biasf, Db, zb, biasb):
     batch, seqlen, dim, dstate = _check_cuda_args(
         uf, dtf, Af, Bf, Cf, ub, dtb, Ab, Bb, Cb, Df, zf, biasf, Db, zb,
         biasb)
@@ -113,22 +167,92 @@ def _launch(uf, dtf, Af, Bf, Cf, ub, dtb, Ab, Bb, Cb,
     out_b = torch.empty_like(uf)
     if uf.numel() == 0:
         return out_f, out_b
-    lib = _library()
-    ptr = (lambda t: None if t is None else t.data_ptr())  # noqa: E731
-    with torch.cuda.device(uf.device):
-        stream = torch.cuda.current_stream(uf.device).cuda_stream
-        rc = lib.short_bidir_fwd(
-            _DTYPE_CODES[uf.dtype], batch, seqlen, dim, dstate,
-            ptr(uf), ptr(dtf), ptr(zf), ptr(Bf), ptr(Cf), ptr(Af), ptr(Df),
-            ptr(biasf),
-            ptr(ub), ptr(dtb), ptr(zb), ptr(Bb), ptr(Cb), ptr(Ab), ptr(Db),
-            ptr(biasb),
-            ptr(out_f), ptr(out_b), stream)
-    if rc != 0:
-        msg = lib.short_bidir_fwd_error_string(rc).decode()
-        raise RuntimeError(f"{KERNEL} launch failed: {msg} ({rc})")
-    LAUNCHES[KERNEL] += 1
+    _call(KERNEL, _library(KERNEL, 5, 19), uf.device,
+          _DTYPE_CODES[uf.dtype], batch, seqlen, dim, dstate,
+          *(_ptr(t) for t in (uf, dtf, zf, Bf, Cf, Af, Df, biasf,
+                              ub, dtb, zb, Bb, Cb, Ab, Db, biasb,
+                              out_f, out_b)))
     return out_f, out_b
+
+
+def _launch_bwd(uf, dtf, Af, Bf, Cf, ub, dtb, Ab, Bb, Cb,
+                Df, zf, biasf, Db, zb, biasb, gf, gb):
+    batch, seqlen, dim, dstate = _check_cuda_args(
+        uf, dtf, Af, Bf, Cf, ub, dtb, Ab, Bb, Cb, Df, zf, biasf, Db, zb,
+        biasb, gf, gb)
+    groups = max(1, min(batch, BWD_ROW_GROUPS))
+    blocks = -(-dim // BWD_CHANNELS)
+
+    # the kernel writes every element of its outputs and partials
+    alloc = torch.empty if uf.numel() else torch.zeros
+
+    def outputs(u, z):
+        f32 = dict(dtype=torch.float32, device=u.device)
+        return dict(
+            u=torch.empty_like(u), dt=torch.empty_like(u),
+            z=None if z is None else torch.empty_like(z),
+            A=alloc(groups, dim, dstate, **f32),
+            B=alloc(blocks, batch, seqlen, dstate, **f32),
+            C=alloc(blocks, batch, seqlen, dstate, **f32),
+            D=alloc(groups, dim, **f32),
+            bias=alloc(groups, dim, **f32))
+
+    parts = {"f": outputs(uf, zf), "b": outputs(ub, zb)}
+    if uf.numel() > 0:
+        ptrs = [_ptr(parts[s][k]) for s in "fb"
+                for k in ("u", "dt", "z", "A", "B", "C", "D", "bias")]
+        _call(BWD_KERNEL, _library(BWD_KERNEL, 6, 35), uf.device,
+              _DTYPE_CODES[uf.dtype], batch, seqlen, dim, dstate, groups,
+              *(_ptr(t) for t in (uf, dtf, zf, Bf, Cf, Af, Df, biasf, gf,
+                                  ub, dtb, zb, Bb, Cb, Ab, Db, biasb, gb)),
+              *ptrs)
+
+    def reduce(part, B, D, bias):
+        return (part["u"], part["dt"], part["A"].sum(0),
+                part["B"].sum(0).to(B.dtype), part["C"].sum(0).to(B.dtype),
+                None if D is None else part["D"].sum(0), part["z"],
+                None if bias is None else part["bias"].sum(0))
+
+    return (reduce(parts["f"], Bf, Df, biasf)
+            + reduce(parts["b"], Bb, Db, biasb))
+
+
+def selective_scan_bidir_bwd(
+    uf, dtf, Af, Bf, Cf, ub, dtb, Ab, Bb, Cb,
+    Df=None, zf=None, biasf=None, Db=None, zb=None, biasb=None, *, gf, gb,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """Gradients of ``selective_scan_bidir`` for the cotangents ``gf`` and
+    ``gb``, in the order and dtypes of ``selective_scan_bidir_bwd_ref``.
+
+    CUDA tensors launch K2 (the same limits as K1; g* contiguous, in u's
+    dtype) or raise; CPU tensors take the plain version.
+    """
+    args = (uf, dtf, Af, Bf, Cf, ub, dtb, Ab, Bb, Cb,
+            Df, zf, biasf, Db, zb, biasb)
+    if uf.device.type == "cuda":
+        return _launch_bwd(*args, gf, gb)
+    if uf.device.type == "cpu":
+        return selective_scan_bidir_bwd_ref(*args, gf=gf, gb=gb)
+    raise ValueError(f"unsupported device {uf.device}")
+
+
+class _FusedBidirScan(torch.autograd.Function):
+    """K1 forward, K2 backward. Saves the 16 inputs; the gradients of an
+    input passed twice (ViM's ``zb is zf``) are summed by autograd."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        return _launch_fwd(*args)
+
+    @staticmethod
+    def backward(ctx, gf, gb):
+        saved = ctx.saved_tensors
+        grads = _launch_bwd(*saved, gf.contiguous(), gb.contiguous())
+        by_name = dict(zip((name + s for s in "fb" for name in GRADS),
+                           grads))          # the names of INPUTS
+        return tuple(by_name[k] if need else None
+                     for k, need in zip(INPUTS, ctx.needs_input_grad))
 
 
 def selective_scan_bidir(
@@ -145,13 +269,14 @@ def selective_scan_bidir(
     Returns (out_f, out_b), both (batch, seqlen, dim) in u's dtype and in
     forward time order.
 
-    CUDA tensors launch the kernel (seqlen <= 64, dstate <= 16, contiguous)
-    or raise; CPU tensors take the plain version.
+    CUDA tensors launch the kernels (seqlen <= 64, dstate <= 16, contiguous;
+    K1 forward, K2 in the backward) or raise; CPU tensors take the plain
+    version.
     """
-    args = (uf, dtf, Af, Bf, Cf, ub, dtb, Ab, Bb, Cb)
+    args = (uf, dtf, Af, Bf, Cf, ub, dtb, Ab, Bb, Cb,
+            Df, zf, biasf, Db, zb, biasb)
     if uf.device.type == "cuda":
-        return _launch(*args, Df, zf, biasf, Db, zb, biasb)
+        return _FusedBidirScan.apply(*args)
     if uf.device.type == "cpu":
-        return selective_scan_bidir_ref(
-            *args, Df=Df, zf=zf, biasf=biasf, Db=Db, zb=zb, biasb=biasb)
+        return selective_scan_bidir_ref(*args)
     raise ValueError(f"unsupported device {uf.device}")
