@@ -9,7 +9,7 @@ Phases, each of which fails the run:
      memory.
   3. kernels: hold each kernel against its plain PyTorch version on the
      card, at the shape the main path gives it and at the other cases of
-     its table (``K1_CASES``, ``K2_CASES``, which
+     its table (``K1_CASES``, ``K2_CASES``, ``K3_CASES``, which
      tests/test_torch_kernels_cuda.py runs too), and time kernel, plain
      version and the roofline bound.
   4. inference: TimeMamba-B (batch 8, 16 frames, 224², bf16, random
@@ -20,15 +20,25 @@ Phases, each of which fails the run:
      AdamW (lr 1e-4, weight decay 1e-4); 12 K1 and 12 K2 launches per step,
      a finite loss that falls; ms/step, clips/s, MFU, peak memory, and a
      torch.profiler window of two steps.
-  6. card against CPU: one clip at full width in fp32 (TF32 off), the card
-     through the kernels against the CPU through the plain versions: the
-     forward at depth 12, the gradients of every parameter at depth 2.
+  6. ViViM-T serving: ``build_vivim_tiny_k400`` (K400, 16 frames, 224²,
+     fp32 compute with TF32 matmuls, random weights from a seed) answers
+     requests of 8 clips through ``predict``: exactly 48 K3 launches per
+     request, no K1 and no plain-version call; ms/request, clips/s, MFU,
+     peak memory, one median with TF32 off, a torch.profiler window of two
+     requests; then ``evaluate`` over 2 videos x 12 views.
+  7. card against CPU: one clip at full width in fp32 (TF32 off), the card
+     through the kernels against the CPU through the plain versions:
+     TimeMamba-B's forward at depth 12 and gradients at depth 2, and
+     ViViM-T's forward at its full depth 24.
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import copy
+import importlib
 import json
 import math
 import statistics
@@ -40,6 +50,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12          # outside the tensor cores
 BF16_TC_FLOP_PER_S = 989e12
+TF32_TC_FLOP_PER_S = 495e12
 
 BATCH = 8                        # clips per main-path request
 FORWARDS = 10                    # timed main-path batches (requests)
@@ -64,6 +75,34 @@ K1_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 2e-2)}
 # dbias) in another order.
 K2_CASES = K1_CASES
 K2_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 2e-2)}
+K3_SOURCE = "video_mamba_suite_torch/csrc/chunked_scan_fwd.cu"
+K3_REPLACES = ("video_mamba_suite_tpu/ops/selective_scan_pallas.py:113 "
+               "(_fwd_kernel) and :2244 (_fwd_kernel_hs)")
+# K3 against its plain version: (label, (batch, seqlen, dim, dstate), I/O
+# dtype, options: reverse, h0 (an initial state), groups (grouped B/C),
+# no_dz (no D, no z)). tests/test_torch_kernels_cuda.py runs the same
+# cases. The first is ViViM-T's main path; batch 1 is the shape the TPU
+# package gives its batch <= 4 body; (8, 2048, 1024, 16) bf16 is the scan
+# microbench of bench.py:139.
+K3_CASES = [
+    ("vivim", (8, 3152, 384, 16), "float32", {}),
+    ("vivim-reverse", (8, 3152, 384, 16), "float32", {"reverse": True}),
+    ("vivim-b1", (1, 3152, 384, 16), "float32", {}),
+    ("vivim-b1-reverse", (1, 3152, 384, 16), "float32", {"reverse": True}),
+    ("scan-bench", (8, 2048, 1024, 16), "bfloat16", {}),
+    ("ragged-h0-reverse", (3, 70, 200, 13), "float32",
+     {"reverse": True, "h0": True}),
+    ("grouped-h0", (5, 100, 64, 16), "float32",
+     {"groups": 2, "h0": True, "no_dz": True}),
+]
+# each output within atol · (its largest magnitude) + rtol · |value|: a long
+# scan's outputs reach tens, and a value near 0 carries the rounding of
+# its neighbours. fp32 as K1; bf16 outputs one to two bf16 ulps apart
+# (both round an fp32 result; the kernel chains segments where the plain
+# version walks every step). The last state is fp32 in both cases.
+K3_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 2e-2)}
+VIVIM_LAUNCHES = 48              # K3 launches per ViViM-T forward
+VIVIM_REQUESTS = 10              # timed serving requests of BATCH clips
 # full-width fp32 forward, card against CPU, relative to the output scale:
 # read 9.2e-7 on an H100 80GB HBM3 (PERF.md), held at about ten times that
 CARD_CPU_REL_TOL = 1e-5
@@ -72,6 +111,10 @@ CARD_CPU_REL_TOL = 1e-5
 # 80GB HBM3 (PERF.md), held at about ten times that
 CARD_CPU_GRAD_REL_TOL = 4e-5
 GRAD_DEPTH = 2
+# ViViM-T's full-depth fp32 forward (logits), card against CPU, relative to
+# the output scale: read 1.1e-6 on an H100 80GB HBM3 (PERF.md), held at
+# about ten times that
+CARD_CPU_VIVIM_REL_TOL = 1.1e-5
 
 
 def log(*a):
@@ -337,6 +380,129 @@ def check_k2():
 
 
 # ---------------------------------------------------------------------------
+# K3: chunked selective scan, one direction
+
+
+def k3_inputs(shape, dtype, seed, reverse=False, h0=False, groups=0,
+              no_dz=False, device="cuda"):
+    """Seeded keyword arguments of ``chunked_scan_fwd`` at one of
+    ``K3_CASES``; ``dtype`` names the I/O dtype (A, D, the bias and the
+    initial state are fp32)."""
+    import torch
+
+    batch, seqlen, dim, dstate = shape
+    io_dtype = getattr(torch, dtype)
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(*s):
+        return torch.randn(*s, device=device, generator=g)
+
+    def unif(*s):
+        return torch.rand(*s, device=device, generator=g)
+
+    bc = (batch, seqlen, groups, dstate) if groups else (batch, seqlen,
+                                                         dstate)
+    args = dict(
+        u=normal(batch, seqlen, dim).to(io_dtype),
+        delta=(0.5 * unif(batch, seqlen, dim)).to(io_dtype),
+        A=-0.5 * unif(dim, dstate),
+        B=normal(*bc).to(io_dtype), C=normal(*bc).to(io_dtype),
+        D=None if no_dz else normal(dim),
+        z=None if no_dz else normal(batch, seqlen, dim).to(io_dtype),
+        delta_bias=0.5 * unif(dim),
+        initial_state=normal(batch, dim, dstate) if h0 else None,
+        delta_softplus=True, reverse=reverse)
+    return args
+
+
+def k3_check(label, shape, dtype, opts):
+    """Launch K3 once on the card at one of ``K3_CASES`` and hold its output
+    and last state against the plain version's. Returns (inputs, outputs,
+    max_abs_err); raises AssertionError on a miss."""
+    import torch
+    from video_mamba_suite_torch.ops import (
+        LAUNCHES,
+        chunked_scan_fwd,
+        selective_scan_ref,
+    )
+
+    args = k3_inputs(shape, dtype, seed=sum(shape), **opts)
+    n0 = LAUNCHES["chunked_scan_fwd"]
+    got = chunked_scan_fwd(**args)
+    torch.cuda.synchronize()
+    if LAUNCHES["chunked_scan_fwd"] != n0 + 1:
+        raise AssertionError("K3's wrapper did not count its launch")
+    want = selective_scan_ref(**args, return_last_state=True)
+    atol, rtol = K3_TOL[dtype]
+    abs_err, worst, ok = 0.0, 0.0, True
+    for name, g, w in zip(("out", "last state"), got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"K3 at {label}: {name} {g.dtype} "
+                                 f"{tuple(g.shape)}, want {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        d = (g.float() - w.float()).abs()
+        scale = w.float().abs().max().item()
+        bad = d > atol * scale + rtol * w.float().abs()
+        if bad.any() or not torch.isfinite(g).all():
+            ok = False
+            log(f"[k3] {label}: {name} misses at {int(bad.sum())} of "
+                f"{g.numel()} (max abs err {d.max().item():.3e}, scale "
+                f"{scale:.3e})")
+        abs_err = max(abs_err, d.max().item())
+        worst = max(worst, d.max().item() / max(scale, 1e-30))
+    log(f"[k3] {label} {shape} {dtype} {opts or ''}: max_abs_err "
+        f"{abs_err:.3e}, largest error over scale {worst:.3e} (tol atol "
+        f"{atol}·scale, rtol {rtol}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"K3 disagrees with its plain version at "
+                             f"{label} {shape}")
+    return args, got, abs_err
+
+
+def k3_bound_ms(args, outs):
+    """Least time for the work and what sets it: each input read once and
+    each output written once over HBM, against 6 fp32 operations per state
+    update (the exponential counted as one)."""
+    import torch
+
+    tensors = [t for t in (*args.values(), *outs)
+               if isinstance(t, torch.Tensor)]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    batch, seqlen, dim = args["u"].shape
+    ops = 6.0 * batch * seqlen * dim * args["A"].shape[1]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    log(f"[k3] bound: {nbytes / 1e6:.1f} MB over 3.35 TB/s = "
+        f"{1e3 * t_bytes:.4f} ms; {ops / 1e9:.3f} GFLOP over 67 TFLOP/s = "
+        f"{1e3 * t_ops:.4f} ms")
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def check_k3():
+    """Every case of ``K3_CASES``, each with the kernel's time, the plain
+    version's (two calls: it loops over the steps) and the bound. Returns
+    the main-path case's (the first) numbers."""
+    from video_mamba_suite_torch.ops import (
+        chunked_scan_fwd,
+        selective_scan_ref,
+    )
+
+    result = {}
+    for case in K3_CASES:
+        args, got, err = k3_check(*case)
+        ms = cuda_time_ms(lambda: chunked_scan_fwd(**args), iters=20)
+        plain_ms = cuda_time_ms(lambda: selective_scan_ref(**args), iters=1,
+                                warmup=1)
+        bound_ms, bound_by = k3_bound_ms(args, got)
+        log(f"[k3] {case[0]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+        if not result:
+            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+    return result
+
+
+# ---------------------------------------------------------------------------
 # the main paths and the card-vs-CPU checks
 
 
@@ -539,6 +705,171 @@ def card_against_cpu_grads():
                              f"non-finite gradient: {missing})")
 
 
+@contextlib.contextmanager
+def count_plain_calls():
+    """Count calls of the scans' plain versions (the front ends' CPU
+    branches) while the block runs; on the card there should be none."""
+    # the package's selective_scan function shadows its module's name
+    ss = importlib.import_module("video_mamba_suite_torch.ops.selective_scan")
+    sb = importlib.import_module(
+        "video_mamba_suite_torch.ops.selective_scan_bidir")
+    calls = collections.Counter()
+    patched = [(ss, "selective_scan_ref"), (sb, "selective_scan_bidir_ref")]
+    originals = [getattr(mod, name) for mod, name in patched]
+
+    def counting(name, fn):
+        def inner(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return inner
+
+    for (mod, name), fn in zip(patched, originals):
+        setattr(mod, name, counting(name, fn))
+    try:
+        yield calls
+    finally:
+        for (mod, name), fn in zip(patched, originals):
+            setattr(mod, name, fn)
+
+
+def set_tf32(on: bool) -> None:
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
+
+
+def vivim_clips(n, seed):
+    """n random ViViM-T clips (16 frames, 224², 3 channels) on the card."""
+    import torch
+    from video_mamba_suite_torch.configs import VIVIM_T_K400
+
+    img = VIVIM_T_K400["img_size"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(n, VIVIM_T_K400["num_frames"], img, img, 3,
+                       device="cuda", generator=g)
+
+
+def run_vivim_serving():
+    """This slice's main path: ViViM-T K400 recognition serving through
+    ``predict``, requests of BATCH clips; then multi-view ``evaluate``."""
+    import numpy as np
+    import torch
+    from video_mamba_suite_torch import (
+        build_vivim_tiny_k400,
+        evaluate,
+        predict,
+    )
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+
+    t0 = time.perf_counter()
+    model = build_vivim_tiny_k400(device="cuda", seed=0)
+    log(f"[vivim] ViViM-T K400 built in {time.perf_counter() - t0:.1f} s")
+    x = vivim_clips(BATCH, seed=4)
+    set_tf32(True)
+
+    def request():
+        probs = predict(model, x)
+        torch.cuda.synchronize()      # a request ends with its result
+        return probs
+
+    for _ in range(2):                                      # warm-up
+        request()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times = []
+    with count_plain_calls() as plain:
+        for _ in range(VIVIM_REQUESTS):
+            t0 = time.perf_counter()
+            probs = request()
+            times.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(probs.shape) != (BATCH, 400) or \
+            not torch.isfinite(probs).all() or \
+            (probs.sum(-1) - 1).abs().max().item() > 1e-4:
+        raise AssertionError(f"bad class probabilities: shape "
+                             f"{tuple(probs.shape)}")
+    want = {"chunked_scan_fwd": VIVIM_LAUNCHES * VIVIM_REQUESTS}
+    if launches != want or sum(plain.values()):
+        raise AssertionError(f"ViViM-T serving launched {launches} (want "
+                             f"{want}) and called plain versions "
+                             f"{dict(plain)}")
+    times.sort()
+    median = statistics.median(times)
+    clips = BATCH / median
+    flops = model.flops_per_clip()
+    mfu = flops * clips / TF32_TC_FLOP_PER_S
+    log(f"[vivim] TF32 on (matmul {torch.backends.cuda.matmul.allow_tf32}, "
+        f"cudnn {torch.backends.cudnn.allow_tf32}): {VIVIM_REQUESTS} "
+        f"requests of {BATCH} clips: median {1e3 * median:.2f} ms/request "
+        f"(min {1e3 * times[0]:.2f}, max {1e3 * times[-1]:.2f}), "
+        f"{clips:.2f} clips/s at the median, {flops / 1e9:.2f} GFLOP/clip, "
+        f"MFU {100 * mfu:.3f}% of 495 TFLOP/s (TF32 dense); peak memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches}, plain-version calls "
+        f"{dict(plain)}")
+    profile("request", request, tag="profile-vivim")
+
+    set_tf32(False)
+    request()
+    off = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        request()
+        off.append(time.perf_counter() - t0)
+    log(f"[vivim] TF32 off: median {1e3 * statistics.median(off):.2f} "
+        f"ms/request over 5 (min {1e3 * min(off):.2f}, max "
+        f"{1e3 * max(off):.2f})")
+    set_tf32(True)
+
+    views = 12
+    videos = vivim_clips(2 * views, seed=5)
+    labels = np.repeat(np.array([17, 301]), views)
+    video_ids = np.repeat(np.arange(2), views)
+    reset_launches()
+    t0 = time.perf_counter()
+    acc = evaluate(model, videos, labels, video_ids, batch_size=BATCH)
+    torch.cuda.synchronize()
+    n = LAUNCHES["chunked_scan_fwd"]
+    log(f"[vivim] evaluate: 2 videos x {views} views in "
+        f"{-(-2 * views // BATCH)} requests, {time.perf_counter() - t0:.2f}"
+        f" s: {acc} (random weights); K3 launches {n}")
+    if n != VIVIM_LAUNCHES * -(-2 * views // BATCH) or \
+            set(acc) != {"top1", "top5"} or \
+            not all(0.0 <= v <= 100.0 for v in acc.values()):
+        raise AssertionError(f"evaluate: {acc}, {n} K3 launches")
+    return launches
+
+
+def card_against_cpu_vivim():
+    """One clip of ViViM-T at full width and depth, fp32, TF32 off: the
+    card through K3 against the CPU through the plain versions."""
+    import torch
+    from video_mamba_suite_torch import build_vivim_tiny_k400
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+
+    set_tf32(False)
+    cpu = build_vivim_tiny_k400(device="cpu", seed=1).eval()
+    card = copy.deepcopy(cpu).to("cuda")
+    x = vivim_clips(1, seed=6)
+    t0 = time.perf_counter()
+    reset_launches()
+    with torch.inference_mode():
+        got = card(x).cpu()
+        want = cpu(x.cpu())
+    launches = dict(LAUNCHES)
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    log(f"[card-vs-cpu] ViViM-T fp32 full width, depth 24, TF32 off: "
+        f"max_abs_err {err:.3e} at output scale {scale:.3e} (rel "
+        f"{err / scale:.3e}, tol {CARD_CPU_VIVIM_REL_TOL}) in "
+        f"{time.perf_counter() - t0:.1f} s; card launches {launches}")
+    if launches != {"chunked_scan_fwd": VIVIM_LAUNCHES} or \
+            not torch.isfinite(got).all() or \
+            err > CARD_CPU_VIVIM_REL_TOL * scale:
+        raise AssertionError("card and CPU ViViM-T forwards disagree")
+
+
 def main() -> int:
     import torch
 
@@ -563,10 +894,13 @@ def main() -> int:
 
     k1 = check_k1()
     k2 = check_k2()
+    k3 = check_k3()
     run_main_path()
     launches = run_train_step()
+    launches.update(run_vivim_serving())
     card_against_cpu()
     card_against_cpu_grads()
+    card_against_cpu_vivim()
 
     kernels = [dict(
         name=name, route="cuda", source=source, replaces=replaces,
@@ -575,7 +909,8 @@ def main() -> int:
         bound_by=k["bound_by"], library_ms=None)
         for name, source, replaces, k in (
             ("short_bidir_fwd", K1_SOURCE, K1_REPLACES, k1),
-            ("short_bidir_bwd", K2_SOURCE, K2_REPLACES, k2))]
+            ("short_bidir_bwd", K2_SOURCE, K2_REPLACES, k2),
+            ("chunked_scan_fwd", K3_SOURCE, K3_REPLACES, k3))]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,13 +7,17 @@ JAX package, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
 """
 
+import copy
+
 import pytest
 import torch
 
 import chip_smoke
-from video_mamba_suite_torch.models import MambaVim
+from video_mamba_suite_torch.models import MambaScanNorm, MambaVim
 from video_mamba_suite_torch.ops import (
     LAUNCHES,
+    chunked_scan_fwd,
+    selective_scan,
     selective_scan_bidir,
     selective_scan_bidir_bwd,
 )
@@ -99,3 +103,80 @@ def test_backward_on_card_reaches_every_mamba_parameter(cuda_device):
     for name, p in model.named_parameters():
         assert p.grad is not None, name
         assert torch.isfinite(p.grad).all() and p.grad.abs().sum() > 0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,shape,dtype,opts", chip_smoke.K3_CASES,
+                         ids=[case[0] for case in chip_smoke.K3_CASES])
+def test_k3_matches_plain_version(cuda_device, label, shape, dtype, opts):
+    """The cases and tolerances of chip_smoke.py's K3 phase."""
+    chip_smoke.k3_check(label, shape, dtype, opts)
+
+
+@pytest.mark.cuda
+def test_k3_rejects_what_it_does_not_take(cuda_device):
+    def args(**kw):
+        return chip_smoke.k3_inputs((2, 80, 8, 4), "float32", 0, **kw)
+
+    a = args()
+    a["A"] = a["A"].to(torch.complex64)
+    with pytest.raises(TypeError, match="complex"):
+        chunked_scan_fwd(**a)
+    with pytest.raises(ValueError, match="dstate 17"):
+        chunked_scan_fwd(**chip_smoke.k3_inputs((2, 80, 8, 17), "float32",
+                                                0))
+    a = args()
+    a["z"] = a["z"].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="z must be contiguous"):
+        chunked_scan_fwd(**a)
+    a = args()
+    a["B"] = a["B"].to(torch.bfloat16)
+    with pytest.raises(TypeError, match="B must be torch.float32"):
+        chunked_scan_fwd(**a)
+    a = args(h0=True)
+    a["initial_state"] = a["initial_state"].to(torch.bfloat16)
+    with pytest.raises(TypeError, match="initial_state must be"):
+        chunked_scan_fwd(**a)
+    a = args()
+    a["D"] = a["D"].cpu()
+    with pytest.raises(ValueError, match="is on"):
+        chunked_scan_fwd(**a)
+    a = args(groups=3)
+    with pytest.raises(ValueError, match="divisible"):
+        chunked_scan_fwd(**a)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        chunked_scan_fwd(**chip_smoke.k3_inputs((2, 80, 8, 4), "float16", 0))
+
+
+@pytest.mark.cuda
+def test_k3_backward_raises_until_ported(cuda_device):
+    a = chip_smoke.k3_inputs((2, 80, 8, 4), "float32", 0)
+    a["u"].requires_grad_()
+    out = selective_scan(**a)
+    with pytest.raises(NotImplementedError, match="K4"):
+        out.sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls", [MambaVim, MambaScanNorm])
+def test_long_sequence_mixer_on_card_runs_k3(cuda_device, cls):
+    """At seqlen > 64 the mixer runs one K3 launch per direction and no K1,
+    and matches the CPU's plain versions; at seqlen 16 it still runs K1."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = cls(d_model=64, d_state=16, device="cpu",
+              generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to("cuda")
+    for seqlen, kernel in ((100, "chunked_scan_fwd"),
+                           (16, "short_bidir_fwd")):
+        x = torch.randn(3, seqlen, 64,
+                        generator=torch.Generator().manual_seed(seqlen))
+        before = dict(LAUNCHES)
+        with torch.no_grad():
+            got = card(x.cuda())
+            torch.cuda.synchronize()
+            want = cpu(x)
+        grown = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                 if v != before.get(k, 0)}
+        assert grown == {kernel: 2 if kernel == "chunked_scan_fwd" else 1}
+        err = (got.cpu() - want).abs().max() / want.abs().max()
+        assert err < 1e-5, err

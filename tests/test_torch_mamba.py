@@ -1,5 +1,5 @@
-"""The port's conv, bidirectional mixer body and MambaVim against the JAX
-package's, on the CPU, from the same numpy inputs and weights."""
+"""The port's conv, mixer bodies, norms, MambaVim and MambaScanNorm against
+the JAX package's, on the CPU, from the same numpy inputs and weights."""
 
 import jax
 import jax.numpy as jnp
@@ -7,15 +7,34 @@ import numpy as np
 import pytest
 import torch
 
+from video_mamba_suite_tpu.models.mamba import MambaScanNorm as JaxScanNorm
 from video_mamba_suite_tpu.models.mamba import MambaVim as JaxMambaVim
+from video_mamba_suite_tpu.ops import norms as jax_norms
 from video_mamba_suite_tpu.ops.causal_conv1d import causal_conv1d_ref
+from video_mamba_suite_tpu.ops.mamba_inner import (
+    mamba_inner as jax_mamba_inner,
+)
 from video_mamba_suite_tpu.ops.mamba_inner import (
     mamba_inner_bidir as jax_mamba_inner_bidir,
 )
-from video_mamba_suite_torch.models import MambaVim, vim_mixer_from_jax
-from video_mamba_suite_torch.ops import causal_conv1d, mamba_inner_bidir
+from video_mamba_suite_torch.models import (
+    MambaScanNorm,
+    MambaVim,
+    vim_mixer_from_jax,
+)
+from video_mamba_suite_torch.models.mamba import use_fused_scan
+from video_mamba_suite_torch.ops import (
+    causal_conv1d,
+    fused_add_norm,
+    layer_norm,
+    mamba_inner,
+    mamba_inner_bidir,
+    rms_norm,
+)
 
 F32 = dict(atol=1e-4, rtol=1e-4)
+# the modules of the long-sequence slice: fp32 at 2e-5
+TIGHT = dict(atol=2e-5, rtol=2e-5)
 
 
 def _np(x):
@@ -113,3 +132,141 @@ def test_mamba_vim_matches_jax(if_devide_out, masked):
         got = tm(torch.from_numpy(x),
                  mask=None if mask is None else torch.from_numpy(mask))
     np.testing.assert_allclose(_np(got), _np(want), **F32)
+
+
+@pytest.mark.parametrize("reverse,masked,out_proj", [
+    (False, False, True),
+    (True, True, False),
+    (True, False, True),
+])
+def test_mamba_inner_matches_jax(reverse, masked, out_proj):
+    """One direction at seqlen 70 (the chunked scan's route), with and
+    without mask, reverse and out_proj, and its last state."""
+    rng = np.random.default_rng(10 + 2 * reverse + masked)
+    b, l, d_inner, d_state, dt_rank, d_model = 2, 70, 16, 8, 2, 12
+    xz = rng.standard_normal((b, l, 2 * d_inner)).astype(np.float32)
+    p = _scan_bundle(rng, d_inner, d_state, dt_rank)
+    w_out = (rng.standard_normal((d_inner, d_model))
+             / np.sqrt(d_inner)).astype(np.float32)
+    b_out = rng.standard_normal(d_model).astype(np.float32)
+    mask = None
+    if masked:
+        mask = np.ones((b, l), np.float32)
+        mask[0, 50:] = 0
+        mask[1, :7] = 0
+    want, want_last = jax_mamba_inner(
+        jnp.asarray(xz), jnp.asarray(p["conv_w"]), jnp.asarray(p["conv_b"]),
+        jnp.asarray(p["x_proj"]), jnp.asarray(p["dt_proj"]),
+        jnp.asarray(p["A"]), D=jnp.asarray(p["D"]),
+        delta_bias=jnp.asarray(p["dt_bias"]),
+        out_proj_weight=jnp.asarray(w_out) if out_proj else None,
+        out_proj_bias=jnp.asarray(b_out) if out_proj else None,
+        mask=None if mask is None else jnp.asarray(mask),
+        return_last_state=True, reverse=reverse)
+    t = _torch_bundle(p)
+    got, got_last = mamba_inner(
+        torch.from_numpy(xz), t["conv_w"], t["conv_b"], t["x_proj"],
+        t["dt_proj"], t["A"], D=t["D"], delta_bias=t["dt_bias"],
+        out_proj_weight=torch.from_numpy(w_out).t() if out_proj else None,
+        out_proj_bias=torch.from_numpy(b_out) if out_proj else None,
+        mask=None if mask is None else torch.from_numpy(mask),
+        return_last_state=True, reverse=reverse)
+    assert got.shape == (b, l, d_model if out_proj else d_inner)
+    np.testing.assert_allclose(_np(got), _np(want), **TIGHT)
+    np.testing.assert_allclose(_np(got_last), _np(want_last), **TIGHT)
+
+
+@pytest.mark.parametrize("is_rms_norm,residual,prenorm", [
+    (False, False, True),
+    (False, True, True),
+    (True, True, True),
+    (True, True, False),
+])
+def test_fused_add_norm_matches_jax(is_rms_norm, residual, prenorm):
+    rng = np.random.default_rng(20 + 2 * is_rms_norm + residual)
+    x = rng.standard_normal((2, 7, 24)).astype(np.float32)
+    res = rng.standard_normal((2, 7, 24)).astype(np.float32) * 3
+    w = rng.standard_normal(24).astype(np.float32)
+    bias = None if is_rms_norm else rng.standard_normal(24).astype(np.float32)
+    want = jax_norms.fused_add_norm(
+        jnp.asarray(x), jnp.asarray(w),
+        None if bias is None else jnp.asarray(bias),
+        residual=jnp.asarray(res) if residual else None, prenorm=prenorm,
+        is_rms_norm=is_rms_norm)
+    got = fused_add_norm(
+        torch.from_numpy(x), torch.from_numpy(w),
+        None if bias is None else torch.from_numpy(bias),
+        residual=torch.from_numpy(res) if residual else None,
+        prenorm=prenorm, is_rms_norm=is_rms_norm)
+    np.testing.assert_allclose(_np(got[0]), _np(want[0]), **TIGHT)
+    if prenorm:
+        assert got[1].dtype == torch.float32
+        np.testing.assert_allclose(_np(got[1]), _np(want[1]), **TIGHT)
+    else:
+        assert got[1] is None and want[1] is None
+
+
+def test_norms_keep_dtype_and_match_jax():
+    """layer_norm and rms_norm (with a bias) in fp32 at 2e-5; in bf16 the
+    output keeps bf16, one bf16 ulp (2^-8 relative) from JAX's after an fp32
+    computation, and the prenorm residual stays fp32."""
+    rng = np.random.default_rng(30)
+    x = rng.standard_normal((3, 40)).astype(np.float32)
+    w = rng.standard_normal(40).astype(np.float32)
+    b = rng.standard_normal(40).astype(np.float32)
+    for jfn, tfn in ((jax_norms.layer_norm, layer_norm),
+                     (jax_norms.rms_norm, rms_norm)):
+        want = jfn(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), eps=1e-6)
+        got = tfn(torch.from_numpy(x), torch.from_numpy(w),
+                  torch.from_numpy(b), eps=1e-6)
+        np.testing.assert_allclose(_np(got), _np(want), **TIGHT)
+        want = jfn(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w))
+        got = tfn(torch.from_numpy(x).bfloat16(), torch.from_numpy(w))
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-2,
+                                   rtol=2 ** -8)
+    normed, res = fused_add_norm(torch.from_numpy(x).bfloat16(),
+                                 torch.from_numpy(w))
+    assert normed.dtype == torch.bfloat16 and res.dtype == torch.float32
+
+
+@pytest.mark.parametrize("mixer", ["vim", "scan_norm"])
+@pytest.mark.parametrize("seqlen", [16, 74])
+def test_mixers_match_jax_on_both_routes(mixer, seqlen):
+    """Seqlen 16 takes the fused pair (K1's route on the card), seqlen 74
+    one chunked scan per direction (K3's route); both against the JAX
+    mixer with its defaults (expand 2, if_devide_out off)."""
+    assert use_fused_scan(seqlen) == (seqlen == 16)
+    b, d_model = 2, 16
+    rng = np.random.default_rng(seqlen)
+    x = rng.standard_normal((b, seqlen, d_model)).astype(np.float32)
+    jcls, tcls = ((JaxScanNorm, MambaScanNorm) if mixer == "scan_norm"
+                  else (JaxMambaVim, MambaVim))
+    jm = jcls(d_model=d_model, d_state=8)
+    params = jax.jit(jm.init)(jax.random.PRNGKey(seqlen), jnp.asarray(x))
+    params = jax.tree_util.tree_map(np.asarray, params)
+    if mixer == "scan_norm":           # a norm weight that is not all ones
+        params["params"]["scan_norm_w"] = rng.uniform(
+            0.5, 1.5, params["params"]["scan_norm_w"].shape).astype(
+                np.float32)
+    want = jm.apply(params, jnp.asarray(x))
+    tm = tcls(d_model=d_model, d_state=8, device="cpu")
+    tm.load_state_dict(vim_mixer_from_jax(params), strict=True)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x))
+    np.testing.assert_allclose(_np(got), _np(want), **TIGHT)
+
+
+def test_scan_params_call_runs_its_direction():
+    """ScanParams(xz) is its direction's mamba_inner, as the JAX
+    ``_ScanParams.__call__``."""
+    tm = MambaVim(d_model=8, d_state=4, device="cpu")
+    xz = torch.randn(2, 70, 32, generator=torch.Generator().manual_seed(0))
+    p = tm.bwd
+    with torch.no_grad():
+        got, last = p(xz, reverse=True, return_last_state=True)
+        want, want_last = mamba_inner(
+            xz, p.conv_w, p.conv_bias, p.x_proj, p.dt_proj, p.A(), D=p.D,
+            delta_bias=p.dt_bias, return_last_state=True, reverse=True)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    torch.testing.assert_close(last, want_last, atol=0, rtol=0)

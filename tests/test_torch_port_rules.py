@@ -42,6 +42,41 @@ def test_entry_points_default_to_cuda():
         MambaVim(d_model=16)
 
 
+def test_vivim_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default build succeeds")
+    from video_mamba_suite_torch import ViViM, build_vivim_tiny_k400
+    from video_mamba_suite_torch.models import MambaScanNorm
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_vivim_tiny_k400(depth=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ViViM(img_size=32, patch_size=8, num_frames=2, depth=1,
+              embed_dim=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MambaScanNorm(d_model=16)
+
+
+def test_vivim_cpu_build_has_the_preset_widths():
+    """build_vivim_tiny_k400(device="cpu") is ViViM-T for K400 (the JAX
+    preset recognition_k400_vivim_tiny) and serves on the CPU through the
+    plain versions."""
+    from video_mamba_suite_torch import build_vivim_tiny_k400, predict
+    from video_mamba_suite_torch.ops import LAUNCHES
+
+    model = build_vivim_tiny_k400(device="cpu", depth=2, img_size=32,
+                                  num_frames=2)
+    assert (model.embed_dim, model.num_frames, len(model.layers)) == \
+        (192, 2, 2)
+    assert model.head.weight.shape == (400, 192)
+    assert model.layers[1].drop_path == 0.0    # 0.1 · 0 / (depth - 1)
+    assert model.layers[0].mixer.fwd.A_log.shape == (384, 16)
+    before = dict(LAUNCHES)
+    probs = predict(model, torch.randn(1, 2, 32, 32, 3))
+    assert probs.shape == (1, 400) and torch.isfinite(probs).all()
+    assert dict(LAUNCHES) == before
+
+
 def test_cpu_build_runs_plain_versions():
     from video_mamba_suite_torch import build_timemamba_b
     from video_mamba_suite_torch.ops import LAUNCHES

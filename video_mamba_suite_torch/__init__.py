@@ -7,9 +7,17 @@ nvcc on first use. This package imports neither JAX nor the JAX package.
 Entry points build on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
-from .models import MambaVim, TimeMamba, build_timemamba_b
+from .models import (
+    MambaVim,
+    TimeMamba,
+    ViViM,
+    build_timemamba_b,
+    build_vivim_tiny_k400,
+)
+from .tasks.recognition import evaluate, predict
 from .train import train_step
 from .utils import make_optimizer
 
-__all__ = ["MambaVim", "TimeMamba", "build_timemamba_b", "make_optimizer",
+__all__ = ["MambaVim", "TimeMamba", "ViViM", "build_timemamba_b",
+           "build_vivim_tiny_k400", "evaluate", "make_optimizer", "predict",
            "train_step"]

@@ -9,3 +9,13 @@ TIMEMAMBA_B = dict(
     img_size=224, patch_size=16, embed_dim=768, depth=12, num_heads=12,
     num_frames=16, ln_pre=True, output_dim=512,
 )
+
+# ViViM-T for Kinetics-400 recognition (the JAX package's preset
+# ``recognition_k400_vivim_tiny``): 16 frames at 224², patch 16, so
+# 16 x 197 = 3152 tokens through 24 ViM layers of width 192; 400 classes.
+VIVIM_T_K400 = dict(
+    img_size=224, patch_size=16, num_frames=16, depth=24, embed_dim=192,
+    num_classes=400, drop_path_rate=0.1,
+)
+# ViViM-S (``recognition_k400_vivim_small``): width 384.
+VIVIM_S_K400 = dict(VIVIM_T_K400, embed_dim=384)

@@ -75,6 +75,23 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     return torch.where(mask, x / keep, 0.0)
 
 
+def drop_path(x: torch.Tensor, rate: float, training: bool,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The JAX ``DropPath``: each sample (index of axis 0) kept whole with
+    probability 1 - rate and scaled by 1 / (1 - rate), the mask drawn from
+    ``generator`` (on x's device). The identity in eval mode and at rate
+    0."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("drop-path in training mode needs a "
+                         "torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), device=x.device,
+                      generator=generator) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
 class Dense(nn.Module):
     """flax ``nn.Dense``: weight (out, in), optional bias, input and
     parameters cast to the compute dtype before the product."""

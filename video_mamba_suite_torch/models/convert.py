@@ -41,14 +41,17 @@ def _scan_params(tree, prefix, out):
 
 def vim_mixer_from_jax(params: Dict[str, Any], prefix: str = ""
                        ) -> Dict[str, torch.Tensor]:
-    """A JAX ``MambaVim`` tree {in_proj, fwd, bwd, out_proj} → the port's
-    ``MambaVim`` state_dict (keys under ``prefix``)."""
+    """A JAX ``MambaVim`` tree {in_proj, fwd, bwd, out_proj} (and the
+    ``scan_norm_w`` of a ``MambaScanNorm``) → the port's ``MambaVim`` or
+    ``MambaScanNorm`` state_dict (keys under ``prefix``)."""
     params = params.get("params", params)
     out: Dict[str, torch.Tensor] = {}
     _dense(params["in_proj"], prefix + "in_proj.", out)
     _scan_params(params["fwd"], prefix + "fwd.", out)
     _scan_params(params["bwd"], prefix + "bwd.", out)
     _dense(params["out_proj"], prefix + "out_proj.", out)
+    if "scan_norm_w" in params:                       # MambaScanNorm
+        out[prefix + "scan_norm_w"] = _tensor(params["scan_norm_w"])
     return out
 
 
@@ -99,4 +102,41 @@ def timemamba_from_jax(params: Dict[str, Any], depth: int
     _layernorm(params["norm"], "norm.", out)
     if "image_projection" in params:
         out["image_projection"] = _tensor(params["image_projection"])
+    return out
+
+
+def vivim_from_jax(params: Dict[str, Any], depth: int
+                   ) -> Dict[str, torch.Tensor]:
+    """A JAX ``ViViM`` tree → the port's ``ViViM`` state_dict.
+
+    Accepts the per-layer tree (``norm{i}_w``, ``norm{i}_b``,
+    ``mixer{i}``) and the stacked tree of ``scan_blocks=True`` models
+    (``blocks/{norm_w, norm_b, mixer}``, every leaf with a leading depth
+    axis). ``depth`` is the number of layers in the tree.
+    """
+    params = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    kernel = np.asarray(params["patch_embed"]["proj"]["kernel"])  # (p,p,C,D)
+    out["patch_embed.proj.weight"] = _tensor(
+        kernel.reshape(-1, kernel.shape[-1]).T)
+    out["patch_embed.proj.bias"] = _tensor(
+        params["patch_embed"]["proj"]["bias"])
+    for name in ("cls_token", "pos_embed", "temporal_embed",
+                 "image_projection", "norm_f_w", "norm_f_b"):
+        if name in params:
+            out[name] = _tensor(params[name])
+    if "blocks" in params:
+        stacked = params["blocks"]
+        layers = [_unstack(stacked, i) for i in range(depth)]
+    else:
+        layers = [{"norm_w": params[f"norm{i}_w"],
+                   "norm_b": params.get(f"norm{i}_b"),
+                   "mixer": params[f"mixer{i}"]} for i in range(depth)]
+    for i, layer in enumerate(layers):
+        out[f"layers.{i}.norm_w"] = _tensor(layer["norm_w"])
+        if layer.get("norm_b") is not None:
+            out[f"layers.{i}.norm_b"] = _tensor(layer["norm_b"])
+        out.update(vim_mixer_from_jax(layer["mixer"], f"layers.{i}.mixer."))
+    if "head" in params:
+        _dense(params["head"], "head.", out)
     return out

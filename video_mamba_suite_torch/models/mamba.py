@@ -1,5 +1,6 @@
-"""Bidirectional ViM Mamba mixer (counterpart of the JAX package's
-``models/mamba.py:MambaVim`` with its ``_ScanParams`` bundles and inits).
+"""Bidirectional ViM Mamba mixers (counterparts of the JAX package's
+``models/mamba.py``: ``MambaVim`` and ``MambaScanNorm`` with their
+``_ScanParams`` bundles and inits).
 
 Takes and returns (batch, seqlen, d_model). Initial values follow the
 reference scheme: dt_proj weight ~ U(±dt_rank^-1/2), dt bias =
@@ -16,7 +17,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.mamba_inner import mamba_inner_bidir
+from ..ops.mamba_inner import mamba_inner, mamba_inner_bidir
+from ..ops.norms import rms_norm
 from ..ops.selective_scan_bidir import SHORT_SEQ_MAX
 from .common import Dense, init_weight, resolve_device
 
@@ -68,17 +70,36 @@ class ScanParams(nn.Module):
     def A(self) -> torch.Tensor:
         return -torch.exp(self.A_log)
 
+    def forward(self, xz: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                return_last_state: bool = False, reverse: bool = False):
+        """This direction's mixer body on xz (batch, seqlen, 2·d_inner)
+        through ``mamba_inner`` (the JAX ``_ScanParams.__call__``)."""
+        return mamba_inner(
+            xz, self.conv_w, self.conv_bias, self.x_proj, self.dt_proj,
+            self.A(), D=self.D, delta_bias=self.dt_bias,
+            delta_softplus=True, mask=mask,
+            return_last_state=return_last_state, reverse=reverse)
+
+
+def use_fused_scan(seqlen: int) -> bool:
+    """The JAX ``_use_fuse_scan`` rule: sequences whose length rounded up
+    to 8 is at most ``SHORT_SEQ_MAX`` take the fused bidirectional scan
+    (kernel K1 on the card); longer ones take one chunked scan per
+    direction (kernel K3)."""
+    return -(-seqlen // 8) * 8 <= SHORT_SEQ_MAX
+
 
 class MambaVim(nn.Module):
     """Bidirectional Mamba, "bimamba v2" (the ViM mixer):
 
         out = out_proj(scan_f(xz) + flip(scan_b(flip(xz))) [/2])
 
-    with separate ``fwd`` and ``bwd`` parameter bundles. Both directions
-    run in one fused scan. On CUDA that is kernel K1, which takes sequences
-    whose length rounded up to 8 is at most 64; longer ones need the
-    chunked scan, which is not ported yet. On the CPU the plain versions
-    run at any length.
+    with separate ``fwd`` and ``bwd`` parameter bundles. Sequences whose
+    length rounded up to 8 is at most 64 run both directions in one fused
+    scan (kernel K1 on CUDA); longer ones run ``fwd`` causally and ``bwd``
+    anti-causally (``reverse=True``, no flips), one chunked scan each
+    (kernel K3 on CUDA, forward only until its backward is ported). On
+    the CPU the same routing takes the plain versions.
     """
 
     def __init__(self, d_model: int, d_state: int = 16, expand: int = 2,
@@ -100,19 +121,44 @@ class MambaVim(nn.Module):
                               init="torch_linear", generator=generator)
         self.to(device)
 
+    def _directions(self, hidden_states: torch.Tensor,
+                    mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """in_proj, then the sum of both directions' scans."""
+        xz = self.in_proj(hidden_states)                  # (b, l, 2·d_inner)
+        if use_fused_scan(xz.shape[1]):
+            out_f, out_b = mamba_inner_bidir(
+                xz, xz, self.fwd.param_dict(), self.bwd.param_dict(),
+                self.fwd.A(), self.bwd.A(), mask=mask)
+        else:
+            out_f = self.fwd(xz, mask=mask)
+            out_b = self.bwd(xz, mask=mask, reverse=True)
+        return out_f + out_b
+
     def forward(self, hidden_states: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        xz = self.in_proj(hidden_states)                  # (b, l, 2·d_inner)
-        seqlen = xz.shape[1]
-        if xz.is_cuda and seqlen > SHORT_SEQ_MAX:
-            raise NotImplementedError(
-                f"seqlen {seqlen} needs the chunked selective scan (kernel "
-                "K3), which a later slice of the port adds; the fused "
-                f"bidirectional kernel takes at most {SHORT_SEQ_MAX} steps")
-        out_f, out_b = mamba_inner_bidir(
-            xz, xz, self.fwd.param_dict(), self.bwd.param_dict(),
-            self.fwd.A(), self.bwd.A(), mask=mask)
-        out = out_f + out_b
+        out = self._directions(hidden_states, mask)
         if self.if_devide_out:
             out = out / 2
+        return self.out_proj(out)
+
+
+class MambaScanNorm(MambaVim):
+    """ViM with RMSNorm(d_inner) (weight ``scan_norm_w``) on the sum of the
+    two directions before out_proj, in place of the /2 (the JAX
+    ``MambaScanNorm``; ``if_devide_out`` is ignored, as there)."""
+
+    def __init__(self, d_model: int, d_state: int = 16, expand: int = 2,
+                 if_devide_out: bool = False,
+                 dtype: Optional[torch.dtype] = None, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        device = resolve_device(device)
+        super().__init__(d_model, d_state, expand, if_devide_out, dtype,
+                         device="cpu", generator=generator)
+        self.scan_norm_w = nn.Parameter(torch.ones(int(expand * d_model)))
+        self.to(device)
+
+    def forward(self, hidden_states: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        out = rms_norm(self._directions(hidden_states, mask),
+                       self.scan_norm_w)
         return self.out_proj(out)

@@ -61,7 +61,8 @@ class SpaceTimeBlock(nn.Module):
     attention_style: "frozen-in-time" (the temporal output feeds attention
     only; the residual is the block input), "timesformer-div" (the temporal
     residual stays in the stream) or "frozen-joint" (the Mamba scans the
-    joint n·t sequence; on CUDA that needs the chunked scan, not ported yet).
+    joint n·t sequence: the chunked scan, K3 on CUDA, whose backward is
+    not ported yet).
     ``drop`` is the Mlp's dropout rate; ``drop_path`` drops the whole MLP
     branch (cls and patches together) per sample in training mode.
     """

@@ -6,8 +6,9 @@ with nvcc the first time a CUDA tensor reaches its wrapper.
 
 from ._build import LAUNCHES, reset_launches
 from .causal_conv1d import causal_conv1d
-from .mamba_inner import MASKED_DELTA, mamba_inner_bidir
-from .selective_scan import selective_scan_ref
+from .mamba_inner import MASKED_DELTA, mamba_inner, mamba_inner_bidir
+from .norms import fused_add_norm, layer_norm, rms_norm
+from .selective_scan import selective_scan, selective_scan_ref
 from .selective_scan_bidir import (
     SHORT_SEQ_MAX,
     selective_scan_bidir,
@@ -15,10 +16,13 @@ from .selective_scan_bidir import (
     selective_scan_bidir_bwd_ref,
     selective_scan_bidir_ref,
 )
+from .selective_scan_chunked import chunked_scan_fwd
 
 __all__ = [
     "LAUNCHES", "MASKED_DELTA", "SHORT_SEQ_MAX", "causal_conv1d",
-    "mamba_inner_bidir", "reset_launches", "selective_scan_bidir",
-    "selective_scan_bidir_bwd", "selective_scan_bidir_bwd_ref",
-    "selective_scan_bidir_ref", "selective_scan_ref",
+    "chunked_scan_fwd", "fused_add_norm", "layer_norm", "mamba_inner",
+    "mamba_inner_bidir", "reset_launches", "rms_norm", "selective_scan",
+    "selective_scan_bidir", "selective_scan_bidir_bwd",
+    "selective_scan_bidir_bwd_ref", "selective_scan_bidir_ref",
+    "selective_scan_ref",
 ]

@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -112,3 +112,39 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)))
         _LIBS[name] = lib
     return lib
+
+
+def library(name: str, n_ints: int, n_ptrs: int) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` with the argument types of
+    its C entry ``name`` set: ``n_ints`` integers (the second a 64-bit batch
+    count), ``n_ptrs`` pointers, then the stream. The entry returns a
+    ``cudaError_t``; ``<name>_error_string`` names it."""
+    lib = load(name)
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int, ctypes.c_longlong]
+                   + [ctypes.c_int] * (n_ints - 2)
+                   + [ctypes.c_void_p] * (n_ptrs + 1))
+    err = getattr(lib, name + "_error_string")
+    err.restype = ctypes.c_char_p
+    err.argtypes = [ctypes.c_int]
+    return lib
+
+
+def ptr(t) -> Optional[int]:
+    """A tensor's device address, or None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
+
+
+def launch(name: str, lib: ctypes.CDLL, device, *args) -> None:
+    """Call the C entry ``name`` on the current stream of ``device``; raise
+    if it reports an error. Counts the launch in ``LAUNCHES[name]``."""
+    import torch
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        msg = getattr(lib, name + "_error_string")(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
+    LAUNCHES[name] += 1

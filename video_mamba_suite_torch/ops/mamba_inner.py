@@ -1,6 +1,7 @@
-"""Bidirectional Mamba mixer body: conv → projections → one fused scan
-(counterpart of the JAX package's ``ops/mamba_inner.py:mamba_inner_bidir``,
-its fused short-sequence branch).
+"""Mamba mixer body: conv → projections → selective scan → gate
+(counterpart of the JAX package's ``ops/mamba_inner.py``: ``mamba_inner``,
+one direction at any length, and ``mamba_inner_bidir``, its fused
+short-sequence branch).
 
 Projection matrices are in torch's (out_features, in_features) layout.
 """
@@ -12,6 +13,7 @@ from typing import Optional, Tuple
 import torch
 
 from .causal_conv1d import causal_conv1d
+from .selective_scan import selective_scan
 from .selective_scan_bidir import selective_scan_bidir
 
 MASKED_DELTA = -1e4  # softplus(-1e4 + bias) == 0 ⇒ identity scan element
@@ -30,6 +32,67 @@ def _proj_dt_bc(x, x_proj, dt_proj, d_state, mask):
     B = x_dbl[..., dt_rank:dt_rank + d_state].contiguous()
     C = x_dbl[..., dt_rank + d_state:].contiguous()
     return dt, B, C
+
+
+def mamba_inner(
+    xz: torch.Tensor,
+    conv_weight: torch.Tensor,
+    conv_bias: Optional[torch.Tensor],
+    x_proj_weight: torch.Tensor,
+    dt_proj_weight: torch.Tensor,
+    A: torch.Tensor,
+    D: Optional[torch.Tensor] = None,
+    delta_bias: Optional[torch.Tensor] = None,
+    delta_softplus: bool = True,
+    out_proj_weight: Optional[torch.Tensor] = None,
+    out_proj_bias: Optional[torch.Tensor] = None,
+    mask: Optional[torch.Tensor] = None,
+    return_last_state: bool = False,
+    reverse: bool = False,
+):
+    """One direction of the mixer body.
+
+    Args:
+      xz: (batch, seqlen, 2·d_inner), the [x; z] output of in_proj.
+      conv_weight: (width, d_inner) depthwise conv taps; conv_bias
+        (d_inner,) or None.
+      x_proj_weight: (dt_rank + 2·d_state, d_inner); dt_proj_weight:
+        (d_inner, dt_rank).
+      A: (d_inner, d_state), already -exp(A_log). D, delta_bias:
+        (d_inner,).
+      out_proj_weight: optional (d_model, d_inner) (and out_proj_bias) to
+        apply the output projection.
+      mask: optional (batch, seqlen) validity mask: xz is zeroed and dt is
+        forced to MASKED_DELTA at masked steps, which become identity scan
+        elements.
+      return_last_state: also return the (batch, d_inner, d_state) fp32
+        state after the last step of the walk.
+      reverse: the anti-causal direction without flips: the conv is
+        anti-causal and the scan walks backwards (its last state is the
+        one at t = 0).
+
+    Returns (batch, seqlen, d_inner), or (batch, seqlen, d_model) with
+    out_proj_weight; with return_last_state, (out, last_state).
+    """
+    d_inner = xz.shape[-1] // 2
+    d_state = A.shape[1]
+    if mask is not None:
+        xz = xz * mask.to(xz.dtype)[..., None]
+    x, z = xz[..., :d_inner], xz[..., d_inner:]
+    x = causal_conv1d(x, conv_weight, conv_bias, activation="silu",
+                      reverse=reverse)
+    dt, B, C = _proj_dt_bc(x, x_proj_weight, dt_proj_weight, d_state, mask)
+    y = selective_scan(x, dt, A, B, C, D=D, z=z.contiguous(),
+                       delta_bias=delta_bias, delta_softplus=delta_softplus,
+                       return_last_state=return_last_state, reverse=reverse)
+    last_state = None
+    if return_last_state:
+        y, last_state = y
+    if out_proj_weight is not None:
+        y = y @ out_proj_weight.to(y.dtype).t()
+        if out_proj_bias is not None:
+            y = y + out_proj_bias.to(y.dtype)
+    return (y, last_state) if return_last_state else y
 
 
 def mamba_inner_bidir(

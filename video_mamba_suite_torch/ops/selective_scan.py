@@ -1,5 +1,6 @@
-"""Selective SSM scan, plain PyTorch (counterpart of the JAX package's
-``ops/selective_scan.py:selective_scan_ref``).
+"""Selective SSM scan: the plain PyTorch version and the front end
+(counterparts of the JAX package's ``ops/selective_scan.py``:
+``selective_scan_ref`` and ``selective_scan``).
 
 Per (batch b, channel d, state n):
 
@@ -8,7 +9,8 @@ Per (batch b, channel d, state n):
     y_t[d] = sum_n C_t[n] * x_t[d,n]  (+ D[d] * u_t)  (* silu(z_t), optional)
 
 Layout is time-major ``(batch, seqlen, dim)``, as in the JAX package. The
-state and all arithmetic are fp32; the output has u's dtype.
+state and all arithmetic are fp32; the output has u's dtype. Complex A is
+not ported.
 """
 
 from __future__ import annotations
@@ -17,6 +19,20 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from .selective_scan_chunked import ChunkedScan
+
+
+def _flip(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if x is None else torch.flip(x, dims=(1,))
+
+
+def _expand_bc(bc_t: torch.Tensor, dim: int) -> torch.Tensor:
+    """One step's B or C, (batch, dstate) or grouped (batch, G, dstate), as
+    (batch, 1 or dim, dstate): channel d takes group d // (dim / G)."""
+    if bc_t.dim() == 2:
+        return bc_t[:, None, :]
+    return bc_t.repeat_interleave(dim // bc_t.shape[1], dim=1)
 
 
 def selective_scan_ref(
@@ -29,21 +45,42 @@ def selective_scan_ref(
     z: Optional[torch.Tensor] = None,
     delta_bias: Optional[torch.Tensor] = None,
     delta_softplus: bool = False,
-) -> torch.Tensor:
+    return_last_state: bool = False,
+    initial_state: Optional[torch.Tensor] = None,
+    reverse: bool = False,
+):
     """Sequential single-direction scan (the plain version).
 
     Args:
       u, delta: (batch, seqlen, dim).
       A: (dim, dstate) real, already -exp(A_log).
-      B, C: (batch, seqlen, dstate), one per step, shared across channels.
+      B, C: (batch, seqlen, dstate), one per step and shared across
+        channels, or grouped (batch, seqlen, G, dstate): channel d uses
+        group d // (dim / G).
       D: (dim,) skip, optional.
       z: (batch, seqlen, dim) gate, optional (y * silu(z)).
       delta_bias: (dim,), added to delta in fp32, optional.
       delta_softplus: apply softplus to delta (+ bias).
+      return_last_state: also return the (batch, dim, dstate) fp32 state
+        after the last step.
+      initial_state: (batch, dim, dstate) state before the first step,
+        optional (zeros).
+      reverse: the anti-causal scan, flip∘scan∘flip: the walk runs from
+        t = seqlen - 1 down to 0, the initial state enters at the sequence
+        end, and the last state is the one at t = 0.
     """
-    if B.dim() != 3 or C.dim() != 3:
-        raise ValueError("B and C must be (batch, seqlen, dstate), got "
+    if B.dim() not in (3, 4) or C.dim() not in (3, 4):
+        raise ValueError("B and C must be (batch, seqlen, dstate) or "
+                         "(batch, seqlen, ngroups, dstate), got "
                          f"{tuple(B.shape)} and {tuple(C.shape)}")
+    if reverse:
+        out = selective_scan_ref(
+            _flip(u), _flip(delta), A, _flip(B), _flip(C), D=D, z=_flip(z),
+            delta_bias=delta_bias, delta_softplus=delta_softplus,
+            return_last_state=return_last_state, initial_state=initial_state)
+        if return_last_state:
+            return _flip(out[0]), out[1]
+        return _flip(out)
     dtype_in = u.dtype
     u = u.float()
     delta = delta.float()
@@ -53,15 +90,60 @@ def selective_scan_ref(
         delta = F.softplus(delta)
     A, B, C = A.float(), B.float(), C.float()
     batch, seqlen, dim = u.shape
-    h = u.new_zeros(batch, dim, A.shape[1])
+    if initial_state is None:
+        h = u.new_zeros(batch, dim, A.shape[1])
+    else:
+        h = initial_state.float()
     ys = []
     for t in range(seqlen):
         dt = delta[:, t, :, None]                             # (b, d, 1)
-        h = torch.exp(dt * A) * h + dt * B[:, t, None, :] * u[:, t, :, None]
-        ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
+        h = (torch.exp(dt * A) * h
+             + dt * _expand_bc(B[:, t], dim) * u[:, t, :, None])
+        if C.dim() == 3:
+            ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
+        else:
+            ys.append(torch.einsum("bdn,bdn->bd", h,
+                                   _expand_bc(C[:, t], dim)))
     y = torch.stack(ys, dim=1) if ys else u.new_zeros(u.shape)
     if D is not None:
         y = y + u * D.float()
     if z is not None:
         y = y * F.silu(z.float())
-    return y.to(dtype_in)
+    y = y.to(dtype_in)
+    return (y, h) if return_last_state else y
+
+
+def selective_scan(
+    u: torch.Tensor,
+    delta: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    C: torch.Tensor,
+    D: Optional[torch.Tensor] = None,
+    z: Optional[torch.Tensor] = None,
+    delta_bias: Optional[torch.Tensor] = None,
+    delta_softplus: bool = False,
+    return_last_state: bool = False,
+    initial_state: Optional[torch.Tensor] = None,
+    reverse: bool = False,
+):
+    """The scan of ``selective_scan_ref`` (same arguments and results; the
+    JAX ``selective_scan`` with ``initial_state`` from
+    ``selective_scan_pallas``).
+
+    CPU tensors take the plain version. CUDA tensors launch kernel K3
+    (``chunked_scan_fwd``: float32 or bfloat16 I/O, fp32 A, D, bias and
+    states, dstate <= 16, contiguous) or raise; a backward through K3
+    raises until its adjoint is ported.
+    """
+    if u.device.type == "cuda":
+        out, last = ChunkedScan.apply(u, delta, A, B, C, D, z, delta_bias,
+                                      initial_state, delta_softplus, reverse)
+        return (out, last) if return_last_state else out
+    if u.device.type == "cpu":
+        return selective_scan_ref(
+            u, delta, A, B, C, D=D, z=z, delta_bias=delta_bias,
+            delta_softplus=delta_softplus,
+            return_last_state=return_last_state,
+            initial_state=initial_state, reverse=reverse)
+    raise ValueError(f"unsupported device {u.device}")

@@ -18,12 +18,11 @@ run K1 again.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
 
-from ._build import LAUNCHES, load
+from ._build import launch, library, ptr
 from .selective_scan import selective_scan_ref
 
 KERNEL = "short_bidir_fwd"
@@ -129,35 +128,6 @@ def _check_cuda_args(uf, dtf, Af, Bf, Cf, ub, dtb, Ab, Bb, Cb,
     return batch, seqlen, dim, dstate
 
 
-def _library(name: str, n_ints: int, n_ptrs: int) -> ctypes.CDLL:
-    lib = load(name)
-    fn = getattr(lib, name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int, ctypes.c_longlong]
-                   + [ctypes.c_int] * (n_ints - 2)
-                   + [ctypes.c_void_p] * n_ptrs)
-    err = getattr(lib, name + "_error_string")
-    err.restype = ctypes.c_char_p
-    err.argtypes = [ctypes.c_int]
-    return lib
-
-
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
-
-
-def _call(name: str, lib: ctypes.CDLL, device, *args) -> None:
-    """Call the C entry ``name`` on the current stream of ``device``; raise
-    if it reports an error. Counts the launch."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, name)(*args, stream)
-    if rc != 0:
-        msg = getattr(lib, name + "_error_string")(rc).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
-    LAUNCHES[name] += 1
-
-
 def _launch_fwd(uf, dtf, Af, Bf, Cf, ub, dtb, Ab, Bb, Cb,
                 Df, zf, biasf, Db, zb, biasb):
     batch, seqlen, dim, dstate = _check_cuda_args(
@@ -167,9 +137,9 @@ def _launch_fwd(uf, dtf, Af, Bf, Cf, ub, dtb, Ab, Bb, Cb,
     out_b = torch.empty_like(uf)
     if uf.numel() == 0:
         return out_f, out_b
-    _call(KERNEL, _library(KERNEL, 5, 19), uf.device,
-          _DTYPE_CODES[uf.dtype], batch, seqlen, dim, dstate,
-          *(_ptr(t) for t in (uf, dtf, zf, Bf, Cf, Af, Df, biasf,
+    launch(KERNEL, library(KERNEL, 5, 18), uf.device,
+           _DTYPE_CODES[uf.dtype], batch, seqlen, dim, dstate,
+           *(ptr(t) for t in (uf, dtf, zf, Bf, Cf, Af, Df, biasf,
                               ub, dtb, zb, Bb, Cb, Ab, Db, biasb,
                               out_f, out_b)))
     return out_f, out_b
@@ -199,13 +169,13 @@ def _launch_bwd(uf, dtf, Af, Bf, Cf, ub, dtb, Ab, Bb, Cb,
 
     parts = {"f": outputs(uf, zf), "b": outputs(ub, zb)}
     if uf.numel() > 0:
-        ptrs = [_ptr(parts[s][k]) for s in "fb"
+        ptrs = [ptr(parts[s][k]) for s in "fb"
                 for k in ("u", "dt", "z", "A", "B", "C", "D", "bias")]
-        _call(BWD_KERNEL, _library(BWD_KERNEL, 6, 35), uf.device,
-              _DTYPE_CODES[uf.dtype], batch, seqlen, dim, dstate, groups,
-              *(_ptr(t) for t in (uf, dtf, zf, Bf, Cf, Af, Df, biasf, gf,
+        launch(BWD_KERNEL, library(BWD_KERNEL, 6, 34), uf.device,
+               _DTYPE_CODES[uf.dtype], batch, seqlen, dim, dstate, groups,
+               *(ptr(t) for t in (uf, dtf, zf, Bf, Cf, Af, Df, biasf, gf,
                                   ub, dtb, zb, Bb, Cb, Ab, Db, biasb, gb)),
-              *ptrs)
+               *ptrs)
 
     def reduce(part, B, D, bias):
         return (part["u"], part["dt"], part["A"].sum(0),
