@@ -9,9 +9,10 @@ Phases, each of which fails the run:
      memory.
   3. kernels: hold each kernel against its plain PyTorch version on the
      card, at the shape the main path gives it and at the other cases of
-     its table (``K1_CASES``, ``K2_CASES``, ``K3_CASES``, which
-     tests/test_torch_kernels_cuda.py runs too), and time kernel, plain
-     version and the roofline bound.
+     its table (``K1_CASES``, ``K2_CASES``, ``K3_CASES`` with K3's
+     checkpoints, ``K4_CASES``, which tests/test_torch_kernels_cuda.py runs
+     too), and time kernel, plain version and the roofline bound (K3 also
+     with its checkpoint output).
   4. inference: TimeMamba-B (batch 8, 16 frames, 224², bf16, random
      weights from a seed) through ``build_timemamba_b``; launch counts are
      zeroed just before and read just after (K1: 12 per forward). Then a
@@ -25,11 +26,21 @@ Phases, each of which fails the run:
      requests of 8 clips through ``predict``: exactly 48 K3 launches per
      request, no K1 and no plain-version call; ms/request, clips/s, MFU,
      peak memory, one median with TF32 off, a torch.profiler window of two
-     requests; then ``evaluate`` over 2 videos x 12 views.
-  7. card against CPU: one clip at full width in fp32 (TF32 off), the card
+     requests; then ``evaluate`` over 2 videos x 12 views. K3 writes no
+     checkpoints here.
+  7. ViViM-T finetune: ``build_vivim_k400_trainer`` at the preset's values
+     takes ``RecognitionTrainer.train_step`` on 8 clips (fp32 with TF32
+     matmuls; mixup / cutmix, smoothing 0.1, drop-path 0.1, layer decay
+     0.75, warmup-cosine AdamW, clip 1.0, EMA): 2 warm-up steps, in which
+     the first (rate 0) moves no parameter and every parameter gets a
+     finite gradient, and the second moves the parameters and the EMA;
+     then 10 timed steps with exactly 48 K3 (writing checkpoints) and 48
+     K4 launches each, no plain-version call and a finite loss; ms/step,
+     clips/s, MFU, peak memory and a torch.profiler window of two steps.
+  8. card against CPU: one clip at full width in fp32 (TF32 off), the card
      through the kernels against the CPU through the plain versions:
-     TimeMamba-B's forward at depth 12 and gradients at depth 2, and
-     ViViM-T's forward at its full depth 24.
+     TimeMamba-B's forward at depth 12 and gradients at depth 2, ViViM-T's
+     forward at its full depth 24 and its gradients at depth 2.
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 """
 
@@ -101,6 +112,31 @@ K3_CASES = [
 # (both round an fp32 result; the kernel chains segments where the plain
 # version walks every step). The last state is fp32 in both cases.
 K3_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 2e-2)}
+K4_SOURCE = "video_mamba_suite_torch/csrc/chunked_scan_bwd.cu"
+K4_REPLACES = ("video_mamba_suite_tpu/ops/selective_scan_pallas.py:187 "
+               "(_bwd_kernel) and :2292 (_bwd_kernel_hs)")
+# K4 against its plain version: K3's options, each case with a cotangent
+# of the last state as well as of the output. The first two are ViViM-T's
+# main path (one per direction); batch 1 is the TPU package's batch <= 4
+# body; ragged: a length that is no multiple of the checkpoint interval,
+# 200 channels (no multiple of a 32-channel warp) and 13 states; grouped:
+# groups of 48 channels, so the second warp of a group is half idle.
+# tests/test_torch_kernels_cuda.py runs the same cases.
+K4_CASES = [
+    ("vivim", (8, 3152, 384, 16), "float32", {}),
+    ("vivim-reverse", (8, 3152, 384, 16), "float32", {"reverse": True}),
+    ("vivim-b1", (1, 3152, 384, 16), "float32", {}),
+    ("vivim-b1-reverse", (1, 3152, 384, 16), "float32", {"reverse": True}),
+    ("scan-bench", (8, 2048, 1024, 16), "bfloat16", {}),
+    ("ragged-h0-reverse", (3, 70, 200, 13), "float32",
+     {"reverse": True, "h0": True}),
+    ("grouped-h0-no-Dz", (5, 100, 96, 16), "float32",
+     {"groups": 2, "h0": True, "no_dz": True}),
+]
+# each gradient within atol · (its largest magnitude) + rtol · |value|, as
+# K2: fp32 sums (dA over 3152 steps and the rows, dB and dC over the
+# channels) in another order; bf16 outputs one to two bf16 ulps apart.
+K4_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 2e-2)}
 VIVIM_LAUNCHES = 48              # K3 launches per ViViM-T forward
 VIVIM_REQUESTS = 10              # timed serving requests of BATCH clips
 # full-width fp32 forward, card against CPU, relative to the output scale:
@@ -115,6 +151,12 @@ GRAD_DEPTH = 2
 # the output scale: read 1.1e-6 on an H100 80GB HBM3 (PERF.md), held at
 # about ten times that
 CARD_CPU_VIVIM_REL_TOL = 1.1e-5
+FINETUNE_STEPS = 10              # timed ViViM-T finetune steps
+# ViViM-T fp32 gradients at depth 2, batch 1 (K3 and K4 in the <= 4 form),
+# card against CPU, each parameter's largest difference over its largest
+# CPU gradient: read 3.5e-6 on an H100 80GB HBM3 (PERF.md), held at about
+# ten times that
+CARD_CPU_VIVIM_GRAD_REL_TOL = 4e-5
 
 
 def log(*a):
@@ -421,21 +463,26 @@ def k3_check(label, shape, dtype, opts):
     max_abs_err); raises AssertionError on a miss."""
     import torch
     from video_mamba_suite_torch.ops import (
+        CHECKPOINT_STEPS,
         LAUNCHES,
         chunked_scan_fwd,
+        chunked_scan_states_ref,
         selective_scan_ref,
     )
 
     args = k3_inputs(shape, dtype, seed=sum(shape), **opts)
     n0 = LAUNCHES["chunked_scan_fwd"]
-    got = chunked_scan_fwd(**args)
+    got = chunked_scan_fwd(**args, checkpoint_steps=CHECKPOINT_STEPS)
     torch.cuda.synchronize()
     if LAUNCHES["chunked_scan_fwd"] != n0 + 1:
         raise AssertionError("K3's wrapper did not count its launch")
-    want = selective_scan_ref(**args, return_last_state=True)
+    plain = {k: v for k, v in args.items() if k not in ("D", "z")}
+    want = (*selective_scan_ref(**args, return_last_state=True),
+            chunked_scan_states_ref(**plain,
+                                    checkpoint_steps=CHECKPOINT_STEPS))
     atol, rtol = K3_TOL[dtype]
     abs_err, worst, ok = 0.0, 0.0, True
-    for name, g, w in zip(("out", "last state"), got, want):
+    for name, g, w in zip(("out", "last state", "checkpoints"), got, want):
         if g.dtype != w.dtype or g.shape != w.shape:
             raise AssertionError(f"K3 at {label}: {name} {g.dtype} "
                                  f"{tuple(g.shape)}, want {w.dtype} "
@@ -456,7 +503,7 @@ def k3_check(label, shape, dtype, opts):
     if not ok:
         raise AssertionError(f"K3 disagrees with its plain version at "
                              f"{label} {shape}")
-    return args, got, abs_err
+    return args, got[:2], abs_err
 
 
 def k3_bound_ms(args, outs):
@@ -483,6 +530,7 @@ def check_k3():
     version's (two calls: it loops over the steps) and the bound. Returns
     the main-path case's (the first) numbers."""
     from video_mamba_suite_torch.ops import (
+        CHECKPOINT_STEPS,
         chunked_scan_fwd,
         selective_scan_ref,
     )
@@ -494,7 +542,132 @@ def check_k3():
         plain_ms = cuda_time_ms(lambda: selective_scan_ref(**args), iters=1,
                                 warmup=1)
         bound_ms, bound_by = k3_bound_ms(args, got)
-        log(f"[k3] {case[0]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        ck_ms = cuda_time_ms(lambda: chunked_scan_fwd(
+            **args, checkpoint_steps=CHECKPOINT_STEPS), iters=20)
+        log(f"[k3] {case[0]}: kernel {ms:.4f} ms ({ck_ms:.4f} ms writing "
+            f"checkpoints every {CHECKPOINT_STEPS} steps), plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        if not result:
+            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# K4: its adjoint
+
+
+def k4_inputs(shape, dtype, seed, **opts):
+    """K3's inputs at one of ``K4_CASES``, its checkpoints (every
+    ``CHECKPOINT_STEPS`` steps, from K3) and the cotangents of the output
+    and of the last state. Returns (arguments of ``chunked_scan_bwd_ref``,
+    the checkpoints)."""
+    import torch
+    from video_mamba_suite_torch.ops import CHECKPOINT_STEPS, chunked_scan_fwd
+
+    args = k3_inputs(shape, dtype, seed, **opts)
+    _, _, states = chunked_scan_fwd(**args,
+                                    checkpoint_steps=CHECKPOINT_STEPS)
+    batch, seqlen, dim, dstate = shape
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    args["g"] = torch.randn(batch, seqlen, dim, device="cuda",
+                            generator=g).to(getattr(torch, dtype))
+    args["g_last"] = torch.randn(batch, dim, dstate, device="cuda",
+                                 generator=g)
+    return args, states
+
+
+def k4_check(label, shape, dtype, opts):
+    """Launch K4 once on the card at one of ``K4_CASES`` and hold its nine
+    gradients against the plain version's. Returns (arguments,
+    checkpoints, gradients, max_abs_err); raises AssertionError on a
+    miss."""
+    import torch
+    from video_mamba_suite_torch.ops import (
+        LAUNCHES,
+        chunked_scan_bwd,
+        chunked_scan_bwd_ref,
+    )
+
+    args, states = k4_inputs(shape, dtype, seed=sum(shape) + 11, **opts)
+    n0 = LAUNCHES["chunked_scan_bwd"]
+    got = chunked_scan_bwd(**args, states=states)
+    torch.cuda.synchronize()
+    if LAUNCHES["chunked_scan_bwd"] != n0 + 1:
+        raise AssertionError("K4's wrapper did not count its launch")
+    want = chunked_scan_bwd_ref(**args)
+    atol, rtol = K4_TOL[dtype]
+    names = ("du", "ddelta", "dA", "dB", "dC", "dD", "dz", "ddelta_bias",
+             "dinitial_state")
+    abs_err, rel, worst, ok = 0.0, 0.0, "", True
+    for name, g, w in zip(names, got, want):
+        if (g is None) != (w is None):
+            raise AssertionError(f"K4 at {label}: {name} is {g} against "
+                                 f"{w}")
+        if g is None:
+            continue
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"K4 at {label}: {name} {g.dtype} "
+                                 f"{tuple(g.shape)}, want {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        d = (g.float() - w.float()).abs()
+        scale = w.float().abs().max().item()
+        bad = d > atol * scale + rtol * w.float().abs()
+        if bad.any() or not torch.isfinite(g).all():
+            ok = False
+            log(f"[k4] {label}: {name} misses at {int(bad.sum())} of "
+                f"{g.numel()} (max abs err {d.max().item():.3e}, scale "
+                f"{scale:.3e})")
+        abs_err = max(abs_err, d.max().item())
+        if d.max().item() / max(scale, 1e-30) >= rel:
+            rel, worst = d.max().item() / max(scale, 1e-30), name
+    log(f"[k4] {label} {shape} {dtype} {opts or ''}: max_abs_err "
+        f"{abs_err:.3e}, largest error over scale {rel:.3e} ({worst}) (tol "
+        f"atol {atol}·scale, rtol {rtol}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"K4 disagrees with its plain version at "
+                             f"{label} {shape}")
+    return args, states, got, abs_err
+
+
+def k4_bound_ms(args, states, grads):
+    """Least time for the work and what sets it: each input (the
+    checkpoints and both cotangents included) read once and each gradient
+    written once over HBM, against 18 fp32 operations per state update
+    (6 for the forward recompute, 12 for the adjoint step)."""
+    import torch
+
+    tensors = [t for t in (*args.values(), states, *grads)
+               if isinstance(t, torch.Tensor)]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    batch, seqlen, dim = args["u"].shape
+    ops = 18.0 * batch * seqlen * dim * args["A"].shape[1]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    log(f"[k4] bound: {nbytes / 1e6:.1f} MB over 3.35 TB/s = "
+        f"{1e3 * t_bytes:.4f} ms; {ops / 1e9:.3f} GFLOP over 67 TFLOP/s = "
+        f"{1e3 * t_ops:.4f} ms")
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def check_k4():
+    """Every case of ``K4_CASES``, each with the kernel's time, the plain
+    version's (one call: an eager loop and its autograd) and the bound.
+    Returns the main-path case's (the first) numbers."""
+    from video_mamba_suite_torch.ops import (
+        chunked_scan_bwd,
+        chunked_scan_bwd_ref,
+    )
+
+    result = {}
+    for case in K4_CASES:
+        args, states, got, err = k4_check(*case)
+        ms = cuda_time_ms(lambda: chunked_scan_bwd(**args, states=states),
+                          iters=10)
+        plain_ms = cuda_time_ms(lambda: chunked_scan_bwd_ref(**args),
+                                iters=1, warmup=1)
+        bound_ms, bound_by = k4_bound_ms(args, states, got)
+        log(f"[k4] {case[0]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by})")
         if not result:
             result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -713,8 +886,11 @@ def count_plain_calls():
     ss = importlib.import_module("video_mamba_suite_torch.ops.selective_scan")
     sb = importlib.import_module(
         "video_mamba_suite_torch.ops.selective_scan_bidir")
+    sc = importlib.import_module(
+        "video_mamba_suite_torch.ops.selective_scan_chunked")
     calls = collections.Counter()
-    patched = [(ss, "selective_scan_ref"), (sb, "selective_scan_bidir_ref")]
+    patched = [(ss, "selective_scan_ref"), (sb, "selective_scan_bidir_ref"),
+               (sc, "chunked_scan_bwd_ref")]
     originals = [getattr(mod, name) for mod, name in patched]
 
     def counting(name, fn):
@@ -730,6 +906,27 @@ def count_plain_calls():
     finally:
         for (mod, name), fn in zip(patched, originals):
             setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def count_checkpoint_writes():
+    """Count K3 launches that write checkpoints (for a backward) while the
+    block runs."""
+    sc = importlib.import_module(
+        "video_mamba_suite_torch.ops.selective_scan_chunked")
+    calls = collections.Counter()
+    launch = sc.chunked_scan_fwd
+
+    def counting(*args):
+        if args[-1]:                 # checkpoint_steps
+            calls["chunked_scan_fwd with checkpoints"] += 1
+        return launch(*args)
+
+    sc.chunked_scan_fwd = counting
+    try:
+        yield calls
+    finally:
+        sc.chunked_scan_fwd = launch
 
 
 def set_tf32(on: bool) -> None:
@@ -778,12 +975,13 @@ def run_vivim_serving():
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     times = []
-    with count_plain_calls() as plain:
+    with count_plain_calls() as plain, count_checkpoint_writes() as ck:
         for _ in range(VIVIM_REQUESTS):
             t0 = time.perf_counter()
             probs = request()
             times.append(time.perf_counter() - t0)
     launches = dict(LAUNCHES)
+    plain.update(ck)
     peak = torch.cuda.max_memory_allocated()
     if tuple(probs.shape) != (BATCH, 400) or \
             not torch.isfinite(probs).all() or \
@@ -841,6 +1039,152 @@ def run_vivim_serving():
     return launches
 
 
+def run_vivim_finetune():
+    """This slice's main path: ViViM-T K400 finetune steps through
+    ``RecognitionTrainer.train_step`` at the preset's values."""
+    import torch
+    from video_mamba_suite_torch import build_vivim_k400_trainer
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+
+    t0 = time.perf_counter()
+    trainer = build_vivim_k400_trainer(device="cuda", seed=0)
+    model = trainer.model
+    opt = type(trainer.optimizer).__name__
+    log(f"[finetune] ViViM-T K400 trainer built in "
+        f"{time.perf_counter() - t0:.1f} s: {opt}, "
+        f"{len(set(trainer.grad_scales.values()))} layer-decay factors, "
+        f"learning rate {trainer.schedule(0):.3g} at step 0, "
+        f"{trainer.schedule(1):.3g} at 1, {trainer.schedule(100):.3g} at "
+        f"100")
+    set_tf32(True)
+    x = vivim_clips(BATCH, seed=7)
+    labels = torch.randint(400, (BATCH,), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(7))
+
+    def snapshot():
+        return ({n: p.detach().clone() for n, p in model.named_parameters()},
+                {n: e.clone() for n, e in trainer.ema.state_dict().items()})
+
+    params0, ema0 = snapshot()
+    losses = [trainer.train_step(x, labels)]     # warm-up 1: rate 0
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not torch.isfinite(p.grad).all()]
+    zero = [n for n, p in model.named_parameters()
+            if p.grad is not None and not p.grad.abs().sum()]
+    moved = [n for n, p in model.named_parameters()
+             if not torch.equal(p, params0[n])]
+    if bad or moved:
+        raise AssertionError(f"step 0: no or non-finite gradient at {bad}; "
+                             f"moved at rate 0: {moved}")
+    params1, ema1 = snapshot()
+    losses.append(trainer.train_step(x, labels))  # warm-up 2
+    still = [n for n, p in model.named_parameters()
+             if n not in zero and torch.equal(p, params1[n])]
+    ema = trainer.ema.state_dict()
+    closer = sum((ema[n] - p).abs().sum().item()
+                 for n, p in model.named_parameters()) < \
+        sum((ema1[n] - p).abs().sum().item()
+            for n, p in model.named_parameters())
+    if still or not closer:
+        raise AssertionError(f"step 1 left {still} unmoved (EMA moved "
+                             f"towards the parameters: {closer})")
+    log(f"[finetune] warm-up: every one of {len(params0)} parameters has a "
+        f"finite gradient ({len(zero)} all zero: {zero}); rate 0 moved none; "
+        f"the second step moved all with a gradient and the EMA towards "
+        f"them; losses {losses[0]:.5f} {losses[1]:.5f}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times = []
+    with count_plain_calls() as plain, count_checkpoint_writes() as ck:
+        for _ in range(FINETUNE_STEPS):   # a step ends with its loss read
+            t0 = time.perf_counter()
+            losses.append(trainer.train_step(x, labels))
+            times.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"chunked_scan_fwd": VIVIM_LAUNCHES * FINETUNE_STEPS,
+            "chunked_scan_bwd": VIVIM_LAUNCHES * FINETUNE_STEPS}
+    if launches != want or sum(plain.values()) or \
+            ck["chunked_scan_fwd with checkpoints"] != want[
+                "chunked_scan_fwd"]:
+        raise AssertionError(f"finetune launched {launches} (want {want}), "
+                             f"plain-version calls {dict(plain)}, "
+                             f"checkpoint writes {dict(ck)}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    times.sort()
+    median = statistics.median(times)
+    flops = 3 * model.flops_per_clip() * BATCH
+    log(f"[finetune] {FINETUNE_STEPS} steps of {BATCH} clips: median "
+        f"{1e3 * median:.2f} ms/step (min {1e3 * times[0]:.2f}, max "
+        f"{1e3 * times[-1]:.2f}), {BATCH / median:.2f} clips/s, "
+        f"{flops / 1e12:.3f} TFLOP/step (3 x forward), MFU "
+        f"{100 * flops / median / TF32_TC_FLOP_PER_S:.3f}% of 495 TFLOP/s "
+        f"(TF32 dense); peak memory {peak / 2**30:.2f} GiB; launches "
+        f"{launches}, K3 with checkpoints {dict(ck)}, plain-version calls "
+        f"{dict(plain)}")
+    log(f"[finetune] loss by step: {' '.join(f'{v:.5f}' for v in losses)}")
+    profile("step", lambda: trainer.train_step(x, labels),
+            tag="profile-finetune")
+    return launches
+
+
+def card_against_cpu_vivim_grads():
+    """One clip's soft-target cross-entropy gradient, ViViM-T at full
+    width and depth ``GRAD_DEPTH``, fp32, TF32 off, drop-path 0, no mixup:
+    the card through K3 and K4 (batch 1, the TPU package's batch <= 4
+    form) against the CPU through the plain versions."""
+    import torch
+    from video_mamba_suite_torch import build_vivim_tiny_k400
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+    from video_mamba_suite_torch.tasks.recognition import (
+        one_hot_smooth,
+        soft_target_cross_entropy,
+    )
+
+    set_tf32(False)
+    cpu = build_vivim_tiny_k400(device="cpu", seed=2, depth=GRAD_DEPTH,
+                                drop_path_rate=0.0)
+    card = copy.deepcopy(cpu).to("cuda")
+    x = vivim_clips(1, seed=8)
+    targets = one_hot_smooth(torch.tensor([123]), 400, 0.1)
+    t0 = time.perf_counter()
+    reset_launches()
+    for model, dev in ((cpu, "cpu"), (card, "cuda")):
+        model.train()
+        soft_target_cross_entropy(model(x.to(dev)),
+                                  targets.to(dev)).backward()
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    want = {"chunked_scan_fwd": 2 * GRAD_DEPTH,
+            "chunked_scan_bwd": 2 * GRAD_DEPTH}
+    if launches != want:
+        raise AssertionError(f"the card's backward launched {launches}")
+    worst, worst_name, missing = 0.0, "", []
+    cpu_params = dict(cpu.named_parameters())
+    for name, p in card.named_parameters():
+        ref = cpu_params[name].grad
+        if p.grad is None or ref is None or \
+                not torch.isfinite(p.grad).all():
+            missing.append(name)
+            continue
+        rel = ((p.grad.cpu() - ref).abs().max()
+               / ref.abs().max().clamp_min(1e-30)).item()
+        if rel >= worst:
+            worst, worst_name = rel, name
+    log(f"[card-vs-cpu] ViViM-T fp32 gradients, full width, depth "
+        f"{GRAD_DEPTH}, batch 1, TF32 off: largest difference over the CPU "
+        f"gradient's scale {worst:.3e} ({worst_name}; tol "
+        f"{CARD_CPU_VIVIM_GRAD_REL_TOL}) over {len(cpu_params)} parameters "
+        f"in {time.perf_counter() - t0:.1f} s")
+    if missing or worst > CARD_CPU_VIVIM_GRAD_REL_TOL:
+        raise AssertionError(f"card and CPU ViViM-T gradients disagree (no "
+                             f"or non-finite gradient: {missing})")
+
+
 def card_against_cpu_vivim():
     """One clip of ViViM-T at full width and depth, fp32, TF32 off: the
     card through K3 against the CPU through the plain versions."""
@@ -895,12 +1239,15 @@ def main() -> int:
     k1 = check_k1()
     k2 = check_k2()
     k3 = check_k3()
+    k4 = check_k4()
     run_main_path()
     launches = run_train_step()
     launches.update(run_vivim_serving())
+    launches.update(run_vivim_finetune())
     card_against_cpu()
     card_against_cpu_grads()
     card_against_cpu_vivim()
+    card_against_cpu_vivim_grads()
 
     kernels = [dict(
         name=name, route="cuda", source=source, replaces=replaces,
@@ -910,7 +1257,8 @@ def main() -> int:
         for name, source, replaces, k in (
             ("short_bidir_fwd", K1_SOURCE, K1_REPLACES, k1),
             ("short_bidir_bwd", K2_SOURCE, K2_REPLACES, k2),
-            ("chunked_scan_fwd", K3_SOURCE, K3_REPLACES, k3))]
+            ("chunked_scan_fwd", K3_SOURCE, K3_REPLACES, k3),
+            ("chunked_scan_bwd", K4_SOURCE, K4_REPLACES, k4))]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,7 @@ JAX package, so it also runs where only PyTorch is installed:
 """
 
 import copy
+import importlib
 
 import pytest
 import torch
@@ -16,11 +17,16 @@ import chip_smoke
 from video_mamba_suite_torch.models import MambaScanNorm, MambaVim
 from video_mamba_suite_torch.ops import (
     LAUNCHES,
+    chunked_scan_bwd,
     chunked_scan_fwd,
     selective_scan,
     selective_scan_bidir,
     selective_scan_bidir_bwd,
 )
+
+# the module, which the package's names of its functions shadow
+chunked = importlib.import_module(
+    "video_mamba_suite_torch.ops.selective_scan_chunked")
 
 
 @pytest.fixture
@@ -149,12 +155,88 @@ def test_k3_rejects_what_it_does_not_take(cuda_device):
 
 
 @pytest.mark.cuda
-def test_k3_backward_raises_until_ported(cuda_device):
+@pytest.mark.parametrize("label,shape,dtype,opts", chip_smoke.K4_CASES,
+                         ids=[case[0] for case in chip_smoke.K4_CASES])
+def test_k4_matches_plain_version(cuda_device, label, shape, dtype, opts):
+    """The cases and tolerances of chip_smoke.py's K4 phase."""
+    chip_smoke.k4_check(label, shape, dtype, opts)
+
+
+@pytest.mark.cuda
+def test_k4_rejects_what_it_does_not_take(cuda_device):
+    def args(**kw):
+        return chip_smoke.k4_inputs((2, 80, 8, 4), "float32", 0, **kw)
+
+    a, states = args()
+    with pytest.raises(ValueError, match="states must have shape"):
+        chunked_scan_bwd(**a, states=states[:, 1:].contiguous())
+    a, states = args()
+    a["g"] = a["g"].to(torch.bfloat16)
+    with pytest.raises(TypeError, match="g must be"):
+        chunked_scan_bwd(**a, states=states)
+    a, states = args()
+    a["g_last"] = a["g_last"].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="g_last must be contiguous"):
+        chunked_scan_bwd(**a, states=states)
+    a, states = args()
+    with pytest.raises(ValueError, match="checkpoint_steps"):
+        chunked_scan_bwd(**a, states=states, checkpoint_steps=10)
+
+
+@pytest.mark.cuda
+def test_k3_writes_checkpoints_only_for_a_backward(cuda_device,
+                                                   monkeypatch):
+    """Under inference_mode or no_grad, or with no input that requires a
+    gradient, K3 runs without checkpoints; with a backward ahead it writes
+    them every CHECKPOINT_STEPS steps."""
+    seen = []
+    launch = chunked.chunked_scan_fwd
+
+    def recording(*args):
+        seen.append(args[-1])
+        return launch(*args)
+
+    monkeypatch.setattr(chunked, "chunked_scan_fwd", recording)
     a = chip_smoke.k3_inputs((2, 80, 8, 4), "float32", 0)
+    with torch.inference_mode():
+        selective_scan(**a)
+    with torch.no_grad():
+        selective_scan(**a)
+    selective_scan(**a)
     a["u"].requires_grad_()
-    out = selective_scan(**a)
-    with pytest.raises(NotImplementedError, match="K4"):
-        out.sum().backward()
+    with torch.no_grad():
+        selective_scan(**a)
+    selective_scan(**a).sum().backward()
+    assert seen == [0, 0, 0, 0, chunked.CHECKPOINT_STEPS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls", [MambaVim, MambaScanNorm])
+def test_long_route_backward_on_card_reaches_every_parameter(cuda_device,
+                                                             cls):
+    """At seqlen 100 a backward through the mixer on the card runs two K3
+    and two K4 launches and gives every parameter (in_proj, conv, x_proj,
+    dt_proj, dt_bias, A_log, D, out_proj, scan_norm_w) the CPU's plain
+    gradient."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = cls(d_model=64, d_state=16, device="cpu",
+              generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to("cuda")
+    x = torch.randn(3, 100, 64, generator=torch.Generator().manual_seed(1))
+    before = dict(LAUNCHES)
+    (card(x.cuda()) ** 2).mean().backward()
+    torch.cuda.synchronize()
+    grown = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+             if v != before.get(k, 0)}
+    assert grown == {"chunked_scan_fwd": 2, "chunked_scan_bwd": 2}
+    (cpu(x) ** 2).mean().backward()
+    want = dict(cpu.named_parameters())
+    for name, p in card.named_parameters():
+        assert p.grad is not None, name
+        g, w = p.grad.cpu(), want[name].grad
+        assert torch.isfinite(g).all() and g.abs().sum() > 0, name
+        err = (g - w).abs().max() / w.abs().max()
+        assert err < 1e-4, (name, err)
 
 
 @pytest.mark.cuda

@@ -5,7 +5,9 @@ A small ViViM (48² images, patch 8, 2 frames: 2 x 37 = 74 tokens, so every
 mixer takes the long route of one chunked scan per direction; width 32,
 depth 2, 5 classes) is built in JAX, its weights are carried over by
 ``vivim_from_jax``, and the two forwards must agree within 1e-5 of the
-output scale (fp32).
+output scale (fp32). Their gradients (``vim`` and ``scan_norm`` mixers,
+training mode with drop-path at 0) are held against ``jax.grad`` the same
+way, within GRAD_REL_TOL of each parameter's gradient scale.
 """
 
 import jax
@@ -30,6 +32,10 @@ from video_mamba_suite_torch.tasks.recognition import (
 SMALL = dict(img_size=48, patch_size=8, num_frames=2, depth=2, embed_dim=32,
              num_classes=5)
 REL_TOL = 1e-5      # of the output scale, fp32
+# of each parameter's largest gradient, fp32: the adjoint of a 74-step
+# scan summed in other orders by the two frameworks (read: 1.4e-6 vim,
+# 1.7e-6 scan_norm, both at a dt_proj)
+GRAD_REL_TOL = 2e-5
 
 
 def _videos(seed, n=2):
@@ -78,6 +84,33 @@ def test_vivim_matches_jax(mixer, bidir, extra, stacked):
         got = model(torch.from_numpy(x))
     assert dict(LAUNCHES) == before           # the plain versions on CPU
     _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("mixer", ["vim", "scan_norm"])
+def test_vivim_gradients_match_jax(mixer):
+    """The gradient of sum(logits · w) at every parameter against
+    ``jax.grad`` of the same loss, carried to the port's names by
+    ``vivim_from_jax`` (transposes and reshapes are linear)."""
+    kw = dict(SMALL, mixer=mixer, drop_path_rate=0.0)
+    x = _videos(2)
+    w = np.random.default_rng(3).standard_normal((2, 5)).astype(np.float32)
+    jm = JaxViViM(**kw)
+    params = _jax_params(jm, x, 1)
+
+    def loss(p):
+        return jnp.sum(jm.apply(p, jnp.asarray(x), deterministic=False) * w)
+
+    want = vivim_from_jax(jax.tree_util.tree_map(
+        np.asarray, jax.jit(jax.grad(loss))(params)), kw["depth"])
+    model = _port(params, **kw).train()
+    (model(torch.from_numpy(x)) * torch.from_numpy(w)).sum().backward()
+    names = {n for n, _ in model.named_parameters()}
+    assert names == set(want)
+    for name, p in model.named_parameters():
+        g, ref = p.grad.numpy(), want[name].numpy()
+        assert g.shape == ref.shape, name
+        err = np.abs(g - ref).max() / max(np.abs(ref).max(), 1e-30)
+        assert err <= GRAD_REL_TOL, (name, err)
 
 
 def test_predict_and_evaluate_match_jax():

@@ -14,10 +14,16 @@ from .models import (
     build_timemamba_b,
     build_vivim_tiny_k400,
 )
-from .tasks.recognition import evaluate, predict
+from .tasks.recognition import (
+    RecognitionTrainer,
+    build_vivim_k400_trainer,
+    evaluate,
+    predict,
+)
 from .train import train_step
 from .utils import make_optimizer
 
-__all__ = ["MambaVim", "TimeMamba", "ViViM", "build_timemamba_b",
+__all__ = ["MambaVim", "RecognitionTrainer", "TimeMamba", "ViViM",
+           "build_timemamba_b", "build_vivim_k400_trainer",
            "build_vivim_tiny_k400", "evaluate", "make_optimizer", "predict",
            "train_step"]

@@ -17,5 +17,13 @@ VIVIM_T_K400 = dict(
     img_size=224, patch_size=16, num_frames=16, depth=24, embed_dim=192,
     num_classes=400, drop_path_rate=0.1,
 )
+# Its fine-tuning recipe (the preset's ``opt`` and ``aug``, as the keyword
+# arguments of ``RecognitionTrainer``): layer-decayed AdamW with EMA,
+# mixup and cutmix with label smoothing. The preset's RandAugment and
+# random erasing belong to the data pipeline, which is not ported.
+VIVIM_T_K400_FINETUNE = dict(
+    lr=1e-3, weight_decay=0.05, layer_decay=0.75, ema_decay=0.9999,
+    mixup_alpha=0.8, cutmix_alpha=1.0, smoothing=0.1,
+)
 # ViViM-S (``recognition_k400_vivim_small``): width 384.
 VIVIM_S_K400 = dict(VIVIM_T_K400, embed_dim=384)

@@ -16,6 +16,13 @@
 // Channel d reads B and C of group d / (dim / G). u, dt, z, B, C and the
 // output share one type (fp32 or bf16); A, D, bias and both states are fp32.
 //
+// Checkpoints (the `want_states` output of `_scan_fwd_impl`, for the
+// backward, kernel K4 in chunked_scan_bwd.cu): when `states` is not null,
+// the state before walk step j * chunk is written to states[row, j] for
+// j = 0 .. ceil(L / chunk) - 1, fp32 (batch, ceil(L / chunk), dim, dstate);
+// states[row, 0] is the initial state. The wrapper asks for them only when
+// a backward will follow, so inference writes nothing more.
+//
 // What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 outside the
 // tensor cores), at ViViM-T's shape (batch 8, seqlen 3152 = 16 frames x 197
 // tokens, dim 384, dstate 16, fp32 I/O):
@@ -68,7 +75,10 @@ struct Params {
   const float* h0;    // (batch, dim, dstate) or null
   void* out;          // (batch, seqlen, dim)
   float* last;        // (batch, dim, dstate) or null
+  float* states;      // (batch, nchunks, dim, dstate) checkpoints or null
   int seqlen, dim, dstate, ngroups;
+  int chunk;   // walk steps between checkpoints
+  int nchunks;
   int tile;    // channels per block
   int ntiles;  // blocks per row
   int seglen;  // steps per segment
@@ -187,7 +197,20 @@ __global__ void __launch_bounds__(kThreads)
   const float D = p.D ? p.D[ch] : 0.f;
   const T* z = static_cast<const T*>(p.z);
   T* out = static_cast<T*>(p.out);
+  // the next checkpoint at or after i0: walk step ck_step, index ck
+  int ck = p.states ? (i0 + p.chunk - 1) / p.chunk : p.nchunks;
+  int ck_step = ck * p.chunk;
   for (int i = i0; i < i1; ++i) {
+    if (i == ck_step && ck < p.nchunks) {
+      float* st = p.states +
+                  ((row * p.nchunks + ck) * p.dim + ch) * p.dstate;
+#pragma unroll
+      for (int k = 0; k < kMaxDstate; ++k) {
+        if (k < p.dstate) st[k] = h[k];
+      }
+      ++ck;
+      ck_step += p.chunk;
+    }
     const int t = p.reverse ? p.seqlen - 1 - i : i;
     const int64_t off = base + static_cast<int64_t>(t) * p.dim;
     const float uv = to_float(u[off]);
@@ -227,17 +250,18 @@ extern "C" {
 // Launches one direction on `stream`. dtype: 0 float32, 1 bfloat16 (u, dt,
 // z, B, C and out share it; A, D, bias, h0 and last are float32). B and C
 // are (batch, seqlen, ngroups, dstate) with dim divisible by ngroups. z, D,
-// bias, h0 and last may be null. Returns the cudaError_t of the launch (0
-// on success).
+// bias, h0, last and states may be null; with states, `chunk` >= 1 is the
+// number of walk steps between checkpoints. Returns the cudaError_t of the
+// launch (0 on success).
 int chunked_scan_fwd(int dtype, long long batch, int seqlen, int dim,
                      int dstate, int ngroups, int reverse, int softplus,
-                     const void* u, const void* dt, const void* z,
+                     int chunk, const void* u, const void* dt, const void* z,
                      const void* B, const void* C, const void* A,
                      const void* D, const void* bias, const void* h0,
-                     void* out, void* last, void* stream) {
+                     void* out, void* last, void* states, void* stream) {
   if (batch < 1 || seqlen < 1 || dim < 1 || dstate < 1 ||
       dstate > kMaxDstate || ngroups < 1 || dim % ngroups != 0 ||
-      (dtype != 0 && dtype != 1)) {
+      (dtype != 0 && dtype != 1) || (states && chunk < 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int device = 0, sms = 0;
@@ -274,6 +298,9 @@ int chunked_scan_fwd(int dtype, long long batch, int seqlen, int dim,
   p.h0 = static_cast<const float*>(h0);
   p.out = out;
   p.last = static_cast<float*>(last);
+  p.states = static_cast<float*>(states);
+  p.chunk = states ? chunk : 1;
+  p.nchunks = states ? (seqlen + chunk - 1) / chunk : 0;
   p.seqlen = seqlen;
   p.dim = dim;
   p.dstate = dstate;

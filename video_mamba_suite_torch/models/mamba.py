@@ -98,8 +98,8 @@ class MambaVim(nn.Module):
     length rounded up to 8 is at most 64 run both directions in one fused
     scan (kernel K1 on CUDA); longer ones run ``fwd`` causally and ``bwd``
     anti-causally (``reverse=True``, no flips), one chunked scan each
-    (kernel K3 on CUDA, forward only until its backward is ported). On
-    the CPU the same routing takes the plain versions.
+    (kernel K3 on CUDA, K4 in the backward). On the CPU the same routing
+    takes the plain versions.
     """
 
     def __init__(self, d_model: int, d_state: int = 16, expand: int = 2,

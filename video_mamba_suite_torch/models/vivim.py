@@ -105,6 +105,7 @@ class ViViM(nn.Module):
         device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
         self.num_frames = num_frames
+        self.depth = depth
         self.embed_dim = embed_dim
         self.drop_rate = drop_rate
         self.rms_norm = rms_norm

@@ -16,13 +16,20 @@ from .selective_scan_bidir import (
     selective_scan_bidir_bwd_ref,
     selective_scan_bidir_ref,
 )
-from .selective_scan_chunked import chunked_scan_fwd
+from .selective_scan_chunked import (
+    CHECKPOINT_STEPS,
+    chunked_scan_bwd,
+    chunked_scan_bwd_ref,
+    chunked_scan_fwd,
+    chunked_scan_states_ref,
+)
 
 __all__ = [
-    "LAUNCHES", "MASKED_DELTA", "SHORT_SEQ_MAX", "causal_conv1d",
-    "chunked_scan_fwd", "fused_add_norm", "layer_norm", "mamba_inner",
-    "mamba_inner_bidir", "reset_launches", "rms_norm", "selective_scan",
-    "selective_scan_bidir", "selective_scan_bidir_bwd",
-    "selective_scan_bidir_bwd_ref", "selective_scan_bidir_ref",
-    "selective_scan_ref",
+    "CHECKPOINT_STEPS", "LAUNCHES", "MASKED_DELTA", "SHORT_SEQ_MAX",
+    "causal_conv1d", "chunked_scan_bwd", "chunked_scan_bwd_ref",
+    "chunked_scan_fwd", "chunked_scan_states_ref", "fused_add_norm",
+    "layer_norm", "mamba_inner", "mamba_inner_bidir", "reset_launches",
+    "rms_norm", "selective_scan", "selective_scan_bidir",
+    "selective_scan_bidir_bwd", "selective_scan_bidir_bwd_ref",
+    "selective_scan_bidir_ref", "selective_scan_ref",
 ]

@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .selective_scan_chunked import ChunkedScan
+from .selective_scan_chunked import CHECKPOINT_STEPS, ChunkedScan
 
 
 def _flip(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -133,12 +133,18 @@ def selective_scan(
 
     CPU tensors take the plain version. CUDA tensors launch kernel K3
     (``chunked_scan_fwd``: float32 or bfloat16 I/O, fp32 A, D, bias and
-    states, dstate <= 16, contiguous) or raise; a backward through K3
-    raises until its adjoint is ported.
+    states, dstate <= 16, contiguous) or raise; a backward launches its
+    adjoint K4 (``chunked_scan_bwd``) with the cotangents of the output and
+    of the last state. K3 writes the checkpoints K4 needs only when grad
+    mode is on and an input requires a gradient.
     """
     if u.device.type == "cuda":
-        out, last = ChunkedScan.apply(u, delta, A, B, C, D, z, delta_bias,
-                                      initial_state, delta_softplus, reverse)
+        backward = torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (u, delta, A, B, C, D, z, delta_bias, initial_state))
+        out, last = ChunkedScan.apply(
+            u, delta, A, B, C, D, z, delta_bias, initial_state,
+            delta_softplus, reverse, CHECKPOINT_STEPS if backward else 0)
         return (out, last) if return_last_state else out
     if u.device.type == "cpu":
         return selective_scan_ref(

@@ -12,11 +12,15 @@ update:
   sgd    optax.chain(add_decayed_weights(wd), sgd(momentum))
          = torch.optim.SGD with momentum and weight_decay.
   grad_clip  optax.clip_by_global_norm, applied before the step.
+
+``chain_step`` is the recognition trainer's chain as one function, in the
+JAX order: clip by the global norm, scale each gradient by its layer-decay
+factor, then the optimizer's step (AdamW at the schedule's rate).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 import torch
 from torch import nn
@@ -50,10 +54,36 @@ def _clip_grad_norm(params, max_norm: float) -> None:
     if not grads:
         return
     norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+        torch.stack(torch._foreach_norm([g.float() for g in grads])))
     scale = torch.where(norm > max_norm, max_norm / norm, 1.0)
-    for g in grads:
-        g.mul_(scale.to(g.dtype))
+    torch._foreach_mul_(grads, scale.to(grads[0].dtype))
+
+
+def chain_step(optimizer: torch.optim.Optimizer,
+               named_params: Iterable, grad_scales: Dict[str, float],
+               max_norm: float) -> None:
+    """One update of the JAX recognition trainer's optax chain
+    ``chain(clip_by_global_norm(max_norm), scale_by_layer_decay,
+    adamw(schedule))``, in that order:
+
+      1. clip the gradients by their global norm ``max_norm``;
+      2. multiply each parameter's gradient by ``grad_scales[name]``, its
+         layer-decay factor. The JAX chain scales the gradients before
+         Adam, not the learning rate as upstream's per-group rates do, so
+         the factor acts mostly through Adam's eps; this is the rule kept
+         here;
+      3. ``optimizer.step()``: AdamW at each group's current rate, with
+         decoupled weight decay on the decayed group."""
+    named = [(n, p) for n, p in named_params if p.grad is not None]
+    _clip_grad_norm([p for _, p in named], max_norm)
+    by_scale: Dict[float, list] = {}
+    for name, p in named:
+        scale = grad_scales.get(name, 1.0)
+        if scale != 1.0:
+            by_scale.setdefault(scale, []).append(p.grad)
+    for scale, grads in by_scale.items():
+        torch._foreach_mul_(grads, scale)
+    optimizer.step()
 
 
 def make_optimizer(
