@@ -10,9 +10,9 @@ Phases, each of which fails the run:
   3. kernels: hold each kernel against its plain PyTorch version on the
      card, at the shape the main path gives it and at the other cases of
      its table (``K1_CASES``, ``K2_CASES``, ``K3_CASES`` with K3's
-     checkpoints, ``K4_CASES``, which tests/test_torch_kernels_cuda.py runs
-     too), and time kernel, plain version and the roofline bound (K3 also
-     with its checkpoint output).
+     checkpoints, ``K4_CASES``, ``K5_CASES``, which
+     tests/test_torch_kernels_cuda.py runs too), and time kernel, plain
+     version and the roofline bound (K3 also with its checkpoint output).
   4. inference: TimeMamba-B (batch 8, 16 frames, 224², bf16, random
      weights from a seed) through ``build_timemamba_b``; launch counts are
      zeroed just before and read just after (K1: 12 per forward). Then a
@@ -37,10 +37,20 @@ Phases, each of which fails the run:
      then 10 timed steps with exactly 48 K3 (writing checkpoints) and 48
      K4 launches each, no plain-version call and a finite loss; ms/step,
      clips/s, MFU, peak memory and a torch.profiler window of two steps.
-  8. card against CPU: one clip at full width in fp32 (TF32 off), the card
-     through the kernels against the CPU through the plain versions:
+  8. Mamba-130M serving: ``build_mamba_lm(configs.MAMBA_130M)`` (bf16,
+     random weights from a seed) answers requests through ``generate``:
+     batch 8, prompt 16, 128 new tokens, greedy; 2 warm-ups, 5 timed
+     requests with exactly 24 K5 launches each (the prefill, one per
+     layer), no K3 and no plain-version call; ms/request, tok/s, the
+     prefill's ms, a decode step's ms and its share of the HBM rate, peak
+     memory; a prefill at prompt 1024 launches exactly 24 K3 and no K5;
+     a torch.profiler window of one request.
+  9. card against CPU: full width in fp32 (TF32 off), the card through
+     the kernels against the CPU through the plain versions: one clip of
      TimeMamba-B's forward at depth 12 and gradients at depth 2, ViViM-T's
-     forward at its full depth 24 and its gradients at depth 2.
+     forward at its full depth 24 and its gradients at depth 2; Mamba-130M
+     at depth 24, batch 2: prefill logits and every layer's states at
+     prompt 16 (K5) and 80 (K3), then 8 decode steps' logits.
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 """
 
@@ -152,6 +162,42 @@ GRAD_DEPTH = 2
 # about ten times that
 CARD_CPU_VIVIM_REL_TOL = 1.1e-5
 FINETUNE_STEPS = 10              # timed ViViM-T finetune steps
+K5_SOURCE = "video_mamba_suite_torch/csrc/short_scan_fwd.cu"
+K5_REPLACES = "video_mamba_suite_tpu/ops/selective_scan_pallas.py:927"
+# K5 against its plain version: K3's options without h0 (K5 takes none).
+# The first is the Mamba-130M prefill at a 16-token prompt (one launch per
+# layer); adapter: the TimeMamba-B video-adapter shape the TPU kernel was
+# written for; ragged: 13 steps, 200 channels and 13 states; then the
+# limit of 64 steps, one step, reverse, grouped B/C (two groups of 48
+# channels, so a block's last warp is half idle), no D and no z, batch 1.
+# tests/test_torch_kernels_cuda.py runs the same cases.
+K5_CASES = [
+    ("lm", (8, 16, 1536, 16), "bfloat16", {}),
+    ("lm-fp32", (8, 16, 1536, 16), "float32", {}),
+    ("adapter", (1568, 16, 768, 16), "bfloat16", {}),
+    ("ragged", (3, 13, 200, 13), "float32", {}),
+    ("longest", (4, 64, 256, 16), "float32", {}),
+    ("one-step", (4, 1, 256, 16), "float32", {}),
+    ("reverse", (4, 40, 384, 16), "float32", {"reverse": True}),
+    ("grouped", (4, 32, 96, 16), "float32", {"groups": 2}),
+    ("no-Dz", (4, 24, 256, 16), "bfloat16", {"no_dz": True}),
+    ("batch1", (1, 16, 1536, 16), "bfloat16", {}),
+]
+# each output within atol · (its largest magnitude) + rtol · |value|: fp32
+# as the JAX kernel tests hold K5 (both walk the same <= 64 steps in fp32);
+# bf16 outputs one to two bf16 ulps apart (both round an fp32 result). The
+# fp32 last state is held at the fp32 tolerance in both cases: the inputs
+# are the same bf16 values and both compute in fp32.
+K5_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 16, 128   # bench.py's decode point
+LM_LONG_PROMPT = 1024            # a prompt that takes K3
+LM_REQUESTS = 5                  # timed generate requests
+# Mamba-130M at full width and depth, fp32, TF32 off, card against CPU,
+# each tensor's largest difference over its largest CPU magnitude (prefill
+# logits, every layer's states, decode logits): read at most 6.2e-6 on an
+# H100 80GB HBM3 (PERF.md), held at about ten times that
+CARD_CPU_LM_REL_TOL = 6e-5
+CARD_CPU_LM_STEPS = 8            # decode steps fed the same tokens
 # ViViM-T fp32 gradients at depth 2, batch 1 (K3 and K4 in the <= 4 form),
 # card against CPU, each parameter's largest difference over its largest
 # CPU gradient: read 3.5e-6 on an H100 80GB HBM3 (PERF.md), held at about
@@ -676,6 +722,110 @@ def check_k4():
 
 
 # ---------------------------------------------------------------------------
+# K5: short selective scan, one direction
+
+
+def k5_inputs(shape, dtype, seed, **opts):
+    """Seeded keyword arguments of ``short_scan_fwd`` at one of
+    ``K5_CASES`` (K3's inputs, no initial state)."""
+    args = k3_inputs(shape, dtype, seed, **opts)
+    del args["initial_state"]
+    return args
+
+
+def k5_check(label, shape, dtype, opts):
+    """Launch K5 once on the card at one of ``K5_CASES`` and hold its output
+    and last state against the plain version's. Returns (inputs, outputs,
+    max_abs_err); raises AssertionError on a miss."""
+    import torch
+    from video_mamba_suite_torch.ops import (
+        LAUNCHES,
+        short_scan_fwd,
+        short_scan_fwd_ref,
+    )
+
+    args = k5_inputs(shape, dtype, seed=sum(shape) + 3, **opts)
+    n0 = LAUNCHES["short_scan_fwd"]
+    got = short_scan_fwd(**args)
+    torch.cuda.synchronize()
+    if LAUNCHES["short_scan_fwd"] != n0 + 1:
+        raise AssertionError("K5's wrapper did not count its launch")
+    want = short_scan_fwd_ref(**args)
+    abs_err, worst, ok = 0.0, 0.0, True
+    for name, g, w, (atol, rtol) in zip(
+            ("out", "last state"), got, want,
+            (K5_TOL[dtype], K5_TOL["float32"])):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"K5 at {label}: {name} {g.dtype} "
+                                 f"{tuple(g.shape)}, want {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        d = (g.float() - w.float()).abs()
+        scale = w.float().abs().max().item()
+        bad = d > atol * scale + rtol * w.float().abs()
+        if bad.any() or not torch.isfinite(g).all():
+            ok = False
+            log(f"[k5] {label}: {name} misses at {int(bad.sum())} of "
+                f"{g.numel()} (max abs err {d.max().item():.3e}, scale "
+                f"{scale:.3e})")
+        abs_err = max(abs_err, d.max().item())
+        worst = max(worst, d.max().item() / max(scale, 1e-30))
+    log(f"[k5] {label} {shape} {dtype} {opts or ''}: max_abs_err "
+        f"{abs_err:.3e}, largest error over scale {worst:.3e} (tol atol "
+        f"{K5_TOL[dtype][0]}·scale, rtol {K5_TOL[dtype][1]}; last state "
+        f"as fp32) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"K5 disagrees with its plain version at "
+                             f"{label} {shape}")
+    return args, got, abs_err
+
+
+def k5_bound_ms(args, outs):
+    """Least time for the work and what sets it: each input read once and
+    each output written once over HBM, against 6 fp32 operations per state
+    update (the exponential counted as one)."""
+    import torch
+
+    tensors = [t for t in (*args.values(), *outs)
+               if isinstance(t, torch.Tensor)]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    batch, seqlen, dim = args["u"].shape
+    ops = 6.0 * batch * seqlen * dim * args["A"].shape[1]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    log(f"[k5] bound: {nbytes / 1e6:.3f} MB over 3.35 TB/s = "
+        f"{1e3 * t_bytes:.5f} ms; {ops / 1e9:.4f} GFLOP over 67 TFLOP/s = "
+        f"{1e3 * t_ops:.5f} ms")
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def check_k5():
+    """Every case of ``K5_CASES``, each with the kernel's time (back to
+    back between CUDA events, and its device time alone from the
+    profiler), the plain version's and the bound. Returns the main-path
+    case's (the first) numbers."""
+    from video_mamba_suite_torch.ops import short_scan_fwd, short_scan_fwd_ref
+
+    result = {}
+    for case in K5_CASES:
+        args, got, err = k5_check(*case)
+        ms = cuda_time_ms(lambda: short_scan_fwd(**args), iters=100)
+        device = profile("call", lambda: short_scan_fwd(**args), tag="k5",
+                         calls=20, top=0)
+        device_ms = sum(ms for key, ms in device.items()
+                        if "short_scan_fwd_kernel" in key)
+        plain_ms = cuda_time_ms(lambda: short_scan_fwd_ref(**args), iters=3,
+                                warmup=1)
+        bound_ms, bound_by = k5_bound_ms(args, got)
+        log(f"[k5] {case[0]}: kernel {ms:.5f} ms per call back to back "
+            f"({device_ms:.5f} ms of device time per launch), plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+        if not result:
+            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+    return result
+
+
+# ---------------------------------------------------------------------------
 # the main paths and the card-vs-CPU checks
 
 
@@ -724,10 +874,11 @@ def run_main_path():
         profile("fwd", lambda: model(x))
 
 
-def profile(what, fn, tag="profile"):
-    """Device time over two calls of ``fn``: the busy share, the kernels,
-    and the torch ops that launched them (each op's own kernels only, so
-    the op rows do not overlap)."""
+def profile(what, fn, tag="profile", calls=2, top=15):
+    """Device time over ``calls`` calls of ``fn``: the busy share, the
+    ``top`` kernels, and the torch ops that launched them (each op's own
+    kernels only, so the op rows do not overlap). Returns each kernel's
+    device ms per call, by name."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -735,7 +886,7 @@ def profile(what, fn, tag="profile"):
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch_profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(2):
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -749,12 +900,14 @@ def profile(what, fn, tag="profile"):
            if e.device_type == torch.autograd.DeviceType.CPU
            and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    log(f"[{tag}] 2 x {what}: wall {1e3 * wall:.2f} ms, device busy "
+    log(f"[{tag}] {calls} x {what}: wall {1e3 * wall:.2f} ms, device busy "
         f"{1e3 * busy:.2f} ms ({100 * busy / wall:.1f}%)")
     for kind, events in (("kernel", kernels), ("op", ops)):
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
-            log(f"[{tag}] {kind} {e.self_device_time_total / 2e3:9.3f} "
-                f"ms/{what} {e.count // 2:5d}x  {e.key[:100]}")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+            log(f"[{tag}] {kind} "
+                f"{e.self_device_time_total / (1e3 * calls):9.3f} "
+                f"ms/{what} {e.count // calls:5d}x  {e.key[:100]}")
+    return {e.key: e.self_device_time_total / (1e3 * calls) for e in kernels}
 
 
 def run_train_step():
@@ -888,9 +1041,11 @@ def count_plain_calls():
         "video_mamba_suite_torch.ops.selective_scan_bidir")
     sc = importlib.import_module(
         "video_mamba_suite_torch.ops.selective_scan_chunked")
+    sh = importlib.import_module(
+        "video_mamba_suite_torch.ops.selective_scan_short")
     calls = collections.Counter()
     patched = [(ss, "selective_scan_ref"), (sb, "selective_scan_bidir_ref"),
-               (sc, "chunked_scan_bwd_ref")]
+               (sc, "chunked_scan_bwd_ref"), (sh, "short_scan_fwd_ref")]
     originals = [getattr(mod, name) for mod, name in patched]
 
     def counting(name, fn):
@@ -1214,6 +1369,184 @@ def card_against_cpu_vivim():
         raise AssertionError("card and CPU ViViM-T forwards disagree")
 
 
+def lm_prompt(model, batch, length, seed, device="cuda"):
+    """Random prompt ids (batch, length) below the model's vocabulary."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(model.vocab_size, (batch, length), device=device,
+                         generator=g)
+
+
+def run_lm_serving():
+    """This slice's main path: Mamba-130M serving through ``generate``
+    (batch 8, prompt 16, 128 new tokens, greedy, bf16 weights): the
+    batched prefill runs K5 in every layer, the decode steps plain torch."""
+    import torch
+    from video_mamba_suite_torch import (
+        GenerationConfig,
+        build_mamba_lm,
+        generate,
+    )
+    from video_mamba_suite_torch.configs import MAMBA_130M
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+
+    t0 = time.perf_counter()
+    model = build_mamba_lm(MAMBA_130M, dtype=torch.bfloat16, seed=0)
+    n_layer = model.n_layer
+    log(f"[lm] Mamba-130M built in {time.perf_counter() - t0:.1f} s: "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M "
+        f"parameters, {n_layer} layers, vocabulary {model.padded_vocab}, "
+        f"bf16")
+    ids = lm_prompt(model, LM_BATCH, LM_PROMPT, seed=9)
+    config = GenerationConfig(max_length=LM_PROMPT + LM_NEW)
+
+    def request():
+        out = generate(model, ids, config)
+        torch.cuda.synchronize()      # a request ends with its tokens
+        return out
+
+    first = request()                                     # warm-up
+    request()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times = []
+    with count_plain_calls() as plain, count_checkpoint_writes() as ck:
+        for _ in range(LM_REQUESTS):
+            t0 = time.perf_counter()
+            out = request()
+            times.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    plain.update(ck)
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(out.shape) != (LM_BATCH, LM_PROMPT + LM_NEW) or \
+            not torch.equal(out[:, :LM_PROMPT], ids) or \
+            not torch.equal(out, first) or \
+            not ((out >= 0) & (out < model.padded_vocab)).all():
+        raise AssertionError(f"bad generated ids: shape {tuple(out.shape)}, "
+                             f"the same as the warm-up's: "
+                             f"{torch.equal(out, first)}")
+    want = {"short_scan_fwd": n_layer * LM_REQUESTS}
+    if launches != want or sum(plain.values()):
+        raise AssertionError(f"Mamba-130M serving launched {launches} (want "
+                             f"{want}) and called plain versions "
+                             f"{dict(plain)}")
+    times.sort()
+    median = statistics.median(times)
+
+    with torch.inference_mode():
+        logits, states = model.prefill(ids)
+        if not torch.isfinite(logits).all():
+            raise AssertionError("non-finite prefill logits")
+        prefill_ms = statistics.median(
+            cuda_time_ms(lambda: model.prefill(ids), iters=5, warmup=1)
+            for _ in range(3))
+        token = logits.argmax(-1)
+
+        def steps(n=20):
+            nonlocal token, states
+            for _ in range(n):
+                logits, states = model.step(token, states)
+                token = logits.argmax(-1)
+
+        step_ms = cuda_time_ms(steps, iters=3, warmup=1) / 20
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    state_bytes = sum(t.numel() * t.element_size() for st in states
+                      for t in st)
+    step_bytes = weight_bytes + 2 * state_bytes   # states read and written
+    share = step_bytes / HBM_BYTES_PER_S / (step_ms / 1e3)
+    log(f"[lm] {LM_REQUESTS} requests of {LM_BATCH} x ({LM_PROMPT} prompt "
+        f"+ {LM_NEW} new) tokens, greedy: median {1e3 * median:.2f} "
+        f"ms/request (min {1e3 * times[0]:.2f}, max {1e3 * times[-1]:.2f}); "
+        f"{LM_BATCH * LM_NEW / median:.1f} generated tok/s, "
+        f"{LM_BATCH * (LM_PROMPT + LM_NEW) / median:.1f} tok/s as bench.py "
+        f"counts (prompt + generated); prefill {prefill_ms:.3f} ms, decode "
+        f"step {step_ms:.3f} ms; a step moves {step_bytes / 1e6:.1f} MB "
+        f"(bf16 weights {weight_bytes / 1e6:.1f} MB + states read and "
+        f"written), {100 * share:.2f}% of 3.35 TB/s; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches}, plain-version calls "
+        f"{dict(plain)}")
+
+    long_ids = lm_prompt(model, LM_BATCH, LM_LONG_PROMPT, seed=10)
+    reset_launches()
+    with count_plain_calls() as plain, count_checkpoint_writes() as ck, \
+            torch.inference_mode():
+        logits, _ = model.prefill(long_ids)
+        torch.cuda.synchronize()
+    long_launches = dict(LAUNCHES)
+    plain.update(ck)
+    log(f"[lm] prefill at prompt {LM_LONG_PROMPT}: launches "
+        f"{long_launches}, plain-version calls and checkpoint writes "
+        f"{dict(plain)}")
+    if long_launches != {"chunked_scan_fwd": n_layer} or \
+            sum(plain.values()) or not torch.isfinite(logits).all():
+        raise AssertionError(f"the prompt of {LM_LONG_PROMPT} launched "
+                             f"{long_launches} (want {n_layer} K3 and no K5)")
+    with torch.inference_mode():
+        profile("request", request, tag="profile-lm", calls=1)
+    return launches
+
+
+def card_against_cpu_lm():
+    """Mamba-130M at full width and depth, fp32, TF32 off, batch 2: the
+    card through K5 (prompt 16) and K3 (prompt 80) against the CPU through
+    the plain versions; the prefill logits, every layer's (conv_state,
+    ssm_state), then the logits of decode steps fed the same tokens."""
+    import torch
+    from video_mamba_suite_torch import build_mamba_lm
+    from video_mamba_suite_torch.configs import MAMBA_130M
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+
+    set_tf32(False)
+    cpu = build_mamba_lm(MAMBA_130M, device="cpu", seed=1)
+    card = copy.deepcopy(cpu).to("cuda")
+    t0 = time.perf_counter()
+
+    def rel(got, want):
+        return ((got.cpu() - want).abs().max()
+                / want.abs().max().clamp_min(1e-30)).item()
+
+    worst = {}
+    for prompt, kernel in ((LM_PROMPT, "short_scan_fwd"),
+                           (80, "chunked_scan_fwd")):
+        ids = lm_prompt(cpu, 2, prompt, seed=prompt, device="cpu")
+        feed = lm_prompt(cpu, 2, CARD_CPU_LM_STEPS, seed=prompt + 1,
+                         device="cpu")
+        reset_launches()
+        with torch.inference_mode():
+            want, want_states = cpu.prefill(ids)
+            got, states = card.prefill(ids.cuda())
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+            errs = {"prefill logits": rel(got, want)}
+            errs["conv states"] = max(rel(g[0], w[0]) for g, w in
+                                      zip(states, want_states))
+            errs["ssm states"] = max(rel(g[1], w[1]) for g, w in
+                                     zip(states, want_states))
+            step_err = 0.0
+            for t in range(CARD_CPU_LM_STEPS):
+                want, want_states = cpu.step(feed[:, t], want_states)
+                got, states = card.step(feed[:, t].cuda(), states)
+                step_err = max(step_err, rel(got, want))
+            errs["decode logits"] = step_err
+        log(f"[card-vs-cpu] Mamba-130M fp32, depth {cpu.n_layer}, batch 2, "
+            f"TF32 off, prompt {prompt} ({kernel}): largest difference "
+            f"over each tensor's scale: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" ({CARD_CPU_LM_STEPS} decode steps; tol "
+            f"{CARD_CPU_LM_REL_TOL}); card launches {launches}")
+        if launches != {kernel: cpu.n_layer}:
+            raise AssertionError(f"the card's prefill at {prompt} launched "
+                                 f"{launches}")
+        for k, v in errs.items():
+            worst[f"{k} at {prompt}"] = v
+    log(f"[card-vs-cpu] Mamba-130M done in {time.perf_counter() - t0:.1f} s")
+    if not all(math.isfinite(v) and v <= CARD_CPU_LM_REL_TOL
+               for v in worst.values()):
+        raise AssertionError(f"card and CPU Mamba-130M disagree: {worst}")
+
+
 def main() -> int:
     import torch
 
@@ -1240,14 +1573,17 @@ def main() -> int:
     k2 = check_k2()
     k3 = check_k3()
     k4 = check_k4()
+    k5 = check_k5()
     run_main_path()
     launches = run_train_step()
     launches.update(run_vivim_serving())
     launches.update(run_vivim_finetune())
+    launches.update(run_lm_serving())
     card_against_cpu()
     card_against_cpu_grads()
     card_against_cpu_vivim()
     card_against_cpu_vivim_grads()
+    card_against_cpu_lm()
 
     kernels = [dict(
         name=name, route="cuda", source=source, replaces=replaces,
@@ -1258,7 +1594,8 @@ def main() -> int:
             ("short_bidir_fwd", K1_SOURCE, K1_REPLACES, k1),
             ("short_bidir_bwd", K2_SOURCE, K2_REPLACES, k2),
             ("chunked_scan_fwd", K3_SOURCE, K3_REPLACES, k3),
-            ("chunked_scan_bwd", K4_SOURCE, K4_REPLACES, k4))]
+            ("chunked_scan_bwd", K4_SOURCE, K4_REPLACES, k4),
+            ("short_scan_fwd", K5_SOURCE, K5_REPLACES, k5))]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,7 @@ JAX package, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
 """
 
+import contextlib
 import copy
 import importlib
 
@@ -14,7 +15,11 @@ import pytest
 import torch
 
 import chip_smoke
-from video_mamba_suite_torch.models import MambaScanNorm, MambaVim
+from video_mamba_suite_torch.models import (
+    MambaLMHeadModel,
+    MambaScanNorm,
+    MambaVim,
+)
 from video_mamba_suite_torch.ops import (
     LAUNCHES,
     chunked_scan_bwd,
@@ -22,6 +27,7 @@ from video_mamba_suite_torch.ops import (
     selective_scan,
     selective_scan_bidir,
     selective_scan_bidir_bwd,
+    short_scan_fwd,
 )
 
 # the module, which the package's names of its functions shadow
@@ -262,3 +268,115 @@ def test_long_sequence_mixer_on_card_runs_k3(cuda_device, cls):
         assert grown == {kernel: 2 if kernel == "chunked_scan_fwd" else 1}
         err = (got.cpu() - want).abs().max() / want.abs().max()
         assert err < 1e-5, err
+
+
+def _grown(before):
+    return {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+            if v != before.get(k, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,shape,dtype,opts", chip_smoke.K5_CASES,
+                         ids=[case[0] for case in chip_smoke.K5_CASES])
+def test_k5_matches_plain_version(cuda_device, label, shape, dtype, opts):
+    """The cases and tolerances of chip_smoke.py's K5 phase."""
+    chip_smoke.k5_check(label, shape, dtype, opts)
+
+
+@pytest.mark.cuda
+def test_k5_rejects_what_it_does_not_take(cuda_device):
+    def args(shape=(2, 16, 8, 4), dtype="float32", **kw):
+        return chip_smoke.k5_inputs(shape, dtype, 0, **kw)
+
+    a = args()
+    a["A"] = a["A"].to(torch.complex64)
+    with pytest.raises(TypeError, match="complex"):
+        short_scan_fwd(**a)
+    with pytest.raises(ValueError, match="dstate 17"):
+        short_scan_fwd(**args((2, 16, 8, 17)))
+    with pytest.raises(ValueError, match="seqlen 65"):
+        short_scan_fwd(**args((2, 65, 8, 4)))
+    a = args()
+    a["z"] = a["z"].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="z must be contiguous"):
+        short_scan_fwd(**a)
+    a = args()
+    a["C"] = a["C"].to(torch.bfloat16)
+    with pytest.raises(TypeError, match="C must be torch.float32"):
+        short_scan_fwd(**a)
+    a = args()
+    a["B"] = a["B"][:, :8].contiguous()
+    with pytest.raises(ValueError, match="B and C must"):
+        short_scan_fwd(**a)
+    a = args()
+    a["delta_bias"] = a["delta_bias"].cpu()
+    with pytest.raises(ValueError, match="is on"):
+        short_scan_fwd(**a)
+    with pytest.raises(ValueError, match="launches a CUDA kernel"):
+        short_scan_fwd(**{k: v.cpu() if isinstance(v, torch.Tensor) else v
+                          for k, v in args().items()})
+    with pytest.raises(ValueError, match="initial_state"):
+        short_scan_fwd(**args(), initial_state=torch.zeros(
+            2, 8, 4, device="cuda"))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        short_scan_fwd(**args(dtype="float16"))
+
+
+@pytest.mark.cuda
+def test_short_scan_route_on_card(cuda_device):
+    """selective_scan launches K5 for a short scan with no backward to
+    follow (under inference_mode, no_grad, or with no input that needs a
+    gradient), and the chunked scan for 65 steps, for an initial state,
+    and for a short scan with a backward ahead (K3 with checkpoints, then
+    K4). K5's output and last state are K3's."""
+    a = chip_smoke.k3_inputs((3, 64, 32, 16), "float32", 0, h0=True)
+    h0 = a.pop("initial_state")
+    for mode in (torch.inference_mode, torch.no_grad, contextlib.nullcontext):
+        before = dict(LAUNCHES)
+        with mode():
+            out, last = selective_scan(**a, return_last_state=True)
+        assert _grown(before) == {"short_scan_fwd": 1}, mode
+    want, want_last = chunked_scan_fwd(**a)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(last, want_last, atol=2e-5, rtol=2e-5)
+    before = dict(LAUNCHES)
+    with torch.no_grad():
+        selective_scan(**a, initial_state=h0)
+        b = chip_smoke.k3_inputs((3, 65, 32, 16), "float32", 0)
+        selective_scan(**b)
+    assert _grown(before) == {"chunked_scan_fwd": 2}
+    a["u"].requires_grad_()
+    before = dict(LAUNCHES)
+    selective_scan(**a).sum().backward()
+    assert _grown(before) == {"chunked_scan_fwd": 1, "chunked_scan_bwd": 1}
+    assert a["u"].grad is not None
+
+
+@pytest.mark.cuda
+def test_small_lm_on_card_matches_cpu(cuda_device):
+    """A small Mamba LM (d_model 64, 2 layers) on the card against the CPU:
+    the prefill through K5 (prompt 16) and K3 (prompt 80), every layer's
+    state, and three decode steps."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = MambaLMHeadModel(64, 2, 50, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to("cuda")
+    for prompt, kernel in ((16, "short_scan_fwd"), (80, "chunked_scan_fwd")):
+        ids = torch.randint(50, (3, prompt),
+                            generator=torch.Generator().manual_seed(prompt))
+        before = dict(LAUNCHES)
+        with torch.inference_mode():
+            got, states = card.prefill(ids.cuda())
+            torch.cuda.synchronize()
+            assert _grown(before) == {kernel: 2}
+            want, want_states = cpu.prefill(ids)
+            pairs = [(got, want)] + [
+                (g, w) for s, ws in zip(states, want_states)
+                for g, w in zip(s, ws)]
+            for t in range(3):
+                got, states = card.step(ids[:, t].cuda(), states)
+                want, want_states = cpu.step(ids[:, t], want_states)
+                pairs.append((got, want))
+        for g, w in pairs:
+            err = (g.cpu() - w).abs().max() / w.abs().max()
+            assert err < 1e-5, (prompt, err)

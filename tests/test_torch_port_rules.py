@@ -32,10 +32,24 @@ def test_port_imports_no_jax():
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default build succeeds")
-    from video_mamba_suite_torch import MambaVim, TimeMamba, build_timemamba_b
+    from video_mamba_suite_torch import (
+        MambaVim,
+        TimeMamba,
+        build_mamba_lm,
+        build_timemamba_b,
+        from_pretrained,
+    )
+    from video_mamba_suite_torch.configs import MAMBA_130M
+    from video_mamba_suite_torch.models import MambaCausal
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_timemamba_b(depth=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_mamba_lm(dict(MAMBA_130M, n_layer=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        from_pretrained("a-checkpoint-directory")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MambaCausal(d_model=16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TimeMamba(img_size=32, embed_dim=32, depth=1, num_heads=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1,0 +1,129 @@
+"""The port's short one-direction scan (kernel K5's plain version and the
+front end's route to it) against the JAX package's.
+
+``selective_scan_pallas(..., interpret=True)`` runs the JAX package's K5
+body (``_short_fwd_kernel``, reached through ``_short_core``) in Pallas
+interpret mode at lengths up to 64 with no initial state; the port's
+``short_scan_fwd_ref`` and the CPU ``selective_scan`` get the same numpy
+inputs. The CUDA kernel itself is held against the plain version in
+``test_torch_kernels_cuda.py``.
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from video_mamba_suite_torch.ops import (
+    LAUNCHES,
+    SHORT_SEQ_MAX,
+    selective_scan,
+    short_scan_fwd,
+    short_scan_fwd_ref,
+    use_short_scan,
+)
+
+# the module (the JAX package's ops names its function the same)
+jax_pallas = importlib.import_module(
+    "video_mamba_suite_tpu.ops.selective_scan_pallas")
+
+# each output within atol + rtol · |value| of the JAX kernel's. fp32: both
+# walk the same steps in fp32. bf16: the inputs are the same bf16 values
+# and both compute in fp32, so the output is at most a bf16 ulp or two
+# apart (each rounds its own fp32 result) and the fp32 last state is held
+# as in fp32.
+TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
+       "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+STATE_TOL = TOL["float32"]
+
+
+def _inputs(seed, b, l, d, n, groups, dtype, has_dz):
+    rng = np.random.default_rng(seed)
+    bc = (b, l, groups, n) if groups else (b, l, n)
+    io = dict(
+        u=rng.standard_normal((b, l, d)),
+        delta=0.5 * rng.random((b, l, d)) - 0.25,
+        B=rng.standard_normal(bc), C=rng.standard_normal(bc),
+        z=rng.standard_normal((b, l, d)))
+    f32 = dict(A=-rng.random((d, n)) - 0.1, D=rng.standard_normal(d),
+               delta_bias=0.5 * rng.random(d))
+    if not has_dz:
+        io.pop("z"), f32.pop("D")
+    jax_args = {k: jnp.asarray(v, jnp.float32).astype(dtype)
+                for k, v in io.items()}
+    jax_args.update({k: jnp.asarray(v, jnp.float32)
+                     for k, v in f32.items()})
+    torch_dtype = getattr(torch, dtype)
+    torch_args = {k: torch.from_numpy(np.array(v.astype(jnp.float32)))
+                  .to(torch_dtype if k in io else torch.float32)
+                  for k, v in jax_args.items()}
+    return jax_args, torch_args
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+# seqlen 1, 13, 16 and 64; fp32 and bf16; with and without D and z;
+# causal and reverse; shared and grouped (G = 2) B/C
+@pytest.mark.parametrize("batch,seqlen,dim,dstate,groups,dtype,has_dz,"
+                         "reverse", [
+                             (3, 1, 16, 4, 0, "float32", True, False),
+                             (2, 13, 24, 4, 0, "bfloat16", False, True),
+                             (5, 16, 16, 8, 2, "float32", True, True),
+                             (2, 16, 32, 4, 2, "bfloat16", True, False),
+                             (2, 64, 16, 16, 0, "float32", True, False),
+                         ])
+def test_short_scan_matches_jax_short_kernel(batch, seqlen, dim, dstate,
+                                             groups, dtype, has_dz, reverse):
+    assert use_short_scan(seqlen)          # the JAX call takes _short_core
+    jax_args, args = _inputs(seqlen + dim + groups, batch, seqlen, dim,
+                             dstate, groups, dtype, has_dz)
+    want, want_last = jax_pallas.selective_scan_pallas(
+        **jax_args, delta_softplus=True, return_last_state=True,
+        interpret=True, reverse=reverse)
+    before = dict(LAUNCHES)
+    got, got_last = short_scan_fwd_ref(**args, delta_softplus=True,
+                                       reverse=reverse)
+    front, front_last = selective_scan(**args, delta_softplus=True,
+                                       return_last_state=True,
+                                       reverse=reverse)
+    assert dict(LAUNCHES) == before        # the CPU runs no kernel
+    assert got.dtype == getattr(torch, dtype) and got.shape == args[
+        "u"].shape
+    assert got_last.dtype == torch.float32 and \
+        got_last.shape == (batch, dim, dstate)
+    for out, last in ((got, got_last), (front, front_last)):
+        np.testing.assert_allclose(_np(out), _np(want), **TOL[dtype])
+        np.testing.assert_allclose(_np(last), _np(want_last), **STATE_TOL)
+
+
+def test_short_rule_is_the_jax_rule():
+    """The same constant, and lengths rounded up to 8 as the JAX package
+    rounds them: 57..64 take the short kernel, 65 does not."""
+    assert SHORT_SEQ_MAX == jax_pallas.SHORT_SEQ_MAX
+    for seqlen in (1, 13, 57, 64, 65, 72):
+        want = jax_pallas._round_up(seqlen, 8) <= jax_pallas.SHORT_SEQ_MAX
+        assert use_short_scan(seqlen) == want, seqlen
+        assert not use_short_scan(seqlen, torch.zeros(1, 1, 1))
+
+
+# lengths 64 and 65, with and without an initial state, with and without a
+# backward to follow: only the first goes to K5 on the card
+@pytest.mark.parametrize("seqlen", [64, 65])
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("backward", [False, True])
+def test_route_on_the_card(seqlen, h0, backward):
+    initial_state = torch.zeros(2, 8, 4) if h0 else None
+    want = seqlen == 64 and not h0 and not backward
+    assert use_short_scan(seqlen, initial_state, backward) == want
+
+
+def test_short_scan_fwd_launches_only_on_cuda():
+    _, args = _inputs(0, 2, 8, 8, 4, 0, "float32", True)
+    with pytest.raises(ValueError, match="launches a CUDA kernel"):
+        short_scan_fwd(**args)

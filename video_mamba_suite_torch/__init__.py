@@ -8,11 +8,16 @@ Entry points build on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from .models import (
+    GenerationConfig,
+    MambaLMHeadModel,
     MambaVim,
     TimeMamba,
     ViViM,
+    build_mamba_lm,
     build_timemamba_b,
     build_vivim_tiny_k400,
+    from_pretrained,
+    generate,
 )
 from .tasks.recognition import (
     RecognitionTrainer,
@@ -23,7 +28,8 @@ from .tasks.recognition import (
 from .train import train_step
 from .utils import make_optimizer
 
-__all__ = ["MambaVim", "RecognitionTrainer", "TimeMamba", "ViViM",
+__all__ = ["GenerationConfig", "MambaLMHeadModel", "MambaVim",
+           "RecognitionTrainer", "TimeMamba", "ViViM", "build_mamba_lm",
            "build_timemamba_b", "build_vivim_k400_trainer",
-           "build_vivim_tiny_k400", "evaluate", "make_optimizer", "predict",
-           "train_step"]
+           "build_vivim_tiny_k400", "evaluate", "from_pretrained",
+           "generate", "make_optimizer", "predict", "train_step"]

@@ -27,3 +27,13 @@ VIVIM_T_K400_FINETUNE = dict(
 )
 # ViViM-S (``recognition_k400_vivim_small``): width 384.
 VIVIM_S_K400 = dict(VIVIM_T_K400, embed_dim=384)
+
+# Mamba-130M language model: the published widths of state-spaces/mamba-130m
+# (its config.json): d_model 768, 24 layers, vocabulary 50277 padded to a
+# multiple of 8, ssm_cfg {} (d_state 16, d_conv 4, expand 2), RMSNorm, the
+# residual stream in fp32. ``fused_add_norm`` picks upstream's fused kernel
+# for the same arithmetic; the port always adds and norms in one step.
+MAMBA_130M = dict(
+    d_model=768, n_layer=24, vocab_size=50277, ssm_cfg={}, rms_norm=True,
+    residual_in_fp32=True, fused_add_norm=True, pad_vocab_size_multiple=8,
+)

@@ -1,8 +1,17 @@
 """Models of the PyTorch port."""
 
-from .common import Dense, FusedMHA, LayerNorm, PatchifyConv
-from .convert import timemamba_from_jax, vim_mixer_from_jax, vivim_from_jax
-from .mamba import MambaScanNorm, MambaVim
+from .common import Dense, Embedding, FusedMHA, LayerNorm, PatchifyConv
+from .convert import (
+    causal_mixer_from_jax,
+    mamba_lm_from_jax,
+    timemamba_from_jax,
+    vim_mixer_from_jax,
+    vivim_from_jax,
+)
+from .generation import GenerationConfig, generate, sample_logits
+from .hf import from_pretrained, mamba_lm_from_state_dict
+from .mamba import Block, MambaCausal, MambaScanNorm, MambaVim, make_block
+from .mixer_seq import MambaLMHeadModel, MixerModel, build_mamba_lm
 from .timemamba import Mlp, SpaceTimeBlock, TimeMamba, build_timemamba_b
 from .vivim import (
     PatchEmbed,
@@ -13,8 +22,12 @@ from .vivim import (
 )
 
 __all__ = [
-    "Dense", "FusedMHA", "LayerNorm", "MambaScanNorm", "MambaVim", "Mlp",
-    "PatchEmbed", "PatchifyConv", "SpaceTimeBlock", "TimeMamba", "ViViM",
-    "build_timemamba_b", "build_vivim_tiny_k400", "timemamba_from_jax",
-    "vim_mixer_from_jax", "vivim_from_jax", "vivim_small", "vivim_tiny",
+    "Block", "Dense", "Embedding", "FusedMHA", "GenerationConfig", "LayerNorm",
+    "MambaCausal", "MambaLMHeadModel", "MambaScanNorm", "MambaVim",
+    "MixerModel", "Mlp", "PatchEmbed", "PatchifyConv", "SpaceTimeBlock",
+    "TimeMamba", "ViViM", "build_mamba_lm", "build_timemamba_b",
+    "build_vivim_tiny_k400", "causal_mixer_from_jax", "from_pretrained",
+    "generate", "make_block", "mamba_lm_from_jax", "mamba_lm_from_state_dict",
+    "sample_logits", "timemamba_from_jax", "vim_mixer_from_jax",
+    "vivim_from_jax", "vivim_small", "vivim_tiny",
 ]

@@ -1,6 +1,6 @@
-"""Building blocks of the vision towers (counterparts of the JAX package's
-``models/common.py``: ``make_dense``, ``PatchifyConv``, ``FusedMHA``, and
-flax's ``nn.LayerNorm``).
+"""Building blocks of the towers and the LM (counterparts of the JAX
+package's ``models/common.py``: ``make_dense``, ``PatchifyConv``,
+``FusedMHA``, ``W8Embed``, and flax's ``nn.LayerNorm``).
 
 Every block follows the JAX package's dtype policy: parameters stay fp32
 and ``dtype`` is the compute dtype (None promotes the input with the
@@ -112,6 +112,22 @@ class Dense(nn.Module):
         dt = _compute_dtype(self.dtype, x, self.weight)
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class Embedding(nn.Module):
+    """Token embedding (the JAX ``W8Embed`` without its int8 ``qscale``
+    table, i.e. flax ``nn.Embed``): ``weight`` (num_embeddings, features)
+    drawn from N(0, ``init_std``²); the lookup returns rows in the
+    table's dtype."""
+
+    def __init__(self, num_embeddings: int, features: int, *,
+                 generator: torch.Generator, init_std: float = 0.02):
+        super().__init__()
+        self.weight = nn.Parameter(init_std * torch.randn(
+            num_embeddings, features, generator=generator))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.weight)
 
 
 class LayerNorm(nn.Module):

@@ -55,6 +55,41 @@ def vim_mixer_from_jax(params: Dict[str, Any], prefix: str = ""
     return out
 
 
+def causal_mixer_from_jax(params: Dict[str, Any], prefix: str = ""
+                          ) -> Dict[str, torch.Tensor]:
+    """A JAX ``MambaCausal`` tree {in_proj, fwd, out_proj} → the port's
+    ``MambaCausal`` state_dict (keys under ``prefix``)."""
+    params = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    _dense(params["in_proj"], prefix + "in_proj.", out)
+    _scan_params(params["fwd"], prefix + "fwd.", out)
+    _dense(params["out_proj"], prefix + "out_proj.", out)
+    return out
+
+
+def mamba_lm_from_jax(params: Dict[str, Any], n_layer: int
+                      ) -> Dict[str, torch.Tensor]:
+    """A JAX ``MambaLMHeadModel`` tree {backbone: {embedding: {embedding},
+    layers_i: {norm_w, mixer: {in_proj, fwd, out_proj}}, norm_f_w}} → the
+    port's ``MambaLMHeadModel`` state_dict (the head is tied to the
+    embedding)."""
+    params = params.get("params", params)
+    tree = params["backbone"]
+    out: Dict[str, torch.Tensor] = {
+        "backbone.embedding.weight": _tensor(
+            tree["embedding"]["embedding"])}
+    for i in range(n_layer):
+        layer, prefix = tree[f"layers_{i}"], f"backbone.layers.{i}."
+        out[prefix + "norm_w"] = _tensor(layer["norm_w"])
+        if "norm_b" in layer:
+            out[prefix + "norm_b"] = _tensor(layer["norm_b"])
+        out.update(causal_mixer_from_jax(layer["mixer"], prefix + "mixer."))
+    for name in ("norm_f_w", "norm_f_b"):
+        if name in tree:
+            out["backbone." + name] = _tensor(tree[name])
+    return out
+
+
 def _block(tree, prefix, out):
     for norm in ("norm1", "norm2", "norm3"):
         _layernorm(tree[norm], f"{prefix}{norm}.", out)

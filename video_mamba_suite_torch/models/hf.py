@@ -1,0 +1,111 @@
+"""Loading an upstream ``state-spaces/mamba-*`` checkpoint into the port's
+``MambaLMHeadModel`` (counterpart of the JAX package's ``models/hf.py``
+``from_pretrained`` with ``models/convert.py`` ``convert_mamba_lm``).
+
+Only local files are read: a directory holding ``config.json`` and
+``pytorch_model.bin`` (or ``model.pt`` / ``checkpoint.pt``), or a bare
+checkpoint file with its config passed as a dict. The hub route is not
+ported (no network); a name that is not a local path raises
+``FileNotFoundError``, as the JAX loader does offline.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Optional
+
+import torch
+
+from .common import resolve_device
+from .mixer_seq import MambaLMHeadModel, build_mamba_lm
+
+_CONFIG_NAME = "config.json"
+_WEIGHTS_NAMES = ("pytorch_model.bin", "model.pt", "checkpoint.pt")
+
+
+def load_config(path: str) -> Dict[str, Any]:
+    """``config.json`` of a local checkpoint directory."""
+    name = os.path.join(path, _CONFIG_NAME)
+    if not os.path.isfile(name):
+        raise FileNotFoundError(f"no {_CONFIG_NAME} for {path!r} (only "
+                                "local directories are read)")
+    with open(name) as f:
+        return json.load(f)
+
+
+def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The state_dict of a checkpoint file, or of the first weights file
+    in a local directory, loaded on the CPU with ``weights_only=True``
+    (unwrapped from a ``state_dict``, ``model`` or ``module`` entry)."""
+    if os.path.isdir(path):
+        found = [os.path.join(path, n) for n in _WEIGHTS_NAMES
+                 if os.path.isfile(os.path.join(path, n))]
+        if not found:
+            raise FileNotFoundError(f"no weights file for {path!r}")
+        path = found[0]
+    elif not os.path.isfile(path):
+        raise FileNotFoundError(f"{path!r} is not a local file or "
+                                "directory (the hub is not read)")
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("state_dict", "model", "module"):
+        if isinstance(ckpt, dict) and key in ckpt:
+            ckpt = ckpt[key]
+    return ckpt
+
+
+def mamba_lm_from_state_dict(sd: Dict[str, torch.Tensor], n_layer: int
+                             ) -> Dict[str, torch.Tensor]:
+    """An upstream ``MambaLMHeadModel`` state_dict
+    (``backbone.layers.{i}.mixer.conv1d.weight`` (d_inner, 1, W), ...) →
+    the port's state_dict. Linear weights keep torch's (out, in) layout;
+    the conv taps become (W, d_inner); ``lm_head.weight`` is tied to the
+    embedding and dropped."""
+    def get(name):
+        return sd[name].detach().float()
+
+    out = {"backbone.embedding.weight": get("backbone.embedding.weight"),
+           "backbone.norm_f_w": get("backbone.norm_f.weight")}
+    if "backbone.norm_f.bias" in sd:
+        out["backbone.norm_f_b"] = get("backbone.norm_f.bias")
+    for i in range(n_layer):
+        src, dst = f"backbone.layers.{i}.", f"backbone.layers.{i}."
+        out[dst + "norm_w"] = get(src + "norm.weight")
+        if src + "norm.bias" in sd:
+            out[dst + "norm_b"] = get(src + "norm.bias")
+        m, p = src + "mixer.", dst + "mixer."
+        out[p + "in_proj.weight"] = get(m + "in_proj.weight")
+        out[p + "out_proj.weight"] = get(m + "out_proj.weight")
+        for name in ("in_proj", "out_proj"):
+            if f"{m}{name}.bias" in sd:
+                out[f"{p}{name}.bias"] = get(f"{m}{name}.bias")
+        out[p + "fwd.conv_w"] = get(m + "conv1d.weight")[:, 0, :].t(
+            ).contiguous()
+        if m + "conv1d.bias" in sd:
+            out[p + "fwd.conv_bias"] = get(m + "conv1d.bias")
+        out[p + "fwd.x_proj"] = get(m + "x_proj.weight")
+        out[p + "fwd.dt_proj"] = get(m + "dt_proj.weight")
+        out[p + "fwd.dt_bias"] = get(m + "dt_proj.bias")
+        out[p + "fwd.A_log"] = get(m + "A_log")
+        out[p + "fwd.D"] = get(m + "D")
+    return out
+
+
+def from_pretrained(path: str, config: Optional[Dict[str, Any]] = None,
+                    device="cuda") -> MambaLMHeadModel:
+    """The port's ``MambaLMHeadModel`` with an upstream checkpoint's
+    weights, in fp32 on ``device`` (CUDA unless the caller asks for the
+    CPU); ``.to(torch.bfloat16)`` casts it for bf16 serving.
+
+    ``path`` is a local directory (``config.json`` and a weights file) or
+    a checkpoint file; ``config`` replaces config.json (needed for a bare
+    file). Its keys are the JAX loader's: ``d_model`` or ``hidden_size``,
+    ``n_layer`` or ``num_hidden_layers``, ``vocab_size``, ``ssm_cfg``,
+    ``rms_norm``, ``pad_vocab_size_multiple``.
+    """
+    device = resolve_device(device)
+    cfg = dict(config) if config is not None else load_config(path)
+    model = build_mamba_lm(cfg, device="cpu")
+    sd = mamba_lm_from_state_dict(load_state_dict(path), model.n_layer)
+    model.load_state_dict(sd)
+    return model.to(device)

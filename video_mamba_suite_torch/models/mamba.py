@@ -1,25 +1,31 @@
-"""Bidirectional ViM Mamba mixers (counterparts of the JAX package's
-``models/mamba.py``: ``MambaVim`` and ``MambaScanNorm`` with their
-``_ScanParams`` bundles and inits).
+"""Mamba mixers and the pre-norm block (counterparts of the JAX
+package's ``models/mamba.py``: the bidirectional ``MambaVim`` and
+``MambaScanNorm``, the causal ``MambaCausal`` with its decode ``step`` and
+``prefill``, their ``_ScanParams`` bundles and inits, ``Block`` and
+``make_block``).
 
-Takes and returns (batch, seqlen, d_model). Initial values follow the
+Mixers take and return (batch, seqlen, d_model). Initial values follow the
 reference scheme: dt_proj weight ~ U(±dt_rank^-1/2), dt bias =
 softplus^-1(LogUniform[0.001, 0.1]), S4D-real A_log = log(1..d_state),
-D = 1, drawn from an explicit ``torch.Generator``. The conv has width 4 and
-a bias; in_proj and out_proj have none (the suite's only settings).
+D = 1, drawn from an explicit ``torch.Generator``. The conv has a bias
+(width 4 unless ``d_conv`` says otherwise); in_proj and out_proj have none
+(the suite's only settings).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..ops.causal_conv1d import causal_conv1d_update
 from ..ops.mamba_inner import mamba_inner, mamba_inner_bidir
-from ..ops.norms import rms_norm
-from ..ops.selective_scan_bidir import SHORT_SEQ_MAX
+from ..ops.norms import fused_add_norm, rms_norm
+from ..ops.selective_scan_short import use_short_scan
+from ..ops.selective_state_update import selective_state_update
 from .common import Dense, init_weight, resolve_device
 
 
@@ -38,17 +44,17 @@ def _dt_bias(d_inner: int, generator: torch.Generator):
 
 class ScanParams(nn.Module):
     """One direction's scan parameters: the depthwise conv taps
-    ``conv_w`` (4, d_inner) in the JAX layout and their bias,
+    ``conv_w`` (d_conv, d_inner) in the JAX layout and their bias,
     ``x_proj`` (dt_rank + 2·d_state, d_inner), ``dt_proj``
     (d_inner, dt_rank), and the fp32 ``dt_bias``, ``A_log``
     (d_inner, d_state) and ``D``."""
 
     def __init__(self, d_inner: int, d_state: int, dt_rank: int, *,
-                 generator: torch.Generator):
+                 generator: torch.Generator, d_conv: int = D_CONV):
         super().__init__()
-        bound = 1.0 / math.sqrt(D_CONV)
+        bound = 1.0 / math.sqrt(d_conv)
         self.conv_w = nn.Parameter(nn.init.uniform_(
-            torch.empty(D_CONV, d_inner), -bound, bound,
+            torch.empty(d_conv, d_inner), -bound, bound,
             generator=generator))
         self.conv_bias = nn.Parameter(torch.zeros(d_inner))
         self.x_proj = nn.Parameter(init_weight(
@@ -86,7 +92,7 @@ def use_fused_scan(seqlen: int) -> bool:
     to 8 is at most ``SHORT_SEQ_MAX`` take the fused bidirectional scan
     (kernel K1 on the card); longer ones take one chunked scan per
     direction (kernel K3)."""
-    return -(-seqlen // 8) * 8 <= SHORT_SEQ_MAX
+    return use_short_scan(seqlen)
 
 
 class MambaVim(nn.Module):
@@ -162,3 +168,152 @@ class MambaScanNorm(MambaVim):
         out = rms_norm(self._directions(hidden_states, mask),
                        self.scan_norm_w)
         return self.out_proj(out)
+
+
+class MambaCausal(nn.Module):
+    """Unidirectional Mamba (upstream mamba_ssm semantics; the Mamba LM's
+    mixer) with streaming decode: ``forward`` runs the whole sequence,
+    ``prefill`` also returns the decode state, ``step`` advances one
+    token. One ``fwd`` scan bundle, as the JAX tree has it.
+
+    On CUDA, ``forward`` and ``prefill`` scan through kernel K5 when the
+    sequence (rounded up to 8) is at most 64 steps and no backward
+    follows, else through K3 (and K4 in a backward); ``step`` is plain
+    torch (``causal_conv1d_update``, ``selective_state_update``), as the
+    JAX package's is plain jnp.
+    """
+
+    def __init__(self, d_model: int, d_state: int = 16, d_conv: int = D_CONV,
+                 expand: int = 2, dtype: Optional[torch.dtype] = None,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.d_state, self.d_conv = d_state, d_conv
+        self.d_inner = int(expand * d_model)
+        self.dt_rank = math.ceil(d_model / 16)
+        self.in_proj = Dense(d_model, 2 * self.d_inner, bias=False,
+                             dtype=dtype, init="torch_linear",
+                             generator=generator)
+        self.fwd = ScanParams(self.d_inner, d_state, self.dt_rank,
+                              generator=generator, d_conv=d_conv)
+        self.out_proj = Dense(self.d_inner, d_model, bias=False, dtype=dtype,
+                              init="torch_linear", generator=generator)
+        self.to(device)
+
+    def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
+        return self.out_proj(self.fwd(self.in_proj(hidden_states)))
+
+    def init_state(self, batch: int, dtype: torch.dtype = torch.float32
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Zero (conv_state (batch, d_conv, d_inner) in ``dtype``,
+        ssm_state (batch, d_inner, d_state) fp32)."""
+        device = self.fwd.A_log.device
+        return (torch.zeros(batch, self.d_conv, self.d_inner, dtype=dtype,
+                            device=device),
+                torch.zeros(batch, self.d_inner, self.d_state,
+                            dtype=torch.float32, device=device))
+
+    def prefill(self, hidden_states: torch.Tensor):
+        """The whole prompt (batch, L, d_model) in one pass, returning (out
+        (batch, L, d_model), (conv_state, ssm_state)): the state that L
+        ``step`` calls would reach. conv_state holds the last d_conv raw
+        (pre-conv) x rows, oldest first, left-padded with zeros when the
+        prompt is shorter, in fp32; ssm_state is the scan's last state."""
+        xz = self.in_proj(hidden_states)
+        x = xz[..., :self.d_inner]
+        y, ssm_state = self.fwd(xz, return_last_state=True)
+        L = x.shape[1]
+        if L >= self.d_conv:
+            conv_state = x[:, L - self.d_conv:]
+        else:
+            conv_state = F.pad(x, (0, 0, self.d_conv - L, 0))
+        conv_state = conv_state.float().contiguous()
+        return self.out_proj(y), (conv_state, ssm_state)
+
+    def step(self, x_t: torch.Tensor, state):
+        """One decode token, x_t (batch, d_model) → (out (batch, d_model),
+        new (conv_state, ssm_state))."""
+        conv_state, ssm_state = state
+        p = self.fwd
+        xz = self.in_proj(x_t)
+        x, z = xz[..., :self.d_inner], xz[..., self.d_inner:]
+        x, conv_state = causal_conv1d_update(
+            x, conv_state, p.conv_w, p.conv_bias, activation="silu")
+        x_db = x @ p.x_proj.to(x.dtype).t()
+        dt = x_db[..., :self.dt_rank] @ p.dt_proj.to(x.dtype).t()
+        B = x_db[..., self.dt_rank:self.dt_rank + self.d_state]
+        C = x_db[..., self.dt_rank + self.d_state:]
+        y, ssm_state = selective_state_update(
+            ssm_state, x, dt, p.A(), B, C, D=p.D, z=z, dt_bias=p.dt_bias,
+            dt_softplus=True)
+        return self.out_proj(y), (conv_state, ssm_state)
+
+
+class Block(nn.Module):
+    """Pre-norm residual block: add → norm → mixer, carrying (hidden,
+    residual) so the add and the norm stay one step (``fused_add_norm``
+    with ``prenorm=True``; the residual in fp32 with ``residual_in_fp32``).
+    ``norm_w`` (and ``norm_b`` unless ``rms``) are the norm's parameters.
+    ``step`` and ``prefill`` need a mixer that has them (``MambaCausal``).
+    """
+
+    def __init__(self, dim: int, mixer: nn.Module, norm_eps: float = 1e-5,
+                 rms: bool = False, residual_in_fp32: bool = True):
+        super().__init__()
+        self.norm_eps, self.rms = norm_eps, rms
+        self.residual_in_fp32 = residual_in_fp32
+        device = next(mixer.parameters()).device
+        self.norm_w = nn.Parameter(torch.ones(dim, device=device))
+        self.norm_b = (None if rms
+                       else nn.Parameter(torch.zeros(dim, device=device)))
+        self.mixer = mixer
+
+    def _add_norm(self, hidden_states, residual):
+        return fused_add_norm(
+            hidden_states, self.norm_w, self.norm_b, residual=residual,
+            prenorm=True, residual_in_fp32=self.residual_in_fp32,
+            eps=self.norm_eps, is_rms_norm=self.rms)
+
+    def forward(self, hidden_states: torch.Tensor,
+                residual: Optional[torch.Tensor] = None):
+        """(hidden (batch, L, dim), residual or None) → (hidden,
+        residual)."""
+        hidden_states, residual = self._add_norm(hidden_states, residual)
+        return self.mixer(hidden_states), residual
+
+    def step(self, hidden_states, residual, state):
+        """One token: hidden (batch, dim) → (hidden, residual, state)."""
+        hidden_states, residual = self._add_norm(hidden_states, residual)
+        hidden_states, state = self.mixer.step(hidden_states, state)
+        return hidden_states, residual, state
+
+    def prefill(self, hidden_states, residual=None):
+        """The whole prompt, also returning the mixer's decode state:
+        (hidden, residual, state)."""
+        hidden_states, residual = self._add_norm(hidden_states, residual)
+        hidden_states, state = self.mixer.prefill(hidden_states)
+        return hidden_states, residual, state
+
+
+_MIXERS = {"vim": MambaVim, "scan_norm": MambaScanNorm,
+           "causal": MambaCausal}
+
+
+def make_block(d_model: int, mixer: str = "vim",
+               rms_norm_block: bool = False, residual_in_fp32: bool = True,
+               norm_eps: float = 1e-5, **mixer_kwargs) -> Block:
+    """A ``Block`` around a new mixer of kind ``mixer`` ("vim",
+    "scan_norm" or "causal"; the JAX ``make_block``); ``mixer_kwargs``
+    go to the mixer (``d_state``, ``expand``, ``device``, ``generator``,
+    ...). The JAX package's "dbm" mixer is not ported yet."""
+    if mixer == "dbm":
+        raise NotImplementedError(
+            "the DBM mixer (MambaDBM) is not ported yet (ROADMAP item 3)")
+    if mixer not in _MIXERS:
+        raise ValueError(f"unknown mixer {mixer!r}; expected one of "
+                         f"{sorted(_MIXERS)} or 'dbm'")
+    return Block(d_model, _MIXERS[mixer](d_model, **mixer_kwargs),
+                 norm_eps=norm_eps, rms=rms_norm_block,
+                 residual_in_fp32=residual_in_fp32)

@@ -5,12 +5,11 @@ with nvcc the first time a CUDA tensor reaches its wrapper.
 """
 
 from ._build import LAUNCHES, reset_launches
-from .causal_conv1d import causal_conv1d
+from .causal_conv1d import causal_conv1d, causal_conv1d_update
 from .mamba_inner import MASKED_DELTA, mamba_inner, mamba_inner_bidir
 from .norms import fused_add_norm, layer_norm, rms_norm
 from .selective_scan import selective_scan, selective_scan_ref
 from .selective_scan_bidir import (
-    SHORT_SEQ_MAX,
     selective_scan_bidir,
     selective_scan_bidir_bwd,
     selective_scan_bidir_bwd_ref,
@@ -23,13 +22,23 @@ from .selective_scan_chunked import (
     chunked_scan_fwd,
     chunked_scan_states_ref,
 )
+from .selective_scan_short import (
+    SHORT_SEQ_MAX,
+    short_scan_fwd,
+    short_scan_fwd_ref,
+    use_short_scan,
+)
+from .selective_state_update import selective_state_update
 
 __all__ = [
     "CHECKPOINT_STEPS", "LAUNCHES", "MASKED_DELTA", "SHORT_SEQ_MAX",
-    "causal_conv1d", "chunked_scan_bwd", "chunked_scan_bwd_ref",
-    "chunked_scan_fwd", "chunked_scan_states_ref", "fused_add_norm",
+    "causal_conv1d", "causal_conv1d_update",
+    "chunked_scan_bwd", "chunked_scan_bwd_ref", "chunked_scan_fwd",
+    "chunked_scan_states_ref", "fused_add_norm",
     "layer_norm", "mamba_inner", "mamba_inner_bidir", "reset_launches",
     "rms_norm", "selective_scan", "selective_scan_bidir",
     "selective_scan_bidir_bwd", "selective_scan_bidir_bwd_ref",
     "selective_scan_bidir_ref", "selective_scan_ref",
+    "selective_state_update", "short_scan_fwd", "short_scan_fwd_ref",
+    "use_short_scan",
 ]

@@ -82,8 +82,13 @@ def mamba_inner(
     x = causal_conv1d(x, conv_weight, conv_bias, activation="silu",
                       reverse=reverse)
     dt, B, C = _proj_dt_bc(x, x_proj_weight, dt_proj_weight, d_state, mask)
-    y = selective_scan(x, dt, A, B, C, D=D, z=z.contiguous(),
-                       delta_bias=delta_bias, delta_softplus=delta_softplus,
+    # A, D and the bias enter the scan in fp32 whatever the parameters'
+    # dtype (the kernels take them so; the plain scan computes in fp32)
+    y = selective_scan(x, dt, A.float(), B, C,
+                       D=None if D is None else D.float(), z=z.contiguous(),
+                       delta_bias=(None if delta_bias is None
+                                   else delta_bias.float()),
+                       delta_softplus=delta_softplus,
                        return_last_state=return_last_state, reverse=reverse)
     last_state = None
     if return_last_state:

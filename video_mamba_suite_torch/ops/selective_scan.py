@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from .selective_scan_chunked import CHECKPOINT_STEPS, ChunkedScan
+from .selective_scan_short import short_scan_fwd, use_short_scan
 
 
 def _flip(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -131,20 +132,35 @@ def selective_scan(
     JAX ``selective_scan`` with ``initial_state`` from
     ``selective_scan_pallas``).
 
-    CPU tensors take the plain version. CUDA tensors launch kernel K3
-    (``chunked_scan_fwd``: float32 or bfloat16 I/O, fp32 A, D, bias and
-    states, dstate <= 16, contiguous) or raise; a backward launches its
-    adjoint K4 (``chunked_scan_bwd``) with the cotangents of the output and
-    of the last state. K3 writes the checkpoints K4 needs only when grad
-    mode is on and an input requires a gradient.
+    CPU tensors take the plain version. CUDA tensors take the JAX
+    package's routes (``use_short_scan``), each a kernel that raises on what
+    it does not take (float32 or bfloat16 I/O, fp32 A, D, bias and
+    states, dstate <= 16, contiguous), never a fallback:
+    - a scan whose length rounded up to 8 is at most 64, with no
+      ``initial_state`` and no backward to follow, launches kernel K5
+      (``short_scan_fwd``), causal or ``reverse``;
+    - every other scan is the autograd Function ``ChunkedScan``: kernel
+      K3 (``chunked_scan_fwd``) and, in a backward, its adjoint K4
+      (``chunked_scan_bwd``) with the cotangents of the output and of the
+      last state. K3 writes the checkpoints K4 needs only when a backward
+      follows. Short scans with a backward to follow take this route too
+      until K5's adjoint (K6) is ported; their last state then has an
+      exact gradient, where the JAX short path stops it.
+    A backward follows when grad mode is on and an input requires a
+    gradient.
     """
     if u.device.type == "cuda":
         backward = torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (u, delta, A, B, C, D, z, delta_bias, initial_state))
-        out, last = ChunkedScan.apply(
-            u, delta, A, B, C, D, z, delta_bias, initial_state,
-            delta_softplus, reverse, CHECKPOINT_STEPS if backward else 0)
+        if use_short_scan(u.shape[1], initial_state, backward):
+            out, last = short_scan_fwd(
+                u, delta, A, B, C, D, z, delta_bias, delta_softplus,
+                reverse)
+        else:
+            out, last = ChunkedScan.apply(
+                u, delta, A, B, C, D, z, delta_bias, initial_state,
+                delta_softplus, reverse, CHECKPOINT_STEPS if backward else 0)
         return (out, last) if return_last_state else out
     if u.device.type == "cpu":
         return selective_scan_ref(

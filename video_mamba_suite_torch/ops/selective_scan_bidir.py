@@ -24,10 +24,10 @@ import torch
 
 from ._build import launch, library, ptr
 from .selective_scan import selective_scan_ref
+from .selective_scan_short import SHORT_SEQ_MAX
 
 KERNEL = "short_bidir_fwd"
 BWD_KERNEL = "short_bidir_bwd"
-SHORT_SEQ_MAX = 64   # longest sequence the kernels take
 MAX_DSTATE = 16      # largest state size the kernels take
 BWD_ROW_GROUPS = 256  # most row groups (partials of dA, dD, dbias) of K2
 BWD_CHANNELS = 128   # channels per K2 block (one partial of dB, dC each)
