@@ -10,9 +10,10 @@ Phases, each of which fails the run:
   3. kernels: hold each kernel against its plain PyTorch version on the
      card, at the shape the main path gives it and at the other cases of
      its table (``K1_CASES``, ``K2_CASES``, ``K3_CASES`` with K3's
-     checkpoints, ``K4_CASES``, ``K5_CASES``, which
+     checkpoints, ``K4_CASES``, ``K5_CASES``, ``K6_CASES``, which
      tests/test_torch_kernels_cuda.py runs too), and time kernel, plain
-     version and the roofline bound (K3 also with its checkpoint output).
+     version and the roofline bound (K3 also with its checkpoint output;
+     K5 and K6 also with their device time from the profiler).
   4. inference: TimeMamba-B (batch 8, 16 frames, 224², bf16, random
      weights from a seed) through ``build_timemamba_b``; launch counts are
      zeroed just before and read just after (K1: 12 per forward). Then a
@@ -45,12 +46,32 @@ Phases, each of which fails the run:
      prefill's ms, a decode step's ms and its share of the HBM rate, peak
      memory; a prefill at prompt 1024 launches exactly 24 K3 and no K5;
      a torch.profiler window of one request.
-  9. card against CPU: full width in fp32 (TF32 off), the card through
+  9. anticipation serving: LSTR-Mamba at the EK100 preset's widths
+     (``configs.ANTICIPATION_EK100``: 512 + 32 frames of 1024 + 1024
+     features, 4 queries, d_model 1024, 2 layers, 3807 classes; random
+     weights from a seed, fp32 with TF32 matmuls) answers requests of 16
+     windows through ``predict``: exactly 2 K3 per request (no
+     checkpoints); the short configuration (long memory 28, 64 tokens)
+     exactly 2 K5; no K6 and no plain version; ms/request, peak memory,
+     a torch.profiler window of two requests. Then streaming on the short
+     model: ``stream_prefill`` over 60 frames (2 K5) and 32
+     ``stream_step`` calls (no kernel); ms per step.
+ 10. anticipation train steps: ``build_anticipation_trainer`` at the
+     preset's recipe, ``AnticipationTrainer.train_step`` on 16 windows:
+     2 warm-ups (every parameter a finite gradient), then 10 timed steps:
+     the preset exactly 2 K3 (writing checkpoints) and 2 K4 per step, the
+     short configuration exactly 2 K5 and 2 K6, no plain version, the loss
+     finite and falling; ms/step, peak memory, a profiler window of two
+     steps.
+ 11. card against CPU: full width in fp32 (TF32 off), the card through
      the kernels against the CPU through the plain versions: one clip of
      TimeMamba-B's forward at depth 12 and gradients at depth 2, ViViM-T's
      forward at its full depth 24 and its gradients at depth 2; Mamba-130M
      at depth 24, batch 2: prefill logits and every layer's states at
-     prompt 16 (K5) and 80 (K3), then 8 decode steps' logits.
+     prompt 16 (K5) and 80 (K3), then 8 decode steps' logits; LSTR-Mamba
+     at depth 2: the short configuration at batch 2 (scores,
+     ``stream_prefill`` states, every parameter's gradient) and the preset
+     at batch 1 (scores).
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 """
 
@@ -203,6 +224,44 @@ CARD_CPU_LM_STEPS = 8            # decode steps fed the same tokens
 # CPU gradient: read 3.5e-6 on an H100 80GB HBM3 (PERF.md), held at about
 # ten times that
 CARD_CPU_VIVIM_GRAD_REL_TOL = 4e-5
+
+
+K6_SOURCE = "video_mamba_suite_torch/csrc/short_scan_bwd.cu"
+K6_REPLACES = "video_mamba_suite_tpu/ops/selective_scan_pallas.py:958"
+# K6 against its plain version: K5's options. The first two are the
+# short-memory anticipation train step's scan (28 + 32 + 4 = 64 tokens,
+# d_inner 2048, batch 16; one launch per layer per step) in fp32 and bf16;
+# ragged: 13 steps, 200 channels and 13 states; then one step, reverse,
+# grouped B/C (two groups of 48 channels), no D and no z, and TimeMamba-B's
+# adapter shape, at which K2 and K5 were timed.
+# tests/test_torch_kernels_cuda.py runs the same cases.
+K6_CASES = [
+    ("anticipation", (16, 64, 2048, 16), "float32", {}),
+    ("anticipation-bf16", (16, 64, 2048, 16), "bfloat16", {}),
+    ("ragged", (3, 13, 200, 13), "float32", {}),
+    ("one-step", (4, 1, 256, 16), "float32", {}),
+    ("reverse", (4, 40, 384, 16), "float32", {"reverse": True}),
+    ("grouped", (4, 32, 96, 16), "float32", {"groups": 2}),
+    ("no-Dz", (4, 24, 256, 16), "bfloat16", {"no_dz": True}),
+    ("adapter", (1568, 16, 768, 16), "bfloat16", {}),
+]
+# each gradient within atol · (its largest magnitude) + rtol · |value|:
+# fp32 as K5 (sums of dA over the rows and steps, and of dB and dC over up
+# to 2048 channels, in another order read at most 3.5e-7 of the scale on
+# an H100 80GB HBM3, PERF.md); bf16 outputs one to two bf16 ulps apart.
+K6_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
+ANT_REQUESTS = 10                # timed anticipation serving requests
+ANT_STEPS = 10                   # timed anticipation train steps
+ANT_HISTORY = 60                 # frames of the streaming prefill
+ANT_STREAM_STEPS = 32            # streaming steps after it
+ANT_LAYERS = 2                   # causal blocks of the preset
+# LSTR-Mamba at full width, depth 2, fp32, TF32 off, card against CPU, each
+# tensor's largest difference over its largest CPU magnitude: scores and
+# streaming states read at most 5.1e-6 (the preset's 548-token scores),
+# every parameter's gradient 2.8e-6, on an H100 80GB HBM3 (PERF.md); held
+# at about ten times that
+CARD_CPU_ANT_REL_TOL = 5e-5
+CARD_CPU_ANT_GRAD_REL_TOL = 3e-5
 
 
 def log(*a):
@@ -826,6 +885,122 @@ def check_k5():
 
 
 # ---------------------------------------------------------------------------
+# K6: the short one-direction scan's adjoint
+
+
+def k6_inputs(shape, dtype, seed, **opts):
+    """K5's inputs at one of ``K6_CASES`` and the output's cotangent ``g``
+    (the arguments of ``short_scan_bwd``)."""
+    import torch
+
+    args = k5_inputs(shape, dtype, seed, **opts)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    args["g"] = torch.randn(*shape[:3], device="cuda",
+                            generator=gen).to(getattr(torch, dtype))
+    return args
+
+
+def k6_check(label, shape, dtype, opts):
+    """Launch K6 once on the card at one of ``K6_CASES`` and hold its eight
+    gradients against the plain version's. Returns (arguments, gradients,
+    max_abs_err); raises AssertionError on a miss."""
+    import torch
+    from video_mamba_suite_torch.ops import (
+        LAUNCHES,
+        short_scan_bwd,
+        short_scan_bwd_ref,
+    )
+
+    args = k6_inputs(shape, dtype, seed=sum(shape) + 17, **opts)
+    n0 = LAUNCHES["short_scan_bwd"]
+    got = short_scan_bwd(**args)
+    torch.cuda.synchronize()
+    if LAUNCHES["short_scan_bwd"] != n0 + 1:
+        raise AssertionError("K6's wrapper did not count its launch")
+    want = short_scan_bwd_ref(**args)
+    atol, rtol = K6_TOL[dtype]
+    names = ("du", "ddelta", "dA", "dB", "dC", "dD", "dz", "ddelta_bias")
+    abs_err, rel, worst, ok = 0.0, 0.0, "", True
+    for name, g, w in zip(names, got, want):
+        if (g is None) != (w is None):
+            raise AssertionError(f"K6 at {label}: {name} is {g} against "
+                                 f"{w}")
+        if g is None:
+            continue
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"K6 at {label}: {name} {g.dtype} "
+                                 f"{tuple(g.shape)}, want {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        d = (g.float() - w.float()).abs()
+        scale = w.float().abs().max().item()
+        bad = d > atol * scale + rtol * w.float().abs()
+        if bad.any() or not torch.isfinite(g).all():
+            ok = False
+            log(f"[k6] {label}: {name} misses at {int(bad.sum())} of "
+                f"{g.numel()} (max abs err {d.max().item():.3e}, scale "
+                f"{scale:.3e})")
+        abs_err = max(abs_err, d.max().item())
+        if d.max().item() / max(scale, 1e-30) >= rel:
+            rel, worst = d.max().item() / max(scale, 1e-30), name
+    log(f"[k6] {label} {shape} {dtype} {opts or ''}: max_abs_err "
+        f"{abs_err:.3e}, largest error over scale {rel:.3e} ({worst}) (tol "
+        f"atol {atol}·scale, rtol {rtol}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"K6 disagrees with its plain version at "
+                             f"{label} {shape}")
+    return args, got, abs_err
+
+
+def k6_bound_ms(args, grads):
+    """Least time for the work and what sets it: each input (the output's
+    cotangent included) read once and each gradient written once over HBM,
+    against 20 fp32 operations per state update (6 for the forward state
+    and y, 14 for the adjoint step's dh, dA, ddt, dB, dC and du terms; an
+    exponential counted as one)."""
+    import torch
+
+    tensors = [t for t in (*args.values(), *grads)
+               if isinstance(t, torch.Tensor)]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    batch, seqlen, dim = args["u"].shape
+    ops = 20.0 * batch * seqlen * dim * args["A"].shape[1]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    log(f"[k6] bound: {nbytes / 1e6:.2f} MB over 3.35 TB/s = "
+        f"{1e3 * t_bytes:.5f} ms; {ops / 1e9:.4f} GFLOP over 67 TFLOP/s = "
+        f"{1e3 * t_ops:.5f} ms")
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def check_k6():
+    """Every case of ``K6_CASES``, each with the kernel's time (back to
+    back between CUDA events, and its device time alone from the
+    profiler), the plain version's (an eager loop and its autograd) and
+    the bound. Returns the main-path case's (the first) numbers."""
+    from video_mamba_suite_torch.ops import short_scan_bwd, short_scan_bwd_ref
+
+    result = {}
+    for case in K6_CASES:
+        args, got, err = k6_check(*case)
+        ms = cuda_time_ms(lambda: short_scan_bwd(**args), iters=50)
+        device = profile("call", lambda: short_scan_bwd(**args), tag="k6",
+                         calls=20, top=0)
+        device_ms = sum(ms for key, ms in device.items()
+                        if "short_scan_bwd_kernel" in key)
+        plain_ms = cuda_time_ms(lambda: short_scan_bwd_ref(**args), iters=2,
+                                warmup=1)
+        bound_ms, bound_by = k6_bound_ms(args, got)
+        log(f"[k6] {case[0]}: kernel {ms:.5f} ms per call back to back "
+            f"({device_ms:.5f} ms of device time per launch, the partials' "
+            f"sums besides), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} "
+            f"ms ({bound_by})")
+        if not result:
+            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+    return result
+
+
+# ---------------------------------------------------------------------------
 # the main paths and the card-vs-CPU checks
 
 
@@ -1045,7 +1220,8 @@ def count_plain_calls():
         "video_mamba_suite_torch.ops.selective_scan_short")
     calls = collections.Counter()
     patched = [(ss, "selective_scan_ref"), (sb, "selective_scan_bidir_ref"),
-               (sc, "chunked_scan_bwd_ref"), (sh, "short_scan_fwd_ref")]
+               (sc, "chunked_scan_bwd_ref"), (sh, "short_scan_fwd_ref"),
+               (sh, "short_scan_bwd_ref")]
     originals = [getattr(mod, name) for mod, name in patched]
 
     def counting(name, fn):
@@ -1547,6 +1723,298 @@ def card_against_cpu_lm():
         raise AssertionError(f"card and CPU Mamba-130M disagree: {worst}")
 
 
+# ---------------------------------------------------------------------------
+# action anticipation: LSTR-Mamba at the EK100 preset's widths
+
+
+def ant_batch(config, batch, seed, device="cuda"):
+    """Random (visual, motion) features for a configuration's long + work
+    frames and int targets for its work + anticipation positions."""
+    import torch
+
+    cfg = config["model"]
+    frames = cfg["long_memory_num_samples"] + cfg["work_memory_num_samples"]
+    positions = (cfg["work_memory_num_samples"]
+                 + cfg["anticipation_num_samples"])
+    g = torch.Generator(device=device).manual_seed(seed)
+    visual = torch.randn(batch, frames, cfg["visual_dim"], device=device,
+                         generator=g)
+    motion = torch.randn(batch, frames, cfg["motion_dim"], device=device,
+                         generator=g)
+    targets = torch.randint(cfg["num_classes"], (batch, positions),
+                            device=device, generator=g)
+    return visual, motion, targets
+
+
+def ant_configs():
+    """(label, configuration, the scan kernels of its forward)."""
+    from video_mamba_suite_torch.configs import (
+        ANTICIPATION_EK100,
+        ANTICIPATION_EK100_SHORT,
+    )
+
+    return (("preset", ANTICIPATION_EK100, "chunked_scan_fwd"),
+            ("short", ANTICIPATION_EK100_SHORT, "short_scan_fwd"))
+
+
+def run_anticipation_serving():
+    """This slice's serving path: LSTR-Mamba (EK100 widths, random weights
+    from a seed, fp32 with TF32 matmuls) answers requests of the preset's
+    batch (16 windows) through ``predict``: the preset's 548 tokens take K3
+    (one per layer, no checkpoints), the short configuration's 64 take K5.
+    Returns the short model for the streaming phase."""
+    import torch
+    from video_mamba_suite_torch import LSTRMamba
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+    from video_mamba_suite_torch.tasks.anticipation import predict
+
+    set_tf32(True)
+    for label, config, kernel in ant_configs():
+        model = LSTRMamba(**config["model"],
+                          generator=torch.Generator().manual_seed(0))
+        batch = config["batch_size"]
+        visual, motion, targets = ant_batch(config, batch, seed=12)
+
+        def request():
+            probs = predict(model, visual, motion)
+            torch.cuda.synchronize()      # a request ends with its result
+            return probs
+
+        for _ in range(2):                                  # warm-up
+            request()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        times = []
+        with count_plain_calls() as plain, count_checkpoint_writes() as ck:
+            for _ in range(ANT_REQUESTS):
+                t0 = time.perf_counter()
+                probs = request()
+                times.append(time.perf_counter() - t0)
+        launches = dict(LAUNCHES)
+        plain.update(ck)
+        peak = torch.cuda.max_memory_allocated()
+        want_shape = (*targets.shape, config["model"]["num_classes"])
+        if tuple(probs.shape) != want_shape or \
+                not torch.isfinite(probs).all() or \
+                (probs.sum(-1) - 1).abs().max().item() > 1e-4:
+            raise AssertionError(f"bad anticipation scores: shape "
+                                 f"{tuple(probs.shape)}, want {want_shape}")
+        want = {kernel: ANT_LAYERS * ANT_REQUESTS}
+        if launches != want or sum(plain.values()):
+            raise AssertionError(f"anticipation serving ({label}) launched "
+                                 f"{launches} (want {want}) and called "
+                                 f"plain versions {dict(plain)}")
+        times.sort()
+        median = statistics.median(times)
+        tokens = visual.shape[1] + config["model"]["anticipation_num_samples"]
+        log(f"[ant-serve] {label}: {ANT_REQUESTS} requests of {batch} "
+            f"windows x {visual.shape[1]} frames "
+            f"({tokens} tokens), fp32 + TF32: median {1e3 * median:.3f} "
+            f"ms/request "
+            f"(min {1e3 * times[0]:.3f}, max {1e3 * times[-1]:.3f}), "
+            f"{batch / median:.1f} windows/s; peak memory "
+            f"{peak / 2**30:.2f} GiB; launches {launches}, plain-version "
+            f"calls {dict(plain)}")
+        profile("request", request, tag=f"profile-ant-serve-{label}")
+    return model
+
+
+def run_anticipation_streaming(model):
+    """Streaming on the short model: ``stream_prefill`` over an
+    ANT_HISTORY-frame history (one K5 per layer), then ANT_STREAM_STEPS
+    ``stream_step`` calls, plain torch (no kernel)."""
+    import torch
+    from video_mamba_suite_torch.configs import ANTICIPATION_EK100_SHORT
+    from video_mamba_suite_torch.models import sinusoid_positions
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+
+    cfg = ANTICIPATION_EK100_SHORT["model"]
+    batch = ANTICIPATION_EK100_SHORT["batch_size"]
+    g = torch.Generator(device="cuda").manual_seed(13)
+    frames = ANT_HISTORY + ANT_STREAM_STEPS
+    visual = torch.randn(batch, frames, cfg["visual_dim"], device="cuda",
+                         generator=g)
+    motion = torch.randn(batch, frames, cfg["motion_dim"], device="cuda",
+                         generator=g)
+    pe = sinusoid_positions(frames, cfg["d_model"], device="cuda")
+    with torch.inference_mode(), count_plain_calls() as plain:
+        model.eval()
+        toks = model.embed_work_token(visual, motion) + pe
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        scores, states = model.stream_prefill(toks[:, :ANT_HISTORY])
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        prefill_launches = dict(LAUNCHES)
+        reset_launches()
+        logits, _ = model.stream_step(toks[:, ANT_HISTORY], states)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(ANT_HISTORY, frames):
+            logits, states = model.stream_step(toks[:, t], states)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / ANT_STREAM_STEPS
+        step_launches = dict(LAUNCHES)
+    if prefill_launches != {"short_scan_fwd": ANT_LAYERS} or \
+            step_launches or sum(plain.values()):
+        raise AssertionError(f"streaming launched {prefill_launches} in the "
+                             f"prefill and {step_launches} in the steps; "
+                             f"plain-version calls {dict(plain)}")
+    if not (torch.isfinite(scores).all() and torch.isfinite(logits).all()):
+        raise AssertionError("non-finite streaming scores")
+    log(f"[ant-stream] stream_prefill over {ANT_HISTORY} frames x "
+        f"{batch} streams: {prefill_ms:.3f} ms (launches "
+        f"{prefill_launches}); then {ANT_STREAM_STEPS} stream_step calls: "
+        f"{step_ms:.3f} ms per step (host clock, synchronised at the end), "
+        f"launches {step_launches}")
+
+
+def run_anticipation_train():
+    """This slice's train path: ``AnticipationTrainer.train_step`` at the
+    preset's recipe (AdamW lr 7e-5, weight decay 5e-5, warmup-cosine,
+    classifier dropout 0.2, batch 16), fp32 with TF32 matmuls. The
+    preset's step launches K3 (writing checkpoints) and K4 per layer, the
+    short configuration's K5 and K6. Returns the short step's launches."""
+    import torch
+    from video_mamba_suite_torch import build_anticipation_trainer
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+
+    set_tf32(True)
+    kernels = {"chunked_scan_fwd": ("chunked_scan_fwd", "chunked_scan_bwd"),
+               "short_scan_fwd": ("short_scan_fwd", "short_scan_bwd")}
+    for label, config, kernel in ant_configs():
+        trainer = build_anticipation_trainer(config, seed=0)
+        model = trainer.model
+        batch = config["batch_size"]
+        visual, motion, targets = ant_batch(config, batch, seed=14)
+        losses = [trainer.train_step(visual, motion, targets)]  # warm-up
+        bad = [n for n, p in model.named_parameters()
+               if p.grad is None or not torch.isfinite(p.grad).all()]
+        if bad:
+            raise AssertionError(f"{label}: no or non-finite gradient at "
+                                 f"{bad}")
+        losses.append(trainer.train_step(visual, motion, targets))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        times = []
+        with count_plain_calls() as plain, count_checkpoint_writes() as ck:
+            for _ in range(ANT_STEPS):    # a step ends with its loss read
+                t0 = time.perf_counter()
+                losses.append(trainer.train_step(visual, motion, targets))
+                times.append(time.perf_counter() - t0)
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        want = {k: ANT_LAYERS * ANT_STEPS for k in kernels[kernel]}
+        writes = ck["chunked_scan_fwd with checkpoints"]
+        if launches != want or sum(plain.values()) or \
+                writes != want.get("chunked_scan_fwd", 0):
+            raise AssertionError(f"{label} train steps launched {launches} "
+                                 f"(want {want}), plain-version calls "
+                                 f"{dict(plain)}, checkpoint writes {writes}")
+        if not all(math.isfinite(v) for v in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"{label}: the loss did not fall: {losses}")
+        times.sort()
+        median = statistics.median(times)
+        log(f"[ant-train] {label}: {ANT_STEPS} steps of {batch} windows "
+            f"x {visual.shape[1]} frames, fp32 + TF32: median "
+            f"{1e3 * median:.3f} ms/step (min {1e3 * times[0]:.3f}, max "
+            f"{1e3 * times[-1]:.3f}), {batch / median:.1f} windows/s; "
+            f"peak memory {peak / 2**30:.2f} GiB; launches {launches}, "
+            f"checkpoint writes {writes}, plain-version calls "
+            f"{dict(plain)}; every one of "
+            f"{len(list(model.parameters()))} parameters had a finite "
+            f"gradient")
+        log(f"[ant-train] {label} loss by step: "
+            f"{' '.join(f'{v:.5f}' for v in losses)}")
+        profile("step", lambda: trainer.train_step(visual, motion, targets),
+                tag=f"profile-ant-train-{label}")
+    return launches
+
+
+def card_against_cpu_anticipation():
+    """LSTR-Mamba at full width and depth 2, fp32, TF32 off: the card
+    through the kernels against the CPU through the plain versions. The
+    short configuration at batch 2 (K5, K6): forward scores, the states of
+    ``stream_prefill``, and every parameter's gradient after one backward
+    (classifier dropout off); the preset at batch 1 (K3): forward
+    scores."""
+    import torch
+    from video_mamba_suite_torch import LSTRMamba
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+    from video_mamba_suite_torch.tasks.anticipation import anticipation_loss
+
+    set_tf32(False)
+    t0 = time.perf_counter()
+
+    def rel(got, want):
+        return ((got.detach().cpu() - want).abs().max()
+                / want.abs().max().clamp_min(1e-30)).item()
+
+    errs, grad_err, grad_name, missing = {}, 0.0, "", []
+    for (label, config, kernel), batch in zip(ant_configs(), (1, 2)):
+        cpu = LSTRMamba(**dict(config["model"], dropout_cls=0.0),
+                        device="cpu",
+                        generator=torch.Generator().manual_seed(1))
+        card = copy.deepcopy(cpu).to("cuda")
+        visual, motion, targets = ant_batch(config, batch, seed=15,
+                                            device="cpu")
+        reset_launches()
+        with torch.inference_mode():
+            want = cpu.eval()(visual, motion)["score"]
+            got = card.eval()(visual.cuda(), motion.cuda())["score"]
+            torch.cuda.synchronize()
+            errs[f"{label} scores"] = rel(got, want)
+            if label == "short":
+                toks = cpu.embed_work_token(visual, motion)
+                _, want_states = cpu.stream_prefill(toks)
+                _, states = card.stream_prefill(toks.cuda())
+                errs["short conv states"] = max(
+                    rel(g[0], w[0]) for g, w in zip(states, want_states))
+                errs["short ssm states"] = max(
+                    rel(g[1], w[1]) for g, w in zip(states, want_states))
+        launches = dict(LAUNCHES)
+        if launches != {kernel: (1 + (label == "short")) * ANT_LAYERS}:
+            raise AssertionError(f"{label}: the card's forwards launched "
+                                 f"{launches}")
+        if label != "short":
+            continue
+        reset_launches()
+        for model, dev in ((cpu, "cpu"), (card, "cuda")):
+            model.train()
+            out = model(visual.to(dev), motion.to(dev))["score"]
+            anticipation_loss(out, targets.to(dev)).backward()
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        if launches != {"short_scan_fwd": ANT_LAYERS,
+                        "short_scan_bwd": ANT_LAYERS}:
+            raise AssertionError(f"the card's backward launched {launches}")
+        cpu_params = dict(cpu.named_parameters())
+        for name, p in card.named_parameters():
+            ref = cpu_params[name].grad
+            if p.grad is None or ref is None or \
+                    not torch.isfinite(p.grad).all():
+                missing.append(name)
+                continue
+            r = rel(p.grad, ref)
+            if r >= grad_err:
+                grad_err, grad_name = r, name
+    log(f"[card-vs-cpu] LSTR-Mamba fp32, full width, depth {ANT_LAYERS}, "
+        f"TF32 off, largest difference over each tensor's scale: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tol {CARD_CPU_ANT_REL_TOL}); short gradients {grad_err:.3e} "
+        f"({grad_name}; tol {CARD_CPU_ANT_GRAD_REL_TOL}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if missing or grad_err > CARD_CPU_ANT_GRAD_REL_TOL or \
+            not all(math.isfinite(v) and v <= CARD_CPU_ANT_REL_TOL
+                    for v in errs.values()):
+        raise AssertionError(f"card and CPU LSTR-Mamba disagree: {errs}, "
+                             f"gradients {grad_err} (no or non-finite "
+                             f"gradient: {missing})")
+
+
 def main() -> int:
     import torch
 
@@ -1574,16 +2042,20 @@ def main() -> int:
     k3 = check_k3()
     k4 = check_k4()
     k5 = check_k5()
+    k6 = check_k6()
     run_main_path()
     launches = run_train_step()
     launches.update(run_vivim_serving())
     launches.update(run_vivim_finetune())
     launches.update(run_lm_serving())
+    run_anticipation_streaming(run_anticipation_serving())
+    launches["short_scan_bwd"] = run_anticipation_train()["short_scan_bwd"]
     card_against_cpu()
     card_against_cpu_grads()
     card_against_cpu_vivim()
     card_against_cpu_vivim_grads()
     card_against_cpu_lm()
+    card_against_cpu_anticipation()
 
     kernels = [dict(
         name=name, route="cuda", source=source, replaces=replaces,
@@ -1595,7 +2067,8 @@ def main() -> int:
             ("short_bidir_bwd", K2_SOURCE, K2_REPLACES, k2),
             ("chunked_scan_fwd", K3_SOURCE, K3_REPLACES, k3),
             ("chunked_scan_bwd", K4_SOURCE, K4_REPLACES, k4),
-            ("short_scan_fwd", K5_SOURCE, K5_REPLACES, k5))]
+            ("short_scan_fwd", K5_SOURCE, K5_REPLACES, k5),
+            ("short_scan_bwd", K6_SOURCE, K6_REPLACES, k6))]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

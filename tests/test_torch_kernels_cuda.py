@@ -27,7 +27,12 @@ from video_mamba_suite_torch.ops import (
     selective_scan,
     selective_scan_bidir,
     selective_scan_bidir_bwd,
+    short_scan_bwd,
     short_scan_fwd,
+)
+from video_mamba_suite_torch.tasks.anticipation import (
+    LSTRMamba,
+    anticipation_loss,
 )
 
 # the module, which the package's names of its functions shadow
@@ -326,9 +331,10 @@ def test_k5_rejects_what_it_does_not_take(cuda_device):
 def test_short_scan_route_on_card(cuda_device):
     """selective_scan launches K5 for a short scan with no backward to
     follow (under inference_mode, no_grad, or with no input that needs a
-    gradient), and the chunked scan for 65 steps, for an initial state,
-    and for a short scan with a backward ahead (K3 with checkpoints, then
-    K4). K5's output and last state are K3's."""
+    gradient), K5 and then K6 for a short scan with a backward ahead (the
+    JAX rule, with the last state's gradient stopped), and the chunked scan
+    for 65 steps and for an initial state. K5's output and last state are
+    K3's."""
     a = chip_smoke.k3_inputs((3, 64, 32, 16), "float32", 0, h0=True)
     h0 = a.pop("initial_state")
     for mode in (torch.inference_mode, torch.no_grad, contextlib.nullcontext):
@@ -347,9 +353,89 @@ def test_short_scan_route_on_card(cuda_device):
     assert _grown(before) == {"chunked_scan_fwd": 2}
     a["u"].requires_grad_()
     before = dict(LAUNCHES)
-    selective_scan(**a).sum().backward()
-    assert _grown(before) == {"chunked_scan_fwd": 1, "chunked_scan_bwd": 1}
-    assert a["u"].grad is not None
+    out, last = selective_scan(**a, return_last_state=True)
+    out.sum().backward()
+    assert _grown(before) == {"short_scan_fwd": 1, "short_scan_bwd": 1}
+    assert a["u"].grad is not None and not last.requires_grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,shape,dtype,opts", chip_smoke.K6_CASES,
+                         ids=[case[0] for case in chip_smoke.K6_CASES])
+def test_k6_matches_plain_version(cuda_device, label, shape, dtype, opts):
+    """The cases and tolerances of chip_smoke.py's K6 phase."""
+    chip_smoke.k6_check(label, shape, dtype, opts)
+
+
+@pytest.mark.cuda
+def test_k6_rejects_what_it_does_not_take(cuda_device):
+    def args(shape=(2, 16, 8, 4), dtype="float32", **kw):
+        return chip_smoke.k6_inputs(shape, dtype, 0, **kw)
+
+    a = args()
+    a["A"] = a["A"].to(torch.complex64)
+    with pytest.raises(TypeError, match="complex"):
+        short_scan_bwd(**a)
+    with pytest.raises(ValueError, match="dstate 17"):
+        short_scan_bwd(**args((2, 16, 8, 17)))
+    with pytest.raises(ValueError, match="seqlen 65"):
+        short_scan_bwd(**args((2, 65, 8, 4)))
+    a = args()
+    a["g"] = a["g"].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="g must be contiguous"):
+        short_scan_bwd(**a)
+    a = args()
+    a["g"] = a["g"].to(torch.bfloat16)
+    with pytest.raises(TypeError, match="g must be torch.float32"):
+        short_scan_bwd(**a)
+    a = args()
+    a["B"] = a["B"][:, :8].contiguous()
+    with pytest.raises(ValueError, match="B and C must"):
+        short_scan_bwd(**a)
+    a = args()
+    a["D"] = a["D"].cpu()
+    with pytest.raises(ValueError, match="is on"):
+        short_scan_bwd(**a)
+    with pytest.raises(ValueError, match="launches a CUDA kernel"):
+        short_scan_bwd(**{k: v.cpu() if isinstance(v, torch.Tensor) else v
+                          for k, v in args().items()})
+    with pytest.raises(ValueError, match="initial_state"):
+        short_scan_bwd(**args(), initial_state=torch.zeros(
+            2, 8, 4, device="cuda"))
+    with pytest.raises(ValueError, match="cotangent"):
+        short_scan_bwd(**{k: v for k, v in args().items() if k != "g"})
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        short_scan_bwd(**args(dtype="float16"))
+
+
+@pytest.mark.cuda
+def test_small_lstr_mamba_grads_on_card_match_cpu(cuda_device):
+    """A small LSTR-Mamba (d_model 64, 2 layers, 8 + 6 frames and 2
+    queries: 16 tokens) trains through K5 and K6 on the card; its loss
+    gradient at every parameter matches the CPU's plain versions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = LSTRMamba(visual_dim=12, motion_dim=6, d_model=64, num_classes=7,
+                    long_memory_num_samples=8, work_memory_num_samples=6,
+                    anticipation_num_samples=2, mamba_layers=2,
+                    device="cpu", generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to("cuda")
+    g = torch.Generator().manual_seed(1)
+    visual, motion = torch.randn(3, 14, 12, generator=g), \
+        torch.randn(3, 14, 6, generator=g)
+    targets = torch.randint(7, (3, 8), generator=g)
+    before = dict(LAUNCHES)
+    anticipation_loss(card(visual.cuda(), motion.cuda())["score"],
+                      targets.cuda()).backward()
+    torch.cuda.synchronize()
+    assert _grown(before) == {"short_scan_fwd": 2, "short_scan_bwd": 2}
+    anticipation_loss(cpu(visual, motion)["score"], targets).backward()
+    want = dict(cpu.named_parameters())
+    for name, p in card.named_parameters():
+        assert p.grad is not None, name
+        got, w = p.grad.cpu(), want[name].grad
+        assert torch.isfinite(got).all() and got.abs().sum() > 0, name
+        err = (got - w).abs().max() / w.abs().max()
+        assert err < 1e-4, (name, err)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """Rules the PyTorch port keeps: it imports neither JAX nor the JAX
 package, and its entry points never fall back to the CPU on their own."""
 
+import math
 import subprocess
 import sys
 import textwrap
@@ -104,3 +105,60 @@ def test_cpu_build_runs_plain_versions():
         out = model(x)
     assert out.shape == (1, 512) and torch.isfinite(out).all()
     assert dict(LAUNCHES) == before
+
+
+def test_anticipation_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default build succeeds")
+    from video_mamba_suite_torch import LSTRMamba, build_anticipation_trainer
+    from video_mamba_suite_torch.configs import ANTICIPATION_EK100_SHORT
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_anticipation_trainer(ANTICIPATION_EK100_SHORT, d_model=16,
+                                   mamba_layers=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LSTRMamba(visual_dim=8, d_model=16, num_classes=3, mamba_layers=1)
+
+
+@pytest.mark.parametrize("name", ["ANTICIPATION_EK100",
+                                  "ANTICIPATION_EK100_SHORT"])
+def test_anticipation_cpu_build_has_the_preset_widths(name):
+    """build_anticipation_trainer(config, device="cpu") keeps the preset's
+    widths and recipe (the JAX preset anticipation_ek100, long memory cut
+    to 28 in the short configuration); the short one trains and serves on
+    the CPU through the plain versions, here at depth 1 and batch 1."""
+    from video_mamba_suite_torch import configs
+    from video_mamba_suite_torch.ops import LAUNCHES
+    from video_mamba_suite_torch.tasks.anticipation import (
+        build_anticipation_trainer,
+        predict,
+    )
+
+    config = getattr(configs, name)
+    trainer = build_anticipation_trainer(config, device="cpu",
+                                         mamba_layers=1, warmup_steps=0)
+    model = trainer.model
+    cfg = config["model"]
+    tokens = (cfg["long_memory_num_samples"]
+              + cfg["work_memory_num_samples"]
+              + cfg["anticipation_num_samples"])
+    assert tokens == (548 if name == "ANTICIPATION_EK100" else 64)
+    assert model.classifier.weight.shape == (3807, 1024)
+    assert model.head_long.fusion.weight.shape == (1024, 2048)
+    assert model.dec_query.shape == (4, 1024)
+    assert model.dropout_cls == 0.2 and config["batch_size"] == 16
+    assert trainer.schedule(0) == pytest.approx(7e-5)
+    assert trainer.optimizer.param_groups[0]["weight_decay"] == 5e-5
+    if tokens > 64:
+        return
+    frames = cfg["long_memory_num_samples"] + cfg["work_memory_num_samples"]
+    g = torch.Generator().manual_seed(0)
+    visual = torch.randn(1, frames, 1024, generator=g)
+    motion = torch.randn(1, frames, 1024, generator=g)
+    targets = torch.randint(3807, (1, 36), generator=g)
+    before = dict(LAUNCHES)
+    loss = trainer.train_step(visual, motion, targets)
+    probs = predict(model, visual, motion)
+    assert dict(LAUNCHES) == before
+    assert math.isfinite(loss) and probs.shape == (1, 36, 3807)
+    assert torch.isfinite(probs).all()

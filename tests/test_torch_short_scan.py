@@ -19,7 +19,10 @@ import torch
 from video_mamba_suite_torch.ops import (
     LAUNCHES,
     SHORT_SEQ_MAX,
+    chunked_scan_bwd_ref,
     selective_scan,
+    selective_scan_ref,
+    short_scan_bwd_ref,
     short_scan_fwd,
     short_scan_fwd_ref,
     use_short_scan,
@@ -28,6 +31,15 @@ from video_mamba_suite_torch.ops import (
 # the module (the JAX package's ops names its function the same)
 jax_pallas = importlib.import_module(
     "video_mamba_suite_tpu.ops.selective_scan_pallas")
+# the port's modules, which the package's names of their functions shadow
+short = importlib.import_module(
+    "video_mamba_suite_torch.ops.selective_scan_short")
+scan_front = importlib.import_module(
+    "video_mamba_suite_torch.ops.selective_scan")
+chunked = importlib.import_module(
+    "video_mamba_suite_torch.ops.selective_scan_chunked")
+mamba_inner = importlib.import_module(
+    "video_mamba_suite_torch.ops.mamba_inner")
 
 # each output within atol + rtol · |value| of the JAX kernel's. fp32: both
 # walk the same steps in fp32. bf16: the inputs are the same bf16 values
@@ -112,15 +124,73 @@ def test_short_rule_is_the_jax_rule():
         assert not use_short_scan(seqlen, torch.zeros(1, 1, 1))
 
 
+@pytest.fixture
+def card_route(monkeypatch):
+    """Run ``selective_scan``'s CUDA branch on CPU tensors, the four
+    launchers replaced by their plain versions, also for the mixers'
+    scans. Yields (the kernels it reached, in order; the scan)."""
+    calls = []
+
+    def counted(name, fn):
+        def inner(*a, **k):
+            calls.append(name)
+            return fn(*a, **k)
+        return inner
+
+    def k3(u, delta, A, B, C, D, z, bias, sp, h0, rev, every):
+        out, last = selective_scan_ref(u, delta, A, B, C, D, z, bias, sp,
+                                       True, h0, rev)
+        if not every:
+            return out, last
+        return out, last, chunked.chunked_scan_states_ref(
+            u, delta, A, B, C, bias, sp, h0, rev, every)
+
+    def k4(u, delta, A, B, C, D, z, bias, h0, states, g, g_last, sp, rev,
+           every):
+        return chunked_scan_bwd_ref(u, delta, A, B, C, D, z, bias, h0, g,
+                                    g_last, sp, rev)
+
+    monkeypatch.setattr(short, "short_scan_fwd",
+                        counted("short_scan_fwd", short_scan_fwd_ref))
+    monkeypatch.setattr(short, "short_scan_bwd",
+                        counted("short_scan_bwd", short_scan_bwd_ref))
+    monkeypatch.setattr(chunked, "chunked_scan_fwd",
+                        counted("chunked_scan_fwd", k3))
+    monkeypatch.setattr(chunked, "chunked_scan_bwd",
+                        counted("chunked_scan_bwd", k4))
+
+    def scan(u, delta, A, B, C, D=None, z=None, delta_bias=None,
+             delta_softplus=False, return_last_state=False,
+             initial_state=None, reverse=False):
+        out, last = scan_front._scan_on_card(
+            u, delta, A, B, C, D, z, delta_bias, delta_softplus,
+            initial_state, reverse)
+        return (out, last) if return_last_state else out
+
+    monkeypatch.setattr(mamba_inner, "selective_scan", scan)
+    yield calls, scan
+
+
 # lengths 64 and 65, with and without an initial state, with and without a
-# backward to follow: only the first goes to K5 on the card
+# backward to follow: the JAX rule sends 64 steps without an initial state
+# to the short kernels (K5, then K6 in the backward) whether or not a
+# backward follows, and the rest to the chunked ones (K3, then K4)
 @pytest.mark.parametrize("seqlen", [64, 65])
 @pytest.mark.parametrize("h0", [False, True])
 @pytest.mark.parametrize("backward", [False, True])
-def test_route_on_the_card(seqlen, h0, backward):
+def test_route_on_the_card(card_route, seqlen, h0, backward):
+    calls, scan = card_route
     initial_state = torch.zeros(2, 8, 4) if h0 else None
-    want = seqlen == 64 and not h0 and not backward
-    assert use_short_scan(seqlen, initial_state, backward) == want
+    is_short = seqlen == 64 and not h0
+    assert use_short_scan(seqlen, initial_state) == is_short
+    _, args = _inputs(seqlen, 2, seqlen, 8, 4, 0, "float32", True)
+    args["u"].requires_grad_(backward)
+    out = scan(**args, delta_softplus=True, initial_state=initial_state)
+    if backward:
+        out.sum().backward()
+    kernels = ("short_scan_fwd", "short_scan_bwd") if is_short else (
+        "chunked_scan_fwd", "chunked_scan_bwd")
+    assert calls == list(kernels[:1 + backward])
 
 
 def test_short_scan_fwd_launches_only_on_cuda():

@@ -19,6 +19,11 @@ from .models import (
     from_pretrained,
     generate,
 )
+from .tasks.anticipation import (
+    AnticipationTrainer,
+    LSTRMamba,
+    build_anticipation_trainer,
+)
 from .tasks.recognition import (
     RecognitionTrainer,
     build_vivim_k400_trainer,
@@ -28,8 +33,9 @@ from .tasks.recognition import (
 from .train import train_step
 from .utils import make_optimizer
 
-__all__ = ["GenerationConfig", "MambaLMHeadModel", "MambaVim",
-           "RecognitionTrainer", "TimeMamba", "ViViM", "build_mamba_lm",
-           "build_timemamba_b", "build_vivim_k400_trainer",
+__all__ = ["AnticipationTrainer", "GenerationConfig", "LSTRMamba",
+           "MambaLMHeadModel", "MambaVim", "RecognitionTrainer",
+           "TimeMamba", "ViViM", "build_anticipation_trainer",
+           "build_mamba_lm", "build_timemamba_b", "build_vivim_k400_trainer",
            "build_vivim_tiny_k400", "evaluate", "from_pretrained",
            "generate", "make_optimizer", "predict", "train_step"]

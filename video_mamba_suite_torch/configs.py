@@ -37,3 +37,27 @@ MAMBA_130M = dict(
     d_model=768, n_layer=24, vocab_size=50277, ssm_cfg={}, rms_norm=True,
     residual_in_fp32=True, fused_add_norm=True, pad_vocab_size_multiple=8,
 )
+
+# Action anticipation on EPIC-KITCHENS-100 (the JAX package's preset
+# ``anticipation_ek100``, TeSTra's MODEL.LSTR with Mamba layers): 512
+# long-memory + 32 work-memory frames and 4 anticipation queries, so one
+# causal scan of 548 tokens through 2 layers of width 1024; 3807 action
+# classes; classifier dropout 0.2; AdamW lr 7e-5, weight decay 5e-5;
+# batch 16. The JAX preset leaves the input widths to the data: 1024 each
+# are the BN-Inception RGB and optical-flow features of TeSTra's EK100
+# configs.
+ANTICIPATION_EK100 = dict(
+    model=dict(visual_dim=1024, motion_dim=1024, d_model=1024,
+               mamba_layers=2, long_memory_num_samples=512,
+               work_memory_num_samples=32, anticipation_num_samples=4,
+               num_classes=3807, dropout_cls=0.2),
+    opt=dict(lr=7e-5, weight_decay=5e-5),
+    batch_size=16,
+)
+# The same widths and recipe with the long memory cut from 512 to 28
+# frames, for the short kernels: 28 + 32 + 4 = 64 tokens take K5 forward
+# and K6 backward.
+ANTICIPATION_EK100_SHORT = dict(
+    ANTICIPATION_EK100,
+    model=dict(ANTICIPATION_EK100["model"], long_memory_num_samples=28),
+)

@@ -1,8 +1,16 @@
 """Models of the PyTorch port."""
 
-from .common import Dense, Embedding, FusedMHA, LayerNorm, PatchifyConv
+from .common import (
+    Dense,
+    Embedding,
+    FusedMHA,
+    LayerNorm,
+    PatchifyConv,
+    sinusoid_positions,
+)
 from .convert import (
     causal_mixer_from_jax,
+    lstr_mamba_from_jax,
     mamba_lm_from_jax,
     timemamba_from_jax,
     vim_mixer_from_jax,
@@ -27,7 +35,8 @@ __all__ = [
     "MixerModel", "Mlp", "PatchEmbed", "PatchifyConv", "SpaceTimeBlock",
     "TimeMamba", "ViViM", "build_mamba_lm", "build_timemamba_b",
     "build_vivim_tiny_k400", "causal_mixer_from_jax", "from_pretrained",
-    "generate", "make_block", "mamba_lm_from_jax", "mamba_lm_from_state_dict",
-    "sample_logits", "timemamba_from_jax", "vim_mixer_from_jax",
-    "vivim_from_jax", "vivim_small", "vivim_tiny",
+    "generate", "lstr_mamba_from_jax", "make_block", "mamba_lm_from_jax",
+    "mamba_lm_from_state_dict", "sample_logits", "sinusoid_positions",
+    "timemamba_from_jax", "vim_mixer_from_jax", "vivim_from_jax",
+    "vivim_small", "vivim_tiny",
 ]

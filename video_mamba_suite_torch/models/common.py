@@ -1,6 +1,7 @@
 """Building blocks of the towers and the LM (counterparts of the JAX
 package's ``models/common.py``: ``make_dense``, ``PatchifyConv``,
-``FusedMHA``, ``W8Embed``, and flax's ``nn.LayerNorm``).
+``FusedMHA``, ``W8Embed``, ``sinusoid_positions``, and flax's
+``nn.LayerNorm``).
 
 Every block follows the JAX package's dtype policy: parameters stay fp32
 and ``dtype`` is the compute dtype (None promotes the input with the
@@ -90,6 +91,18 @@ def drop_path(x: torch.Tensor, rate: float, training: bool,
     mask = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), device=x.device,
                       generator=generator) < keep
     return torch.where(mask, x / keep, 0.0)
+
+
+def sinusoid_positions(length: int, dim: int, device=None) -> torch.Tensor:
+    """The standard sin/cos table (length, dim) in fp32 (the JAX
+    ``sinusoid_positions``); dim must be even."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=device) * -(math.log(10000.0) / dim))
+    pe = torch.zeros(length, dim, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 class Dense(nn.Module):

@@ -67,6 +67,14 @@ def causal_mixer_from_jax(params: Dict[str, Any], prefix: str = ""
     return out
 
 
+def _causal_block(tree, prefix, out):
+    """A JAX ``Block`` around a ``MambaCausal`` {norm_w, norm_b?, mixer}."""
+    out[prefix + "norm_w"] = _tensor(tree["norm_w"])
+    if "norm_b" in tree:
+        out[prefix + "norm_b"] = _tensor(tree["norm_b"])
+    out.update(causal_mixer_from_jax(tree["mixer"], prefix + "mixer."))
+
+
 def mamba_lm_from_jax(params: Dict[str, Any], n_layer: int
                       ) -> Dict[str, torch.Tensor]:
     """A JAX ``MambaLMHeadModel`` tree {backbone: {embedding: {embedding},
@@ -79,11 +87,7 @@ def mamba_lm_from_jax(params: Dict[str, Any], n_layer: int
         "backbone.embedding.weight": _tensor(
             tree["embedding"]["embedding"])}
     for i in range(n_layer):
-        layer, prefix = tree[f"layers_{i}"], f"backbone.layers.{i}."
-        out[prefix + "norm_w"] = _tensor(layer["norm_w"])
-        if "norm_b" in layer:
-            out[prefix + "norm_b"] = _tensor(layer["norm_b"])
-        out.update(causal_mixer_from_jax(layer["mixer"], prefix + "mixer."))
+        _causal_block(tree[f"layers_{i}"], f"backbone.layers.{i}.", out)
     for name in ("norm_f_w", "norm_f_b"):
         if name in tree:
             out["backbone." + name] = _tensor(tree[name])
@@ -174,4 +178,26 @@ def vivim_from_jax(params: Dict[str, Any], depth: int
         out.update(vim_mixer_from_jax(layer["mixer"], f"layers.{i}.mixer."))
     if "head" in params:
         _dense(params["head"], "head.", out)
+    return out
+
+
+def lstr_mamba_from_jax(params: Dict[str, Any], mamba_layers: int
+                        ) -> Dict[str, torch.Tensor]:
+    """A JAX ``LSTRMamba`` tree {head_long/head_work: {fusion},
+    blocks_i: {norm_w, mixer}, norm_f_w, dec_query?, classifier,
+    classifier_verb?, classifier_noun?} → the port's ``LSTRMamba``
+    state_dict. A ``NormalizedLinear`` classifier's (in, out) kernel
+    becomes its (out, in) ``weight``, as a Dense kernel does."""
+    params = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    for head in ("head_long", "head_work"):
+        _dense(params[head]["fusion"], f"{head}.fusion.", out)
+    for i in range(mamba_layers):
+        _causal_block(params[f"blocks_{i}"], f"blocks.{i}.", out)
+    out["norm_f_w"] = _tensor(params["norm_f_w"])
+    if "dec_query" in params:
+        out["dec_query"] = _tensor(params["dec_query"])
+    for head in ("classifier", "classifier_verb", "classifier_noun"):
+        if head in params:
+            _dense(params[head], f"{head}.", out)
     return out

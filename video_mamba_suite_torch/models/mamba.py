@@ -176,11 +176,11 @@ class MambaCausal(nn.Module):
     ``prefill`` also returns the decode state, ``step`` advances one
     token. One ``fwd`` scan bundle, as the JAX tree has it.
 
-    On CUDA, ``forward`` and ``prefill`` scan through kernel K5 when the
-    sequence (rounded up to 8) is at most 64 steps and no backward
-    follows, else through K3 (and K4 in a backward); ``step`` is plain
-    torch (``causal_conv1d_update``, ``selective_state_update``), as the
-    JAX package's is plain jnp.
+    On CUDA, ``forward`` and ``prefill`` scan through kernel K5 (and K6
+    in a backward) when the sequence (rounded up to 8) is at most 64
+    steps, else through K3 (and K4 in a backward); ``step`` is plain torch
+    (``causal_conv1d_update``, ``selective_state_update``), as the JAX
+    package's is plain jnp.
     """
 
     def __init__(self, d_model: int, d_state: int = 16, d_conv: int = D_CONV,

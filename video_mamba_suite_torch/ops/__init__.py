@@ -24,6 +24,9 @@ from .selective_scan_chunked import (
 )
 from .selective_scan_short import (
     SHORT_SEQ_MAX,
+    ShortScan,
+    short_scan_bwd,
+    short_scan_bwd_ref,
     short_scan_fwd,
     short_scan_fwd_ref,
     use_short_scan,
@@ -32,6 +35,7 @@ from .selective_state_update import selective_state_update
 
 __all__ = [
     "CHECKPOINT_STEPS", "LAUNCHES", "MASKED_DELTA", "SHORT_SEQ_MAX",
+    "ShortScan",
     "causal_conv1d", "causal_conv1d_update",
     "chunked_scan_bwd", "chunked_scan_bwd_ref", "chunked_scan_fwd",
     "chunked_scan_states_ref", "fused_add_norm",
@@ -39,6 +43,7 @@ __all__ = [
     "rms_norm", "selective_scan", "selective_scan_bidir",
     "selective_scan_bidir_bwd", "selective_scan_bidir_bwd_ref",
     "selective_scan_bidir_ref", "selective_scan_ref",
-    "selective_state_update", "short_scan_fwd", "short_scan_fwd_ref",
+    "selective_state_update", "short_scan_bwd", "short_scan_bwd_ref",
+    "short_scan_fwd", "short_scan_fwd_ref",
     "use_short_scan",
 ]

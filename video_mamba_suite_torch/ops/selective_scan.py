@@ -20,8 +20,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import selective_scan_short as short
 from .selective_scan_chunked import CHECKPOINT_STEPS, ChunkedScan
-from .selective_scan_short import short_scan_fwd, use_short_scan
 
 
 def _flip(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -137,30 +137,24 @@ def selective_scan(
     it does not take (float32 or bfloat16 I/O, fp32 A, D, bias and
     states, dstate <= 16, contiguous), never a fallback:
     - a scan whose length rounded up to 8 is at most 64, with no
-      ``initial_state`` and no backward to follow, launches kernel K5
-      (``short_scan_fwd``), causal or ``reverse``;
+      ``initial_state``, launches kernel K5 (``short_scan_fwd``), causal or
+      ``reverse``; with a backward to follow it is the autograd Function
+      ``ShortScan``, whose backward launches K5's adjoint K6
+      (``short_scan_bwd``) with the output's cotangent only: its last
+      state takes no gradient, as the JAX short path stops it;
     - every other scan is the autograd Function ``ChunkedScan``: kernel
       K3 (``chunked_scan_fwd``) and, in a backward, its adjoint K4
       (``chunked_scan_bwd``) with the cotangents of the output and of the
       last state. K3 writes the checkpoints K4 needs only when a backward
-      follows. Short scans with a backward to follow take this route too
-      until K5's adjoint (K6) is ported; their last state then has an
-      exact gradient, where the JAX short path stops it.
+      follows.
     A backward follows when grad mode is on and an input requires a
-    gradient.
+    gradient. The plain version on the CPU gives the last state an exact
+    gradient on every route, as the JAX ``impl="ref"`` and ``"assoc"``
+    routes do.
     """
     if u.device.type == "cuda":
-        backward = torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (u, delta, A, B, C, D, z, delta_bias, initial_state))
-        if use_short_scan(u.shape[1], initial_state, backward):
-            out, last = short_scan_fwd(
-                u, delta, A, B, C, D, z, delta_bias, delta_softplus,
-                reverse)
-        else:
-            out, last = ChunkedScan.apply(
-                u, delta, A, B, C, D, z, delta_bias, initial_state,
-                delta_softplus, reverse, CHECKPOINT_STEPS if backward else 0)
+        out, last = _scan_on_card(u, delta, A, B, C, D, z, delta_bias,
+                                  delta_softplus, initial_state, reverse)
         return (out, last) if return_last_state else out
     if u.device.type == "cpu":
         return selective_scan_ref(
@@ -169,3 +163,20 @@ def selective_scan(
             return_last_state=return_last_state,
             initial_state=initial_state, reverse=reverse)
     raise ValueError(f"unsupported device {u.device}")
+
+
+def _scan_on_card(u, delta, A, B, C, D, z, delta_bias, delta_softplus,
+                  initial_state, reverse):
+    """``selective_scan``'s CUDA branch: (out, last state) by the JAX
+    routes. It reaches the kernels through their modules' launchers, so a
+    test can put the plain versions in their place on the CPU."""
+    backward = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (u, delta, A, B, C, D, z, delta_bias, initial_state))
+    if short.use_short_scan(u.shape[1], initial_state):
+        scan = short.ShortScan.apply if backward else short.short_scan_fwd
+        return scan(u, delta, A, B, C, D, z, delta_bias, delta_softplus,
+                    reverse)
+    return ChunkedScan.apply(
+        u, delta, A, B, C, D, z, delta_bias, initial_state, delta_softplus,
+        reverse, CHECKPOINT_STEPS if backward else 0)

@@ -1,1 +1,2 @@
-"""Task pipelines of the PyTorch port."""
+"""Task pipelines of the PyTorch port: ``recognition`` and
+``anticipation``."""
