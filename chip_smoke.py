@@ -10,10 +10,11 @@ Phases, each of which fails the run:
   3. kernels: hold each kernel against its plain PyTorch version on the
      card, at the shape the main path gives it and at the other cases of
      its table (``K1_CASES``, ``K2_CASES``, ``K3_CASES`` with K3's
-     checkpoints, ``K4_CASES``, ``K5_CASES``, ``K6_CASES``, which
-     tests/test_torch_kernels_cuda.py runs too), and time kernel, plain
-     version and the roofline bound (K3 also with its checkpoint output;
-     K5 and K6 also with their device time from the profiler).
+     checkpoints, ``K4_CASES``, ``K5_CASES``, ``K6_CASES``, ``K10_CASES``,
+     ``K9_CASES``, which tests/test_torch_kernels_cuda.py runs too), and
+     time kernel, plain version and the roofline bound (K3 also with its
+     checkpoint output; K5, K6, K10 and K9 also with their device time
+     from the profiler; K10 and K9 also SDPA on the same q, k, v).
   4. inference: TimeMamba-B (batch 8, 16 frames, 224², bf16, random
      weights from a seed) through ``build_timemamba_b``; launch counts are
      zeroed just before and read just after (K1: 12 per forward). Then a
@@ -72,6 +73,21 @@ Phases, each of which fails the run:
      at depth 2: the short configuration at batch 2 (scores,
      ``stream_prefill`` states, every parameter's gradient) and the preset
      at batch 1 (scores).
+ 12. EK100 MIR serving: ``build_clip_mir`` (CLIP-TimeMamba-B at the
+     preset ego_ek100_mir's widths, random weights from a seed; the video
+     tower in bf16 with its spatial attention on K10, the text tower in
+     fp32 with TF32 matmuls) answers requests of 8 clips (16 × 224²) and 8
+     captions of 77 token ids through the CLIP forward: exactly 12 K1 and
+     12 K10 per request, no plain version; ms/request, clips/s, peak
+     memory, a torch.profiler window; the same requests with
+     ``attn_flash=None`` (12 K1, no K10) as the A/B; then
+     ``MirFinetuner.evaluate`` over 32 clips x 32 captions against a
+     relevancy matrix of seeded verb/noun classes, its six metrics finite
+     and equal to those of its embeddings.
+ 13. card against CPU, CLIP: CLIP-TimeMamba-B at full width and depth in
+     fp32 (TF32 off), one clip and four captions, both embeddings and the
+     scale; ``FusedMHA(flash=True)`` on the card raises (K11 is not
+     ported).
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 """
 
@@ -262,6 +278,66 @@ ANT_LAYERS = 2                   # causal blocks of the preset
 # at about ten times that
 CARD_CPU_ANT_REL_TOL = 5e-5
 CARD_CPU_ANT_GRAD_REL_TOL = 3e-5
+
+
+K10_SOURCE = "video_mamba_suite_torch/csrc/row_mha_fwd.cu"
+K10_REPLACES = "video_mamba_suite_tpu/ops/vision_attention.py:175"
+K9_SOURCE = K10_SOURCE
+K9_REPLACES = "video_mamba_suite_tpu/ops/vision_attention.py:55"
+# K10 against its plain version: (label, (B, T, H, N, dh), I/O dtype,
+# layout). "projection": q, k and v read through strides from a
+# (B, N, T, 3·H·dh) projection output, the output written as (B, N, T,
+# H·dh), as FusedMHA(flash="row") gives them; "packed": a contiguous
+# head-major (B, T, 3H, N, dh), as row_mha_qkv's callers may. The first is
+# the EK100 MIR request's spatial attention (8 clips of 16 frames, 12
+# heads, 197 tokens; one launch per video-tower block); text: the text
+# tower's widths (8 heads, 77 tokens); then the whole-row limit of 512
+# tokens (at dh 128, the most shared memory), and the JAX tests' ragged
+# shapes (37 tokens of 16, and 197 tokens of 8). tests/test_torch_kernels_
+# cuda.py runs the same cases.
+K10_CASES = [
+    ("mir", (8, 16, 12, 197, 64), "bfloat16", "projection"),
+    ("mir-fp32", (8, 16, 12, 197, 64), "float32", "projection"),
+    ("mir-packed", (8, 16, 12, 197, 64), "bfloat16", "packed"),
+    ("text", (8, 1, 8, 77, 64), "float32", "packed"),
+    ("n512", (2, 2, 4, 512, 64), "bfloat16", "packed"),
+    ("n512-dh128", (1, 2, 2, 512, 128), "float32", "packed"),
+    ("ragged", (2, 3, 4, 37, 16), "float32", "packed"),
+    ("ragged-bf16", (2, 3, 4, 37, 16), "bfloat16", "projection"),
+    ("dh8", (1, 2, 2, 197, 8), "float32", "packed"),
+    ("dh8-bf16", (1, 2, 2, 197, 8), "bfloat16", "packed"),
+]
+# K9 against its plain version: (label, (I, H, N, dh), I/O dtype, layout):
+# "contiguous" q, k, v of (I, H, N, dh); "projection": (I, H, N, dh) views
+# of a (I, N, 3·H·dh) projection output, as FusedMHA(flash="vmem") gives
+# them. vision: the TimeMamba-B spatial shape flattened to instances (B·T
+# = 128); text: the text tower's (8 captions, 8 heads, 77 tokens); then
+# the JAX tests' shapes and 512 tokens.
+K9_CASES = [
+    ("vision", (128, 12, 197, 64), "bfloat16", "contiguous"),
+    ("text", (8, 8, 77, 64), "float32", "projection"),
+    ("ragged", (4, 3, 37, 16), "float32", "contiguous"),
+    ("ragged-bf16", (4, 3, 37, 16), "bfloat16", "projection"),
+    ("dh8", (2, 2, 197, 8), "float32", "contiguous"),
+    ("dh8-bf16", (2, 2, 197, 8), "bfloat16", "contiguous"),
+    ("n512", (4, 4, 512, 64), "bfloat16", "contiguous"),
+]
+# largest |kernel - plain| over the output (values below 2): fp32 read at
+# most 3.6e-7 on an H100 80GB HBM3 (sums in another order; PERF.md), held
+# at about ten times that; bf16 one to two bf16 ulps apart (read 3.9e-3:
+# the weights or the output rounded on either side of a tie), held at the
+# JAX tests' 2e-2
+ATTN_TOL = {"float32": 4e-6, "bfloat16": 2e-2}
+MIR_REQUESTS = 10                # timed MIR serving requests
+MIR_CAPTIONS = 8                 # captions per request
+MIR_EVAL = 32                    # clips and captions of the evaluate phase
+VISION_DEPTH = 12                # video-tower blocks (one K1, one K10 each)
+# CLIP-TimeMamba-B at full width and depth (12 + 12), fp32, TF32 off, card
+# against CPU, each output's largest difference over its largest CPU
+# magnitude (video and text embeddings, the scale): read at most 1.4e-6
+# (the text embeddings) on an H100 80GB HBM3 (PERF.md), held at about ten
+# times that
+CARD_CPU_CLIP_REL_TOL = 1.5e-5
 
 
 def log(*a):
@@ -1001,6 +1077,142 @@ def check_k6():
 
 
 # ---------------------------------------------------------------------------
+# K10 and K9: whole-row attention
+
+
+def attn_inputs(shape, dtype, layout, seed, device="cuda"):
+    """Seeded q, k, v of K10 (shape (B, T, H, N, dh): returns the (B, T,
+    3H, N, dh) qkv5) or of K9 (shape (I, H, N, dh): returns (q, k, v)) in
+    ``layout`` (see ``K10_CASES``, ``K9_CASES``)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def randn(*size):
+        return torch.randn(*size, device=device, generator=gen).to(dt)
+
+    if len(shape) == 5:
+        B, T, H, N, dh = shape
+        if layout == "projection":
+            return randn(B, N, T, 3 * H * dh).view(
+                B, N, T, 3 * H, dh).permute(0, 2, 3, 1, 4)
+        return randn(B, T, 3 * H, N, dh)
+    I, H, N, dh = shape
+    if layout == "projection":
+        return tuple(t.reshape(I, N, H, dh).transpose(1, 2)
+                     for t in randn(I, N, 3 * H * dh).chunk(3, dim=-1))
+    return randn(I, H, N, dh), randn(I, H, N, dh), randn(I, H, N, dh)
+
+
+def attn_kernel(label):
+    """(kernel entry, plain version, LAUNCHES key) of "K10" or "K9"."""
+    from video_mamba_suite_torch.ops import (
+        row_mha_fwd,
+        row_mha_qkv_ref,
+        vision_mha_fwd,
+        vision_mha_ref,
+    )
+
+    if label == "K10":
+        return row_mha_fwd, row_mha_qkv_ref, "row_mha_fwd"
+    return vision_mha_fwd, vision_mha_ref, "vision_mha_fwd"
+
+
+def attn_check(kernel, label, shape, dtype, layout):
+    """Launch K10 or K9 (``kernel``) once on the card at one of its cases
+    and hold its output against the plain version's (TF32 off). Returns
+    (inputs, output, max_abs_err); raises AssertionError on a miss."""
+    import torch
+    from video_mamba_suite_torch.ops import LAUNCHES
+
+    set_tf32(False)
+    fwd, ref, name = attn_kernel(kernel)
+    args = attn_inputs(shape, dtype, layout, seed=sum(shape) + 29)
+    args = args if isinstance(args, tuple) else (args,)
+    n0 = LAUNCHES[name]
+    got = fwd(*args)
+    torch.cuda.synchronize()
+    if LAUNCHES[name] != n0 + 1:
+        raise AssertionError(f"{kernel}'s wrapper did not count its launch")
+    want = ref(*args)
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{kernel} at {label}: {got.dtype} "
+                             f"{tuple(got.shape)}, want {want.dtype} "
+                             f"{tuple(want.shape)}")
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    ok = torch.isfinite(got).all().item() and err <= ATTN_TOL[dtype]
+    log(f"[{kernel.lower()}] {label} {shape} {dtype} {layout}: max_abs_err "
+        f"{err:.3e} at output scale {scale:.3e} (tol {ATTN_TOL[dtype]}) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{kernel} disagrees with its plain version at "
+                             f"{label} {shape}")
+    return args, got, err
+
+
+def attn_bound_ms(args, out):
+    """Least time for the work and what sets it: q, k and v read once and
+    the output written once over HBM, against the two products (4·N²·dh
+    per instance and head) and the softmax (5·N²: max, subtract, exp, sum,
+    divide) at the peak for the inputs' type (bf16 on the tensor cores,
+    fp32 outside them)."""
+    import torch
+
+    *lead, n, dh = out.shape
+    rows = math.prod(lead)
+    nbytes = 4 * out.numel() * out.element_size()
+    ops = rows * (4.0 * n * n * dh + 5.0 * n * n)
+    peak = BF16_TC_FLOP_PER_S if out.dtype == torch.bfloat16 else \
+        FP32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    log(f"  bound: {nbytes / 1e6:.2f} MB over 3.35 TB/s = "
+        f"{1e3 * t_bytes:.5f} ms; {ops / 1e9:.3f} GFLOP over "
+        f"{peak / 1e12:.0f} TFLOP/s = {1e3 * t_ops:.5f} ms")
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def library_attention(args):
+    """One PyTorch call that computes the same function: SDPA on the same
+    q, k and v (timed only; the port never calls it)."""
+    import torch.nn.functional as F
+    from video_mamba_suite_torch.ops.vision_attention import _split_heads
+
+    q, k, v = _split_heads(args[0]) if len(args) == 1 else args
+    return lambda: F.scaled_dot_product_attention(q, k, v)
+
+
+def check_attention(kernel, cases):
+    """Every case of K10 or K9 (``kernel``), each with the kernel's time
+    (back to back between CUDA events, and its device time alone from the
+    profiler), the plain version's, SDPA's and the bound. Returns the
+    main-path case's (the first) numbers."""
+    fwd, ref, name = attn_kernel(kernel)
+    result = {}
+    for case in cases:
+        args, got, err = attn_check(kernel, *case)
+        ms = cuda_time_ms(lambda: fwd(*args), iters=50)
+        device = profile("call", lambda: fwd(*args), tag=kernel.lower(),
+                         calls=20, top=0)
+        device_ms = sum(ms for key, ms in device.items()
+                        if "row_mha_kernel" in key)
+        plain_ms = cuda_time_ms(lambda: ref(*args), iters=5, warmup=1)
+        library_ms = cuda_time_ms(library_attention(args), iters=50)
+        bound_ms, bound_by = attn_bound_ms(args, got)
+        log(f"[{kernel.lower()}] {case[0]}: kernel {ms:.5f} ms per call "
+            f"back to back ({device_ms:.5f} ms of device time per launch), "
+            f"plain {plain_ms:.4f} ms, SDPA {library_ms:.5f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by})")
+        if not result:
+            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=library_ms)
+    return result
+
+
+# ---------------------------------------------------------------------------
 # the main paths and the card-vs-CPU checks
 
 
@@ -1032,9 +1244,10 @@ def run_main_path():
         raise AssertionError(f"bad output: shape {tuple(out.shape)}, "
                              f"finite {bool(torch.isfinite(out).all())}")
     want = 12 * FORWARDS
-    if launches.get("short_bidir_fwd", 0) != want:
+    if launches.get("short_bidir_fwd", 0) != want or \
+            launches.get("row_mha_fwd") or launches.get("vision_mha_fwd"):
         raise AssertionError(f"K1 launched {launches} times on the main "
-                             f"path, want {want}")
+                             f"path, want {want} and no K9 or K10")
     times.sort()
     median = statistics.median(times)
     clips = BATCH / median
@@ -1119,6 +1332,9 @@ def run_train_step():
         if launches.get(name, 0) != want:
             raise AssertionError(f"{name} launched {launches} times in "
                                  f"{TRAIN_STEPS} train steps, want {want}")
+    if launches.get("row_mha_fwd") or launches.get("vision_mha_fwd"):
+        raise AssertionError(f"the train steps launched K9 or K10: "
+                             f"{launches}")
     if not all(math.isfinite(v) for v in losses) or \
             not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
@@ -1208,8 +1424,9 @@ def card_against_cpu_grads():
 
 @contextlib.contextmanager
 def count_plain_calls():
-    """Count calls of the scans' plain versions (the front ends' CPU
-    branches) while the block runs; on the card there should be none."""
+    """Count calls of the scans' and the attention's plain versions (the
+    front ends' CPU branches) while the block runs; on the card there
+    should be none."""
     # the package's selective_scan function shadows its module's name
     ss = importlib.import_module("video_mamba_suite_torch.ops.selective_scan")
     sb = importlib.import_module(
@@ -1218,10 +1435,13 @@ def count_plain_calls():
         "video_mamba_suite_torch.ops.selective_scan_chunked")
     sh = importlib.import_module(
         "video_mamba_suite_torch.ops.selective_scan_short")
+    va = importlib.import_module(
+        "video_mamba_suite_torch.ops.vision_attention")
     calls = collections.Counter()
     patched = [(ss, "selective_scan_ref"), (sb, "selective_scan_bidir_ref"),
                (sc, "chunked_scan_bwd_ref"), (sh, "short_scan_fwd_ref"),
-               (sh, "short_scan_bwd_ref")]
+               (sh, "short_scan_bwd_ref"), (va, "row_mha_qkv_ref"),
+               (va, "vision_mha_ref")]
     originals = [getattr(mod, name) for mod, name in patched]
 
     def counting(name, fn):
@@ -2015,6 +2235,189 @@ def card_against_cpu_anticipation():
                              f"gradient: {missing})")
 
 
+
+def mir_inputs(clips, captions, seed):
+    """``clips`` random clips at the MIR preset's 16 × 224² on the card, and
+    ``captions`` rows of 77 token ids drawn over the 49408-entry
+    vocabulary."""
+    import torch
+    from video_mamba_suite_torch.configs import CLIP_TIMEMAMBA_B_EK100_MIR
+
+    m = CLIP_TIMEMAMBA_B_EK100_MIR["model"]
+    vision, text = m["vision_cfg"], m["text_cfg"]
+    img = vision["img_size"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(clips, vision["num_frames"], img, img, 3, device="cuda",
+                    generator=g)
+    ids = torch.randint(0, text["vocab_size"],
+                        (captions, text["context_length"]), device="cuda",
+                        generator=g)
+    return x, ids
+
+
+def serve_mir(model, clips, ids, label):
+    """REQUESTS timed CLIP forwards of one request after 2 warm-ups, the
+    launch counts zeroed just before and read just after. Returns (the
+    last outputs, launches, plain-version calls)."""
+    import torch
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+
+    with torch.inference_mode():
+        for _ in range(2):
+            model(clips, ids)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        times = []
+        with count_plain_calls() as plain:
+            for _ in range(MIR_REQUESTS):   # each ends with its embeddings
+                t0 = time.perf_counter()
+                out = model(clips, ids)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    img, txt, scale = out
+    if tuple(img.shape) != (len(clips), 512) or \
+            tuple(txt.shape) != (len(ids), 512) or \
+            not all(torch.isfinite(t).all() for t in out) or \
+            (img.norm(dim=-1) - 1).abs().max() > 1e-4:
+        raise AssertionError(f"bad MIR embeddings: {tuple(img.shape)}, "
+                             f"{tuple(txt.shape)}")
+    times.sort()
+    median = statistics.median(times)
+    log(f"[mir] {label}: {MIR_REQUESTS} requests of {len(clips)} clips + "
+        f"{len(ids)} captions: median {1e3 * median:.3f} ms/request (min "
+        f"{1e3 * times[0]:.3f}, max {1e3 * times[-1]:.3f}), "
+        f"{len(clips) / median:.2f} clips/s; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches}")
+    return out, launches, dict(plain)
+
+
+def run_mir_serving():
+    """This slice's main path: EK100 multi-instance retrieval on
+    CLIP-TimeMamba-B (``build_clip_mir``: bf16 video tower with its spatial
+    attention on K10, fp32 text tower with TF32 matmuls). Requests of 8
+    clips and 8 captions through the CLIP forward: exactly 12 K1 and 12 K10
+    each and no plain version; the same requests with ``attn_flash=None``
+    (12 K1, no K10) as the A/B; then ``MirFinetuner.evaluate`` over 32
+    clips x 32 captions."""
+    import numpy as np
+    import torch
+    from video_mamba_suite_torch import build_clip_mir
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+    from video_mamba_suite_torch.tasks.egocentric import (
+        create_relevancy_matrix,
+        get_mAP,
+        get_nDCG,
+    )
+
+    t0 = time.perf_counter()
+    engine = build_clip_mir(attn_flash="row", vision_dtype=torch.bfloat16,
+                            seed=0)
+    model = engine.model.eval()
+    log(f"[mir] CLIP-TimeMamba-B (EK100 MIR) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    set_tf32(True)
+    clips, ids = mir_inputs(BATCH, MIR_CAPTIONS, seed=21)
+    row, launches, plain = serve_mir(model, clips, ids, 'attn_flash="row"')
+    want = {"short_bidir_fwd": VISION_DEPTH * MIR_REQUESTS,
+            "row_mha_fwd": VISION_DEPTH * MIR_REQUESTS}
+    if launches != want or plain:
+        raise AssertionError(f"MIR requests launched {launches} (want "
+                             f"{want}), plain versions {plain}")
+    with torch.inference_mode():
+        profile("request", lambda: model(clips, ids), tag="profile-mir")
+    for blk in model.visual.blocks:                 # the A/B: einsum path
+        blk.attn.flash = None
+    einsum, ab_launches, plain = serve_mir(model, clips, ids,
+                                           "attn_flash=None")
+    if ab_launches != {"short_bidir_fwd": VISION_DEPTH * MIR_REQUESTS} or \
+            plain:
+        raise AssertionError(f"the A/B launched {ab_launches}, plain "
+                             f"versions {plain}")
+    with torch.inference_mode():
+        profile("request", lambda: model(clips, ids), tag="profile-mir-ab")
+    diff = max((a - b).abs().max().item() for a, b in zip(row, einsum))
+    log(f"[mir] row against einsum path (bf16 video tower): largest "
+        f"embedding difference {diff:.3e}")
+    for blk in model.visual.blocks:
+        blk.attn.flash = "row"
+
+    videos, texts = mir_inputs(MIR_EVAL, MIR_EVAL, seed=22)
+    rng = np.random.default_rng(23)            # 4 verbs x 3 nouns a side
+    vis = rng.integers(0, 4, MIR_EVAL) * 3 + rng.integers(0, 3, MIR_EVAL)
+    txt = rng.integers(0, 4, MIR_EVAL) * 3 + rng.integers(0, 3, MIR_EVAL)
+    rel = create_relevancy_matrix(vis, txt)
+    reset_launches()
+    t0 = time.perf_counter()
+    result = engine.evaluate(videos, texts, rel, batch_size=BATCH)
+    seconds = time.perf_counter() - t0
+    eval_launches = dict(LAUNCHES)
+    img, txt_emb = engine.encode_dataset(videos, texts, batch_size=BATCH)
+    sim = (img @ txt_emb.T + 1) / 2
+    expect = dict(zip(("vis_map", "txt_map", "avg_map"), get_mAP(sim, rel)))
+    expect.update(zip(("vis_ndcg", "txt_ndcg", "avg_ndcg"),
+                      get_nDCG(sim, rel)))
+    batches = -(-MIR_EVAL // BATCH)
+    log(f"[mir] evaluate over {MIR_EVAL} clips x {MIR_EVAL} captions in "
+        f"{seconds:.2f} s: " + ", ".join(f"{k} {v:.5f}"
+                                        for k, v in result.items())
+        + f"; launches {eval_launches}")
+    if not all(math.isfinite(v) for v in result.values()) or \
+            any(abs(result[k] - expect[k]) > 1e-6 for k in expect) or \
+            eval_launches != {"short_bidir_fwd": VISION_DEPTH * batches,
+                              "row_mha_fwd": VISION_DEPTH * batches}:
+        raise AssertionError(f"MIR evaluate: {result} against the metrics "
+                             f"of its embeddings {expect}")
+    return launches
+
+
+def card_against_cpu_clip():
+    """CLIP-TimeMamba-B at full width and depth (video 12 with K1 and K10,
+    text 12) in fp32, TF32 off: one clip and four captions on the card
+    through the kernels against the CPU through the plain versions. Then
+    FusedMHA(flash=True) on a CUDA tensor must raise (K11 is not
+    ported)."""
+    import torch
+    from video_mamba_suite_torch import build_clip_mir
+    from video_mamba_suite_torch.models import FusedMHA
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+
+    set_tf32(False)
+    t0 = time.perf_counter()
+    cpu = build_clip_mir(device="cpu", seed=5, attn_flash="row").model.eval()
+    card = copy.deepcopy(cpu).to("cuda")
+    clips, ids = mir_inputs(1, 4, seed=24)
+    reset_launches()
+    with torch.inference_mode():
+        got = card(clips, ids)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        want = cpu(clips.cpu(), ids.cpu())
+    if launches != {"short_bidir_fwd": VISION_DEPTH,
+                    "row_mha_fwd": VISION_DEPTH}:
+        raise AssertionError(f"the card's CLIP forward launched {launches}")
+    errs = {name: ((g.cpu() - w).abs().max()
+                   / w.abs().max().clamp_min(1e-30)).item()
+            for name, g, w in zip(("video", "text", "scale"), got, want)}
+    log(f"[card-vs-cpu] CLIP-TimeMamba-B fp32, full width, depth 12 + 12, "
+        f"TF32 off, largest difference over each output's scale: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tol {CARD_CPU_CLIP_REL_TOL}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not all(math.isfinite(v) and v <= CARD_CPU_CLIP_REL_TOL
+               for v in errs.values()):
+        raise AssertionError(f"card and CPU CLIP disagree: {errs}")
+    mha = FusedMHA(512, 8, flash=True, generator=torch.Generator()).cuda()
+    try:
+        mha(torch.zeros(1, 77, 512, device="cuda"))
+    except NotImplementedError as e:
+        log(f"[card-vs-cpu] FusedMHA(flash=True) on the card raises: {e}")
+    else:
+        raise AssertionError("FusedMHA(flash=True) ran on the card")
+
+
 def main() -> int:
     import torch
 
@@ -2043,6 +2446,8 @@ def main() -> int:
     k4 = check_k4()
     k5 = check_k5()
     k6 = check_k6()
+    k10 = check_attention("K10", K10_CASES)
+    k9 = check_attention("K9", K9_CASES)
     run_main_path()
     launches = run_train_step()
     launches.update(run_vivim_serving())
@@ -2050,25 +2455,31 @@ def main() -> int:
     launches.update(run_lm_serving())
     run_anticipation_streaming(run_anticipation_serving())
     launches["short_scan_bwd"] = run_anticipation_train()["short_scan_bwd"]
+    launches["row_mha_fwd"] = run_mir_serving()["row_mha_fwd"]
+    # no model sets flash="vmem", so no main path launches K9
+    launches["vision_mha_fwd"] = 0
     card_against_cpu()
     card_against_cpu_grads()
     card_against_cpu_vivim()
     card_against_cpu_vivim_grads()
     card_against_cpu_lm()
     card_against_cpu_anticipation()
+    card_against_cpu_clip()
 
     kernels = [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches[name], max_abs_err=k["max_abs_err"], ms=k["ms"],
         plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
-        bound_by=k["bound_by"], library_ms=None)
+        bound_by=k["bound_by"], library_ms=k.get("library_ms"))
         for name, source, replaces, k in (
             ("short_bidir_fwd", K1_SOURCE, K1_REPLACES, k1),
             ("short_bidir_bwd", K2_SOURCE, K2_REPLACES, k2),
             ("chunked_scan_fwd", K3_SOURCE, K3_REPLACES, k3),
             ("chunked_scan_bwd", K4_SOURCE, K4_REPLACES, k4),
             ("short_scan_fwd", K5_SOURCE, K5_REPLACES, k5),
-            ("short_scan_bwd", K6_SOURCE, K6_REPLACES, k6))]
+            ("short_scan_bwd", K6_SOURCE, K6_REPLACES, k6),
+            ("row_mha_fwd", K10_SOURCE, K10_REPLACES, k10),
+            ("vision_mha_fwd", K9_SOURCE, K9_REPLACES, k9))]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

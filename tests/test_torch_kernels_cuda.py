@@ -466,3 +466,109 @@ def test_small_lm_on_card_matches_cpu(cuda_device):
         for g, w in pairs:
             err = (g.cpu() - w).abs().max() / w.abs().max()
             assert err < 1e-5, (prompt, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,shape,dtype,layout", chip_smoke.K10_CASES,
+                         ids=[case[0] for case in chip_smoke.K10_CASES])
+def test_k10_matches_plain_version(cuda_device, label, shape, dtype, layout):
+    """The cases and tolerances of chip_smoke.py's K10 phase."""
+    chip_smoke.attn_check("K10", label, shape, dtype, layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,shape,dtype,layout", chip_smoke.K9_CASES,
+                         ids=[case[0] for case in chip_smoke.K9_CASES])
+def test_k9_matches_plain_version(cuda_device, label, shape, dtype, layout):
+    """The cases and tolerances of chip_smoke.py's K9 phase."""
+    chip_smoke.attn_check("K9", label, shape, dtype, layout)
+
+
+@pytest.mark.cuda
+def test_k9_k10_reject_what_they_do_not_take(cuda_device):
+    from video_mamba_suite_torch.ops import row_mha_fwd, vision_mha_fwd
+
+    qkv = torch.randn(1, 2, 6, 16, 8, device="cuda")
+    with pytest.raises(ValueError, match="whole-row limit"):
+        row_mha_fwd(torch.zeros(1, 1, 3, 513, 8, device="cuda"))
+    with pytest.raises(ValueError, match="head width"):
+        row_mha_fwd(torch.zeros(1, 1, 3, 8, 129, device="cuda"))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        row_mha_fwd(qkv.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        row_mha_fwd(qkv.transpose(-1, -2))
+    with pytest.raises(ValueError, match="launches a CUDA kernel"):
+        row_mha_fwd(qkv.cpu())
+    q = torch.randn(2, 2, 16, 8, device="cuda")
+    with pytest.raises(TypeError, match="bfloat16"):
+        vision_mha_fwd(q, q, q.bfloat16())
+    with pytest.raises(ValueError, match="is on"):
+        vision_mha_fwd(q, q, q.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        vision_mha_fwd(q, q, q[:, :, :8])
+
+
+@pytest.mark.cuda
+def test_fused_mha_flash_true_raises_on_card(cuda_device):
+    """FusedMHA(flash=True) would run K11, which the port has not ported: on
+    the card it raises and does not fall back."""
+    from video_mamba_suite_torch.models import FusedMHA
+
+    mha = FusedMHA(128, 2, flash=True, causal=True,
+                   generator=torch.Generator()).cuda()
+    with pytest.raises(NotImplementedError, match="K11"):
+        mha(torch.randn(2, 9, 128, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn_flash,launches", [
+    (None, {"short_bidir_fwd": 2}),
+    ("row", {"short_bidir_fwd": 2, "row_mha_fwd": 2})])
+def test_timemamba_row_attention_on_card(cuda_device, attn_flash, launches):
+    """A small TimeMamba forward launches one K10 per block with "row" and
+    none without; both agree with the CPU."""
+    from video_mamba_suite_torch.models import TimeMamba
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = TimeMamba(img_size=32, embed_dim=64, depth=2, num_heads=4,
+                    num_frames=4, ln_pre=True, attn_flash=attn_flash,
+                    device="cpu", seed=0).eval()
+    card = copy.deepcopy(cpu).to("cuda")
+    x = torch.randn(2, 4, 32, 32, 3, generator=torch.Generator().manual_seed(0))
+    before = dict(LAUNCHES)
+    with torch.inference_mode():
+        got = card(x.cuda())
+        torch.cuda.synchronize()
+        assert _grown(before) == launches
+        want = cpu(x)
+    err = (got.cpu() - want).abs().max() / want.abs().max()
+    assert err < 1e-5, err
+
+
+@pytest.mark.cuda
+def test_small_clip_on_card_matches_cpu(cuda_device):
+    """A small CLIP-TimeMamba (spatial attention on K10) on the card against
+    the CPU: both embeddings and the scale; 2 K1 and 2 K10 launches."""
+    from video_mamba_suite_torch.models import CLIP
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = CLIP(embed_dim=32,
+               vision_cfg=dict(img_size=32, embed_dim=64, depth=2,
+                               num_heads=4, num_frames=4, ln_pre=True,
+                               is_tanh_gating=True, attn_flash="row"),
+               text_cfg=dict(context_length=16, vocab_size=100, width=64,
+                             heads=4, layers=2),
+               device="cpu", seed=0).eval()
+    card = copy.deepcopy(cpu).to("cuda")
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 4, 32, 32, 3, generator=g)
+    ids = torch.randint(100, (3, 16), generator=g)
+    before = dict(LAUNCHES)
+    with torch.inference_mode():
+        got = card(x.cuda(), ids.cuda())
+        torch.cuda.synchronize()
+        assert _grown(before) == {"short_bidir_fwd": 2, "row_mha_fwd": 2}
+        want = cpu(x, ids)
+    for g_, w in zip(got, want):
+        err = (g_.cpu() - w).abs().max() / w.abs().max()
+        assert err < 1e-5, err

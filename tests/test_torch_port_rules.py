@@ -162,3 +162,61 @@ def test_anticipation_cpu_build_has_the_preset_widths(name):
     assert dict(LAUNCHES) == before
     assert math.isfinite(loss) and probs.shape == (1, 36, 3807)
     assert torch.isfinite(probs).all()
+
+
+def test_clip_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default build succeeds")
+    from video_mamba_suite_torch import CLIP, build_clip_mir
+    from video_mamba_suite_torch.models import clip_vivim_tiny
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_clip_mir()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CLIP(vision_cfg=dict(img_size=32, embed_dim=32, depth=1,
+                             num_heads=2),
+             text_cfg=dict(context_length=8, vocab_size=50, width=32,
+                           heads=4, layers=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        clip_vivim_tiny()
+
+
+def test_clip_mir_cpu_build_has_the_preset_widths():
+    """build_clip_mir(device="cpu") is CLIP-TimeMamba-B at the EK100 MIR
+    preset's widths (the JAX preset ego_ek100_mir as its CLI builds it);
+    here with the video tower cut to depth 1 and the text tower to 1
+    layer, it serves one clip and two captions on the CPU through the
+    plain versions, with attn_flash="row" as without."""
+    import copy
+
+    from video_mamba_suite_torch import build_clip_mir
+    from video_mamba_suite_torch.configs import CLIP_TIMEMAMBA_B_EK100_MIR
+    from video_mamba_suite_torch.ops import LAUNCHES
+
+    config = copy.deepcopy(CLIP_TIMEMAMBA_B_EK100_MIR)
+    vision, text = config["model"]["vision_cfg"], config["model"]["text_cfg"]
+    assert (vision["embed_dim"], vision["depth"], vision["num_heads"],
+            vision["num_frames"], vision["img_size"]) == (768, 12, 12, 16, 224)
+    assert (text["context_length"], text["vocab_size"], text["width"],
+            text["heads"], text["layers"]) == (77, 49408, 512, 8, 12)
+    assert config["opt"] == dict(lr=1e-5, weight_decay=0.01)
+    vision.update(depth=1, num_frames=2, img_size=32)
+    text["layers"] = 1
+    g = torch.Generator().manual_seed(0)
+    clip = torch.randn(1, 2, 32, 32, 3, generator=g)
+    ids = torch.randint(0, 49408, (2, 77), generator=g)
+    before = dict(LAUNCHES)
+    outs = []
+    for attn_flash in (None, "row"):
+        model = build_clip_mir(config, device="cpu",
+                               attn_flash=attn_flash).model
+        assert model.visual.blocks[0].attn.flash == attn_flash
+        assert model.visual.blocks[0].attention_style == "frozen-in-time"
+        assert model.visual.image_projection.shape == (768, 512)
+        assert model.textual.text_projection.shape == (512, 512)
+        with torch.no_grad():
+            outs.append(model(clip, ids))
+    assert dict(LAUNCHES) == before
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.allclose(a, b, atol=1e-5)
+    assert outs[0][0].shape == (1, 512) and outs[0][1].shape == (2, 512)

@@ -8,6 +8,7 @@ Entry points build on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from .models import (
+    CLIP,
     GenerationConfig,
     MambaLMHeadModel,
     MambaVim,
@@ -24,6 +25,7 @@ from .tasks.anticipation import (
     LSTRMamba,
     build_anticipation_trainer,
 )
+from .tasks.egocentric import MirFinetuner, build_clip_mir
 from .tasks.recognition import (
     RecognitionTrainer,
     build_vivim_k400_trainer,
@@ -33,9 +35,10 @@ from .tasks.recognition import (
 from .train import train_step
 from .utils import make_optimizer
 
-__all__ = ["AnticipationTrainer", "GenerationConfig", "LSTRMamba",
-           "MambaLMHeadModel", "MambaVim", "RecognitionTrainer",
-           "TimeMamba", "ViViM", "build_anticipation_trainer",
-           "build_mamba_lm", "build_timemamba_b", "build_vivim_k400_trainer",
+__all__ = ["AnticipationTrainer", "CLIP", "GenerationConfig", "LSTRMamba",
+           "MambaLMHeadModel", "MambaVim", "MirFinetuner",
+           "RecognitionTrainer", "TimeMamba", "ViViM",
+           "build_anticipation_trainer", "build_clip_mir", "build_mamba_lm",
+           "build_timemamba_b", "build_vivim_k400_trainer",
            "build_vivim_tiny_k400", "evaluate", "from_pretrained",
            "generate", "make_optimizer", "predict", "train_step"]

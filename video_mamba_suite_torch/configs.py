@@ -61,3 +61,24 @@ ANTICIPATION_EK100_SHORT = dict(
     ANTICIPATION_EK100,
     model=dict(ANTICIPATION_EK100["model"], long_memory_num_samples=28),
 )
+
+# EK100 multi-instance retrieval on CLIP-TimeMamba-B: the JAX package's
+# preset ``ego_ek100_mir`` (configs/presets.py:127-134) as its CLI builds it
+# (``_build_ego_clip``, cli.py:788-812): video tower TimeMamba-B, 16 frames
+# at 224², patch 16, width 768, 12 layers, 12 heads, ln_pre, frozen-in-time,
+# tanh-gated adapters; embeddings of 512; text tower context 77, CLIP's BPE
+# vocabulary of 49408, width 512, 8 heads, 12 layers. The preset's recipe
+# (upstream main_lavila_finetune_mir.py's defaults: lr 1e-5, weight decay
+# 0.01, batch 64) is for the fine-tuning step.
+CLIP_TIMEMAMBA_B_EK100_MIR = dict(
+    model=dict(
+        embed_dim=512, vision_tower="timemamba",
+        vision_cfg=dict(img_size=224, patch_size=16, embed_dim=768, depth=12,
+                        num_heads=12, num_frames=16, ln_pre=True,
+                        attention_style="frozen-in-time",
+                        is_tanh_gating=True),
+        text_cfg=dict(context_length=77, vocab_size=49408, width=512,
+                      heads=8, layers=12)),
+    opt=dict(lr=1e-5, weight_decay=0.01),
+    batch_size=64,
+)

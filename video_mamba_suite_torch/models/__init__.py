@@ -1,5 +1,17 @@
 """Models of the PyTorch port."""
 
+from .clip import (
+    CLIP,
+    ClipImageTower,
+    ResidualAttentionBlock,
+    TextTransformer,
+    clip_timemamba_base,
+    clip_timemamba_frozen,
+    clip_timemamba_frozen_joint,
+    clip_vivim_small,
+    clip_vivim_tiny,
+    clip_vivim_tiny_hs4,
+)
 from .common import (
     Dense,
     Embedding,
@@ -10,8 +22,11 @@ from .common import (
 )
 from .convert import (
     causal_mixer_from_jax,
+    clip_from_jax,
+    clip_image_tower_from_jax,
     lstr_mamba_from_jax,
     mamba_lm_from_jax,
+    text_transformer_from_jax,
     timemamba_from_jax,
     vim_mixer_from_jax,
     vivim_from_jax,
@@ -30,6 +45,11 @@ from .vivim import (
 )
 
 __all__ = [
+    "CLIP", "ClipImageTower", "ResidualAttentionBlock", "TextTransformer",
+    "clip_from_jax", "clip_image_tower_from_jax", "clip_timemamba_base",
+    "clip_timemamba_frozen", "clip_timemamba_frozen_joint",
+    "clip_vivim_small", "clip_vivim_tiny", "clip_vivim_tiny_hs4",
+    "text_transformer_from_jax",
     "Block", "Dense", "Embedding", "FusedMHA", "GenerationConfig", "LayerNorm",
     "MambaCausal", "MambaLMHeadModel", "MambaScanNorm", "MambaVim",
     "MixerModel", "Mlp", "PatchEmbed", "PatchifyConv", "SpaceTimeBlock",

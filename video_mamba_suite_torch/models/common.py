@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.vision_attention import MAX_ROW_TOKENS, row_mha_qkv, vision_mha
+
 
 def resolve_device(device) -> torch.device:
     """The device to build on. A CUDA device must exist: an entry point
@@ -197,32 +199,95 @@ class PatchifyConv(nn.Module):
 
 
 class FusedMHA(nn.Module):
-    """Multi-head self-attention with a fused qkv projection over axis 1 of
-    a (B, S, T, D) input, batched over (B, T): the JAX ``FusedMHA``
-    ``seq_axis=1`` einsum path. Scores and softmax stay in the compute
-    dtype, as there; the products are plain matmuls."""
+    """Multi-head self-attention with a fused qkv projection: the JAX
+    ``FusedMHA``. Attention runs over axis ``seq_axis`` of the input: -2 on
+    any (..., L, D) input, or 1 on a (B, S, T, D) input, batched over
+    (B, T) without a transpose of the input. Scores and softmax stay in the
+    compute dtype, as there; the products are plain matmuls, and
+    ``causal`` masks the scores at -1e30 in their dtype (axis -2 only).
+
+    ``flash`` picks a kernel under the JAX package's conditions, in its
+    order:
+      - "row": on the 4-D ``seq_axis=1`` path, not causal, S <= 512: the
+        whole-row kernel K10 (``ops.vision_attention.row_mha_qkv``), which
+        reads q, k and v from the projection's (B, S, T, 3D) output through
+        strides and writes (B, S, T, D) for the output projection (the JAX
+        package's head-major projections ``_HeadMajorQKV`` /
+        ``_HeadMajorOut`` computed through views: the same ``qkv`` and
+        ``out`` parameters, so one state dict serves every ``flash``).
+        Above 512 tokens it takes the einsum path.
+      - "vmem": on a 3-D (B, L, D) input, not causal, L <= 512: the
+        whole-row kernel K9 (``ops.vision_attention.vision_mha``).
+      - True: the flash kernel K11, which the port does not have yet: a
+        CUDA input that the JAX package would give K11 (3-D, dh a multiple
+        of 64) raises NotImplementedError; on the CPU, as the JAX package
+        off the TPU, the einsum path.
+    On the ``seq_axis=1`` path anything but None or "row", and ``causal``,
+    raise ValueError, as in the JAX package. Off the CPU each kernel path
+    launches its kernel or raises; none falls back."""
 
     def __init__(self, dim: int, num_heads: int, *,
-                 dtype: Optional[torch.dtype] = None,
+                 dtype: Optional[torch.dtype] = None, causal: bool = False,
+                 flash=None, seq_axis: int = -2,
                  generator: torch.Generator):
         super().__init__()
         self.num_heads = num_heads
+        self.causal = causal
+        self.flash = flash
+        self.seq_axis = seq_axis
         self.qkv = Dense(dim, 3 * dim, dtype=dtype, init="xavier_uniform",
                          generator=generator)
         self.out = Dense(dim, dim, dtype=dtype, init="xavier_uniform",
                          generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, S, T, D = x.shape
+        D = x.shape[-1]
         H = self.num_heads
         dh = D // H
-        qkv = self.qkv(x)
+        four_d = self.seq_axis == 1 and x.dim() == 4
+        if (self.flash == "row" and four_d and not self.causal
+                and x.shape[1] <= MAX_ROW_TOKENS):
+            B, S, T = x.shape[:3]
+            # (B, S, T, 3D) viewed head-major as (B, T, 3H, S, dh); the
+            # output (B, T, H, S, dh) lies in memory as (B, S, T, H, dh)
+            qkv5 = self.qkv(x).view(B, S, T, 3 * H, dh).permute(0, 2, 3, 1, 4)
+            out5 = row_mha_qkv(qkv5)
+            return self.out(out5.permute(0, 3, 1, 2, 4).reshape(B, S, T, D))
+        q, k, v = self.qkv(x).chunk(3, dim=-1)
+        if four_d:
+            if self.causal or (self.flash and self.flash != "row"):
+                raise ValueError("seq_axis=1 supports plain bidirectional "
+                                 "attention only")
+            B, S, T = x.shape[:3]
 
-        def heads(t):                                   # → (B, T, H, S, dh)
-            return t.reshape(B, S, T, H, dh).permute(0, 2, 3, 1, 4)
+            def heads4(t):                              # → (B, T, H, S, dh)
+                return t.reshape(B, S, T, H, dh).permute(0, 2, 3, 1, 4)
 
-        q, k, v = (heads(t) for t in qkv.chunk(3, dim=-1))
+            q, k, v = heads4(q), heads4(k), heads4(v)
+            scores = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(dh))
+            w = torch.softmax(scores, dim=-1).to(v.dtype)
+            out = (w @ v).permute(0, 3, 1, 2, 4).reshape(B, S, T, D)
+            return self.out(out)
+
+        def heads(t):                                   # → (..., H, L, dh)
+            return t.reshape(t.shape[:-1] + (H, dh)).transpose(-2, -3)
+
+        q, k, v = heads(q), heads(k), heads(v)
+        L = x.shape[-2]
+        if (self.flash == "vmem" and x.dim() == 3 and not self.causal
+                and L <= MAX_ROW_TOKENS):
+            out = vision_mha(q, k, v)                   # (B, H, L, dh)
+            return self.out(out.transpose(1, 2).reshape(x.shape[:-1] + (D,)))
+        if (self.flash is True and x.is_cuda and x.dim() == 3
+                and dh % 64 == 0):
+            raise NotImplementedError(
+                "FusedMHA(flash=True) runs the flash-attention kernel K11 "
+                "(the JAX package's _flash_mha), which the port has not "
+                "ported yet")
         scores = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(dh))
+        if self.causal:
+            keep = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
+            scores = scores.masked_fill(~keep, -1e30)
         w = torch.softmax(scores, dim=-1).to(v.dtype)
-        out = (w @ v).permute(0, 3, 1, 2, 4).reshape(B, S, T, D)
-        return self.out(out)
+        out = (w @ v).transpose(-2, -3)                 # (..., L, H, dh)
+        return self.out(out.reshape(out.shape[:-2] + (D,)))

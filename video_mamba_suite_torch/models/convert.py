@@ -201,3 +201,87 @@ def lstr_mamba_from_jax(params: Dict[str, Any], mamba_layers: int
         if head in params:
             _dense(params[head], f"{head}.", out)
     return out
+
+
+def _attention_block(tree, prefix, out):
+    """A JAX ``ResidualAttentionBlock`` {ln_1, attn: {qkv, out}, ln_2,
+    mlp: {fc1, fc2}}."""
+    for norm in ("ln_1", "ln_2"):
+        _layernorm(tree[norm], f"{prefix}{norm}.", out)
+    for dense in ("qkv", "out"):
+        _dense(tree["attn"][dense], f"{prefix}attn.{dense}.", out)
+    for dense in ("fc1", "fc2"):
+        _dense(tree["mlp"][dense], f"{prefix}mlp.{dense}.", out)
+
+
+def _numbered(tree, stem: str) -> int:
+    """How many keys ``<stem><i>`` the tree holds."""
+    return sum(1 for key in tree if key.startswith(stem)
+               and key[len(stem):].isdigit())
+
+
+def text_transformer_from_jax(params: Dict[str, Any], prefix: str = ""
+                              ) -> Dict[str, torch.Tensor]:
+    """A JAX ``TextTransformer`` tree {token_embedding: {embedding},
+    positional_embedding, resblock{i}, ln_final, text_projection?} → the
+    port's ``TextTransformer`` state_dict (keys under ``prefix``)."""
+    params = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {
+        prefix + "token_embedding.weight": _tensor(
+            params["token_embedding"]["embedding"]),
+        prefix + "positional_embedding": _tensor(
+            params["positional_embedding"])}
+    for i in range(_numbered(params, "resblock")):
+        _attention_block(params[f"resblock{i}"],
+                         f"{prefix}resblocks.{i}.", out)
+    _layernorm(params["ln_final"], prefix + "ln_final.", out)
+    if "text_projection" in params:
+        out[prefix + "text_projection"] = _tensor(params["text_projection"])
+    return out
+
+
+def clip_image_tower_from_jax(params: Dict[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """A JAX ``ClipImageTower`` tree {conv1: {kernel}, class_embedding,
+    positional_embedding, ln_pre, resblock{i}, ln_post, proj?} → the port's
+    ``ClipImageTower`` state_dict."""
+    params = params.get("params", params)
+    kernel = np.asarray(params["conv1"]["kernel"])              # (p, p, C, D)
+    out: Dict[str, torch.Tensor] = {
+        "conv1.weight": _tensor(kernel.reshape(-1, kernel.shape[-1]).T)}
+    for name in ("class_embedding", "positional_embedding", "proj"):
+        if name in params:
+            out[name] = _tensor(params[name])
+    for norm in ("ln_pre", "ln_post"):
+        _layernorm(params[norm], f"{norm}.", out)
+    for i in range(_numbered(params, "resblock")):
+        _attention_block(params[f"resblock{i}"], f"resblocks.{i}.", out)
+    return out
+
+
+def _tower_depth(tree, stem: str) -> int:
+    """Layers of a tower tree: the leading axis of a stacked tree's leaves
+    (``blocks``), else the count of ``<stem><i>`` keys."""
+    if "blocks" in tree:
+        leaf = tree["blocks"]
+        while isinstance(leaf, dict):
+            leaf = next(iter(leaf.values()))
+        return int(np.asarray(leaf).shape[0])
+    return _numbered(tree, stem)
+
+
+def clip_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``CLIP`` tree {visual, textual, logit_scale} → the port's
+    ``CLIP`` state_dict. The video tower is a TimeMamba or a ViViM, per
+    layer or stacked (``scan_blocks=True``, as the JAX CLI builds the
+    egocentric models); its depth is read from the tree."""
+    params = params.get("params", params)
+    visual = params["visual"]
+    if "proj" in visual["patch_embed"]:                          # ViViM
+        tower = vivim_from_jax(visual, _tower_depth(visual, "mixer"))
+    else:
+        tower = timemamba_from_jax(visual, _tower_depth(visual, "block"))
+    out = {"visual." + key: value for key, value in tower.items()}
+    out.update(text_transformer_from_jax(params["textual"], "textual."))
+    out["logit_scale"] = _tensor(params["logit_scale"])
+    return out

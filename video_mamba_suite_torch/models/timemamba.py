@@ -65,12 +65,16 @@ class SpaceTimeBlock(nn.Module):
     not ported yet).
     ``drop`` is the Mlp's dropout rate; ``drop_path`` drops the whole MLP
     branch (cls and patches together) per sample in training mode.
+    ``attn_flash`` is the spatial attention's ``FusedMHA.flash``: None the
+    einsum path, "row" the whole-row kernel K10 (one launch per block on
+    CUDA).
     """
 
     def __init__(self, dim: int, num_heads: int, *,
                  drop: float = 0.0, drop_path: float = 0.0,
                  is_tanh_gating: bool = False,
                  attention_style: str = "frozen-in-time",
+                 attn_flash=None,
                  dtype: Optional[torch.dtype] = None,
                  generator: torch.Generator):
         super().__init__()
@@ -84,7 +88,8 @@ class SpaceTimeBlock(nn.Module):
         self.alpha_timeattn = (nn.Parameter(torch.zeros(()))
                                if is_tanh_gating else None)
         self.norm1 = LayerNorm(dim, dtype)
-        self.attn = FusedMHA(dim, num_heads, dtype=dtype, generator=generator)
+        self.attn = FusedMHA(dim, num_heads, dtype=dtype, flash=attn_flash,
+                             seq_axis=1, generator=generator)
         self.norm2 = LayerNorm(dim, dtype)
         self.mlp = Mlp(dim, 4 * dim, drop=drop, dtype=dtype,
                        generator=generator)
@@ -135,6 +140,8 @@ class TimeMamba(nn.Module):
     seeded with ``seed``. ``drop_rate`` is the dropout after the patch
     embedding and in each Mlp; block i drops its MLP branch at
     ``drop_path_rate · i / (depth - 1)``, the JAX package's schedule.
+    ``attn_flash`` goes to every block's spatial attention (see
+    ``SpaceTimeBlock``).
     """
 
     def __init__(self, img_size: int = 224, patch_size: int = 16,
@@ -143,7 +150,7 @@ class TimeMamba(nn.Module):
                  is_tanh_gating: bool = False,
                  attention_style: str = "frozen-in-time",
                  output_dim: int = 512, drop_rate: float = 0.0,
-                 drop_path_rate: float = 0.0,
+                 drop_path_rate: float = 0.0, attn_flash=None,
                  dtype: Optional[torch.dtype] = None, device="cuda",
                  seed: int = 0):
         super().__init__()
@@ -167,8 +174,8 @@ class TimeMamba(nn.Module):
             SpaceTimeBlock(embed_dim, num_heads, drop=drop_rate,
                            drop_path=drop_path_rate * i / max(depth - 1, 1),
                            is_tanh_gating=is_tanh_gating,
-                           attention_style=attention_style, dtype=dtype,
-                           generator=g)
+                           attention_style=attention_style,
+                           attn_flash=attn_flash, dtype=dtype, generator=g)
             for i in range(depth))
         self.norm = LayerNorm(embed_dim)
         self.image_projection = nn.Parameter(nn.init.normal_(
@@ -230,11 +237,14 @@ class TimeMamba(nn.Module):
 
 
 def build_timemamba_b(device="cuda", dtype: Optional[torch.dtype]
-                      = torch.bfloat16, seed: int = 0, **overrides
-                      ) -> TimeMamba:
+                      = torch.bfloat16, seed: int = 0, attn_flash=None,
+                      **overrides) -> TimeMamba:
     """TimeMamba-B (configs.TIMEMAMBA_B) with random weights from ``seed``.
-    ``overrides`` change any constructor argument, e.g. ``depth``."""
+    ``attn_flash`` picks the spatial attention's kernel (None: the einsum
+    path; "row": K10); ``overrides`` change any other constructor argument,
+    e.g. ``depth``."""
     from ..configs import TIMEMAMBA_B
 
     kw = dict(TIMEMAMBA_B, **overrides)
-    return TimeMamba(**kw, dtype=dtype, device=device, seed=seed)
+    return TimeMamba(**kw, attn_flash=attn_flash, dtype=dtype, device=device,
+                     seed=seed)

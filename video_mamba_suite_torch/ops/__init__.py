@@ -32,9 +32,19 @@ from .selective_scan_short import (
     use_short_scan,
 )
 from .selective_state_update import selective_state_update
+from .vision_attention import (
+    MAX_ROW_TOKENS,
+    row_mha_fwd,
+    row_mha_qkv,
+    row_mha_qkv_ref,
+    vision_mha,
+    vision_mha_fwd,
+    vision_mha_ref,
+)
 
 __all__ = [
-    "CHECKPOINT_STEPS", "LAUNCHES", "MASKED_DELTA", "SHORT_SEQ_MAX",
+    "CHECKPOINT_STEPS", "LAUNCHES", "MASKED_DELTA", "MAX_ROW_TOKENS",
+    "SHORT_SEQ_MAX",
     "ShortScan",
     "causal_conv1d", "causal_conv1d_update",
     "chunked_scan_bwd", "chunked_scan_bwd_ref", "chunked_scan_fwd",
@@ -44,6 +54,7 @@ __all__ = [
     "selective_scan_bidir_bwd", "selective_scan_bidir_bwd_ref",
     "selective_scan_bidir_ref", "selective_scan_ref",
     "selective_state_update", "short_scan_bwd", "short_scan_bwd_ref",
+    "row_mha_fwd", "row_mha_qkv", "row_mha_qkv_ref",
     "short_scan_fwd", "short_scan_fwd_ref",
-    "use_short_scan",
+    "use_short_scan", "vision_mha", "vision_mha_fwd", "vision_mha_ref",
 ]

@@ -131,6 +131,21 @@ def library(name: str, n_ints: int, n_ptrs: int) -> ctypes.CDLL:
     return lib
 
 
+def entry(source: str, name: str, argtypes) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<source>.cu`` with the C entry
+    ``name`` given ``argtypes`` and then the stream, returning a
+    ``cudaError_t`` that ``<name>_error_string`` names (for entries whose
+    arguments do not follow ``library``'s pattern)."""
+    lib = load(source)
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+    err = getattr(lib, name + "_error_string")
+    err.restype = ctypes.c_char_p
+    err.argtypes = [ctypes.c_int]
+    return lib
+
+
 def ptr(t) -> Optional[int]:
     """A tensor's device address, or None (a null pointer) for None."""
     return None if t is None else t.data_ptr()

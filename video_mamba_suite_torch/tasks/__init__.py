@@ -1,2 +1,2 @@
-"""Task pipelines of the PyTorch port: ``recognition`` and
-``anticipation``."""
+"""Task pipelines of the PyTorch port: ``recognition``, ``anticipation``
+and ``egocentric``."""
