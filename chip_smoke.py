@@ -11,10 +11,13 @@ Phases, each of which fails the run:
      card, at the shape the main path gives it and at the other cases of
      its table (``K1_CASES``, ``K2_CASES``, ``K3_CASES`` with K3's
      checkpoints, ``K4_CASES``, ``K5_CASES``, ``K6_CASES``, ``K10_CASES``,
-     ``K9_CASES``, which tests/test_torch_kernels_cuda.py runs too), and
-     time kernel, plain version and the roofline bound (K3 also with its
-     checkpoint output; K5, K6, K10 and K9 also with their device time
-     from the profiler; K10 and K9 also SDPA on the same q, k, v).
+     ``K9_CASES``, ``K11_CASES`` (forward and backward), ``K7_CASES`` with
+     K7's checkpoints, ``K8_CASES``, which tests/test_torch_kernels_cuda.py
+     runs too), and time kernel, plain version and the roofline bound (K3
+     and K7 also with their checkpoint output; K5, K6, K10, K9 and K11
+     also with their device time from the profiler; K10, K9 and K11 also
+     SDPA on the same q, k, v; for K11 SDPA's forward, its forward +
+     backward, and its backward alone).
   4. inference: TimeMamba-B (batch 8, 16 frames, 224², bf16, random
      weights from a seed) through ``build_timemamba_b``; launch counts are
      zeroed just before and read just after (K1: 12 per forward). Then a
@@ -86,9 +89,20 @@ Phases, each of which fails the run:
      and equal to those of its embeddings.
  13. card against CPU, CLIP: CLIP-TimeMamba-B at full width and depth in
      fp32 (TF32 off), one clip and four captions, both embeddings and the
-     scale; ``FusedMHA(flash=True)`` on the card raises (K11 is not
-     ported).
-Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+     scale.
+ 14. flash attention: ``FusedMHA(flash=True)`` at CLIP-TimeMamba-B's text
+     width (8 captions x 77 tokens, 512 wide, 8 heads, causal, fp32, TF32
+     off) and its spatial width (128 instances x 197 tokens, 768 wide, 12
+     heads, bf16), forward and backward: exactly one K11 forward and one
+     K11 backward per call, timed against the einsum path (flash=None);
+     the card against the CPU in fp32 on up to 8 rows.
+ 15. complex scan: ``selective_scan`` with complex A at the scan microbench
+     shape (8 x 2048 x 1024, 16 states, fp32, an initial state), forward
+     and backward through autograd with cotangents on the output and the
+     complex last state: exactly one K7 and one K8 per call (one K7 alone
+     without a backward); the card against the plain version on 2 rows.
+Prints a ``{"kernels": [...]}`` line (K1-K11) and, last, ``{"ok": true,
+...}``.
 """
 
 from __future__ import annotations
@@ -328,6 +342,101 @@ K9_CASES = [
 # the weights or the output rounded on either side of a tie), held at the
 # JAX tests' 2e-2
 ATTN_TOL = {"float32": 4e-6, "bfloat16": 2e-2}
+K11_SOURCE = "video_mamba_suite_torch/csrc/flash_mha.cu"
+K11_REPLACES = ("video_mamba_suite_tpu/models/common.py:320 (_flash_mha: "
+                "jax/experimental/pallas/ops/tpu/flash_attention.py:331, "
+                "_flash_attention_kernel)")
+K11_BWD_REPLACES = ("video_mamba_suite_tpu/models/common.py:320 (_flash_mha:"
+                    " jax/experimental/pallas/ops/tpu/flash_attention.py:796,"
+                    " _flash_attention_dkv_kernel, and :1146, "
+                    "_flash_attention_dq_kernel)")
+# K11 forward and backward against their plain versions: (label, (B, L, H,
+# dh), causal, I/O dtype, layout). "projection": q, k and v are views of one
+# (B, L, 3·H·dh) projection output, as FusedMHA(flash=True) gives them;
+# "contiguous": three tensors. vision: CLIP-TimeMamba-B's spatial attention
+# flattened to 128 = 8 clips x 16 frames (K9's shape, so K11, K9 and SDPA
+# time the same work); text: its text tower (8 captions of 77 tokens, 8
+# heads, causal); long: 2 x 2048 tokens, causal, the long sequences the JAX
+# package opts into flash for; then dh 128, a ragged bf16 length, and one
+# token, and a length that is not a multiple of the 64-key tile without
+# the causal mask in fp32 (the masking of keys at or past L alone).
+# tests/test_torch_kernels_cuda.py runs the same cases.
+K11_CASES = [
+    ("vision", (128, 197, 12, 64), False, "bfloat16", "projection"),
+    ("text", (8, 77, 8, 64), True, "float32", "projection"),
+    ("long", (2, 2048, 8, 64), True, "bfloat16", "contiguous"),
+    ("dh128", (2, 130, 4, 128), True, "float32", "contiguous"),
+    ("dh128-bf16", (2, 300, 2, 128), False, "bfloat16", "projection"),
+    ("one-token", (3, 1, 2, 64), True, "float32", "contiguous"),
+    ("ragged-full", (2, 100, 3, 64), False, "float32", "contiguous"),
+]
+# largest |kernel - plain| over each output's largest magnitude (at least
+# 1), the forward (out, lse) and the backward (dq, dk, dv), on an H100
+# 80GB HBM3 (PERF.md): fp32 sums in another order and an online max, read
+# at most 1.8e-7 forward and 2.6e-6 backward, held at about ten times
+# that; bf16 one to two bf16 ulps apart (the kernel rounds its weights
+# before dividing by the row sum, the plain version after), read at most
+# 4.6e-3, held at the JAX tests' 2e-2. The log-sum-exp is fp32 on both
+# sides whatever the I/O type, so it is held at the fp32 tolerance.
+K11_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+K7_SOURCE = "video_mamba_suite_torch/csrc/complex_scan_fwd.cu"
+K7_REPLACES = "video_mamba_suite_tpu/ops/selective_scan_pallas.py:1732"
+K8_SOURCE = "video_mamba_suite_torch/csrc/complex_scan_bwd.cu"
+K8_REPLACES = "video_mamba_suite_tpu/ops/selective_scan_pallas.py:1798"
+# K7 against its plain version (output, last state, checkpoints): K3's
+# options. The first two are the scan microbench shape of bench.py:139
+# (``scan_mtok_s``: 8 x 2048 x 1024, 16 states) with complex A in fp32 and
+# bf16; then the anti-causal walk with an initial state and two groups of
+# B/C, a ragged case (37 steps, groups of 20 channels, 5 states, bf16), and
+# one step. tests/test_torch_kernels_cuda.py runs the same cases.
+K7_CASES = [
+    ("scan-bench", (8, 2048, 1024, 16), "float32", {}),
+    ("scan-bench-bf16", (8, 2048, 1024, 16), "bfloat16", {}),
+    ("reverse-h0-grouped", (2, 300, 64, 16), "float32",
+     {"reverse": True, "h0": True, "groups": 2}),
+    ("ragged", (3, 37, 40, 5), "bfloat16",
+     {"h0": True, "groups": 2, "no_dz": True}),
+    ("one-step", (2, 1, 8, 4), "float32", {"reverse": True}),
+]
+# K8 against its plain version (eleven gradients), with cotangents of the
+# output and of both last-state channels: K7's cases, the bf16 microbench
+# at one row (the plain version's autograd keeps every step's tensors).
+K8_CASES = [
+    ("scan-bench", (8, 2048, 1024, 16), "float32", {}),
+    ("scan-bench-bf16-b1", (1, 2048, 1024, 16), "bfloat16", {}),
+    ("reverse-h0-grouped", (2, 300, 64, 16), "float32",
+     {"reverse": True, "h0": True, "groups": 2}),
+    ("ragged", (3, 37, 40, 5), "bfloat16",
+     {"h0": True, "groups": 2, "no_dz": True}),
+    ("one-step", (2, 1, 8, 4), "float32", {"reverse": True}),
+]
+# each output within atol · (its largest magnitude) + rtol · |value|: K3's
+# and K4's tolerances (fp32 sums and transcendentals in another order over
+# thousands of steps; bf16 outputs one to two bf16 ulps apart). Read on an
+# H100 80GB HBM3 (PERF.md), largest error over scale: K7 2.6e-7 fp32,
+# 5.3e-4 bf16; K8 2.1e-6 fp32, 1.1e-3 bf16
+K7_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 2e-2)}
+K8_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 2e-2)}
+# FusedMHA(flash=True) forward + backward: (label, batch, tokens, width,
+# heads, causal, compute dtype), CLIP-TimeMamba-B's text tower and its
+# spatial attention (flattened to 128 instances)
+FLASH_MODULE_CASES = [
+    ("text", 8, 77, 512, 8, True, "float32"),
+    ("vision", 128, 197, 768, 12, False, "bfloat16"),
+]
+FLASH_MODULE_CALLS = 10          # timed forward + backward calls
+# FusedMHA(flash=True) in fp32 (TF32 off), the card through K11 against the
+# CPU's einsum path, each output's largest difference over its largest CPU
+# magnitude: read 8.9e-7 (text) and 1.4e-6 (vision) on an H100 80GB HBM3
+# (PERF.md), held at about ten times that
+CARD_CPU_FLASH_REL_TOL = 1.5e-5
+COMPLEX_SHAPE = (8, 2048, 1024, 16)   # bench.py:139, scan_mtok_s
+COMPLEX_CALLS = 3                # timed forward + backward calls
+# selective_scan with complex A, the card through K7 and K8 against the
+# plain version on the card (fp32, 2 rows), each output's largest
+# difference over its largest magnitude: read 2.1e-6 on an H100 80GB HBM3
+# (PERF.md), held at about ten times that
+COMPLEX_PLAIN_REL_TOL = 2e-5
 MIR_REQUESTS = 10                # timed MIR serving requests
 MIR_CAPTIONS = 8                 # captions per request
 MIR_EVAL = 32                    # clips and captions of the evaluate phase
@@ -540,7 +649,8 @@ def k2_check(label, shape, dtype, has_dz):
         d = (g.float() - w.float()).abs()
         scale = w.float().abs().max().item()
         bad = d > atol * scale + rtol * w.float().abs()
-        if bad.any() or not torch.isfinite(g).all():
+        if bad.any() or not (torch.isfinite(g).all()
+                             and torch.isfinite(w).all()):
             ok = False
             log(f"[k2] {label}: {name} misses at {int(bad.sum())} of "
                 f"{g.numel()} (max abs err {d.max().item():.3e}, scale "
@@ -671,7 +781,8 @@ def k3_check(label, shape, dtype, opts):
         d = (g.float() - w.float()).abs()
         scale = w.float().abs().max().item()
         bad = d > atol * scale + rtol * w.float().abs()
-        if bad.any() or not torch.isfinite(g).all():
+        if bad.any() or not (torch.isfinite(g).all()
+                             and torch.isfinite(w).all()):
             ok = False
             log(f"[k3] {label}: {name} misses at {int(bad.sum())} of "
                 f"{g.numel()} (max abs err {d.max().item():.3e}, scale "
@@ -794,7 +905,8 @@ def k4_check(label, shape, dtype, opts):
         d = (g.float() - w.float()).abs()
         scale = w.float().abs().max().item()
         bad = d > atol * scale + rtol * w.float().abs()
-        if bad.any() or not torch.isfinite(g).all():
+        if bad.any() or not (torch.isfinite(g).all()
+                             and torch.isfinite(w).all()):
             ok = False
             log(f"[k4] {label}: {name} misses at {int(bad.sum())} of "
                 f"{g.numel()} (max abs err {d.max().item():.3e}, scale "
@@ -897,7 +1009,8 @@ def k5_check(label, shape, dtype, opts):
         d = (g.float() - w.float()).abs()
         scale = w.float().abs().max().item()
         bad = d > atol * scale + rtol * w.float().abs()
-        if bad.any() or not torch.isfinite(g).all():
+        if bad.any() or not (torch.isfinite(g).all()
+                             and torch.isfinite(w).all()):
             ok = False
             log(f"[k5] {label}: {name} misses at {int(bad.sum())} of "
                 f"{g.numel()} (max abs err {d.max().item():.3e}, scale "
@@ -1010,7 +1123,8 @@ def k6_check(label, shape, dtype, opts):
         d = (g.float() - w.float()).abs()
         scale = w.float().abs().max().item()
         bad = d > atol * scale + rtol * w.float().abs()
-        if bad.any() or not torch.isfinite(g).all():
+        if bad.any() or not (torch.isfinite(g).all()
+                             and torch.isfinite(w).all()):
             ok = False
             log(f"[k6] {label}: {name} misses at {int(bad.sum())} of "
                 f"{g.numel()} (max abs err {d.max().item():.3e}, scale "
@@ -1210,6 +1324,460 @@ def check_attention(kernel, cases):
                           bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=library_ms)
     return result
+
+
+# ---------------------------------------------------------------------------
+# K11: flash attention, forward and backward
+
+
+def k11_inputs(shape, dtype, layout, seed, device="cuda"):
+    """Seeded q, k, v (B, L, H, dh) of one of ``K11_CASES`` in ``layout``
+    ("projection": views of one (B, L, 3·H·dh) projection output, as
+    FusedMHA(flash=True) gives them; "contiguous": three tensors) and the
+    output's cotangent (B, L, H·dh)."""
+    import torch
+
+    B, L, H, dh = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def randn(*size):
+        return torch.randn(*size, device=device, generator=gen).to(dt)
+
+    if layout == "projection":
+        q, k, v = (t.view(B, L, H, dh)
+                   for t in randn(B, L, 3 * H * dh).chunk(3, dim=-1))
+    else:
+        q, k, v = (randn(B, L, H, dh) for _ in range(3))
+    return q, k, v, randn(B, L, H * dh)
+
+
+def _max_err(pairs):
+    """Largest |got - want| over each pair's scale (its largest |want|, at
+    least 1), and the largest absolute difference; raises on a dtype or
+    shape mismatch or a value that is not finite on either side."""
+    import torch
+
+    rel, absolute = 0.0, 0.0
+    for name, got, want in pairs:
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)}, "
+                                 f"want {want.dtype} {tuple(want.shape)}")
+        for side, t in (("got", got), ("want", want)):
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"{name}: values that are not finite "
+                                     f"({side})")
+        d = (got.float() - want.float()).abs().max().item()
+        scale = max(1.0, want.float().abs().max().item())
+        rel, absolute = max(rel, d / scale), max(absolute, d)
+    return rel, absolute
+
+
+def k11_check(label, shape, causal, dtype, layout):
+    """Launch K11's forward and its backward once each on the card at one
+    of ``K11_CASES`` (TF32 off) and hold each against its plain version on
+    the same inputs (the backward from the kernel's own output and
+    log-sum-exp). Returns (inputs, (out, lse), fwd err, bwd err); raises
+    AssertionError on a miss."""
+    import torch
+    from video_mamba_suite_torch.ops import (
+        LAUNCHES,
+        flash_mha_bwd,
+        flash_mha_bwd_ref,
+        flash_mha_fwd,
+        flash_mha_ref,
+    )
+
+    set_tf32(False)
+    q, k, v, dout = k11_inputs(shape, dtype, layout, seed=sum(shape) + 31)
+    n0 = (LAUNCHES["flash_mha_fwd"], LAUNCHES["flash_mha_bwd"])
+    out, lse = flash_mha_fwd(q, k, v, causal)
+    grads = flash_mha_bwd(q, k, v, out, lse, dout, causal)
+    torch.cuda.synchronize()
+    if (LAUNCHES["flash_mha_fwd"], LAUNCHES["flash_mha_bwd"]) != \
+            (n0[0] + 1, n0[1] + 1):
+        raise AssertionError("K11's wrappers did not count their launches")
+    want = flash_mha_ref(q, k, v, causal)
+    want_grads = flash_mha_bwd_ref(q, k, v, out, lse, dout, causal)
+    out_rel, out_abs = _max_err([("out", out, want[0])])
+    lse_rel, lse_abs = _max_err([("lse", lse, want[1])])
+    bwd_rel, bwd_abs = _max_err(zip(("dq", "dk", "dv"), grads, want_grads))
+    tol, lse_tol = K11_TOL[dtype], K11_TOL["float32"]
+    ok = out_rel <= tol and lse_rel <= lse_tol and bwd_rel <= tol
+    fwd_abs = max(out_abs, lse_abs)
+    log(f"[k11] {label} {shape} {'causal' if causal else 'full'} {dtype} "
+        f"{layout}: out max_abs_err {out_abs:.3e} (over scale "
+        f"{out_rel:.3e}), lse {lse_abs:.3e} ({lse_rel:.3e}, tol {lse_tol}), "
+        f"backward {bwd_abs:.3e} ({bwd_rel:.3e}); tol {tol} of the scale "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"K11 disagrees with its plain version at "
+                             f"{label} {shape}")
+    return (q, k, v, dout), (out, lse), fwd_abs, bwd_abs
+
+
+def k11_bound_ms(q, causal, backward):
+    """Least time for the work and what sets it: each input read once and
+    each output written once over HBM (forward: q, k, v, out and lse;
+    backward: q, k, v, out, lse, dout, dq, dk and dv), against the products
+    the unmasked (query, key) pairs need (forward 2 of 2·dh, backward 5)
+    and 5 (forward) or 8 (backward) softmax operations a pair, at the peak
+    for the type (bf16 on the tensor cores, fp32 outside them)."""
+    import torch
+
+    B, L, H, dh = q.shape
+    pairs = B * H * (L * (L + 1) / 2 if causal else L * L)
+    tensors = 8 if backward else 4
+    nbytes = tensors * q.numel() * q.element_size() + B * H * L * 4
+    ops = pairs * ((10.0 * dh + 8) if backward else (4.0 * dh + 5))
+    peak = BF16_TC_FLOP_PER_S if q.dtype == torch.bfloat16 else \
+        FP32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    log(f"  bound: {nbytes / 1e6:.2f} MB over 3.35 TB/s = "
+        f"{1e3 * t_bytes:.5f} ms; {ops / 1e9:.3f} GFLOP over "
+        f"{peak / 1e12:.0f} TFLOP/s = {1e3 * t_ops:.5f} ms")
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def sdpa_calls(q, k, v, dout, causal):
+    """SDPA's forward, its forward + backward, and its backward alone (the
+    gradients of one saved forward, its graph kept) on the same q, k, v
+    and cotangent (timed only; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    B, L, H, dh = q.shape
+    heads = [t.transpose(1, 2) for t in (q, k, v)]
+    leaves = [t.detach().clone().requires_grad_() for t in heads]
+    g = dout.view(B, L, H, dh).transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(*heads, is_causal=causal)
+
+    def fwd_bwd():
+        F.scaled_dot_product_attention(*leaves, is_causal=causal).backward(g)
+
+    saved = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+
+    def bwd():
+        torch.autograd.grad(saved, leaves, g, retain_graph=True)
+
+    return fwd, fwd_bwd, bwd
+
+
+def check_k11():
+    """Every case of ``K11_CASES``: forward and backward each with its time
+    (back to back between CUDA events, and device time from the profiler),
+    SDPA's forward and forward + backward on the same tensors, and the
+    bounds; the plain versions timed once, at the first case (the vision
+    width). Returns (forward, backward) numbers of the first case."""
+    from video_mamba_suite_torch.ops import (
+        flash_mha_bwd,
+        flash_mha_bwd_ref,
+        flash_mha_fwd,
+        flash_mha_ref,
+    )
+
+    result = ()
+    for case in K11_CASES:
+        label, _, causal = case[:3]
+        (q, k, v, dout), (out, lse), fwd_err, bwd_err = k11_check(*case)
+        fwd_ms = cuda_time_ms(lambda: flash_mha_fwd(q, k, v, causal),
+                              iters=10)
+        bwd_ms = cuda_time_ms(
+            lambda: flash_mha_bwd(q, k, v, out, lse, dout, causal), iters=5)
+        device = profile("call", lambda: (
+            flash_mha_fwd(q, k, v, causal),
+            flash_mha_bwd(q, k, v, out, lse, dout, causal)),
+            tag="k11", calls=3, top=0)
+        dev_fwd = sum(ms for key, ms in device.items()
+                      if "flash_mha_fwd_kernel" in key)
+        dev_bwd = sum(ms for key, ms in device.items()
+                      if "flash_mha_bwd_" in key)
+        sdpa_fwd, sdpa_fwd_bwd, sdpa_bwd = sdpa_calls(q, k, v, dout, causal)
+        lib_fwd = cuda_time_ms(sdpa_fwd, iters=10)
+        lib_fwd_bwd = cuda_time_ms(sdpa_fwd_bwd, iters=10)
+        lib_bwd = cuda_time_ms(sdpa_bwd, iters=10)
+        plain_fwd = plain_bwd = float("nan")
+        if not result:
+            plain_fwd = cuda_time_ms(lambda: flash_mha_ref(q, k, v, causal),
+                                     iters=1, warmup=1)
+            plain_bwd = cuda_time_ms(lambda: flash_mha_bwd_ref(
+                q, k, v, out, lse, dout, causal), iters=1, warmup=1)
+        bound_fwd, by_fwd = k11_bound_ms(q, causal, backward=False)
+        bound_bwd, by_bwd = k11_bound_ms(q, causal, backward=True)
+        log(f"[k11] {label}: forward {fwd_ms:.4f} ms back to back "
+            f"({dev_fwd:.4f} ms device), plain {plain_fwd:.4f} ms, SDPA "
+            f"{lib_fwd:.4f} ms, bound {bound_fwd:.5f} ms ({by_fwd}); "
+            f"backward {bwd_ms:.4f} ms ({dev_bwd:.4f} ms device), plain "
+            f"{plain_bwd:.4f} ms, SDPA backward {lib_bwd:.4f} ms (forward + "
+            f"backward {lib_fwd_bwd:.4f} ms), bound {bound_bwd:.5f} ms "
+            f"({by_bwd})")
+        if not result:
+            result = (
+                dict(max_abs_err=fwd_err, ms=fwd_ms, plain_ms=plain_fwd,
+                     bound_ms=bound_fwd, bound_by=by_fwd, library_ms=lib_fwd),
+                dict(max_abs_err=bwd_err, ms=bwd_ms, plain_ms=plain_bwd,
+                     bound_ms=bound_bwd, bound_by=by_bwd, library_ms=lib_bwd))
+    return result
+
+
+# ---------------------------------------------------------------------------
+# K7 and K8: the complex-A scan and its adjoint
+
+
+def k7_inputs(shape, dtype, seed, reverse=False, h0=False, groups=0,
+              no_dz=False, device="cuda"):
+    """Seeded keyword arguments of ``complex_scan_fwd`` at one of
+    ``K7_CASES``: A = Ar + i·Ai with Ar in [-1, -0.5) and Ai normal times
+    3 (several radians a step); ``dtype`` names the I/O dtype (Ar, Ai, D,
+    the bias and the initial state are fp32)."""
+    import torch
+
+    batch, seqlen, dim, dstate = shape
+    io_dtype = getattr(torch, dtype)
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(*s):
+        return torch.randn(*s, device=device, generator=g)
+
+    def unif(*s):
+        return torch.rand(*s, device=device, generator=g)
+
+    bc = (batch, seqlen, groups, dstate) if groups else (batch, seqlen,
+                                                         dstate)
+    return dict(
+        u=normal(batch, seqlen, dim).to(io_dtype),
+        delta=(0.5 * unif(batch, seqlen, dim)).to(io_dtype),
+        Ar=-0.5 - 0.5 * unif(dim, dstate), Ai=3.0 * normal(dim, dstate),
+        B=normal(*bc).to(io_dtype), C=normal(*bc).to(io_dtype),
+        D=None if no_dz else normal(dim),
+        z=None if no_dz else normal(batch, seqlen, dim).to(io_dtype),
+        delta_bias=0.5 * unif(dim),
+        h0r=normal(batch, dim, dstate) if h0 else None,
+        h0i=normal(batch, dim, dstate) if h0 else None,
+        delta_softplus=True, reverse=reverse)
+
+
+def _scan_err(kernel, label, names, got, want, tol):
+    """Hold each output within atol · (its largest magnitude) + rtol ·
+    |value| of the plain version's (K3's rule); returns the largest
+    absolute error; raises AssertionError on a miss."""
+    import torch
+
+    atol, rtol = tol
+    abs_err, worst, ok = 0.0, 0.0, True
+    for name, g, w in zip(names, got, want):
+        if g is None and w is None:
+            continue
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{kernel} at {label}: {name} {g.dtype} "
+                                 f"{tuple(g.shape)}, want {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        d = (g.float() - w.float()).abs()
+        scale = w.float().abs().max().item()
+        bad = d > atol * scale + rtol * w.float().abs()
+        if bad.any() or not (torch.isfinite(g).all()
+                             and torch.isfinite(w).all()):
+            ok = False
+            log(f"[{kernel.lower()}] {label}: {name} misses at "
+                f"{int(bad.sum())} of {g.numel()} (max abs err "
+                f"{d.max().item():.3e}, scale {scale:.3e})")
+        abs_err = max(abs_err, d.max().item())
+        worst = max(worst, d.max().item() / max(scale, 1e-30))
+    log(f"[{kernel.lower()}] {label}: max_abs_err {abs_err:.3e}, largest "
+        f"error over scale {worst:.3e} (tol atol {atol}·scale, rtol {rtol}) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{kernel} disagrees with its plain version at "
+                             f"{label}")
+    return abs_err
+
+
+def k7_check(label, shape, dtype, opts):
+    """Launch K7 once (with its checkpoints) on the card at one of
+    ``K7_CASES`` and hold its output, last state and checkpoints against
+    the plain version's. Returns (inputs, outputs, max_abs_err)."""
+    import torch
+    from video_mamba_suite_torch.ops import (
+        LAUNCHES,
+        complex_scan_fwd,
+        complex_scan_fwd_ref,
+    )
+    from video_mamba_suite_torch.ops.selective_scan_complex import (
+        CHECKPOINT_STEPS,
+    )
+
+    args = k7_inputs(shape, dtype, seed=sum(shape) + 7, **opts)
+    n0 = LAUNCHES["complex_scan_fwd"]
+    got = complex_scan_fwd(**args, checkpoint_steps=CHECKPOINT_STEPS)
+    torch.cuda.synchronize()
+    if LAUNCHES["complex_scan_fwd"] != n0 + 1:
+        raise AssertionError("K7's wrapper did not count its launch")
+    want = complex_scan_fwd_ref(**args, checkpoint_steps=CHECKPOINT_STEPS)
+    log(f"[k7] {label} {shape} {dtype} {opts or ''}")
+    err = _scan_err("K7", label, ("out", "lastr", "lasti", "statesr",
+                                  "statesi"), got, want, K7_TOL[dtype])
+    return args, got, err
+
+
+def k7_bound_ms(args, outs):
+    """Least time for the work and what sets it: each input read once and
+    each output written once over HBM, against 20 fp32 operations per
+    complex state update (each transcendental counted as one)."""
+    import torch
+
+    tensors = [t for t in (*args.values(), *outs)
+               if isinstance(t, torch.Tensor)]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    batch, seqlen, dim = args["u"].shape
+    ops = 20.0 * batch * seqlen * dim * args["Ar"].shape[1]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    log(f"  bound: {nbytes / 1e6:.1f} MB over 3.35 TB/s = "
+        f"{1e3 * t_bytes:.4f} ms; {ops / 1e9:.3f} GFLOP over 67 TFLOP/s = "
+        f"{1e3 * t_ops:.4f} ms")
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def check_k7():
+    """Every case of ``K7_CASES`` with the kernel's time (without and with
+    checkpoints) and the bound; the plain version timed once, at the first
+    case (the scan microbench shape). Returns the first case's numbers."""
+    from video_mamba_suite_torch.ops import (
+        complex_scan_fwd,
+        complex_scan_fwd_ref,
+    )
+    from video_mamba_suite_torch.ops.selective_scan_complex import (
+        CHECKPOINT_STEPS,
+    )
+
+    result = {}
+    for case in K7_CASES:
+        args, got, err = k7_check(*case)
+        ms = cuda_time_ms(lambda: complex_scan_fwd(**args), iters=5)
+        ck_ms = cuda_time_ms(lambda: complex_scan_fwd(
+            **args, checkpoint_steps=CHECKPOINT_STEPS), iters=5)
+        plain_ms = float("nan")
+        if not result:     # the plain version always makes checkpoints
+            plain_ms = cuda_time_ms(lambda: complex_scan_fwd_ref(**args),
+                                    iters=1, warmup=0)
+        bound_ms, bound_by = k7_bound_ms(args, got[:3])
+        log(f"[k7] {case[0]}: kernel {ms:.4f} ms ({ck_ms:.4f} ms writing "
+            f"checkpoints every {CHECKPOINT_STEPS} steps), plain (with "
+            f"checkpoints) {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by})")
+        if not result:
+            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=None)
+    return result
+
+
+def k8_inputs(shape, dtype, seed, **opts):
+    """K7's inputs for one of ``K8_CASES`` with K7's checkpoints (from the
+    kernel) and seeded cotangents of the output and of the last state's
+    two channels."""
+    import torch
+    from video_mamba_suite_torch.ops import complex_scan_fwd
+    from video_mamba_suite_torch.ops.selective_scan_complex import (
+        CHECKPOINT_STEPS,
+    )
+
+    args = k7_inputs(shape, dtype, seed, **opts)
+    _, _, _, statesr, statesi = complex_scan_fwd(
+        **args, checkpoint_steps=CHECKPOINT_STEPS)
+    device = args["u"].device
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    batch, seqlen, dim, dstate = shape
+    cot = dict(
+        g=torch.randn(batch, seqlen, dim, device=device,
+                      generator=g).to(args["u"].dtype),
+        glastr=torch.randn(batch, dim, dstate, device=device, generator=g),
+        glasti=torch.randn(batch, dim, dstate, device=device, generator=g))
+    return args, (statesr, statesi), cot
+
+
+def k8_check(label, shape, dtype, opts):
+    """Launch K8 once on the card at one of ``K8_CASES`` (with cotangents
+    of the output and of both last-state channels) and hold its eleven
+    gradients against the plain version's. Returns (inputs, checkpoints,
+    cotangents, gradients, max_abs_err)."""
+    import torch
+    from video_mamba_suite_torch.ops import (
+        LAUNCHES,
+        complex_scan_bwd,
+        complex_scan_bwd_ref,
+    )
+    from video_mamba_suite_torch.ops.selective_scan_complex import GRADS
+
+    args, states, cot = k8_inputs(shape, dtype, seed=sum(shape) + 8, **opts)
+    kernel_args = {k: v for k, v in args.items() if k not in ("h0r", "h0i")}
+    n0 = LAUNCHES["complex_scan_bwd"]
+    got = complex_scan_bwd(**kernel_args, statesr=states[0],
+                           statesi=states[1], **cot)
+    torch.cuda.synchronize()
+    if LAUNCHES["complex_scan_bwd"] != n0 + 1:
+        raise AssertionError("K8's wrapper did not count its launch")
+    want = complex_scan_bwd_ref(**args, **cot)
+    log(f"[k8] {label} {shape} {dtype} {opts or ''}")
+    err = _scan_err("K8", label, GRADS, got, want, K8_TOL[dtype])
+    return args, states, cot, got, err
+
+
+def k8_bound_ms(args, states, cot, grads):
+    """Least time for the work and what sets it: each input (with K7's
+    checkpoints and the cotangents) read once and each gradient written
+    once over HBM, against 55 fp32 operations per complex state update
+    (20 to recompute the forward, 35 for the adjoint step; each
+    transcendental counted as one)."""
+    import torch
+
+    tensors = [t for t in (*args.values(), *states, *cot.values(), *grads)
+               if isinstance(t, torch.Tensor)]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    batch, seqlen, dim = args["u"].shape
+    ops = 55.0 * batch * seqlen * dim * args["Ar"].shape[1]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    log(f"  bound: {nbytes / 1e6:.1f} MB over 3.35 TB/s = "
+        f"{1e3 * t_bytes:.4f} ms; {ops / 1e9:.3f} GFLOP over 67 TFLOP/s = "
+        f"{1e3 * t_ops:.4f} ms")
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def check_k8():
+    """Every case of ``K8_CASES`` with the kernel's time and the bound; the
+    plain version timed once, at the first case (the scan microbench
+    shape). Returns the first case's numbers."""
+    from video_mamba_suite_torch.ops import (
+        complex_scan_bwd,
+        complex_scan_bwd_ref,
+    )
+
+    result = {}
+    for case in K8_CASES:
+        args, states, cot, grads, err = k8_check(*case)
+        kernel_args = {k: v for k, v in args.items()
+                       if k not in ("h0r", "h0i")}
+        ms = cuda_time_ms(lambda: complex_scan_bwd(
+            **kernel_args, statesr=states[0], statesi=states[1], **cot),
+            iters=3, warmup=1)
+        plain_ms = float("nan")
+        if not result:
+            plain_ms = cuda_time_ms(
+                lambda: complex_scan_bwd_ref(**args, **cot), iters=1,
+                warmup=0)
+        bound_ms, bound_by = k8_bound_ms(args, states, cot, grads)
+        log(f"[k8] {case[0]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+        if not result:
+            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=None)
+    return result
+
 
 
 # ---------------------------------------------------------------------------
@@ -2376,12 +2944,9 @@ def run_mir_serving():
 def card_against_cpu_clip():
     """CLIP-TimeMamba-B at full width and depth (video 12 with K1 and K10,
     text 12) in fp32, TF32 off: one clip and four captions on the card
-    through the kernels against the CPU through the plain versions. Then
-    FusedMHA(flash=True) on a CUDA tensor must raise (K11 is not
-    ported)."""
+    through the kernels against the CPU through the plain versions."""
     import torch
     from video_mamba_suite_torch import build_clip_mir
-    from video_mamba_suite_torch.models import FusedMHA
     from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
 
     set_tf32(False)
@@ -2409,13 +2974,203 @@ def card_against_cpu_clip():
     if not all(math.isfinite(v) and v <= CARD_CPU_CLIP_REL_TOL
                for v in errs.values()):
         raise AssertionError(f"card and CPU CLIP disagree: {errs}")
-    mha = FusedMHA(512, 8, flash=True, generator=torch.Generator()).cuda()
-    try:
-        mha(torch.zeros(1, 77, 512, device="cuda"))
-    except NotImplementedError as e:
-        log(f"[card-vs-cpu] FusedMHA(flash=True) on the card raises: {e}")
-    else:
-        raise AssertionError("FusedMHA(flash=True) ran on the card")
+
+
+# ---------------------------------------------------------------------------
+# the flash-attention and complex-scan entry points
+
+
+def run_flash_module():
+    """FusedMHA(flash=True) at the two CLIP-TimeMamba-B widths of
+    ``FLASH_MODULE_CASES``, forward and backward (a cotangent on the
+    output): exactly one K11 forward and one K11 backward per call, timed
+    against the same module on the einsum path (flash=None, no kernel);
+    then the card against the CPU in fp32 with TF32 off on up to 8 rows of
+    the batch (output, the input's and every parameter's gradient). Returns
+    the launches of the timed calls."""
+    import torch
+    from video_mamba_suite_torch.models import FusedMHA
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+
+    total = collections.Counter()
+    for label, batch, tokens, width, heads, causal, dtype in \
+            FLASH_MODULE_CASES:
+        set_tf32(False)
+        mha = FusedMHA(width, heads, dtype=getattr(torch, dtype),
+                       causal=causal, flash=True,
+                       generator=torch.Generator().manual_seed(0)).cuda()
+        g = torch.Generator(device="cuda").manual_seed(batch + tokens)
+        x = torch.randn(batch, tokens, width, device="cuda", generator=g,
+                        requires_grad=True)
+        cot = torch.randn(batch, tokens, width, device="cuda", generator=g)
+
+        def call():
+            x.grad = None
+            mha.zero_grad(set_to_none=True)
+            out = mha(x)
+            out.backward(cot.to(out.dtype))
+
+        def timed(flash):
+            mha.flash = flash
+            for _ in range(2):
+                call()
+            torch.cuda.synchronize()
+            reset_launches()
+            times = []
+            for _ in range(FLASH_MODULE_CALLS):
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            return statistics.median(times), dict(LAUNCHES)
+
+        flash_s, launches = timed(True)
+        want = {"flash_mha_fwd": FLASH_MODULE_CALLS,
+                "flash_mha_bwd": FLASH_MODULE_CALLS}
+        if launches != want:
+            raise AssertionError(f"FusedMHA(flash=True) at {label} launched "
+                                 f"{launches}, want {want}")
+        if not all(torch.isfinite(t).all() for t in
+                   (x.grad, *(p.grad for p in mha.parameters()))):
+            raise AssertionError(f"FusedMHA(flash=True) at {label}: "
+                                 "gradients that are not finite")
+        total.update(launches)
+        einsum_s, ab_launches = timed(None)
+        if ab_launches:
+            raise AssertionError(f"the einsum path launched {ab_launches}")
+        log(f"[flash-mha] {label} (B {batch}, L {tokens}, D {width}, "
+            f"{heads} heads, {'causal' if causal else 'full'}, {dtype}): "
+            f"forward + backward median {1e3 * flash_s:.3f} ms with K11, "
+            f"{1e3 * einsum_s:.3f} ms on the einsum path; launches "
+            f"{launches}")
+
+        rows = min(batch, 8)
+        cpu = FusedMHA(width, heads, causal=causal, flash=True,
+                       generator=torch.Generator().manual_seed(1))
+        card = copy.deepcopy(cpu).cuda()
+        xs = x.detach()[:rows].float()
+        gs = cot[:rows]
+        results = []
+        for module, dev in ((card, "cuda"), (cpu, "cpu")):
+            xi = xs.to(dev).clone().requires_grad_()
+            reset_launches()
+            out = module(xi)
+            out.backward(gs.to(dev))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                if dict(LAUNCHES) != {"flash_mha_fwd": 1,
+                                      "flash_mha_bwd": 1}:
+                    raise AssertionError(f"the card's fp32 FusedMHA "
+                                         f"launched {dict(LAUNCHES)}")
+            results.append([out.detach().cpu(), xi.grad.cpu()]
+                           + [p.grad.cpu() for p in module.parameters()])
+        # a value that is not finite on either side makes its error NaN or
+        # inf (torch's max keeps a NaN)
+        errs = [((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                .item() for a, b in zip(*results)]
+        err = max(errs)
+        log(f"[flash-mha] {label} card (K11) against CPU (einsum path), "
+            f"fp32, TF32 off, {rows} rows: largest difference over each "
+            f"output's scale {err:.3e} (tol {CARD_CPU_FLASH_REL_TOL})")
+        if not all(math.isfinite(e) and e <= CARD_CPU_FLASH_REL_TOL
+                   for e in errs):
+            raise AssertionError(f"FusedMHA(flash=True) at {label}: card "
+                                 f"and CPU disagree ({err:.3e})")
+    return dict(total)
+
+
+def run_complex_scan():
+    """``selective_scan`` with complex A at the scan microbench shape
+    (``COMPLEX_SHAPE``, fp32, D, z, bias, softplus and a complex initial
+    state), forward and backward through autograd with a cotangent on the
+    output and on the complex last state: exactly one K7 and one K8 per
+    call and no other kernel; without a backward one K7 alone. Then the
+    card against the plain version on the card on 2 rows of the batch:
+    output, last state and every input's gradient. Returns the launches
+    of the timed calls."""
+    import torch
+    from video_mamba_suite_torch.ops import (
+        LAUNCHES,
+        reset_launches,
+        selective_scan,
+        selective_scan_ref,
+    )
+
+    set_tf32(False)
+    args = k7_inputs(COMPLEX_SHAPE, "float32", seed=71, h0=True)
+    A = torch.complex(args.pop("Ar"), args.pop("Ai"))
+    h0 = torch.complex(args.pop("h0r"), args.pop("h0i"))
+    g = torch.Generator(device="cuda").manual_seed(72)
+    cot = torch.randn(args["u"].shape, device="cuda", generator=g)
+    glast = torch.randn(h0.shape, dtype=torch.complex64, device="cuda",
+                        generator=g)
+    names = ("u", "delta", "B", "C", "D", "z", "delta_bias")
+
+    def call(fn, rows=None, grad=True):
+        leaves = {k: args[k][:rows].detach().requires_grad_(grad)
+                  if k in ("u", "delta", "B", "C", "z")
+                  else args[k].detach().requires_grad_(grad) for k in names}
+        a = A.detach().requires_grad_(grad)
+        h = h0[:rows].detach().requires_grad_(grad)
+        out, last = fn(leaves["u"], leaves["delta"], a, leaves["B"],
+                       leaves["C"], D=leaves["D"], z=leaves["z"],
+                       delta_bias=leaves["delta_bias"], delta_softplus=True,
+                       return_last_state=True, initial_state=h)
+        if grad:
+            loss = ((out * cot[:rows]).sum()
+                    + (last * glast[:rows].conj()).real.sum())
+            loss.backward()
+        return [out.detach(), last.detach()] + (
+            [leaves[k].grad for k in names] + [a.grad, h.grad] if grad
+            else [])
+
+    call(selective_scan)                                    # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    times = []
+    for _ in range(COMPLEX_CALLS):
+        t0 = time.perf_counter()
+        got = call(selective_scan)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    want = {"complex_scan_fwd": COMPLEX_CALLS,
+            "complex_scan_bwd": COMPLEX_CALLS}
+    if launches != want or not all(torch.isfinite(t).all() for t in got):
+        raise AssertionError(f"selective_scan with complex A launched "
+                             f"{launches} (want {want}) or gave values that "
+                             "are not finite")
+    reset_launches()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        call(selective_scan, grad=False)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+    if dict(LAUNCHES) != {"complex_scan_fwd": 1}:
+        raise AssertionError(f"the forward alone launched {dict(LAUNCHES)}")
+    log(f"[complex-scan] selective_scan, complex A, {COMPLEX_SHAPE} fp32: "
+        f"forward + backward median {1e3 * statistics.median(times):.2f} "
+        f"ms, forward alone {1e3 * fwd_s:.2f} ms; launches {launches}")
+
+    reset_launches()
+    got = call(selective_scan, rows=2)
+    torch.cuda.synchronize()
+    kernel_launches = dict(LAUNCHES)
+    want = call(selective_scan_ref, rows=2)
+    labels = ("out", "last state") + names + ("A", "initial_state")
+    errs = {k: ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+            for k, a, b in zip(labels, got, want)}
+    worst = max(errs.values())
+    log(f"[complex-scan] card (K7, K8) against the plain version on the "
+        f"card, 2 rows, fp32: largest difference over each output's scale "
+        f"{worst:.3e} (tol {COMPLEX_PLAIN_REL_TOL}); launches "
+        f"{kernel_launches}")
+    if kernel_launches != {"complex_scan_fwd": 1, "complex_scan_bwd": 1} \
+            or not all(math.isfinite(e) and e <= COMPLEX_PLAIN_REL_TOL
+                       for e in errs.values()):
+        raise AssertionError(f"complex selective_scan against its plain "
+                             f"version: {errs}")
+    return launches
 
 
 def main() -> int:
@@ -2448,6 +3203,9 @@ def main() -> int:
     k6 = check_k6()
     k10 = check_attention("K10", K10_CASES)
     k9 = check_attention("K9", K9_CASES)
+    k11, k11_bwd = check_k11()
+    k7 = check_k7()
+    k8 = check_k8()
     run_main_path()
     launches = run_train_step()
     launches.update(run_vivim_serving())
@@ -2465,6 +3223,8 @@ def main() -> int:
     card_against_cpu_lm()
     card_against_cpu_anticipation()
     card_against_cpu_clip()
+    launches.update(run_flash_module())
+    launches.update(run_complex_scan())
 
     kernels = [dict(
         name=name, route="cuda", source=source, replaces=replaces,
@@ -2478,8 +3238,12 @@ def main() -> int:
             ("chunked_scan_bwd", K4_SOURCE, K4_REPLACES, k4),
             ("short_scan_fwd", K5_SOURCE, K5_REPLACES, k5),
             ("short_scan_bwd", K6_SOURCE, K6_REPLACES, k6),
+            ("complex_scan_fwd", K7_SOURCE, K7_REPLACES, k7),
+            ("complex_scan_bwd", K8_SOURCE, K8_REPLACES, k8),
+            ("vision_mha_fwd", K9_SOURCE, K9_REPLACES, k9),
             ("row_mha_fwd", K10_SOURCE, K10_REPLACES, k10),
-            ("vision_mha_fwd", K9_SOURCE, K9_REPLACES, k9))]
+            ("flash_mha_fwd", K11_SOURCE, K11_REPLACES, k11),
+            ("flash_mha_bwd", K11_SOURCE, K11_BWD_REPLACES, k11_bwd))]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -509,15 +509,175 @@ def test_k9_k10_reject_what_they_do_not_take(cuda_device):
 
 
 @pytest.mark.cuda
-def test_fused_mha_flash_true_raises_on_card(cuda_device):
-    """FusedMHA(flash=True) would run K11, which the port has not ported: on
-    the card it raises and does not fall back."""
+def test_fused_mha_flash_true_launches_k11_on_card(cuda_device):
+    """FusedMHA(flash=True) on a 3-D input with dh a multiple of 64 runs
+    K11: one forward launch, and one backward launch in a backward pass;
+    output and gradients agree with the CPU's einsum path. A head width
+    that is no multiple of 64 takes the einsum path, as in the JAX
+    package."""
     from video_mamba_suite_torch.models import FusedMHA
 
-    mha = FusedMHA(128, 2, flash=True, causal=True,
-                   generator=torch.Generator()).cuda()
-    with pytest.raises(NotImplementedError, match="K11"):
-        mha(torch.randn(2, 9, 128, device="cuda"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = FusedMHA(128, 2, flash=True, causal=True,
+                   generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to("cuda")
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 9, 128, generator=gen)
+    g = torch.randn(2, 9, 128, generator=gen)
+    before = dict(LAUNCHES)
+    with torch.no_grad():
+        card(x.cuda())
+    torch.cuda.synchronize()
+    assert _grown(before) == {"flash_mha_fwd": 1}
+    xc = x.cuda().requires_grad_()
+    before = dict(LAUNCHES)
+    out = card(xc)
+    out.backward(g.cuda())
+    torch.cuda.synchronize()
+    assert _grown(before) == {"flash_mha_fwd": 1, "flash_mha_bwd": 1}
+    xw = x.clone().requires_grad_()
+    want = cpu(xw)
+    want.backward(g)
+    pairs = [(out, want), (xc.grad, xw.grad)] + [
+        (a.grad, b.grad) for a, b in zip(card.parameters(),
+                                         cpu.parameters())]
+    for got, w in pairs:
+        err = (got.detach().cpu() - w).abs().max() / w.abs().max()
+        assert err < 1e-5, err
+    narrow = FusedMHA(96, 2, flash=True, generator=torch.Generator()).cuda()
+    before = dict(LAUNCHES)
+    with torch.no_grad():
+        narrow(torch.randn(2, 9, 96, device="cuda"))
+    assert _grown(before) == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,shape,causal,dtype,layout",
+                         chip_smoke.K11_CASES,
+                         ids=[case[0] for case in chip_smoke.K11_CASES])
+def test_k11_matches_plain_version(cuda_device, label, shape, causal, dtype,
+                                   layout):
+    """The cases and tolerances of chip_smoke.py's K11 phase: forward and
+    backward."""
+    chip_smoke.k11_check(label, shape, causal, dtype, layout)
+
+
+@pytest.mark.cuda
+def test_k11_rejects_what_it_does_not_take(cuda_device):
+    from video_mamba_suite_torch.ops import flash_mha_bwd, flash_mha_fwd
+
+    q = torch.randn(2, 16, 2, 64, device="cuda")
+    with pytest.raises(ValueError, match="head width"):
+        flash_mha_fwd(*(torch.zeros(1, 8, 2, 96, device="cuda"),) * 3)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_mha_fwd(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_mha_fwd(q, q, q.bfloat16())
+    with pytest.raises(ValueError, match="is on"):
+        flash_mha_fwd(q, q, q.cpu())
+    with pytest.raises(ValueError, match="contiguous last"):
+        flash_mha_fwd(q, q, q.transpose(-1, -2).contiguous()
+                      .transpose(-1, -2))
+    with pytest.raises(ValueError, match="shape"):
+        flash_mha_fwd(q, q, q[:, :8])
+    out, lse = flash_mha_fwd(q, q, q)
+    with pytest.raises(ValueError, match="dout must be contiguous"):
+        flash_mha_bwd(q, q, q, out, lse, out.transpose(0, 1).contiguous()
+                      .transpose(0, 1))
+    with pytest.raises(TypeError, match="lse must be"):
+        flash_mha_bwd(q, q, q, out, lse.double(), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,shape,dtype,opts", chip_smoke.K7_CASES,
+                         ids=[case[0] for case in chip_smoke.K7_CASES])
+def test_k7_matches_plain_version(cuda_device, label, shape, dtype, opts):
+    """The cases and tolerances of chip_smoke.py's K7 phase."""
+    chip_smoke.k7_check(label, shape, dtype, opts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,shape,dtype,opts", chip_smoke.K8_CASES,
+                         ids=[case[0] for case in chip_smoke.K8_CASES])
+def test_k8_matches_plain_version(cuda_device, label, shape, dtype, opts):
+    """The cases and tolerances of chip_smoke.py's K8 phase."""
+    chip_smoke.k8_check(label, shape, dtype, opts)
+
+
+@pytest.mark.cuda
+def test_k7_k8_reject_what_they_do_not_take(cuda_device):
+    from video_mamba_suite_torch.ops import complex_scan_bwd, complex_scan_fwd
+
+    def args(**kw):
+        return chip_smoke.k7_inputs((2, 40, 8, 4), "float32", 0, **kw)
+
+    a = args()
+    a["B"] = a["B"].to(torch.complex64)
+    with pytest.raises(TypeError, match="complex B or C"):
+        complex_scan_fwd(**a)
+    with pytest.raises(ValueError, match="dstate 17"):
+        complex_scan_fwd(**chip_smoke.k7_inputs((2, 40, 8, 17), "float32",
+                                                0))
+    a = args(h0=True)
+    a["h0i"] = None
+    with pytest.raises(ValueError, match="both or neither"):
+        complex_scan_fwd(**a)
+    a = args()
+    a["Ai"] = a["Ai"].double()
+    with pytest.raises(TypeError, match="Ai must be"):
+        complex_scan_fwd(**a)
+    a = args()
+    _, _, _, sr, si = complex_scan_fwd(**a, checkpoint_steps=16)
+    del a["h0r"], a["h0i"]
+    g = torch.zeros_like(a["u"])
+    with pytest.raises(ValueError, match="checkpoint_steps"):
+        complex_scan_bwd(**a, statesr=sr, statesi=si, g=g,
+                         checkpoint_steps=32)
+    with pytest.raises(ValueError, match="statesr must have shape"):
+        complex_scan_bwd(**a, statesr=sr, statesi=si, g=g,
+                         checkpoint_steps=8)
+
+
+@pytest.mark.cuda
+def test_complex_a_route_on_card(cuda_device):
+    """selective_scan with complex A launches K7 (and K8 in a backward) at
+    every length, with or without an initial state, and never K3 or K5;
+    real A never launches K7. The card agrees with the CPU."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for seqlen in (16, 100):
+        a = chip_smoke.k7_inputs((2, seqlen, 32, 8), "float32", seqlen,
+                                 h0=True)
+        A = torch.complex(a.pop("Ar"), a.pop("Ai"))
+        h0 = torch.complex(a.pop("h0r"), a.pop("h0i"))
+        for init in (None, h0):
+            before = dict(LAUNCHES)
+            with torch.no_grad():
+                out, last = selective_scan(**a, A=A, initial_state=init,
+                                           return_last_state=True)
+            assert _grown(before) == {"complex_scan_fwd": 1}
+            cpu = {k: v.cpu() if torch.is_tensor(v) else v
+                   for k, v in a.items()}
+            want, want_last = selective_scan(
+                **cpu, A=A.cpu(), return_last_state=True,
+                initial_state=None if init is None else init.cpu())
+            torch.testing.assert_close(out.cpu(), want, atol=2e-4, rtol=2e-4)
+            torch.testing.assert_close(last.cpu(), want_last, atol=2e-4,
+                                       rtol=2e-4)
+        Ag = A.clone().requires_grad_()
+        u = a["u"].clone().requires_grad_()
+        before = dict(LAUNCHES)
+        out, last = selective_scan(**dict(a, u=u), A=Ag,
+                                   return_last_state=True)
+        (out.sum() + last.real.sum()).backward()
+        torch.cuda.synchronize()
+        assert _grown(before) == {"complex_scan_fwd": 1,
+                                  "complex_scan_bwd": 1}
+        assert torch.isfinite(Ag.grad).all() and torch.isfinite(u.grad).all()
+    a = chip_smoke.k3_inputs((2, 16, 32, 8), "float32", 0)
+    before = dict(LAUNCHES)
+    with torch.no_grad():
+        selective_scan(**a)
+    assert _grown(before) == {"short_scan_fwd": 1}
 
 
 @pytest.mark.cuda

@@ -1,0 +1,700 @@
+// Flash attention for Hopper (sm_90a): kernel K11, forward and backward.
+//
+// Replaces the TPU kernels of jax's Pallas `flash_attention`
+// (jax/experimental/pallas/ops/tpu/flash_attention.py): the forward
+// `_flash_attention_kernel` and the backward `_flash_attention_dkv_kernel`
+// and `_flash_attention_dq_kernel` (the VJP `_flash_attention_bwd`), which
+// the JAX package reaches through `_flash_mha` in
+// video_mamba_suite_tpu/models/common.py (FusedMHA(flash=True)). For every
+// (batch, head) and query row i of L rows of width dh:
+//
+//     s_ij  = (q_i . k_j) * scale       fp32 sums of the I/O type's products
+//     m_i   = max_j s_ij,  l_i = sum_j exp(s_ij - m_i)
+//     o_i   = sum_j round(exp(s_ij - m_i)) v_j / l_i
+//     lse_i = m_i + log(l_i)
+//
+// and, from o, lse and the output's cotangent do:
+//
+//     p_ij  = exp(s_ij - lse_i)
+//     di_i  = sum_c o_ic * do_ic      (fp32)
+//     dv_j  = sum_i round(p_ij) do_i
+//     ds_ij = p_ij * (do_i . v_j - di_i) * scale
+//     dq_i  = sum_j round(ds_ij) k_j,   dk_j = sum_i round(ds_ij) q_i
+//
+// where causal keeps keys j <= i, keys and rows at or past L count nothing,
+// `round` rounds to the I/O type (fp32 or bf16; the library's casts of its
+// weights and of ds before their products), and the forward keeps m and l
+// online over key tiles.
+//
+// Layout: q, k and v are (B, L, H, dh), each given by three strides in
+// elements (batch, row, head) with the dh elements of a row contiguous, so
+// the projection's (B, L, 3D) output is read in place; out and do are
+// contiguous (B, L, H * dh) in the I/O type, lse (and the backward's
+// scratch di) contiguous (B, H, L) fp32, dq, dk and dv contiguous
+// (B, L, H, dh).
+//
+// Two C entries. `flash_mha_fwd` launches one kernel; `flash_mha_bwd`
+// launches three in order on the stream:
+//   di:   one warp per (batch, row, head) sums o * do;
+//   dkdv: a block per 64 keys of one (batch, head) holds K and V and walks
+//         the query tiles (from the diagonal when causal), accumulating dk
+//         and dv in registers;
+//   dq:   a block per 64 query rows holds Q and dO and walks the key tiles
+//         (up to the diagonal when causal), accumulating dq in registers.
+// So every output is written once by one block, with no atomics, and the
+// scores are recomputed in both walks (the library's split too).
+//
+// What bounds it on an H100 SXM (3.35 TB/s; 989 TFLOP/s bf16 in the tensor
+// cores, 67 TFLOP/s fp32 outside them): at the vision shape (B 128, L 197,
+// H 12, dh 64, bf16) the forward moves q, k, v and out, 4 x 38.7 MB (46 us),
+// and its two products take 2 x 2 x 1536 x 197^2 x 64 = 15.3 GFLOP (15 us on
+// the tensor cores); the backward moves 8 such tensors, 310 MB (93 us),
+// against five products (s, dp, dv, dq, dk), 38 GFLOP (39 us). At the long
+// shape (2 x 2048, 8 heads, dh 64, causal, bf16) the forward moves 16.8 MB
+// (5 us) against 8.6 GFLOP of the causal half (9 us). So short rows are
+// bound by the bytes, long ones by the products.
+//
+// Design (simple and right first; CUDA cores, no tensor cores yet): every
+// kernel but di runs 256 threads on 64-row tiles held in shared memory as
+// fp32 rows padded to dh + 4 floats, so the products read float4s without
+// bank conflicts. Thread (ty, tx) of the 16 x 16 grid holds a 4 x 4 piece
+// of each 64 x 64 score tile (rows 4 ty + r, columns tx + 16 q), writes its
+// rounded p (or ds) into a 64 x 68 tile for the product that follows, and
+// accumulates rows 4 ty + r, columns 4 tx + 64 g of its outputs in
+// registers. The forward takes 64 query rows of one (batch, head), walks
+// the key tiles up to the diagonal when causal, reduces each row's max and
+// sum across its 16 lanes with shuffles, and rescales its output rows by
+// exp(m_old - m_new) at every tile. Rows and keys past L are zero in shared
+// memory. Shared memory: forward 3 x 64 x (dh + 4) + 64 x 68 floats (68 KB
+// at dh 64, 116 KB at dh 128); backward 4 x 64 x (dh + 4) floats plus one
+// (dq) or two (dkdv) 64 x 68 tiles, at most 169 KB (dkdv at dh 128).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBlock = 64;          // rows per block, rows per tile
+constexpr int kThreads = 256;       // a 16 x 16 grid of threads
+constexpr int kPad = 4;             // floats of padding per row
+constexpr int kPRow = kBlock + kPad;
+
+// What both passes read: q, k and v through their strides, and the shape.
+struct Inputs {
+  const void* q;
+  const void* k;
+  const void* v;
+  long long sqb, sql, sqh, skb, skl, skh, svb, svl, svh;
+  int seqlen, heads, causal;
+  float scale;
+};
+
+// Each pass takes its own outputs, so the forward's parameters stay small:
+// with the backward's pointers in its struct as well, ptxas gave the
+// forward fewer registers and it ran slower on an H100.
+struct FwdParams : Inputs {
+  void* out;         // (B, L, H * dh) contiguous
+  float* lse;        // (B, H, L)
+};
+
+struct BwdParams : Inputs {
+  const void* out;   // (B, L, H * dh) contiguous
+  const float* lse;  // (B, H, L)
+  const void* dout;  // (B, L, H * dh) contiguous
+  float* di;         // (B, H, L)
+  void* dq;          // (B, L, H, dh) contiguous
+  void* dk;
+  void* dv;
+};
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+  const float2 a = __bfloat1622float2(lo);
+  const float2 b = __bfloat1622float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 raw;
+  raw.x = *reinterpret_cast<uint32_t*>(&lo);
+  raw.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+template <>
+__device__ __forceinline__ float round_to<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Rows r0 .. r0 + 63 (row stride in elements) into shared memory as fp32
+// rows of dh + kPad floats; rows at or past L are zeros.
+template <typename T, int DH>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
+                                          long long row_stride, int r0,
+                                          int seqlen) {
+  constexpr int kVec = DH / 4;
+  for (int idx = threadIdx.x; idx < kBlock * kVec; idx += kThreads) {
+    const int r = idx / kVec;
+    const int c = (idx % kVec) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < seqlen) {
+      val = load4(src + static_cast<long long>(r0 + r) * row_stride + c);
+    }
+    store4(dst + r * (DH + kPad) + c, val);
+  }
+}
+
+// 64 values of a (B, H, L) fp32 row into shared memory (0 past L).
+__device__ __forceinline__ void load_row(float* dst, const float* src,
+                                         int r0, int seqlen) {
+  if (threadIdx.x < kBlock) {
+    const int i = r0 + threadIdx.x;
+    dst[threadIdx.x] = i < seqlen ? src[i] : 0.f;
+  }
+}
+
+// acc[r][q] = sum_c X[4 ty + r][c] * Y[tx + 16 q][c].
+template <int DH>
+__device__ __forceinline__ void product_nt(float (&acc)[4][4],
+                                           const float* X, const float* Y,
+                                           int ty, int tx) {
+  constexpr int ld = DH + kPad;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
+  }
+#pragma unroll 2
+  for (int c = 0; c < DH; c += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[r] = load4(X + (ty * 4 + r) * ld + c);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) b[q] = load4(Y + (tx + 16 * q) * ld + c);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float s = acc[r][q];
+        s = fmaf(a[r].x, b[q].x, s);
+        s = fmaf(a[r].y, b[q].y, s);
+        s = fmaf(a[r].z, b[q].z, s);
+        s = fmaf(a[r].w, b[q].w, s);
+        acc[r][q] = s;
+      }
+    }
+  }
+}
+
+// acc[r][4 g + e] += sum_j P[4 ty + r][j] * Y[j][4 tx + 64 g + e].
+template <int DH>
+__device__ __forceinline__ void product_nn(float (&acc)[4][DH / 16],
+                                           const float* P, const float* Y,
+                                           int ty, int tx) {
+  constexpr int ld = DH + kPad;
+#pragma unroll 2
+  for (int j = 0; j < kBlock; j += 4) {
+    float4 p[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) p[r] = load4(P + (ty * 4 + r) * kPRow + j);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int g = 0; g < DH / 64; ++g) {
+        const float4 y = load4(Y + (j + jj) * ld + tx * 4 + 64 * g);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float pv = jj == 0 ? p[r].x : jj == 1 ? p[r].y
+                         : jj == 2 ? p[r].z : p[r].w;
+          acc[r][4 * g + 0] = fmaf(pv, y.x, acc[r][4 * g + 0]);
+          acc[r][4 * g + 1] = fmaf(pv, y.y, acc[r][4 * g + 1]);
+          acc[r][4 * g + 2] = fmaf(pv, y.z, acc[r][4 * g + 2]);
+          acc[r][4 * g + 3] = fmaf(pv, y.w, acc[r][4 * g + 3]);
+        }
+      }
+    }
+  }
+}
+
+// Rows i0 + 4 ty + r (< L) of a contiguous (B, L, H, dh) output.
+template <typename T, int DH>
+__device__ __forceinline__ void store_rows(T* dst, const Inputs& p,
+                                           long long b, int h, int i0,
+                                           const float (&acc)[4][DH / 16],
+                                           int ty, int tx) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = i0 + ty * 4 + r;
+    if (i >= p.seqlen) continue;
+    T* row = dst + ((b * p.seqlen + i) * p.heads + h) * DH;
+#pragma unroll
+    for (int g = 0; g < DH / 64; ++g) {
+      store4(row + tx * 4 + 64 * g,
+             make_float4(acc[r][4 * g], acc[r][4 * g + 1],
+                         acc[r][4 * g + 2], acc[r][4 * g + 3]));
+    }
+  }
+}
+
+// Max and sum over the 16 lanes that share a row group (lanes of one half
+// of the warp).
+__device__ __forceinline__ float max16(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) {
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  }
+  return x;
+}
+__device__ __forceinline__ float sum16(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) {
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  }
+  return x;
+}
+
+// Forward: 64 query rows of one (batch, head).
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads)
+    flash_mha_fwd_kernel(FwdParams p) {
+  extern __shared__ float smem[];
+  constexpr int ld = DH + kPad;
+  constexpr int kCols = DH / 16;
+  float* Qs = smem;
+  float* Ks = Qs + kBlock * ld;
+  float* Vs = Ks + kBlock * ld;
+  float* Ps = Vs + kBlock * ld;
+
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int i0 = blockIdx.x * kBlock;
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const T* q = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
+  const T* k = static_cast<const T*>(p.k) + b * p.skb + h * p.skh;
+  const T* v = static_cast<const T*>(p.v) + b * p.svb + h * p.svh;
+
+  load_tile<T, DH>(Qs, q, p.sql, i0, p.seqlen);
+
+  float m[4], l[4], o[4][kCols];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) o[r][c] = 0.f;
+  }
+
+  int ntiles = (p.seqlen + kBlock - 1) / kBlock;
+  if (p.causal) ntiles = min(ntiles, static_cast<int>(blockIdx.x) + 1);
+  for (int kt = 0; kt < ntiles; ++kt) {
+    const int j0 = kt * kBlock;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<T, DH>(Ks, k, p.skl, j0, p.seqlen);
+    load_tile<T, DH>(Vs, v, p.svl, j0, p.seqlen);
+    __syncthreads();
+
+    float s[4][4];
+    product_nt<DH>(s, Qs, Ks, ty, tx);
+
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = i0 + ty * 4 + r;
+      float mt = -INFINITY;
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        const int j = j0 + tx + 16 * qq;
+        const bool keep = j < p.seqlen && (!p.causal || j <= i);
+        s[r][qq] = keep ? s[r][qq] * p.scale : -INFINITY;
+        mt = fmaxf(mt, s[r][qq]);
+      }
+      mt = max16(mt);
+      const float m_new = fmaxf(m[r], mt);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = expf(m[r] - m_use);
+      float rs = 0.f;
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        const float pv = expf(s[r][qq] - m_use);
+        rs += pv;
+        Ps[(ty * 4 + r) * kPRow + tx + 16 * qq] = round_to<T>(pv);
+      }
+      rs = sum16(rs);
+      l[r] = alpha * l[r] + rs;
+      m[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) o[r][c] *= alpha;
+    }
+    __syncthreads();
+    product_nn<DH>(o, Ps, Vs, ty, tx);
+  }
+
+  float* lse = p.lse + (b * p.heads + h) * p.seqlen;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float inv = 1.f / l[r];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) o[r][c] *= inv;
+    const int i = i0 + ty * 4 + r;
+    if (tx == 0 && i < p.seqlen) lse[i] = m[r] + logf(l[r]);
+  }
+  store_rows<T, DH>(static_cast<T*>(p.out), p, b, h, i0, o, ty, tx);
+}
+
+template <typename T, int DH>
+cudaError_t launch(const FwdParams& p, long long batch,
+                   cudaStream_t stream) {
+  const int smem = (3 * kBlock * (DH + kPad) + kBlock * kPRow) *
+                   static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_mha_fwd_kernel<T, DH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.seqlen + kBlock - 1) / kBlock, p.heads,
+                  static_cast<unsigned>(batch));
+  flash_mha_fwd_kernel<T, DH><<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// Backward.
+
+// di[b, h, i] = sum_c o[b, i, h, c] * do[b, i, h, c]: a warp per row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_mha_bwd_di(BwdParams p, long long rows, int dh) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
+  if (row >= rows) return;  // whole warps leave together
+  const int lane = threadIdx.x % 32;
+  const T* o = static_cast<const T*>(p.out) + row * dh;
+  const T* g = static_cast<const T*>(p.dout) + row * dh;
+  float acc = 0.f;
+  for (int c = lane; c < dh; c += 32) acc += to_float(o[c]) * to_float(g[c]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  }
+  if (lane == 0) {
+    const int h = static_cast<int>(row % p.heads);
+    const long long bi = row / p.heads;  // b * L + i
+    const long long b = bi / p.seqlen;
+    const int i = static_cast<int>(bi % p.seqlen);
+    p.di[(b * p.heads + h) * p.seqlen + i] = acc;
+  }
+}
+
+// dk and dv for keys j0 .. j0 + 63 of one (batch, head).
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads)
+    flash_mha_bwd_dkdv(BwdParams p) {
+  extern __shared__ float smem[];
+  constexpr int ld = DH + kPad;
+  constexpr int kCols = DH / 16;
+  float* Ks = smem;
+  float* Vs = Ks + kBlock * ld;
+  float* Qs = Vs + kBlock * ld;
+  float* Os = Qs + kBlock * ld;   // dO
+  float* Ps = Os + kBlock * ld;   // round(p)^T: [key][query]
+  float* Ss = Ps + kBlock * kPRow;  // round(ds)^T
+  float* lse_s = Ss + kBlock * kPRow;
+  float* di_s = lse_s + kBlock;
+
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int j0 = blockIdx.x * kBlock;
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const long long row_stride = static_cast<long long>(p.heads) * DH;
+  const T* q = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
+  const T* dout = static_cast<const T*>(p.dout) +
+                  b * p.seqlen * row_stride + h * DH;
+  const float* lse = p.lse + (b * p.heads + h) * p.seqlen;
+  const float* di = p.di + (b * p.heads + h) * p.seqlen;
+
+  load_tile<T, DH>(Ks, static_cast<const T*>(p.k) + b * p.skb + h * p.skh,
+                   p.skl, j0, p.seqlen);
+  load_tile<T, DH>(Vs, static_cast<const T*>(p.v) + b * p.svb + h * p.svh,
+                   p.svl, j0, p.seqlen);
+
+  float dk[4][kCols], dv[4][kCols];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      dk[r][c] = 0.f;
+      dv[r][c] = 0.f;
+    }
+  }
+
+  const int ntiles = (p.seqlen + kBlock - 1) / kBlock;
+  for (int qt = p.causal ? blockIdx.x : 0; qt < ntiles; ++qt) {
+    const int i0 = qt * kBlock;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<T, DH>(Qs, q, p.sql, i0, p.seqlen);
+    load_tile<T, DH>(Os, dout, row_stride, i0, p.seqlen);
+    load_row(lse_s, lse, i0, p.seqlen);
+    load_row(di_s, di, i0, p.seqlen);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+    product_nt<DH>(s, Ks, Qs, ty, tx);     // s^T: [key][query]
+    product_nt<DH>(dp, Vs, Os, ty, tx);    // (do v^T)^T
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = j0 + ty * 4 + r;
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        const int il = tx + 16 * qq;
+        const int i = i0 + il;
+        const bool keep = i < p.seqlen && j < p.seqlen &&
+                          (!p.causal || j <= i);
+        const float pv = keep ? expf(s[r][qq] * p.scale - lse_s[il]) : 0.f;
+        const float ds = pv * (dp[r][qq] - di_s[il]) * p.scale;
+        Ps[(ty * 4 + r) * kPRow + il] = round_to<T>(pv);
+        Ss[(ty * 4 + r) * kPRow + il] = round_to<T>(ds);
+      }
+    }
+    __syncthreads();
+    product_nn<DH>(dv, Ps, Os, ty, tx);
+    product_nn<DH>(dk, Ss, Qs, ty, tx);
+  }
+  store_rows<T, DH>(static_cast<T*>(p.dk), p, b, h, j0, dk, ty, tx);
+  store_rows<T, DH>(static_cast<T*>(p.dv), p, b, h, j0, dv, ty, tx);
+}
+
+// dq for query rows i0 .. i0 + 63 of one (batch, head).
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads)
+    flash_mha_bwd_dq(BwdParams p) {
+  extern __shared__ float smem[];
+  constexpr int ld = DH + kPad;
+  constexpr int kCols = DH / 16;
+  float* Qs = smem;
+  float* Os = Qs + kBlock * ld;   // dO
+  float* Ks = Os + kBlock * ld;
+  float* Vs = Ks + kBlock * ld;
+  float* Ss = Vs + kBlock * ld;   // round(ds): [query][key]
+  float* lse_s = Ss + kBlock * kPRow;
+  float* di_s = lse_s + kBlock;
+
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int i0 = blockIdx.x * kBlock;
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const long long row_stride = static_cast<long long>(p.heads) * DH;
+  const T* k = static_cast<const T*>(p.k) + b * p.skb + h * p.skh;
+  const T* v = static_cast<const T*>(p.v) + b * p.svb + h * p.svh;
+
+  load_tile<T, DH>(Qs, static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh,
+                   p.sql, i0, p.seqlen);
+  load_tile<T, DH>(Os, static_cast<const T*>(p.dout) +
+                           b * p.seqlen * row_stride + h * DH,
+                   row_stride, i0, p.seqlen);
+  load_row(lse_s, p.lse + (b * p.heads + h) * p.seqlen, i0, p.seqlen);
+  load_row(di_s, p.di + (b * p.heads + h) * p.seqlen, i0, p.seqlen);
+
+  float dq[4][kCols];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) dq[r][c] = 0.f;
+  }
+
+  int ntiles = (p.seqlen + kBlock - 1) / kBlock;
+  if (p.causal) ntiles = min(ntiles, static_cast<int>(blockIdx.x) + 1);
+  for (int kt = 0; kt < ntiles; ++kt) {
+    const int j0 = kt * kBlock;
+    __syncthreads();
+    load_tile<T, DH>(Ks, k, p.skl, j0, p.seqlen);
+    load_tile<T, DH>(Vs, v, p.svl, j0, p.seqlen);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+    product_nt<DH>(s, Qs, Ks, ty, tx);
+    product_nt<DH>(dp, Os, Vs, ty, tx);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int il = ty * 4 + r;
+      const int i = i0 + il;
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        const int j = j0 + tx + 16 * qq;
+        const bool keep = i < p.seqlen && j < p.seqlen &&
+                          (!p.causal || j <= i);
+        const float pv = keep ? expf(s[r][qq] * p.scale - lse_s[il]) : 0.f;
+        const float ds = pv * (dp[r][qq] - di_s[il]) * p.scale;
+        Ss[il * kPRow + tx + 16 * qq] = round_to<T>(ds);
+      }
+    }
+    __syncthreads();
+    product_nn<DH>(dq, Ss, Ks, ty, tx);
+  }
+  store_rows<T, DH>(static_cast<T*>(p.dq), p, b, h, i0, dq, ty, tx);
+}
+
+template <typename T, int DH>
+cudaError_t launch(const BwdParams& p, long long batch,
+                   cudaStream_t stream) {
+  const long long rows = batch * p.seqlen * p.heads;
+  const long long di_blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
+  if (di_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_mha_bwd_di<T><<<static_cast<unsigned>(di_blocks), kThreads, 0,
+                        stream>>>(p, rows, DH);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int tile = kBlock * (DH + kPad);
+  const int extra = kBlock * kPRow + 2 * kBlock;
+  const int smem_dkdv =
+      (4 * tile + kBlock * kPRow + extra) * static_cast<int>(sizeof(float));
+  const int smem_dq = (4 * tile + extra) * static_cast<int>(sizeof(float));
+  err = cudaFuncSetAttribute(flash_mha_bwd_dkdv<T, DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_dkdv);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_mha_bwd_dq<T, DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_dq);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.seqlen + kBlock - 1) / kBlock, p.heads,
+                  static_cast<unsigned>(batch));
+  flash_mha_bwd_dkdv<T, DH><<<grid, kThreads, smem_dkdv, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_mha_bwd_dq<T, DH><<<grid, kThreads, smem_dq, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The inputs both entries share; false if the kernels do not take them.
+bool set_inputs(Inputs& p, int dtype, long long batch, int seqlen,
+                int heads, int dh, int causal, float scale, long long sqb,
+                long long sql, long long sqh, long long skb, long long skl,
+                long long skh, long long svb, long long svl, long long svh,
+                const void* q, const void* k, const void* v) {
+  if (batch < 1 || batch > 65535 || seqlen < 1 || heads < 1 ||
+      heads > 65535 || (dh != 64 && dh != 128) ||
+      (dtype != 0 && dtype != 1)) {
+    return false;
+  }
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.sqb = sqb;
+  p.sql = sql;
+  p.sqh = sqh;
+  p.skb = skb;
+  p.skl = skl;
+  p.skh = skh;
+  p.svb = svb;
+  p.svl = svl;
+  p.svh = svh;
+  p.seqlen = seqlen;
+  p.heads = heads;
+  p.causal = causal;
+  p.scale = scale;
+  return true;
+}
+
+// The pass that `P` names (FwdParams or BwdParams) for the I/O type (0
+// float32, 1 bfloat16) and dh.
+template <typename P>
+int dispatch(int dtype, int dh, const P& p, long long batch, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = dh == 64 ? launch<float, 64>(p, batch, s)
+                   : launch<float, 128>(p, batch, s);
+  } else {
+    err = dh == 64 ? launch<__nv_bfloat16, 64>(p, batch, s)
+                   : launch<__nv_bfloat16, 128>(p, batch, s);
+  }
+  return static_cast<int>(err);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches K11's forward on `stream`. dtype: 0 float32, 1 bfloat16 (q, k,
+// v and out share it). q, k, v: (batch, seqlen, heads, dh) with strides
+// (batch, row, head) in elements, each a multiple of 4, 16-byte aligned;
+// dh is 64 or 128. out: contiguous (batch, seqlen, heads * dh); lse:
+// contiguous fp32 (batch, heads, seqlen). Returns the cudaError_t of the
+// launch (0 on success).
+int flash_mha_fwd(int dtype, long long batch, int seqlen, int heads, int dh,
+                  int causal, float scale, long long sqb, long long sql,
+                  long long sqh, long long skb, long long skl, long long skh,
+                  long long svb, long long svl, long long svh, const void* q,
+                  const void* k, const void* v, void* out, void* lse,
+                  void* stream) {
+  FwdParams p{};
+  if (!set_inputs(p, dtype, batch, seqlen, heads, dh, causal, scale, sqb,
+                  sql, sqh, skb, skl, skh, svb, svl, svh, q, k, v)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.out = out;
+  p.lse = static_cast<float*>(lse);
+  return dispatch(dtype, dh, p, batch, stream);
+}
+
+// Launches K11's backward on `stream` (three kernels: di, dkdv, dq). q, k,
+// v, dtype and dh as `flash_mha_fwd` takes them (out, dout, dq, dk and dv
+// share the dtype). out and dout: contiguous (batch, seqlen, heads * dh);
+// lse and the scratch di: contiguous fp32 (batch, heads, seqlen); dq, dk,
+// dv: contiguous (batch, seqlen, heads, dh). Returns the cudaError_t of the
+// launches (0 on success).
+int flash_mha_bwd(int dtype, long long batch, int seqlen, int heads, int dh,
+                  int causal, float scale, long long sqb, long long sql,
+                  long long sqh, long long skb, long long skl, long long skh,
+                  long long svb, long long svl, long long svh, const void* q,
+                  const void* k, const void* v, const void* out,
+                  const void* lse, const void* dout, void* di, void* dq,
+                  void* dk, void* dv, void* stream) {
+  BwdParams p{};
+  if (!set_inputs(p, dtype, batch, seqlen, heads, dh, causal, scale, sqb,
+                  sql, sqh, skb, skl, skh, svb, svl, svh, q, k, v)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.out = out;
+  p.lse = static_cast<const float*>(lse);
+  p.dout = dout;
+  p.di = static_cast<float*>(di);
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  return dispatch(dtype, dh, p, batch, stream);
+}
+
+const char* flash_mha_fwd_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+const char* flash_mha_bwd_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

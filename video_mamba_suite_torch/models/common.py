@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.flash_attention import flash_mha
 from ..ops.vision_attention import MAX_ROW_TOKENS, row_mha_qkv, vision_mha
 
 
@@ -218,10 +219,12 @@ class FusedMHA(nn.Module):
         Above 512 tokens it takes the einsum path.
       - "vmem": on a 3-D (B, L, D) input, not causal, L <= 512: the
         whole-row kernel K9 (``ops.vision_attention.vision_mha``).
-      - True: the flash kernel K11, which the port does not have yet: a
-        CUDA input that the JAX package would give K11 (3-D, dh a multiple
-        of 64) raises NotImplementedError; on the CPU, as the JAX package
-        off the TPU, the einsum path.
+      - True: on a CUDA 3-D (B, L, D) input with dh a multiple of 64,
+        causal or not: the flash kernel K11 (``ops.flash_attention.
+        flash_mha``: its forward and, in a backward, its backward kernel),
+        which reads q, k and v from the projection's output through
+        strides; on the CPU, as the JAX package off the TPU, the einsum
+        path.
     On the ``seq_axis=1`` path anything but None or "row", and ``causal``,
     raise ValueError, as in the JAX package. Off the CPU each kernel path
     launches its kernel or raises; none falls back."""
@@ -280,10 +283,10 @@ class FusedMHA(nn.Module):
             return self.out(out.transpose(1, 2).reshape(x.shape[:-1] + (D,)))
         if (self.flash is True and x.is_cuda and x.dim() == 3
                 and dh % 64 == 0):
-            raise NotImplementedError(
-                "FusedMHA(flash=True) runs the flash-attention kernel K11 "
-                "(the JAX package's _flash_mha), which the port has not "
-                "ported yet")
+            # (B, H, L, dh) views back to the projection's (B, L, H, dh)
+            out = flash_mha(*(t.transpose(1, 2) for t in (q, k, v)),
+                            self.causal)
+            return self.out(out)
         scores = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(dh))
         if self.causal:
             keep = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()

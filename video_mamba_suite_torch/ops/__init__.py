@@ -6,6 +6,14 @@ with nvcc the first time a CUDA tensor reaches its wrapper.
 
 from ._build import LAUNCHES, reset_launches
 from .causal_conv1d import causal_conv1d, causal_conv1d_update
+from .flash_attention import (
+    FlashMHA,
+    flash_mha,
+    flash_mha_bwd,
+    flash_mha_bwd_ref,
+    flash_mha_fwd,
+    flash_mha_ref,
+)
 from .mamba_inner import MASKED_DELTA, mamba_inner, mamba_inner_bidir
 from .norms import fused_add_norm, layer_norm, rms_norm
 from .selective_scan import selective_scan, selective_scan_ref
@@ -14,6 +22,13 @@ from .selective_scan_bidir import (
     selective_scan_bidir_bwd,
     selective_scan_bidir_bwd_ref,
     selective_scan_bidir_ref,
+)
+from .selective_scan_complex import (
+    ComplexChunkedScan,
+    complex_scan_bwd,
+    complex_scan_bwd_ref,
+    complex_scan_fwd,
+    complex_scan_fwd_ref,
 )
 from .selective_scan_chunked import (
     CHECKPOINT_STEPS,
@@ -43,12 +58,16 @@ from .vision_attention import (
 )
 
 __all__ = [
-    "CHECKPOINT_STEPS", "LAUNCHES", "MASKED_DELTA", "MAX_ROW_TOKENS",
+    "CHECKPOINT_STEPS", "ComplexChunkedScan", "FlashMHA", "LAUNCHES",
+    "MASKED_DELTA", "MAX_ROW_TOKENS",
     "SHORT_SEQ_MAX",
     "ShortScan",
     "causal_conv1d", "causal_conv1d_update",
     "chunked_scan_bwd", "chunked_scan_bwd_ref", "chunked_scan_fwd",
-    "chunked_scan_states_ref", "fused_add_norm",
+    "chunked_scan_states_ref", "complex_scan_bwd", "complex_scan_bwd_ref",
+    "complex_scan_fwd", "complex_scan_fwd_ref", "flash_mha",
+    "flash_mha_bwd", "flash_mha_bwd_ref", "flash_mha_fwd", "flash_mha_ref",
+    "fused_add_norm",
     "layer_norm", "mamba_inner", "mamba_inner_bidir", "reset_launches",
     "rms_norm", "selective_scan", "selective_scan_bidir",
     "selective_scan_bidir_bwd", "selective_scan_bidir_bwd_ref",

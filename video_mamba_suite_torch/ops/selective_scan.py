@@ -9,8 +9,8 @@ Per (batch b, channel d, state n):
     y_t[d] = sum_n C_t[n] * x_t[d,n]  (+ D[d] * u_t)  (* silu(z_t), optional)
 
 Layout is time-major ``(batch, seqlen, dim)``, as in the JAX package. The
-state and all arithmetic are fp32; the output has u's dtype. Complex A is
-not ported.
+state and all arithmetic are fp32 (complex64 with complex A, where
+y_t = 2·Re(sum_n C_t[n] * x_t[d,n])); the output has u's dtype.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import selective_scan_complex as complex_scan
 from . import selective_scan_short as short
 from .selective_scan_chunked import CHECKPOINT_STEPS, ChunkedScan
 
@@ -54,18 +55,20 @@ def selective_scan_ref(
 
     Args:
       u, delta: (batch, seqlen, dim).
-      A: (dim, dstate) real, already -exp(A_log).
+      A: (dim, dstate), already -exp(A_log); real, or complex: then the
+        state is complex64 and y_t = 2·Re(sum_n C_t[n] * x_t[d,n]), as the
+        JAX ``selective_scan_ref`` gives it.
       B, C: (batch, seqlen, dstate), one per step and shared across
         channels, or grouped (batch, seqlen, G, dstate): channel d uses
-        group d // (dim / G).
+        group d // (dim / G). Real, or complex with complex A.
       D: (dim,) skip, optional.
       z: (batch, seqlen, dim) gate, optional (y * silu(z)).
       delta_bias: (dim,), added to delta in fp32, optional.
       delta_softplus: apply softplus to delta (+ bias).
-      return_last_state: also return the (batch, dim, dstate) fp32 state
-        after the last step.
+      return_last_state: also return the (batch, dim, dstate) fp32 (or
+        complex64) state after the last step.
       initial_state: (batch, dim, dstate) state before the first step,
-        optional (zeros).
+        optional (zeros); complex with complex A.
       reverse: the anti-causal scan, flip∘scan∘flip: the walk runs from
         t = seqlen - 1 down to 0, the initial state enters at the sequence
         end, and the last state is the one at t = 0.
@@ -89,23 +92,27 @@ def selective_scan_ref(
         delta = delta + delta_bias.float()
     if delta_softplus:
         delta = F.softplus(delta)
-    A, B, C = A.float(), B.float(), C.float()
+    state = torch.complex64 if A.is_complex() else torch.float32
+    A, B, C = (x.to(torch.complex64) if x.is_complex() else x.float()
+               for x in (A, B, C))
     batch, seqlen, dim = u.shape
     if initial_state is None:
-        h = u.new_zeros(batch, dim, A.shape[1])
+        h = u.new_zeros(batch, dim, A.shape[1], dtype=state)
     else:
-        h = initial_state.float()
+        h = initial_state.to(state)
     ys = []
     for t in range(seqlen):
         dt = delta[:, t, :, None]                             # (b, d, 1)
         h = (torch.exp(dt * A) * h
              + dt * _expand_bc(B[:, t], dim) * u[:, t, :, None])
         if C.dim() == 3:
-            ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
+            ys.append(torch.einsum("bdn,bn->bd", h, C[:, t].to(h.dtype)))
         else:
             ys.append(torch.einsum("bdn,bdn->bd", h,
-                                   _expand_bc(C[:, t], dim)))
+                                   _expand_bc(C[:, t], dim).to(h.dtype)))
     y = torch.stack(ys, dim=1) if ys else u.new_zeros(u.shape)
+    if y.is_complex():
+        y = 2 * y.real
     if D is not None:
         y = y + u * D.float()
     if z is not None:
@@ -133,9 +140,18 @@ def selective_scan(
     ``selective_scan_pallas``).
 
     CPU tensors take the plain version. CUDA tensors take the JAX
-    package's routes (``use_short_scan``), each a kernel that raises on what
-    it does not take (float32 or bfloat16 I/O, fp32 A, D, bias and
+    package's routes (``selective_scan_pallas``), each a kernel that raises
+    on what it does not take (float32 or bfloat16 I/O, fp32 A, D, bias and
     states, dstate <= 16, contiguous), never a fallback:
+    - complex A, first, at any length, with or without ``initial_state``
+      (complex64), causal or ``reverse``: the autograd Function
+      ``ComplexChunkedScan``, whose forward is kernel K7
+      (``complex_scan_fwd``) and whose backward is K7's adjoint K8
+      (``complex_scan_bwd``), with the cotangents of the output and of the
+      complex last state (assembled outside the Function, so its cotangent
+      reaches K8 exactly). B and C must be real, as the JAX kernel takes
+      them. K7 writes the checkpoints K8 needs only when a backward
+      follows;
     - a scan whose length rounded up to 8 is at most 64, with no
       ``initial_state``, launches kernel K5 (``short_scan_fwd``), causal or
       ``reverse``; with a backward to follow it is the autograd Function
@@ -173,6 +189,10 @@ def _scan_on_card(u, delta, A, B, C, D, z, delta_bias, delta_softplus,
     backward = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad
         for t in (u, delta, A, B, C, D, z, delta_bias, initial_state))
+    if A.is_complex():
+        return complex_scan.complex_scan(
+            u, delta, A, B, C, D, z, delta_bias, delta_softplus,
+            initial_state, reverse, backward)
     if short.use_short_scan(u.shape[1], initial_state):
         scan = short.ShortScan.apply if backward else short.short_scan_fwd
         return scan(u, delta, A, B, C, D, z, delta_bias, delta_softplus,

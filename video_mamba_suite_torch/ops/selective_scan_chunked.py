@@ -52,7 +52,8 @@ def _check(u, delta, A, B, C, D, z, delta_bias, initial_state, **more):
     batch, seqlen, dim = u.shape
     if A.is_complex() or B.is_complex() or C.is_complex():
         raise TypeError("complex A, B or C is not supported by the real "
-                        "scans (the complex scan is another kernel)")
+                        "scans (complex A is kernel K7, "
+                        "ops/selective_scan_complex.py)")
     if A.dim() != 2 or A.shape[0] != dim:
         raise ValueError(f"A must be (dim, dstate), got {tuple(A.shape)}")
     dstate = A.shape[1]
