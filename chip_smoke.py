@@ -6,14 +6,16 @@ Phases, each of which fails the run:
   1. device: require CUDA; print the card's name and power limit.
   2. build: compile every kernel of the port from ``csrc/`` with nvcc, one
      process per source, and print each one's registers, spills and shared
-     memory.
+     memory, and a line per tensor-core kernel (registers, spill bytes).
   3. kernels: hold each kernel against its plain PyTorch version on the
      card, at the shape the main path gives it and at the other cases of
      its table (``K1_CASES``, ``K2_CASES``, ``K3_CASES`` with K3's
      checkpoints, ``K4_CASES``, ``K5_CASES``, ``K6_CASES``, ``K10_CASES``,
      ``K9_CASES``, ``K11_CASES`` (forward and backward), ``K7_CASES`` with
      K7's checkpoints, ``K8_CASES``, which tests/test_torch_kernels_cuda.py
-     runs too), and time kernel, plain version and the roofline bound (K3
+     runs too; for K9, K10 and K11's forward also the kernel the profiler
+     saw run, ``ROUTES``: bf16 K9 and K11 forward on the tensor cores, the
+     rest SIMT), and time kernel, plain version and the roofline bound (K3
      and K7 also with their checkpoint output; K5, K6, K10, K9 and K11
      also with their device time from the profiler; K10, K9 and K11 also
      SDPA on the same q, k, v; for K11 SDPA's forward, its forward +
@@ -94,8 +96,11 @@ Phases, each of which fails the run:
      width (8 captions x 77 tokens, 512 wide, 8 heads, causal, fp32, TF32
      off) and its spatial width (128 instances x 197 tokens, 768 wide, 12
      heads, bf16), forward and backward: exactly one K11 forward and one
-     K11 backward per call, timed against the einsum path (flash=None);
-     the card against the CPU in fp32 on up to 8 rows.
+     K11 backward per call, timed against the einsum path (flash=None),
+     a torch.profiler window of two calls; the card against the CPU in
+     fp32 on up to 8 rows. Then
+     ``FusedMHA(flash="vmem")`` forward at the spatial width (bf16):
+     exactly one K9 per call, timed against the einsum path.
  15. complex scan: ``selective_scan`` with complex A at the scan microbench
      shape (8 x 2048 x 1024, 16 states, fp32, an initial state), forward
      and backward through autograd with cotangents on the output and the
@@ -113,6 +118,7 @@ import copy
 import importlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -326,7 +332,11 @@ K10_CASES = [
 # of a (I, N, 3·H·dh) projection output, as FusedMHA(flash="vmem") gives
 # them. vision: the TimeMamba-B spatial shape flattened to instances (B·T
 # = 128); text: the text tower's (8 captions, 8 heads, 77 tokens); then
-# the JAX tests' shapes and 512 tokens.
+# the JAX tests' shapes and 512 tokens; then the edges of the bf16
+# tensor-core kernel: one and two 16-row warps (N 16, 17), a whole and a
+# started fifth 64-key tile (N 256, 257), the most rows and columns (N 512
+# at dh 128), and head widths whose strides allow only 8-, 4- or 2-byte
+# copies (dh 20 in the projection layout, 18, 17).
 K9_CASES = [
     ("vision", (128, 12, 197, 64), "bfloat16", "contiguous"),
     ("text", (8, 8, 77, 64), "float32", "projection"),
@@ -335,6 +345,14 @@ K9_CASES = [
     ("dh8", (2, 2, 197, 8), "float32", "contiguous"),
     ("dh8-bf16", (2, 2, 197, 8), "bfloat16", "contiguous"),
     ("n512", (4, 4, 512, 64), "bfloat16", "contiguous"),
+    ("n16", (4, 4, 16, 64), "bfloat16", "contiguous"),
+    ("n17", (4, 4, 17, 32), "bfloat16", "projection"),
+    ("n256", (4, 4, 256, 64), "bfloat16", "contiguous"),
+    ("n257", (4, 4, 257, 64), "bfloat16", "projection"),
+    ("n512-dh128", (2, 2, 512, 128), "bfloat16", "projection"),
+    ("dh20-unaligned", (4, 3, 50, 20), "bfloat16", "projection"),
+    ("dh18", (2, 3, 40, 18), "bfloat16", "contiguous"),
+    ("dh17", (2, 3, 45, 17), "bfloat16", "projection"),
 ]
 # largest |kernel - plain| over the output (values below 2): fp32 read at
 # most 3.6e-7 on an H100 80GB HBM3 (sums in another order; PERF.md), held
@@ -353,13 +371,17 @@ K11_BWD_REPLACES = ("video_mamba_suite_tpu/models/common.py:320 (_flash_mha:"
 # K11 forward and backward against their plain versions: (label, (B, L, H,
 # dh), causal, I/O dtype, layout). "projection": q, k and v are views of one
 # (B, L, 3·H·dh) projection output, as FusedMHA(flash=True) gives them;
-# "contiguous": three tensors. vision: CLIP-TimeMamba-B's spatial attention
+# "contiguous": three tensors; "stride4": views of (B, L, H, dh + 4)
+# buffers, every stride a multiple of 4 bf16 but not all of 8 (no 16-byte
+# copies). vision: CLIP-TimeMamba-B's spatial attention
 # flattened to 128 = 8 clips x 16 frames (K9's shape, so K11, K9 and SDPA
 # time the same work); text: its text tower (8 captions of 77 tokens, 8
 # heads, causal); long: 2 x 2048 tokens, causal, the long sequences the JAX
 # package opts into flash for; then dh 128, a ragged bf16 length, and one
 # token, and a length that is not a multiple of the 64-key tile without
-# the causal mask in fp32 (the masking of keys at or past L alone).
+# the causal mask in fp32 (the masking of keys at or past L alone); then
+# the edges of the bf16 tensor-core forward's 64-row blocks and 64-key
+# tiles (L 63, 64, 65, causal and not) and 8-byte copies (stride4).
 # tests/test_torch_kernels_cuda.py runs the same cases.
 K11_CASES = [
     ("vision", (128, 197, 12, 64), False, "bfloat16", "projection"),
@@ -369,15 +391,35 @@ K11_CASES = [
     ("dh128-bf16", (2, 300, 2, 128), False, "bfloat16", "projection"),
     ("one-token", (3, 1, 2, 64), True, "float32", "contiguous"),
     ("ragged-full", (2, 100, 3, 64), False, "float32", "contiguous"),
+    ("l63", (2, 63, 2, 64), True, "bfloat16", "contiguous"),
+    ("l63-full", (2, 63, 2, 64), False, "bfloat16", "projection"),
+    ("l64", (2, 64, 2, 64), True, "bfloat16", "projection"),
+    ("l64-full", (2, 64, 2, 64), False, "bfloat16", "contiguous"),
+    ("l65", (2, 65, 2, 128), True, "bfloat16", "contiguous"),
+    ("l65-full", (2, 65, 3, 64), False, "bfloat16", "projection"),
+    ("stride4", (2, 100, 3, 64), True, "bfloat16", "stride4"),
 ]
+# The kernel each attention entry must run, by I/O dtype (the C entries
+# pick it): bf16 K9 and the bf16 K11 forward on the tensor cores, the rest
+# on the SIMT kernels; checked by name from the profiler at every case.
+ROUTES = {
+    ("K9", "bfloat16"): "vision_mha_mma_kernel",
+    ("K9", "float32"): "row_mha_kernel",
+    ("K10", "bfloat16"): "row_mha_kernel",
+    ("K10", "float32"): "row_mha_kernel",
+    ("K11", "bfloat16"): "flash_mha_fwd_mma_kernel",
+    ("K11", "float32"): "flash_mha_fwd_kernel",
+}
 # largest |kernel - plain| over each output's largest magnitude (at least
 # 1), the forward (out, lse) and the backward (dq, dk, dv), on an H100
 # 80GB HBM3 (PERF.md): fp32 sums in another order and an online max, read
 # at most 1.8e-7 forward and 2.6e-6 backward, held at about ten times
 # that; bf16 one to two bf16 ulps apart (the kernel rounds its weights
 # before dividing by the row sum, the plain version after), read at most
-# 4.6e-3, held at the JAX tests' 2e-2. The log-sum-exp is fp32 on both
-# sides whatever the I/O type, so it is held at the fp32 tolerance.
+# 4.6e-3 on the SIMT forward and 5.7e-3 on the tensor-core one (L 100,
+# causal), held at the JAX tests' 2e-2. The log-sum-exp is fp32 on both
+# sides whatever the I/O type, so it is held at the fp32 tolerance (read
+# at most 1.8e-7 of its scale).
 K11_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 K7_SOURCE = "video_mamba_suite_torch/csrc/complex_scan_fwd.cu"
 K7_REPLACES = "video_mamba_suite_tpu/ops/selective_scan_pallas.py:1732"
@@ -425,6 +467,11 @@ FLASH_MODULE_CASES = [
     ("vision", 128, 197, 768, 12, False, "bfloat16"),
 ]
 FLASH_MODULE_CALLS = 10          # timed forward + backward calls
+# FusedMHA(flash="vmem") forward, the entry through which K9 is reached:
+# (label, batch, tokens, width, heads, compute dtype) at CLIP-TimeMamba-B's
+# spatial width flattened to 128 instances (K9's main case)
+VMEM_MODULE_CASE = ("vision", 128, 197, 768, 12, "bfloat16")
+VMEM_MODULE_CALLS = 20           # timed forward calls
 # FusedMHA(flash=True) in fp32 (TF32 off), the card through K11 against the
 # CPU's einsum path, each output's largest difference over its largest CPU
 # magnitude: read 8.9e-7 (text) and 1.4e-6 (vision) on an H100 80GB HBM3
@@ -1233,6 +1280,64 @@ def attn_kernel(label):
     return vision_mha_fwd, vision_mha_ref, "vision_mha_fwd"
 
 
+def kernel_names(fn, tries=3):
+    """Names of the CUDA kernels that one call of ``fn`` launches, from the
+    profiler. A session that records no kernel at all (on the H100 the
+    profiler now and then returns an empty window) is repeated, up to
+    ``tries`` sessions."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    names = set()
+    for _ in range(tries):
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if names:
+            break
+    return names
+
+
+def check_route(kernel, label, dtype, names):
+    """Raise unless the attention kernels among ``names`` (kernel names
+    from the profiler) are exactly the one ``ROUTES`` gives ``kernel`` at
+    ``dtype``."""
+    want = ROUTES[(kernel, dtype)]
+    ran = sorted({k for k in set(ROUTES.values())
+                  for name in names if k + "<" in name})
+    if ran != [want]:
+        raise AssertionError(f"{kernel} at {label} ({dtype}) ran {ran}, "
+                             f"want {want}")
+
+
+def mma_resources(build_log):
+    """(kernel, registers, spill store bytes, spill load bytes) of each
+    tensor-core kernel in nvcc's ``-Xptxas -v`` output."""
+    found, name, spills = [], None, (0, 0)
+    for line in build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\w+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and "_mma_kernel" in name:
+            k = re.search(r"\d([a-z_]+_mma_kernel)I((?:Li\d+E)+)E", name)
+            label = name
+            if k:
+                args = re.findall(r"Li(\d+)E", k.group(2))
+                label = f"{k.group(1)}<{', '.join(args)}>"
+            found.append((label, int(m.group(1)), *spills))
+            spills = (0, 0)
+    return found
+
+
 def attn_check(kernel, label, shape, dtype, layout):
     """Launch K10 or K9 (``kernel``) once on the card at one of its cases
     and hold its output against the plain version's (TF32 off). Returns
@@ -1301,8 +1406,9 @@ def library_attention(args):
 def check_attention(kernel, cases):
     """Every case of K10 or K9 (``kernel``), each with the kernel's time
     (back to back between CUDA events, and its device time alone from the
-    profiler), the plain version's, SDPA's and the bound. Returns the
-    main-path case's (the first) numbers."""
+    profiler, whose kernels must be the one ``ROUTES`` names), the plain
+    version's, SDPA's and the bound. Returns the main-path case's (the
+    first) numbers."""
     fwd, ref, name = attn_kernel(kernel)
     result = {}
     for case in cases:
@@ -1310,12 +1416,17 @@ def check_attention(kernel, cases):
         ms = cuda_time_ms(lambda: fwd(*args), iters=50)
         device = profile("call", lambda: fwd(*args), tag=kernel.lower(),
                          calls=20, top=0)
+        check_route(kernel, case[0], case[2],
+                    set(device) or kernel_names(lambda: fwd(*args)))
+        # nan where the profiler's window came back empty
         device_ms = sum(ms for key, ms in device.items()
-                        if "row_mha_kernel" in key)
+                        if ROUTES[(kernel, case[2])] + "<" in key) or \
+            float("nan")
         plain_ms = cuda_time_ms(lambda: ref(*args), iters=5, warmup=1)
         library_ms = cuda_time_ms(library_attention(args), iters=50)
         bound_ms, bound_by = attn_bound_ms(args, got)
-        log(f"[{kernel.lower()}] {case[0]}: kernel {ms:.5f} ms per call "
+        log(f"[{kernel.lower()}] {case[0]}: {ROUTES[(kernel, case[2])]} "
+            f"{ms:.5f} ms per call "
             f"back to back ({device_ms:.5f} ms of device time per launch), "
             f"plain {plain_ms:.4f} ms, SDPA {library_ms:.5f} ms, bound "
             f"{bound_ms:.5f} ms ({bound_by})")
@@ -1333,8 +1444,9 @@ def check_attention(kernel, cases):
 def k11_inputs(shape, dtype, layout, seed, device="cuda"):
     """Seeded q, k, v (B, L, H, dh) of one of ``K11_CASES`` in ``layout``
     ("projection": views of one (B, L, 3·H·dh) projection output, as
-    FusedMHA(flash=True) gives them; "contiguous": three tensors) and the
-    output's cotangent (B, L, H·dh)."""
+    FusedMHA(flash=True) gives them; "contiguous": three tensors;
+    "stride4": views of (B, L, H, dh + 4) buffers) and the output's
+    cotangent (B, L, H·dh)."""
     import torch
 
     B, L, H, dh = shape
@@ -1347,6 +1459,8 @@ def k11_inputs(shape, dtype, layout, seed, device="cuda"):
     if layout == "projection":
         q, k, v = (t.view(B, L, H, dh)
                    for t in randn(B, L, 3 * H * dh).chunk(3, dim=-1))
+    elif layout == "stride4":
+        q, k, v = (randn(B, L, H, dh + 4)[..., :dh] for _ in range(3))
     else:
         q, k, v = (randn(B, L, H, dh) for _ in range(3))
     return q, k, v, randn(B, L, H * dh)
@@ -1468,7 +1582,8 @@ def sdpa_calls(q, k, v, dout, causal):
 
 def check_k11():
     """Every case of ``K11_CASES``: forward and backward each with its time
-    (back to back between CUDA events, and device time from the profiler),
+    (back to back between CUDA events, and device time from the profiler,
+    whose forward kernel must be the one ``ROUTES`` names),
     SDPA's forward and forward + backward on the same tensors, and the
     bounds; the plain versions timed once, at the first case (the vision
     width). Returns (forward, backward) numbers of the first case."""
@@ -1491,10 +1606,14 @@ def check_k11():
             flash_mha_fwd(q, k, v, causal),
             flash_mha_bwd(q, k, v, out, lse, dout, causal)),
             tag="k11", calls=3, top=0)
+        check_route("K11", label, case[3], set(device) or kernel_names(
+            lambda: flash_mha_fwd(q, k, v, causal)))
+        # nan where the profiler's window came back empty
         dev_fwd = sum(ms for key, ms in device.items()
-                      if "flash_mha_fwd_kernel" in key)
+                      if ROUTES[("K11", case[3])] + "<" in key) or \
+            float("nan")
         dev_bwd = sum(ms for key, ms in device.items()
-                      if "flash_mha_bwd_" in key)
+                      if "flash_mha_bwd_" in key) or float("nan")
         sdpa_fwd, sdpa_fwd_bwd, sdpa_bwd = sdpa_calls(q, k, v, dout, causal)
         lib_fwd = cuda_time_ms(sdpa_fwd, iters=10)
         lib_fwd_bwd = cuda_time_ms(sdpa_fwd_bwd, iters=10)
@@ -1507,7 +1626,8 @@ def check_k11():
                 q, k, v, out, lse, dout, causal), iters=1, warmup=1)
         bound_fwd, by_fwd = k11_bound_ms(q, causal, backward=False)
         bound_bwd, by_bwd = k11_bound_ms(q, causal, backward=True)
-        log(f"[k11] {label}: forward {fwd_ms:.4f} ms back to back "
+        log(f"[k11] {label}: forward ({ROUTES[('K11', case[3])]}) "
+            f"{fwd_ms:.4f} ms back to back "
             f"({dev_fwd:.4f} ms device), plain {plain_fwd:.4f} ms, SDPA "
             f"{lib_fwd:.4f} ms, bound {bound_fwd:.5f} ms ({by_fwd}); "
             f"backward {bwd_ms:.4f} ms ({dev_bwd:.4f} ms device), plain "
@@ -2984,10 +3104,11 @@ def run_flash_module():
     """FusedMHA(flash=True) at the two CLIP-TimeMamba-B widths of
     ``FLASH_MODULE_CASES``, forward and backward (a cotangent on the
     output): exactly one K11 forward and one K11 backward per call, timed
-    against the same module on the einsum path (flash=None, no kernel);
-    then the card against the CPU in fp32 with TF32 off on up to 8 rows of
-    the batch (output, the input's and every parameter's gradient). Returns
-    the launches of the timed calls."""
+    against the same module on the einsum path (flash=None, no kernel),
+    with a torch.profiler window of two calls; then the card against the
+    CPU in fp32 with TF32 off on up to 8 rows of the batch (output, the
+    input's and every parameter's gradient). Returns the launches of the
+    timed calls."""
     import torch
     from video_mamba_suite_torch.models import FusedMHA
     from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
@@ -3030,6 +3151,7 @@ def run_flash_module():
         if launches != want:
             raise AssertionError(f"FusedMHA(flash=True) at {label} launched "
                                  f"{launches}, want {want}")
+        profile("call", call, tag=f"flash-mha {label}", calls=2, top=8)
         if not all(torch.isfinite(t).all() for t in
                    (x.grad, *(p.grad for p in mha.parameters()))):
             raise AssertionError(f"FusedMHA(flash=True) at {label}: "
@@ -3077,6 +3199,56 @@ def run_flash_module():
             raise AssertionError(f"FusedMHA(flash=True) at {label}: card "
                                  f"and CPU disagree ({err:.3e})")
     return dict(total)
+
+
+def run_vmem_module():
+    """``FusedMHA(flash="vmem")`` forward at ``VMEM_MODULE_CASE`` (bf16, no
+    gradient), the entry through which K9 is reached: exactly one K9 per
+    call, timed (median ms per call) against the same module on the einsum
+    path (flash=None, no kernel), with the card's name and power limit.
+    Returns the launches of the timed calls."""
+    import torch
+    from video_mamba_suite_torch.models import FusedMHA
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+
+    label, batch, tokens, width, heads, dtype = VMEM_MODULE_CASE
+    mha = FusedMHA(width, heads, dtype=getattr(torch, dtype), flash="vmem",
+                   generator=torch.Generator().manual_seed(0)).cuda()
+    g = torch.Generator(device="cuda").manual_seed(batch + tokens)
+    x = torch.randn(batch, tokens, width, device="cuda", generator=g)
+
+    def timed(flash):
+        mha.flash = flash
+        with torch.inference_mode():
+            for _ in range(2):
+                out = mha(x)
+            torch.cuda.synchronize()
+            reset_launches()
+            times = []
+            for _ in range(VMEM_MODULE_CALLS):
+                t0 = time.perf_counter()
+                out = mha(x)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        if out.shape != x.shape or not torch.isfinite(out).all():
+            raise AssertionError(f"FusedMHA(flash={flash!r}) at {label}: "
+                                 f"{tuple(out.shape)} or values that are "
+                                 "not finite")
+        return statistics.median(times), dict(LAUNCHES)
+
+    vmem_s, launches = timed("vmem")
+    want = {"vision_mha_fwd": VMEM_MODULE_CALLS}
+    if launches != want:
+        raise AssertionError(f"FusedMHA(flash='vmem') at {label} launched "
+                             f"{launches}, want {want}")
+    einsum_s, ab_launches = timed(None)
+    if ab_launches:
+        raise AssertionError(f"the einsum path launched {ab_launches}")
+    log(f"[vmem-mha] {label} (B {batch}, L {tokens}, D {width}, {heads} "
+        f"heads, {dtype}) on {card_line()}: forward median "
+        f"{1e3 * vmem_s:.3f} ms with K9, {1e3 * einsum_s:.3f} ms on the "
+        f"einsum path; launches {launches}")
+    return launches
 
 
 def run_complex_scan():
@@ -3194,6 +3366,12 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "smem",
                                        "stack frame")):
                 log(f"[build] {name}: {line.strip()}")
+    for name in built:
+        for kernel, regs, stores, loads in mma_resources(
+                _build.build_log(name)):
+            log(f"[build] {name}: tensor-core kernel {kernel}: {regs} "
+                f"registers, {stores} bytes spill stores, {loads} bytes "
+                f"spill loads")
 
     k1 = check_k1()
     k2 = check_k2()
@@ -3214,8 +3392,6 @@ def main() -> int:
     run_anticipation_streaming(run_anticipation_serving())
     launches["short_scan_bwd"] = run_anticipation_train()["short_scan_bwd"]
     launches["row_mha_fwd"] = run_mir_serving()["row_mha_fwd"]
-    # no model sets flash="vmem", so no main path launches K9
-    launches["vision_mha_fwd"] = 0
     card_against_cpu()
     card_against_cpu_grads()
     card_against_cpu_vivim()
@@ -3224,6 +3400,8 @@ def main() -> int:
     card_against_cpu_anticipation()
     card_against_cpu_clip()
     launches.update(run_flash_module())
+    # no model sets flash="vmem": K9's launches are its entry point's
+    launches.update(run_vmem_module())
     launches.update(run_complex_scan())
 
     kernels = [dict(

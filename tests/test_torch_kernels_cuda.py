@@ -472,16 +472,24 @@ def test_small_lm_on_card_matches_cpu(cuda_device):
 @pytest.mark.parametrize("label,shape,dtype,layout", chip_smoke.K10_CASES,
                          ids=[case[0] for case in chip_smoke.K10_CASES])
 def test_k10_matches_plain_version(cuda_device, label, shape, dtype, layout):
-    """The cases and tolerances of chip_smoke.py's K10 phase."""
-    chip_smoke.attn_check("K10", label, shape, dtype, layout)
+    """The cases and tolerances of chip_smoke.py's K10 phase, and the
+    kernel the profiler sees run (the SIMT kernel in both dtypes)."""
+    args, _, _ = chip_smoke.attn_check("K10", label, shape, dtype, layout)
+    fwd = chip_smoke.attn_kernel("K10")[0]
+    chip_smoke.check_route("K10", label, dtype,
+                           chip_smoke.kernel_names(lambda: fwd(*args)))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("label,shape,dtype,layout", chip_smoke.K9_CASES,
                          ids=[case[0] for case in chip_smoke.K9_CASES])
 def test_k9_matches_plain_version(cuda_device, label, shape, dtype, layout):
-    """The cases and tolerances of chip_smoke.py's K9 phase."""
-    chip_smoke.attn_check("K9", label, shape, dtype, layout)
+    """The cases and tolerances of chip_smoke.py's K9 phase, and the kernel
+    the profiler sees run: bf16 on the tensor cores, fp32 SIMT."""
+    args, _, _ = chip_smoke.attn_check("K9", label, shape, dtype, layout)
+    fwd = chip_smoke.attn_kernel("K9")[0]
+    chip_smoke.check_route("K9", label, dtype,
+                           chip_smoke.kernel_names(lambda: fwd(*args)))
 
 
 @pytest.mark.cuda
@@ -552,14 +560,49 @@ def test_fused_mha_flash_true_launches_k11_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_fused_mha_vmem_launches_k9_on_card(cuda_device, dtype):
+    """FusedMHA(flash="vmem") on a 3-D input runs one K9 a forward, on the
+    kernel its dtype names; in fp32 it agrees with the CPU's plain
+    version, in bf16 (the kernel held to its plain version by the K9
+    cases) its output is finite."""
+    from video_mamba_suite_torch.models import FusedMHA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    cpu = FusedMHA(128, 2, dtype=dt, flash="vmem",
+                   generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to("cuda")
+    x = torch.randn(3, 40, 128, generator=torch.Generator().manual_seed(1))
+    before = dict(LAUNCHES)
+    with torch.no_grad():
+        names = chip_smoke.kernel_names(lambda: card(x.cuda()))
+        got = card(x.cuda())
+        torch.cuda.synchronize()
+        want = cpu(x)
+    assert _grown(before) == {"vision_mha_fwd": 2}
+    chip_smoke.check_route("K9", "FusedMHA(flash='vmem')", dtype, names)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    if dtype == "float32":
+        err = (got.cpu() - want).abs().max() / want.abs().max()
+        assert err < 1e-5, err
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("label,shape,causal,dtype,layout",
                          chip_smoke.K11_CASES,
                          ids=[case[0] for case in chip_smoke.K11_CASES])
 def test_k11_matches_plain_version(cuda_device, label, shape, causal, dtype,
                                    layout):
     """The cases and tolerances of chip_smoke.py's K11 phase: forward and
-    backward."""
-    chip_smoke.k11_check(label, shape, causal, dtype, layout)
+    backward, and the forward kernel the profiler sees run: bf16 on the
+    tensor cores, fp32 SIMT."""
+    from video_mamba_suite_torch.ops import flash_mha_fwd
+
+    (q, k, v, _), _, _, _ = chip_smoke.k11_check(label, shape, causal, dtype,
+                                                 layout)
+    chip_smoke.check_route("K11", label, dtype, chip_smoke.kernel_names(
+        lambda: flash_mha_fwd(q, k, v, causal)))
 
 
 @pytest.mark.cuda

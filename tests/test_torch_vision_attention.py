@@ -52,10 +52,13 @@ def test_row_mha_qkv_ref_matches_jax_kernel(shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(4, 3, 37, 16), (2, 2, 197, 8)])
+@pytest.mark.parametrize("shape", [(4, 3, 37, 16), (2, 2, 197, 8),
+                                   (2, 2, 16, 8), (2, 1, 17, 16),
+                                   (1, 2, 256, 8), (1, 1, 257, 16)])
 def test_vision_mha_ref_matches_jax_kernel(shape, dtype):
     """K9 scales q in its own dtype: at dh 8 the bf16 scale (0.3535) is
-    rounded, which the plain version keeps."""
+    rounded, which the plain version keeps. N 16, 17, 256 and 257 are the
+    edges of the card kernel's 16-row warps and 64-key tiles."""
     q, k, v = (_rand(shape, sum(shape) + i) for i in range(3))
     want = jva.vision_mha(*(jnp.asarray(t, JDT[dtype]) for t in (q, k, v)),
                           interpret=True)
@@ -63,6 +66,33 @@ def test_vision_mha_ref_matches_jax_kernel(shape, dtype):
                            for t in (q, k, v)))
     assert got.dtype == TDT[dtype] and got.shape == shape
     assert np.abs(got.float().numpy() - _np(want)).max() <= TOL[dtype]
+
+
+def test_k9_card_quotient_is_the_correctly_rounded_one():
+    """The card's K9 forms w = e / sum as q = e r, w = q + (e - sum q) r
+    with r = 1 / sum (fp32, each step rounded once, the residual by an
+    FMA): Markstein's correction, which gives the correctly rounded
+    quotient that the plain version's division does. Held here against
+    exact rational division at the values the kernel sees (e in (0, 1],
+    sums of up to 512 such terms)."""
+    from fractions import Fraction
+
+    def rn(x: Fraction) -> np.float32:             # x rounded to fp32
+        c = np.float32(float(x))
+        below, above = (np.nextafter(c, np.float32(d)) for d in
+                        (-np.inf, np.inf))
+        return min((below, c, above), key=lambda y: (
+            abs(Fraction(float(y)) - x),
+            int(np.float32(y).view(np.uint32)) & 1))
+
+    rng = np.random.default_rng(0)
+    for _ in range(2000):
+        e = Fraction(float(np.float32(np.exp(rng.uniform(-30.0, 0.0)))))
+        s = Fraction(float(np.float32(rng.uniform(1.0, 512.0))))
+        r = Fraction(float(rn(1 / s)))
+        q = Fraction(float(rn(e * r)))
+        res = Fraction(float(rn(e - s * q)))
+        assert rn(q + res * r) == rn(e / s)
 
 
 def test_row_mha_qkv_gradient_matches_jax():

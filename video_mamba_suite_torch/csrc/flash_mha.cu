@@ -54,25 +54,59 @@
 // (5 us) against 8.6 GFLOP of the causal half (9 us). So short rows are
 // bound by the bytes, long ones by the products.
 //
-// Design (simple and right first; CUDA cores, no tensor cores yet): every
-// kernel but di runs 256 threads on 64-row tiles held in shared memory as
-// fp32 rows padded to dh + 4 floats, so the products read float4s without
-// bank conflicts. Thread (ty, tx) of the 16 x 16 grid holds a 4 x 4 piece
-// of each 64 x 64 score tile (rows 4 ty + r, columns tx + 16 q), writes its
-// rounded p (or ds) into a 64 x 68 tile for the product that follows, and
-// accumulates rows 4 ty + r, columns 4 tx + 64 g of its outputs in
-// registers. The forward takes 64 query rows of one (batch, head), walks
-// the key tiles up to the diagonal when causal, reduces each row's max and
-// sum across its 16 lanes with shuffles, and rescales its output rows by
-// exp(m_old - m_new) at every tile. Rows and keys past L are zero in shared
-// memory. Shared memory: forward 3 x 64 x (dh + 4) + 64 x 68 floats (68 KB
-// at dh 64, 116 KB at dh 128); backward 4 x 64 x (dh + 4) floats plus one
-// (dq) or two (dkdv) 64 x 68 tiles, at most 169 KB (dkdv at dh 128).
+// Dispatch by type: the bf16 forward runs `flash_mha_fwd_mma_kernel` on the
+// tensor cores; the fp32 forward and the backward (both types) run the SIMT
+// kernels below. fp32 stays on the CUDA cores on purpose: the TPU kernels'
+// fp32 products are full fp32, and TF32 tensor cores (about three decimal
+// digits) would not hold the fp32 tolerances. No bf16 input of the
+// forward reaches the SIMT forward kernel.
+//
+// SIMT design (CUDA cores): every kernel but di runs 256 threads on 64-row
+// tiles held in shared memory as fp32 rows padded to dh + 4 floats, so the
+// products read float4s without bank conflicts. Thread (ty, tx) of the
+// 16 x 16 grid holds a 4 x 4 piece of each 64 x 64 score tile (rows 4 ty +
+// r, columns tx + 16 q), writes its rounded p (or ds) into a 64 x 68 tile
+// for the product that follows, and accumulates rows 4 ty + r, columns 4
+// tx + 64 g of its outputs in registers. The forward takes 64 query rows
+// of one (batch, head), walks the key tiles up to the diagonal when
+// causal, reduces each row's max and sum across its 16 lanes with
+// shuffles, and rescales its output rows by exp(m_old - m_new) at every
+// tile. Rows and keys past L are zero in shared memory. Shared memory:
+// forward 3 x 64 x (dh + 4) + 64 x 68 floats (68 KB at dh 64, 116 KB at dh
+// 128); backward 4 x 64 x (dh + 4) floats plus one (dq) or two (dkdv) 64 x
+// 68 tiles, at most 169 KB (dkdv at dh 128). What held the SIMT forward
+// back in bf16: every FMA fed from fp32 operands in shared memory (at 67
+// TFLOP/s the two products alone take 0.23 ms at the vision width, 5x the
+// bound; it reached about 17 TFLOP/s); q, k and v widened to fp32 in
+// shared memory (twice the bytes) by synchronous loads (`load_tile`) that
+// overlap no arithmetic; and every P tile written to shared memory and read
+// back for p @ v.
+//
+// `flash_mha_fwd_mma_kernel` (bf16 on the tensor cores; attention_mma.cuh):
+// 4 warps take 64 query rows of one (batch, head), 16 a warp, their q in
+// registers as bf16 A fragments; K and V tiles of 64 keys stay bf16 in
+// shared memory and arrive by cp.async into a two-stage ring, the next
+// tile's copy overlapping this tile's products; the scores, the online max
+// and sum, the rescale and the rounded p stay in registers, p packed into
+// A fragments for p @ v (no P tile in shared memory). Causal blocks stop at
+// the diagonal tile, only that tile (and the one holding L) is masked, and
+// in it each warp skips the 16-key groups wholly past its rows. The same
+// quantities as the SIMT forward: p = round(exp(s - m_running)), the output
+// rescaled by exp(m_old - m_new) at every tile and divided by l at the
+// end, lse = m + log(l) in fp32, which the unchanged backward reads (exp
+// taken as exp2 of the scores times scale log2(e), m kept in those units).
+// One barrier a tile. Strides that are multiples of 4 but not 8 bf16 take
+// 8-byte copies in the same kernel (kVec 4). q is staged in the ring's
+// second stage and read into registers before that stage takes a tile.
+// Shared memory: 4 x 64 x (dh + 8) bf16 (36 KB at dh 64, 68 KB at dh 128),
+// so registers (ptxas: about 115 a thread at dh 64) set 4 blocks an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -379,6 +413,170 @@ cudaError_t launch(const FwdParams& p, long long batch,
   return cudaGetLastError();
 }
 
+// Forward in bf16 on the tensor cores: 64 query rows of one (batch, head),
+// 16 a warp (see the note at the top).
+constexpr int kMmaWarps = 4;
+
+template <int DH, int kVec>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+    flash_mha_fwd_mma_kernel(FwdParams p) {
+  using namespace attn_mma;
+  constexpr int ld = row_stride(DH);
+  constexpr int kTile = kKeyTile * ld;             // one K or V tile
+  extern __shared__ float4 smem4[];
+  uint16_t* ring = reinterpret_cast<uint16_t*>(smem4);   // 2 stages of K, V
+  uint16_t* sq = ring + 2 * kTile;                 // q, in stage 1 at first
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int i0 = blockIdx.x * kBlock;
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int L = p.seqlen;
+  const uint16_t* q = static_cast<const uint16_t*>(p.q) + b * p.sqb + h * p.sqh;
+  const uint16_t* k = static_cast<const uint16_t*>(p.k) + b * p.skb + h * p.skh;
+  const uint16_t* v = static_cast<const uint16_t*>(p.v) + b * p.svb + h * p.svh;
+
+  int ntiles = (L + kKeyTile - 1) / kKeyTile;
+  if (p.causal) ntiles = min(ntiles, static_cast<int>(blockIdx.x) + 1);
+  auto issue = [&](int kt) {
+    uint16_t* stage = ring + (kt & 1) * 2 * kTile;
+    copy_rows<kVec, DH>(stage, ld, k, p.skl, kt * kKeyTile, kKeyTile, L, DH);
+    copy_rows<kVec, DH>(stage + kTile, ld, v, p.svl, kt * kKeyTile,
+                        kKeyTile, L, DH);
+  };
+  copy_rows<kVec, DH>(sq, ld, q, p.sql, i0, kBlock, L, DH);
+  issue(0);
+  cp_async_commit();
+
+  const int wrow = i0 + warp * 16;                 // the warp's first row
+  const int g = lane / 4;
+  const bool active = wrow < L;
+  // q into registers before stage 1 takes the next tile
+  uint32_t qf[DH / 16][4];
+  cp_async_wait<0>();
+  __syncthreads();
+  if (active) load_q<DH>(qf, sq + warp * 16 * ld, lane);
+
+  float o[DH / 8][4];
+#pragma unroll
+  for (int c = 0; c < DH / 8; ++c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[c][e] = 0.f;
+  }
+  // the running max in log2 units (the scores times scale log2(e)) and
+  // each lane's part of the sum
+  const float scale2 = p.scale * kLog2e;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < ntiles; ++kt) {
+    cp_async_wait<0>();                            // this tile's copies,
+    __syncthreads();                               // and q or the last tile's
+    if (kt + 1 < ntiles) {                         // stage read: it is free
+      issue(kt + 1);                               // during this tile
+      cp_async_commit();
+    }
+    if (active) {
+      const uint16_t* stage = ring + (kt & 1) * 2 * kTile;
+      const int j0 = kt * kKeyTile;
+      const bool diag = p.causal && kt == static_cast<int>(blockIdx.x);
+      int groups = min(kKeyGroups, (L - j0 + 15) / 16);
+      if (diag) groups = min(groups, warp + 1);    // keys past the rows
+      float s[8][4];
+      tile_scores<DH>(s, qf, stage, groups, lane);
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] *= scale2;
+      }
+      if (diag || j0 + kKeyTile > L) mask_tile(s, j0, L, wrow + g, diag, lane);
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(row_max(s, r)));
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        alpha[r] = exp2f(m[r] - m_use);
+        float sum = 0.f;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e) {
+            s[nb][e] = nb / 2 < groups ? exp2f(s[nb][e] - m_use) : 0.f;
+            sum += s[nb][e];
+          }
+        }
+        l[r] = alpha[r] * l[r] + sum;
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int c = 0; c < DH / 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[c][e] *= alpha[e / 2];
+      }
+      uint32_t w[kKeyGroups][4];
+      pack_weights(w, s);                          // p rounded to bf16
+      tile_pv<DH>(o, w, stage + kTile, groups, lane);
+    }
+  }
+
+  if (!active) return;
+  float* lse = p.lse + (b * p.heads + h) * L;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = wrow + g + 8 * r;
+    const float lr = quad_sum(l[r]);
+    if (i >= L) continue;
+    if (lane % 4 == 0) lse[i] = m[r] * kLn2 + logf(lr);
+    const float inv = 1.f / lr;
+    __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(p.out) +
+                         ((b * L + i) * p.heads + h) * DH;
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c) {
+      *reinterpret_cast<__nv_bfloat162*>(dst + c * 8 + 2 * (lane % 4)) =
+          __floats2bfloat162_rn(o[c][2 * r] * inv, o[c][2 * r + 1] * inv);
+    }
+  }
+}
+
+template <int DH, int kVec>
+cudaError_t launch_mma(const FwdParams& p, long long batch,
+                       cudaStream_t stream) {
+  const int smem = static_cast<int>(sizeof(uint16_t)) *
+                   attn_mma::row_stride(DH) * 4 * attn_mma::kKeyTile;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_mha_fwd_mma_kernel<DH, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.seqlen + kBlock - 1) / kBlock, p.heads,
+                  static_cast<unsigned>(batch));
+  flash_mha_fwd_mma_kernel<DH, kVec>
+      <<<grid, kMmaWarps * 32, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The bf16 forward: 16-byte copies where every pointer and stride allows
+// them, else 8-byte ones (strides in multiples of 4, as the wrapper
+// requires).
+cudaError_t launch_fwd_mma(const FwdParams& p, int dh, long long batch,
+                           cudaStream_t stream) {
+  const unsigned long long bits =
+      reinterpret_cast<unsigned long long>(p.q) |
+      reinterpret_cast<unsigned long long>(p.k) |
+      reinterpret_cast<unsigned long long>(p.v) |
+      2ull * static_cast<unsigned long long>(p.sqb | p.sql | p.sqh | p.skb |
+                                             p.skl | p.skh | p.svb | p.svl |
+                                             p.svh);
+  const int vec = attn_mma::vec_for(bits);
+  if (vec < 4) return cudaErrorInvalidValue;
+  if (vec == 8) {
+    return dh == 64 ? launch_mma<64, 8>(p, batch, stream)
+                    : launch_mma<128, 8>(p, batch, stream);
+  }
+  return dh == 64 ? launch_mma<64, 4>(p, batch, stream)
+                  : launch_mma<128, 4>(p, batch, stream);
+}
+
 // Backward.
 
 // di[b, h, i] = sum_c o[b, i, h, c] * do[b, i, h, c]: a warp per row.
@@ -639,12 +837,12 @@ int dispatch(int dtype, int dh, const P& p, long long batch, void* stream) {
 
 extern "C" {
 
-// Launches K11's forward on `stream`. dtype: 0 float32, 1 bfloat16 (q, k,
-// v and out share it). q, k, v: (batch, seqlen, heads, dh) with strides
-// (batch, row, head) in elements, each a multiple of 4, 16-byte aligned;
-// dh is 64 or 128. out: contiguous (batch, seqlen, heads * dh); lse:
-// contiguous fp32 (batch, heads, seqlen). Returns the cudaError_t of the
-// launch (0 on success).
+// Launches K11's forward on `stream`. dtype: 0 float32 (the SIMT kernel),
+// 1 bfloat16 (the tensor-core kernel); q, k, v and out share it. q, k, v:
+// (batch, seqlen, heads, dh) with strides (batch, row, head) in elements,
+// each a multiple of 4, 16-byte aligned; dh is 64 or 128. out: contiguous
+// (batch, seqlen, heads * dh); lse: contiguous fp32 (batch, heads,
+// seqlen). Returns the cudaError_t of the launch (0 on success).
 int flash_mha_fwd(int dtype, long long batch, int seqlen, int heads, int dh,
                   int causal, float scale, long long sqb, long long sql,
                   long long sqh, long long skb, long long skl, long long skh,
@@ -658,7 +856,16 @@ int flash_mha_fwd(int dtype, long long batch, int seqlen, int heads, int dh,
   }
   p.out = out;
   p.lse = static_cast<float*>(lse);
-  return dispatch(dtype, dh, p, batch, stream);
+  // bf16 on the tensor cores, fp32 on the SIMT kernel
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 1) {
+    err = launch_fwd_mma(p, dh, batch, s);
+  } else {
+    err = dh == 64 ? launch<float, 64>(p, batch, s)
+                   : launch<float, 128>(p, batch, s);
+  }
+  return static_cast<int>(err);
 }
 
 // Launches K11's backward on `stream` (three kernels: di, dkdv, dq). q, k,

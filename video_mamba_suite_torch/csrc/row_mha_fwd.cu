@@ -12,10 +12,10 @@
 //     w_ij = round(exp(s_ij - max_j s) / sum_j exp(s_ij - max_j s))
 //     o_i  = sum_j w_ij v_j               (fp32 sum, rounded to the type)
 //
-// with the max and the sum taken in fp32 over the whole row (two passes, no
-// online rescale) and `round` the rounding to the I/O type (fp32 or bf16),
-// which is where the TPU kernels cast the scaled q (K9) and the weights
-// (both) before their products. Entry `row_mha_fwd` is K10, entry
+// with the max and the sum taken in fp32 over the whole row (no online
+// rescale of the weights) and `round` the rounding to the I/O type (fp32
+// or bf16), which is where the TPU kernels cast the scaled q (K9) and the
+// weights (both) before their products. Entry `row_mha_fwd` is K10, entry
 // `vision_mha_fwd` K9; they differ only in where the scale is applied.
 //
 // Layout: q, k, v and out are each described by four strides in elements,
@@ -30,27 +30,72 @@
 // H 12, N 197, dh 64, bf16) q, k, v and out move 4 x 38.7 MB = 155 MB
 // (46 us) and the two products take 2 x 2 x 1536 x 197^2 x 64 = 15.3 GFLOP
 // (15 us on the tensor cores). So the bytes bound it, the (N, N) scores
-// never touching device memory.
+// never touching device memory. K9 at the vision width (128 x 12 x 197 x
+// 64, bf16) is the same work.
 //
-// Design (simple and right first; no tensor cores yet): a block of 4 warps
-// takes 32 query rows of one (instance, head), 8 rows a warp. It stages
-// those rows of q in shared memory as fp32, then walks the keys in tiles of
-// 64: each tile of K is staged transposed (dh x 64, padded against bank
-// conflicts) and each lane computes two keys' scores for the warp's 8 rows,
-// reading q as float4 broadcasts. The fp32 scores of the block's rows over
-// all N keys stay in shared memory (at most 32 x 512 floats). Each warp then
-// takes its rows' exact max and sum with shuffles and overwrites the scores
-// with the rounded weights (0 past N). Last, tiles of V are staged and each
-// lane accumulates up to 4 output columns (dh <= 128) for the 8 rows in fp32
+// Dispatch by type: bf16 K9 runs `vision_mha_mma_kernel` on the tensor
+// cores; fp32 (K9 and K10) and bf16 K10 run `row_mha_kernel` on the CUDA
+// cores. fp32 stays there on purpose: the TPU kernels' fp32 products are
+// full fp32, and TF32 tensor cores (about three decimal digits) would not
+// hold the fp32 tolerances. No bf16 input of K9 reaches the SIMT kernel.
+//
+// `row_mha_kernel` (SIMT, fp32 arithmetic): a block of 4 warps takes 32
+// query rows of one (instance, head), 8 rows a warp. It stages those rows
+// of q in shared memory as fp32, then walks the keys in tiles of 64: each
+// tile of K is staged transposed (dh x 64, padded against bank conflicts)
+// and each lane computes two keys' scores for the warp's 8 rows, reading q
+// as float4 broadcasts. The fp32 scores of the block's rows over all N keys
+// stay in shared memory (at most 32 x 512 floats). Each warp then takes its
+// rows' exact max and sum with shuffles and overwrites the scores with the
+// rounded weights (0 past N). Last, tiles of V are staged and each lane
+// accumulates up to 4 output columns (dh <= 128) for the 8 rows in fp32
 // registers (kCols = 1, 2 or 4 columns, by dh). Every copy into shared
 // memory keeps 8 loads a thread in flight. Ragged N and dh are zero-padded
-// in shared memory, so no padded key or column can reach a sum. Shared memory: 32 x dh (q) +
-// 32 x ceil(N / 64) x 64 (scores) + about 68 x dh (a K or V tile) floats,
-// at most 114 KB (58 KB at the MIR shape: 3 blocks an SM).
+// in shared memory, so no padded key or column can reach a sum. Shared
+// memory: 32 x dh (q) + 32 x ceil(N / 64) x 64 (scores) + about 68 x dh (a
+// K or V tile) floats, at most 114 KB (58 KB at the MIR shape: 3 blocks an
+// SM). What held it back as K9's bf16 kernel: every FMA fed from fp32
+// operands in shared memory (at 67 TFLOP/s the products alone take
+// 0.23 ms, 5x the bound); q, k and v widened to fp32 in shared memory
+// (twice the bytes) by synchronous loads that overlap no arithmetic; 58 KB
+// of scores a block (3 blocks an SM); and K and V read again for every 32
+// rows (7 times per (instance, head) at N = 197).
+//
+// `vision_mha_mma_kernel` (bf16 on the tensor cores; attention_mma.cuh):
+// one block of up to kMmaWarps warps takes up to 16 x kMmaWarps query rows
+// of one (instance, head), 16 rows a warp, with q scaled by the bf16 scale
+// and rounded to bf16 in its registers (the products then run on bf16
+// operands with fp32 sums, exactly the TPU kernel's). The rows need the
+// whole row's max and sum before any weight is rounded, so the keys are
+// walked twice (design (b)): the first walk over K takes each row's max
+// and sum in fp32 (the sum rescaled when the max grows, so no score is
+// kept), the second recomputes each tile's scores (the products are cheap
+// on the tensor cores), forms w = round(exp(s - max) / sum) in registers
+// and multiplies it by V. exp is exp2 of the scores in log2 units, and the
+// division is the correctly rounded quotient from the row's reciprocal
+// (Markstein's correction), so no weight takes a reciprocal of its own on
+// the special function unit. The registers are bounded by one 64-key tile
+// whatever N is, so one kernel serves every N <= 512 and dh <= 128, where
+// keeping a warp's 16 x N scores in registers (design (a): 104 of them at
+// N 197, with q and the output about 170) would halve the warps an SM
+// holds, and spill above N 256 or at dh 128. ptxas's registers and spills
+// per instantiation sit in the build's .log (chip_smoke.py prints them).
+// Against the SIMT kernel: no fp32 products (about 15 us of tensor-core
+// work); K and V stay bf16 in shared memory and arrive by cp.async into a
+// two-stage ring, the next step's copy overlapping this step's products,
+// one barrier a step; no scores in shared memory (55 KB a block at dh 64,
+// whatever N); a block reads K twice and V once, and the row blocks of a
+// head are neighbours in the grid, so only the first reads them from
+// device memory and the rest from L2. dh is zero-padded to 16, 32, 64 or
+// 128 (DHP) in shared memory and in the registers; where a pointer or
+// stride is not 16-byte aligned, the same kernel copies 8, 4 or 2 bytes at
+// a time (kVec, picked by the C entry).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -317,6 +362,235 @@ int launch(const Params& p, long long blocks, cudaStream_t stream) {
   return launch_cols<T, kPrescale, kMaxCols>(p, blocks, stream);
 }
 
+// K9 in bf16 on the tensor cores (see the note at the top). The most warps
+// a block takes: at N 197 two blocks of 7 warps a head, whose registers (at
+// most 128 a thread) let two blocks share an SM; one block of 13 warps a
+// head, one an SM, read slower on an H100.
+constexpr int kMmaWarps = 8;
+
+template <int DHP, int kVec>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+vision_mha_mma_kernel(const Params p) {
+  using namespace attn_mma;
+  constexpr int kKeys = attn_mma::kKeyTile;       // keys of a tile
+  constexpr int ld = row_stride(DHP);
+  constexpr int kTile = kKeys * ld;                // one K or V tile
+  extern __shared__ float4 smem4[];
+  const int warps = blockDim.x / 32;
+  uint16_t* sq = reinterpret_cast<uint16_t*>(smem4);   // 16 rows a warp
+  uint16_t* ring = sq + warps * 16 * ld;           // 2 stages of K, V
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int n = p.n;
+  const int dh = p.dh;
+  // row blocks of one (instance, head) are neighbours in the grid, so the
+  // K and V one reads are still in L2 for the next (launch_mma's count)
+  const int row_blocks = ((n + 15) / 16 + kMmaWarps - 1) / kMmaWarps;
+  long long idx = blockIdx.x / row_blocks;
+  const int row0 = static_cast<int>(blockIdx.x % row_blocks) * warps * 16;
+  const long long h = idx % p.heads;
+  idx /= p.heads;
+  const long long o1 = idx % p.outer1;
+  const long long o0 = idx / p.outer1;
+  const uint16_t* q =
+      static_cast<const uint16_t*>(p.q) + offset(p.sq, o0, o1, h);
+  const uint16_t* k =
+      static_cast<const uint16_t*>(p.k) + offset(p.sk, o0, o1, h);
+  const uint16_t* v =
+      static_cast<const uint16_t*>(p.v) + offset(p.sv, o0, o1, h);
+  __nv_bfloat16* out =
+      static_cast<__nv_bfloat16*>(p.out) + offset(p.so, o0, o1, h);
+
+  // walk step t < tiles copies K tile t (the first walk: the max and the
+  // sum); step tiles + t copies K and V tile t (the second: the output)
+  const int tiles = (n + kKeys - 1) / kKeys;
+  const int steps = 2 * tiles;
+  auto issue = [&](int step) {
+    uint16_t* stage = ring + (step & 1) * 2 * kTile;
+    const int t = step < tiles ? step : step - tiles;
+    copy_rows<kVec, DHP>(stage, ld, k, p.sk.row, t * kKeys, kKeys, n, dh);
+    if (step >= tiles) {
+      copy_rows<kVec, DHP>(stage + kTile, ld, v, p.sv.row, t * kKeys, kKeys,
+                           n, dh);
+    }
+  };
+  copy_rows<kVec, DHP>(sq, ld, q, p.sq.row, row0, warps * 16, n, dh);
+  issue(0);
+  cp_async_commit();
+
+  const int wrow = row0 + warp * 16;               // the warp's first row
+  const int g = lane / 4;
+  const bool active = wrow < n;
+  uint32_t qf[DHP / 16][4];
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+
+  // the first walk: each row's max and sum in fp32 over all keys; the sum
+  // is rescaled when the max grows, each lane keeping its own part. The
+  // scores are taken in log2 units (times log2(e)), so exp is exp2.
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<0>();                            // this step's copies,
+    __syncthreads();                               // and the last stage free
+    if (t + 1 < steps) {
+      issue(t + 1);                                // during this step
+      cp_async_commit();
+    }
+    if (active) {
+      if (t == 0) {
+        // q times the bf16 scale, rounded to bf16, as the TPU kernel does
+        load_q<DHP>(qf, sq + warp * 16 * ld, lane);
+#pragma unroll
+        for (int kk = 0; kk < DHP / 16; ++kk) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 x = unpack_bf16(qf[kk][e]);
+            qf[kk][e] = pack_bf16(x.x * p.scale, x.y * p.scale);
+          }
+        }
+      }
+      const int j0 = t * kKeys;
+      const int groups = min(kKeyGroups, (n - j0 + 15) / 16);
+      float s[8][4];
+      tile_scores<DHP>(s, qf, ring + (t & 1) * 2 * kTile, groups, lane);
+      to_log2(s);
+      if (j0 + kKeys > n) mask_tile(s, j0, n, wrow + g, false, lane);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(row_max(s, r)));
+        float sum = 0.f;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+          if (nb / 2 < groups) {
+            sum += exp2f(s[nb][2 * r] - m_new) +
+                   exp2f(s[nb][2 * r + 1] - m_new);
+          }
+        }
+        l[r] = l[r] * exp2f(m[r] - m_new) + sum;
+        m[r] = m_new;
+      }
+    }
+  }
+
+  // the second walk: w = round(exp(s - max) / sum) into A fragments, then
+  // o += w v. e / sum is the correctly rounded quotient from the row's
+  // reciprocal r = 1 / sum with Markstein's correction, w = q + (e - sum q)
+  // r for q = e r (two FMAs and a product, where a division takes a
+  // reciprocal of its own on the special function unit)
+  float o[DHP / 8][4];
+#pragma unroll
+  for (int c = 0; c < DHP / 8; ++c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[c][e] = 0.f;
+  }
+  float rinv[2] = {0.f, 0.f};
+  if (active) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = quad_sum(l[r]);
+      rinv[r] = 1.f / l[r];
+    }
+  }
+  for (int t = 0; t < tiles; ++t) {
+    const int step = tiles + t;
+    cp_async_wait<0>();
+    __syncthreads();
+    if (step + 1 < steps) {
+      issue(step + 1);
+      cp_async_commit();
+    }
+    if (active) {
+      const uint16_t* stage = ring + (step & 1) * 2 * kTile;
+      const int j0 = t * kKeys;
+      const int groups = min(kKeyGroups, (n - j0 + 15) / 16);
+      float s[8][4];
+      tile_scores<DHP>(s, qf, stage, groups, lane);
+      to_log2(s);
+      if (j0 + kKeys > n) mask_tile(s, j0, n, wrow + g, false, lane);
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = nb / 2 < groups ? exp2f(s[nb][e] - m[e / 2]) : 0.f;
+          const float q = x * rinv[e / 2];
+          s[nb][e] = fmaf(fmaf(-l[e / 2], q, x), rinv[e / 2], q);
+        }
+      }
+      uint32_t w[kKeyGroups][4];
+      pack_weights(w, s);
+      tile_pv<DHP>(o, w, stage + kTile, groups, lane);
+    }
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wrow + g + 8 * r;
+    if (row >= n) continue;
+    __nv_bfloat16* dst = out + row * p.so.row;
+#pragma unroll
+    for (int c = 0; c < DHP / 8; ++c) {
+      const int col = c * 8 + 2 * (lane % 4);
+      if (kVec > 1 && col + 1 < dh) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+            __floats2bfloat162_rn(o[c][2 * r], o[c][2 * r + 1]);
+      } else {
+        if (col < dh) dst[col] = __float2bfloat16_rn(o[c][2 * r]);
+        if (col + 1 < dh) dst[col + 1] = __float2bfloat16_rn(o[c][2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int DHP, int kVec>
+int launch_mma(const Params& p, long long blocks, cudaStream_t stream) {
+  const int ld = attn_mma::row_stride(DHP);
+  const int row_tiles = (p.n + 15) / 16;
+  const int row_blocks = (row_tiles + kMmaWarps - 1) / kMmaWarps;
+  const int warps = (row_tiles + row_blocks - 1) / row_blocks;
+  const long long grid = blocks * row_blocks;
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(uint16_t) * static_cast<size_t>(ld) *
+                      (warps * 16 + 4 * attn_mma::kKeyTile);
+  cudaError_t err = cudaFuncSetAttribute(
+      vision_mha_mma_kernel<DHP, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  vision_mha_mma_kernel<DHP, kVec>
+      <<<static_cast<unsigned>(grid), warps * 32, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DHP>
+int launch_mma_vec(const Params& p, int vec, long long blocks,
+                   cudaStream_t stream) {
+  switch (vec) {
+    case 8: return launch_mma<DHP, 8>(p, blocks, stream);
+    case 4: return launch_mma<DHP, 4>(p, blocks, stream);
+    case 2: return launch_mma<DHP, 2>(p, blocks, stream);
+    default: return launch_mma<DHP, 1>(p, blocks, stream);
+  }
+}
+
+// K9 in bf16: the head width padded to DHP and the widest copy that every
+// pointer and stride allows.
+int launch_vision_mma(const Params& p, long long blocks, cudaStream_t stream) {
+  unsigned long long bits = 0;
+  const void* ptrs[4] = {p.q, p.k, p.v, p.out};
+  const Strides* st[4] = {&p.sq, &p.sk, &p.sv, &p.so};
+  for (int t = 0; t < 4; ++t) {
+    bits |= reinterpret_cast<unsigned long long>(ptrs[t]);
+    const long long strides =
+        st[t]->outer0 | st[t]->outer1 | st[t]->head | st[t]->row;
+    bits |= 2ull * static_cast<unsigned long long>(strides);
+  }
+  const int vec = attn_mma::vec_for(bits);
+  if (p.dh <= 16) return launch_mma_vec<16>(p, vec, blocks, stream);
+  if (p.dh <= 32) return launch_mma_vec<32>(p, vec, blocks, stream);
+  if (p.dh <= 64) return launch_mma_vec<64>(p, vec, blocks, stream);
+  return launch_mma_vec<128>(p, vec, blocks, stream);
+}
+
 int run(bool prescale, int dtype, long long outer0, int outer1, int heads,
         int n, int dh, float scale, const long long* st, const void* q,
         const void* k, const void* v, void* out, void* stream) {
@@ -350,7 +624,8 @@ int run(bool prescale, int dtype, long long outer0, int outer1, int heads,
     return prescale ? launch<float, true>(p, blocks, s0)
                     : launch<float, false>(p, blocks, s0);
   }
-  return prescale ? launch<__nv_bfloat16, true>(p, blocks, s0)
+  // bf16: K9 on the tensor cores, K10 on the SIMT kernel
+  return prescale ? launch_vision_mma(p, blocks, s0)
                   : launch<__nv_bfloat16, false>(p, blocks, s0);
 }
 

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 into ``build/<name>-<hash>.so`` inside the package (a git-ignored
-directory), keyed by a hash of the source and the flags so an edited
-source rebuilds. Nothing is built when a module is imported: the CPU-only
-test environment has no nvcc.
+directory), keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds.
+Nothing is built when a module is imported: the CPU-only test
+environment has no nvcc.
 
 Every kernel wrapper adds one to ``LAUNCHES[<name>]`` each time it
 launches its kernel, so a run can show which kernels its path went through.
@@ -54,9 +55,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{key}.so"
+    """The library's path: keyed by the source, every shared header under
+    ``csrc/`` (a source may include any of them) and the flags."""
+    key = hashlib.sha1()
+    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        key.update(path.name.encode() + b"\0" + path.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{key.hexdigest()[:12]}.so"
 
 
 def build_all(names: Iterable[str] = ()) -> Dict[str, Path]:

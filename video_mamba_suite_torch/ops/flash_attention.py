@@ -21,7 +21,12 @@ layout only, so here keys at or past L are masked and nothing is padded.
 
 ``csrc/flash_mha.cu`` holds both kernels, one C entry each: the forward
 ``flash_mha_fwd`` and the backward ``flash_mha_bwd`` (a di pass, then dk and
-dv per key tile, then dq per query tile). Both read q, k and v through
+dv per key tile, then dq per query tile). The forward picks its kernel by
+dtype: bf16 runs ``flash_mha_fwd_mma_kernel`` on the tensor cores (bf16
+``mma.sync`` tiles with fp32 sums, ``csrc/attention_mma.cuh``), fp32 the
+SIMT kernel ``flash_mha_fwd_kernel``, because the library's fp32 products
+are full fp32, which TF32 tensor cores would not hold to the fp32
+tolerances; the backward is SIMT in both. Both read q, k and v through
 strides: any (B, L, H, dh) view whose last dimension is contiguous, so
 ``FusedMHA`` hands them the projection's own (B, L, 3D) output without a
 copy. The wrappers ``flash_mha_fwd`` and ``flash_mha_bwd`` launch them on
@@ -143,7 +148,10 @@ def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch K11's forward on CUDA (B, L, H, dh) q, k, v of one dtype
     (float32 or bfloat16), dh 64 or 128, any strides with the last
     dimension contiguous: returns (out (B, L, H·dh) in q's dtype, lse
-    (B, H, L) fp32), as ``flash_mha_ref``. Raises on anything else."""
+    (B, H, L) fp32), as ``flash_mha_ref``. bfloat16 runs on the tensor
+    cores (``flash_mha_fwd_mma_kernel``), float32 on the SIMT kernel
+    (``flash_mha_fwd_kernel``) to keep full fp32 products. Raises on
+    anything else."""
     _check(q, k, v, FWD_KERNEL)
     B, L, H, dh = q.shape
     out = torch.empty(B, L, H * dh, dtype=q.dtype, device=q.device)

@@ -13,7 +13,12 @@ places show, so the plain versions ``vision_mha_ref`` and
 ``row_mha_qkv_ref`` keep them.
 
 ``csrc/row_mha_fwd.cu`` holds both kernels (entries ``vision_mha_fwd`` and
-``row_mha_fwd``), which read q, k and v through strides: any view whose
+``row_mha_fwd``). The C entries pick the kernel by dtype: bf16 K9 runs
+``vision_mha_mma_kernel`` on the tensor cores (bf16 ``mma.sync`` tiles
+with fp32 sums, ``csrc/attention_mma.cuh``); fp32 (K9 and K10) and bf16
+K10 run the SIMT kernel ``row_mha_kernel``, fp32 because the TPU kernels'
+fp32 products are full fp32, which TF32 tensor cores would not hold to
+the fp32 tolerances. Both read q, k and v through strides: any view whose
 last dimension is contiguous, so ``FusedMHA`` hands K10 the projection's
 own (B, S, T, 3D) output and takes the output in (B, S, T, D) without a
 copy either way. ``vision_mha_fwd`` and ``row_mha_fwd`` launch them on
@@ -133,7 +138,10 @@ def vision_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    sm_scale: Optional[float] = None) -> torch.Tensor:
     """Launch K9 on CUDA tensors (I, H, N, dh), float32 or bfloat16, N <=
     512, dh <= 128, any strides with the last dimension contiguous; the
-    output keeps q's layout. Raises on anything else."""
+    output keeps q's layout. bfloat16 runs on the tensor cores
+    (``vision_mha_mma_kernel``), float32 on the SIMT kernel
+    (``row_mha_kernel``) to keep full fp32 products. Raises on anything
+    else."""
     if q.dim() != 4:
         raise ValueError(f"q must be (I, H, N, dh), got {tuple(q.shape)}")
     scale = _scale(sm_scale, q.shape[-1])
