@@ -13,13 +13,13 @@ Phases, each of which fails the run:
      checkpoints, ``K4_CASES``, ``K5_CASES``, ``K6_CASES``, ``K10_CASES``,
      ``K9_CASES``, ``K11_CASES`` (forward and backward), ``K7_CASES`` with
      K7's checkpoints, ``K8_CASES``, which tests/test_torch_kernels_cuda.py
-     runs too; for K9, K10 and K11's forward also the kernel the profiler
-     saw run, ``ROUTES``: bf16 K9 and K11 forward on the tensor cores, the
-     rest SIMT), and time kernel, plain version and the roofline bound (K3
-     and K7 also with their checkpoint output; K5, K6, K10, K9 and K11
-     also with their device time from the profiler; K10, K9 and K11 also
-     SDPA on the same q, k, v; for K11 SDPA's forward, its forward +
-     backward, and its backward alone).
+     runs too; for K9, K10 and K11 (forward and backward) also the
+     kernels the profiler saw run, ``ROUTES``: bf16 on the tensor cores,
+     fp32 on the SIMT kernels), and time kernel, plain version and the
+     roofline bound (K3 and K7 also with their checkpoint output; K5, K6,
+     K10, K9 and K11 also with their device time from the profiler; K10,
+     K9 and K11 also SDPA on the same q, k, v; for K11 SDPA's forward, its
+     forward + backward, and its backward alone).
   4. inference: TimeMamba-B (batch 8, 16 frames, 224², bf16, random
      weights from a seed) through ``build_timemamba_b``; launch counts are
      zeroed just before and read just after (K1: 12 per forward). Then a
@@ -88,7 +88,8 @@ Phases, each of which fails the run:
      ``attn_flash=None`` (12 K1, no K10) as the A/B; then
      ``MirFinetuner.evaluate`` over 32 clips x 32 captions against a
      relevancy matrix of seeded verb/noun classes, its six metrics finite
-     and equal to those of its embeddings.
+     and equal to those of its embeddings. K10's share of the request's
+     device time is read from the profile.
  13. card against CPU, CLIP: CLIP-TimeMamba-B at full width and depth in
      fp32 (TF32 off), one clip and four captions, both embeddings and the
      scale.
@@ -97,8 +98,9 @@ Phases, each of which fails the run:
      off) and its spatial width (128 instances x 197 tokens, 768 wide, 12
      heads, bf16), forward and backward: exactly one K11 forward and one
      K11 backward per call, timed against the einsum path (flash=None),
-     a torch.profiler window of two calls; the card against the CPU in
-     fp32 on up to 8 rows. Then
+     a torch.profiler window of two calls (K11's forward and backward
+     shares of its device time); the card against the CPU in fp32 on up
+     to 8 rows. Then
      ``FusedMHA(flash="vmem")`` forward at the spatial width (bf16):
      exactly one K9 per call, timed against the einsum path.
  15. complex scan: ``selective_scan`` with complex A at the scan microbench
@@ -380,8 +382,9 @@ K11_BWD_REPLACES = ("video_mamba_suite_tpu/models/common.py:320 (_flash_mha:"
 # package opts into flash for; then dh 128, a ragged bf16 length, and one
 # token, and a length that is not a multiple of the 64-key tile without
 # the causal mask in fp32 (the masking of keys at or past L alone); then
-# the edges of the bf16 tensor-core forward's 64-row blocks and 64-key
-# tiles (L 63, 64, 65, causal and not) and 8-byte copies (stride4).
+# the edges of the bf16 tensor-core kernels' 64-row blocks and 64-key
+# tiles (L 63, 64, 65, causal and not; dh 128 causal at L 300, whose
+# backward holds the most registers) and 8-byte copies (stride4).
 # tests/test_torch_kernels_cuda.py runs the same cases.
 K11_CASES = [
     ("vision", (128, 197, 12, 64), False, "bfloat16", "projection"),
@@ -398,18 +401,27 @@ K11_CASES = [
     ("l65", (2, 65, 2, 128), True, "bfloat16", "contiguous"),
     ("l65-full", (2, 65, 3, 64), False, "bfloat16", "projection"),
     ("stride4", (2, 100, 3, 64), True, "bfloat16", "stride4"),
+    ("dh128-bf16-causal", (2, 300, 2, 128), True, "bfloat16", "contiguous"),
 ]
-# The kernel each attention entry must run, by I/O dtype (the C entries
-# pick it): bf16 K9 and the bf16 K11 forward on the tensor cores, the rest
-# on the SIMT kernels; checked by name from the profiler at every case.
+# The kernels each attention entry must run, by I/O dtype (the C entries
+# pick them): bf16 on the tensor cores, fp32 on the SIMT kernels (K11's
+# backward starts with the di kernel in both); checked by name from the
+# profiler at every case. K9 and K10 share a source, so each is checked
+# against both entries' kernels.
 ROUTES = {
-    ("K9", "bfloat16"): "vision_mha_mma_kernel",
-    ("K9", "float32"): "row_mha_kernel",
-    ("K10", "bfloat16"): "row_mha_kernel",
-    ("K10", "float32"): "row_mha_kernel",
-    ("K11", "bfloat16"): "flash_mha_fwd_mma_kernel",
-    ("K11", "float32"): "flash_mha_fwd_kernel",
+    ("K9", "bfloat16"): ("vision_mha_mma_kernel",),
+    ("K9", "float32"): ("row_mha_kernel",),
+    ("K10", "bfloat16"): ("row_mha_mma_kernel",),
+    ("K10", "float32"): ("row_mha_kernel",),
+    ("K11", "bfloat16"): ("flash_mha_fwd_mma_kernel",),
+    ("K11", "float32"): ("flash_mha_fwd_kernel",),
+    ("K11 bwd", "bfloat16"): ("flash_mha_bwd_di",
+                              "flash_mha_bwd_dkdv_mma_kernel",
+                              "flash_mha_bwd_dq_mma_kernel"),
+    ("K11 bwd", "float32"): ("flash_mha_bwd_di", "flash_mha_bwd_dkdv_kernel",
+                             "flash_mha_bwd_dq_kernel"),
 }
+ROUTE_FAMILIES = (("K9", "K10"), ("K11",), ("K11 bwd",))
 # largest |kernel - plain| over each output's largest magnitude (at least
 # 1), the forward (out, lse) and the backward (dq, dk, dv), on an H100
 # 80GB HBM3 (PERF.md): fp32 sums in another order and an online max, read
@@ -1301,14 +1313,25 @@ def kernel_names(fn, tries=3):
     return names
 
 
+def route_ms(kernel, dtype, device):
+    """The device ms of the kernels ``ROUTES`` gives ``kernel`` at
+    ``dtype``, summed from a profile's per-kernel times (nan where the
+    profiler's window came back empty)."""
+    return sum(ms for key, ms in device.items()
+               if any(k + "<" in key for k in ROUTES[(kernel, dtype)])) or \
+        float("nan")
+
+
 def check_route(kernel, label, dtype, names):
-    """Raise unless the attention kernels among ``names`` (kernel names
-    from the profiler) are exactly the one ``ROUTES`` gives ``kernel`` at
-    ``dtype``."""
-    want = ROUTES[(kernel, dtype)]
-    ran = sorted({k for k in set(ROUTES.values())
-                  for name in names if k + "<" in name})
-    if ran != [want]:
+    """Raise unless the kernels of ``kernel``'s family (``ROUTE_FAMILIES``)
+    among ``names`` (kernel names from the profiler) are exactly the ones
+    ``ROUTES`` gives ``kernel`` at ``dtype``."""
+    family = next(f for f in ROUTE_FAMILIES if kernel in f)
+    known = {k for (entry, _), ks in ROUTES.items() if entry in family
+             for k in ks}
+    want = sorted(ROUTES[(kernel, dtype)])
+    ran = sorted({k for k in known for name in names if k + "<" in name})
+    if ran != want:
         raise AssertionError(f"{kernel} at {label} ({dtype}) ran {ran}, "
                              f"want {want}")
 
@@ -1418,14 +1441,12 @@ def check_attention(kernel, cases):
                          calls=20, top=0)
         check_route(kernel, case[0], case[2],
                     set(device) or kernel_names(lambda: fwd(*args)))
-        # nan where the profiler's window came back empty
-        device_ms = sum(ms for key, ms in device.items()
-                        if ROUTES[(kernel, case[2])] + "<" in key) or \
-            float("nan")
+        device_ms = route_ms(kernel, case[2], device)
         plain_ms = cuda_time_ms(lambda: ref(*args), iters=5, warmup=1)
         library_ms = cuda_time_ms(library_attention(args), iters=50)
         bound_ms, bound_by = attn_bound_ms(args, got)
-        log(f"[{kernel.lower()}] {case[0]}: {ROUTES[(kernel, case[2])]} "
+        log(f"[{kernel.lower()}] {case[0]}: "
+            f"{', '.join(ROUTES[(kernel, case[2])])} "
             f"{ms:.5f} ms per call "
             f"back to back ({device_ms:.5f} ms of device time per launch), "
             f"plain {plain_ms:.4f} ms, SDPA {library_ms:.5f} ms, bound "
@@ -1583,7 +1604,7 @@ def sdpa_calls(q, k, v, dout, causal):
 def check_k11():
     """Every case of ``K11_CASES``: forward and backward each with its time
     (back to back between CUDA events, and device time from the profiler,
-    whose forward kernel must be the one ``ROUTES`` names),
+    whose forward and backward kernels must be the ones ``ROUTES`` names),
     SDPA's forward and forward + backward on the same tensors, and the
     bounds; the plain versions timed once, at the first case (the vision
     width). Returns (forward, backward) numbers of the first case."""
@@ -1606,14 +1627,13 @@ def check_k11():
             flash_mha_fwd(q, k, v, causal),
             flash_mha_bwd(q, k, v, out, lse, dout, causal)),
             tag="k11", calls=3, top=0)
-        check_route("K11", label, case[3], set(device) or kernel_names(
-            lambda: flash_mha_fwd(q, k, v, causal)))
-        # nan where the profiler's window came back empty
-        dev_fwd = sum(ms for key, ms in device.items()
-                      if ROUTES[("K11", case[3])] + "<" in key) or \
-            float("nan")
-        dev_bwd = sum(ms for key, ms in device.items()
-                      if "flash_mha_bwd_" in key) or float("nan")
+        names = set(device) or kernel_names(lambda: (
+            flash_mha_fwd(q, k, v, causal),
+            flash_mha_bwd(q, k, v, out, lse, dout, causal)))
+        check_route("K11", label, case[3], names)
+        check_route("K11 bwd", label, case[3], names)
+        dev_fwd = route_ms("K11", case[3], device)
+        dev_bwd = route_ms("K11 bwd", case[3], device)
         sdpa_fwd, sdpa_fwd_bwd, sdpa_bwd = sdpa_calls(q, k, v, dout, causal)
         lib_fwd = cuda_time_ms(sdpa_fwd, iters=10)
         lib_fwd_bwd = cuda_time_ms(sdpa_fwd_bwd, iters=10)
@@ -1626,11 +1646,12 @@ def check_k11():
                 q, k, v, out, lse, dout, causal), iters=1, warmup=1)
         bound_fwd, by_fwd = k11_bound_ms(q, causal, backward=False)
         bound_bwd, by_bwd = k11_bound_ms(q, causal, backward=True)
-        log(f"[k11] {label}: forward ({ROUTES[('K11', case[3])]}) "
-            f"{fwd_ms:.4f} ms back to back "
+        log(f"[k11] {label}: forward ({', '.join(ROUTES[('K11', case[3])])}"
+            f") {fwd_ms:.4f} ms back to back "
             f"({dev_fwd:.4f} ms device), plain {plain_fwd:.4f} ms, SDPA "
             f"{lib_fwd:.4f} ms, bound {bound_fwd:.5f} ms ({by_fwd}); "
-            f"backward {bwd_ms:.4f} ms ({dev_bwd:.4f} ms device), plain "
+            f"backward ({', '.join(ROUTES[('K11 bwd', case[3])])}) "
+            f"{bwd_ms:.4f} ms ({dev_bwd:.4f} ms device), plain "
             f"{plain_bwd:.4f} ms, SDPA backward {lib_bwd:.4f} ms (forward + "
             f"backward {lib_fwd_bwd:.4f} ms), bound {bound_bwd:.5f} ms "
             f"({by_bwd})")
@@ -3015,7 +3036,13 @@ def run_mir_serving():
         raise AssertionError(f"MIR requests launched {launches} (want "
                              f"{want}), plain versions {plain}")
     with torch.inference_mode():
-        profile("request", lambda: model(clips, ids), tag="profile-mir")
+        device = profile("request", lambda: model(clips, ids),
+                         tag="profile-mir")
+    busy = sum(device.values()) or float("nan")
+    k10_ms = route_ms("K10", "bfloat16", device)
+    log(f"[mir] K10 ({', '.join(ROUTES[('K10', 'bfloat16')])}) "
+        f"{k10_ms:.3f} ms of {busy:.3f} ms of device time a request "
+        f"({100 * k10_ms / busy:.1f}%)")
     for blk in model.visual.blocks:                 # the A/B: einsum path
         blk.attn.flash = None
     einsum, ab_launches, plain = serve_mir(model, clips, ids,
@@ -3151,7 +3178,15 @@ def run_flash_module():
         if launches != want:
             raise AssertionError(f"FusedMHA(flash=True) at {label} launched "
                                  f"{launches}, want {want}")
-        profile("call", call, tag=f"flash-mha {label}", calls=2, top=8)
+        device = profile("call", call, tag=f"flash-mha {label}", calls=2,
+                         top=8)
+        busy = sum(device.values()) or float("nan")
+        k11_fwd, k11_bwd = (route_ms(k, dtype, device)
+                            for k in ("K11", "K11 bwd"))
+        log(f"[flash-mha] {label}: K11 forward {k11_fwd:.4f} ms "
+            f"({100 * k11_fwd / busy:.1f}%), backward {k11_bwd:.4f} ms "
+            f"({100 * k11_bwd / busy:.1f}%) of {busy:.4f} ms of device time "
+            f"a call")
         if not all(torch.isfinite(t).all() for t in
                    (x.grad, *(p.grad for p in mha.parameters()))):
             raise AssertionError(f"FusedMHA(flash=True) at {label}: "

@@ -1,13 +1,19 @@
 """The port's kernel build (``ops/_build.py``) on the CPU, without nvcc:
 the key of a built library covers its source, every shared header under
 ``csrc/`` and the flags, so an edited header never reuses a stale
-library."""
+library; and the kernel names that ``chip_smoke.ROUTES`` looks for in the
+profiler are kernels of their sources."""
 
+import re
 import shutil
+from pathlib import Path
 
 import pytest
 
+import chip_smoke
 from video_mamba_suite_torch.ops import _build
+
+REPO = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture
@@ -43,3 +49,26 @@ def test_key_changes_with_a_new_header_source_and_flags(csrc_copy,
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
     assert _build._target("short_scan_fwd") != with_source
     assert _build._target("short_scan_fwd").parent == _build.BUILD_DIR
+
+
+@pytest.mark.parametrize("entry", ["K9", "K10", "K11", "K11 bwd"])
+def test_routes_name_kernels_of_their_sources(entry):
+    """Each kernel ``ROUTES`` names for an attention entry is a
+    ``__global__`` function of the entry's source, so a renamed kernel
+    fails here rather than on the card; bf16 names only tensor-core
+    kernels (``*_mma_kernel``; K11's backward also the di kernel both
+    types share) and fp32 none."""
+    source = {"K9": chip_smoke.K9_SOURCE, "K10": chip_smoke.K10_SOURCE,
+              "K11": chip_smoke.K11_SOURCE,
+              "K11 bwd": chip_smoke.K11_SOURCE}[entry]
+    text = (REPO / source).read_text()
+    routes = {dtype: chip_smoke.ROUTES[(entry, dtype)]
+              for dtype in ("bfloat16", "float32")}
+    for names in routes.values():
+        for name in names:
+            assert re.search(r"__global__ void (?:__launch_bounds__\([^)]*\)"
+                             rf"\s*)?{name}\(", text), name
+    shared = set(routes["bfloat16"]) & set(routes["float32"])
+    assert all(name.endswith("_mma_kernel")
+               for name in set(routes["bfloat16"]) - shared)
+    assert not any("_mma_" in name for name in routes["float32"])

@@ -34,9 +34,10 @@ TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = {"float32": 1e-5, "bfloat16": 5e-3}
 
 # (L, dh, causal, dtype): L under, over and across the library's pad to
-# 128, both head widths, causal and not, and L 63, 64 and 65 at the card
-# kernels' 64-row blocks and 64-key tiles (each new (padded L, dh, causal,
-# dtype) costs the JAX side a few seconds of compiling)
+# 128, both head widths, causal and not, L 63, 64 and 65 at the card
+# kernels' 64-row blocks and 64-key tiles, and bf16 at dh 128, the width
+# whose tensor-core backward holds the most registers (each new (padded L,
+# dh, causal, dtype) costs the JAX side a few seconds of compiling)
 CASES = [
     (1, 64, True, "float32"),
     (77, 64, True, "float32"),
@@ -46,6 +47,7 @@ CASES = [
     (63, 64, True, "bfloat16"),
     (64, 64, False, "float32"),
     (65, 64, True, "float32"),
+    (130, 128, False, "bfloat16"),
 ]
 IDS = [f"L{c[0]}-dh{c[1]}-{'causal' if c[2] else 'full'}-{c[3]}"
        for c in CASES]

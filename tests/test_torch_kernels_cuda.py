@@ -473,7 +473,7 @@ def test_small_lm_on_card_matches_cpu(cuda_device):
                          ids=[case[0] for case in chip_smoke.K10_CASES])
 def test_k10_matches_plain_version(cuda_device, label, shape, dtype, layout):
     """The cases and tolerances of chip_smoke.py's K10 phase, and the
-    kernel the profiler sees run (the SIMT kernel in both dtypes)."""
+    kernel the profiler sees run: bf16 on the tensor cores, fp32 SIMT."""
     args, _, _ = chip_smoke.attn_check("K10", label, shape, dtype, layout)
     fwd = chip_smoke.attn_kernel("K10")[0]
     chip_smoke.check_route("K10", label, dtype,
@@ -595,14 +595,48 @@ def test_fused_mha_vmem_launches_k9_on_card(cuda_device, dtype):
 def test_k11_matches_plain_version(cuda_device, label, shape, causal, dtype,
                                    layout):
     """The cases and tolerances of chip_smoke.py's K11 phase: forward and
-    backward, and the forward kernel the profiler sees run: bf16 on the
-    tensor cores, fp32 SIMT."""
-    from video_mamba_suite_torch.ops import flash_mha_fwd
+    backward (dq, dk, dv), and the kernels the profiler sees each run:
+    bf16 on the tensor cores, fp32 SIMT."""
+    from video_mamba_suite_torch.ops import flash_mha_bwd, flash_mha_fwd
 
-    (q, k, v, _), _, _, _ = chip_smoke.k11_check(label, shape, causal, dtype,
-                                                 layout)
+    (q, k, v, dout), (out, lse), _, _ = chip_smoke.k11_check(
+        label, shape, causal, dtype, layout)
     chip_smoke.check_route("K11", label, dtype, chip_smoke.kernel_names(
         lambda: flash_mha_fwd(q, k, v, causal)))
+    chip_smoke.check_route("K11 bwd", label, dtype, chip_smoke.kernel_names(
+        lambda: flash_mha_bwd(q, k, v, out, lse, dout, causal)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,dtype", sorted(chip_smoke.ROUTES),
+                         ids=[f"{k}-{d}" for k, d in
+                              sorted(chip_smoke.ROUTES)])
+def test_each_dtype_runs_its_routed_kernels(cuda_device, kernel, dtype):
+    """One call of each attention entry at a small shape in the projection
+    layout runs exactly the kernels ``chip_smoke.ROUTES`` gives its dtype:
+    bf16 on the tensor cores, fp32 on the SIMT kernels, nothing else of
+    the entry's source."""
+    from video_mamba_suite_torch.ops import flash_mha_bwd, flash_mha_fwd
+
+    if kernel in ("K9", "K10"):
+        shape = (2, 2, 3, 40, 64) if kernel == "K10" else (4, 3, 40, 64)
+        fwd = chip_smoke.attn_kernel(kernel)[0]
+        args = chip_smoke.attn_inputs(shape, dtype, "projection", seed=3)
+        args = args if isinstance(args, tuple) else (args,)
+
+        def call():
+            return fwd(*args)
+    else:
+        q, k, v, dout = chip_smoke.k11_inputs((2, 100, 2, 64), dtype,
+                                              "projection", seed=3)
+        out, lse = flash_mha_fwd(q, k, v, True)
+
+        def call():
+            if kernel == "K11":
+                return flash_mha_fwd(q, k, v, True)
+            return flash_mha_bwd(q, k, v, out, lse, dout, True)
+    chip_smoke.check_route(kernel, "route", dtype,
+                           chip_smoke.kernel_names(call))
 
 
 @pytest.mark.cuda
@@ -629,6 +663,9 @@ def test_k11_rejects_what_it_does_not_take(cuda_device):
                       .transpose(0, 1))
     with pytest.raises(TypeError, match="lse must be"):
         flash_mha_bwd(q, q, q, out, lse.double(), out)
+    shifted = torch.empty(out.numel() + 1, device="cuda")[1:].view_as(out)
+    with pytest.raises(ValueError, match="dout needs a 16-byte"):
+        flash_mha_bwd(q, q, q, out, lse, shifted)
 
 
 @pytest.mark.cuda

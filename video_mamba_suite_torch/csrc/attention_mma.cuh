@@ -1,28 +1,33 @@
-// Tensor-core tile engine of the bf16 attention forwards on Hopper
-// (sm_90a), shared by K9 (`vision_mha_mma_kernel` in row_mha_fwd.cu) and
-// K11's forward (`flash_mha_fwd_mma_kernel` in flash_mha.cu).
+// Tensor-core tile engine of the bf16 attention kernels on Hopper (sm_90a),
+// shared by K9 and K10 (`vision_mha_mma_kernel`, `row_mha_mma_kernel` in
+// row_mha_fwd.cu) and K11 (`flash_mha_fwd_mma_kernel`,
+// `flash_mha_bwd_dkdv_mma_kernel`, `flash_mha_bwd_dq_mma_kernel` in
+// flash_mha.cu).
 //
-// A warp owns 16 query rows. Its q rows stay in registers for the whole
-// walk as A fragments of `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.
-// f32` (one per 16 columns of the head width), read once from shared memory
-// with `ldmatrix`. K and V stream through shared memory in tiles of 64
-// keys, kept in bf16 (never widened), each row padded by 8 bf16 so that a
-// row is an odd number of 16-byte units: the eight rows an `ldmatrix`
-// phase reads then fall in eight different 16-byte bank groups, free of
-// bank conflicts. The copies are `cp.async` (16, 8 or 4 bytes, by the
-// alignment of the pointers and strides) into a ring of two stages, so the
-// next tile's copy runs while this tile's products do; a copy whose source
-// lies at or past the row count or the head width reads nothing and zero-
-// fills (src-size 0 or a part), so a padded key or column holds 0 and
-// never meets a NaN.
+// A warp owns 16 rows of the left operand. In the forwards its q rows stay
+// in registers for the whole walk as A fragments of `mma.sync.aligned.
+// m16n8k16.row.col.f32.bf16.bf16.f32` (one per 16 columns of the head
+// width), read once from shared memory with `ldmatrix`; the backward reads
+// its A rows (K and V, or Q and dO) from shared memory at every tile
+// (`tile_scores_shared`), which leaves its registers to the fp32 gradient
+// sums. Tiles stream through shared memory 64 rows at a time, kept in bf16
+// (never widened), each row padded by 8 bf16 so that a row is an odd number
+// of 16-byte units: the eight rows an `ldmatrix` phase reads then fall in
+// eight different 16-byte bank groups, free of bank conflicts. The copies
+// are `cp.async` (16, 8 or 4 bytes, by the alignment of the pointers and
+// strides) into a ring of two stages, so the next tile's copy runs while
+// this tile's products do; a copy whose source lies at or past the row
+// count or the head width reads nothing and zero-fills (src-size 0 or a
+// part), so a padded key or column holds 0 and never meets a NaN.
 //
-// Per tile and warp: S = Q K^T as 8 fp32 C fragments (16 rows x 8 keys
-// each), K read as the `.col` B operand with `ldmatrix`; the caller masks
-// and turns S into weights; pairs of C fragments are then packed into bf16
-// A fragments in registers (P never goes through shared memory) and
-// multiplied by V, the B operand through `ldmatrix.trans`, into the fp32
-// output fragments (16 rows x the head width). A row's max and sum take
-// two `__shfl_xor_sync` steps within the quad of lanes that holds it.
+// Per tile and warp: S = A B^T as 8 fp32 C fragments (16 rows x 8 tile rows
+// each), the tile read as the `.col` B operand with `ldmatrix`; the caller
+// masks and turns S into weights; pairs of C fragments are then packed into
+// bf16 A fragments in registers (P never goes through shared memory) and
+// multiplied by a tile read as the B operand through `ldmatrix.trans`
+// (`tile_pv`: V in the forwards, dO, Q or K in the backward) into fp32
+// fragments of 16 rows x the head width. A row's max and sum take two
+// `__shfl_xor_sync` steps within the quad of lanes that holds it.
 //
 // Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4): A holds rows
 // g and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9; B holds k rows 2t,
@@ -195,6 +200,40 @@ __device__ __forceinline__ void tile_scores(float (&s)[8][4],
   }
 }
 
+// s = the scores of the warp's 16 rows at `sa` (shared, DHP columns at row
+// stride row_stride(DHP)) against the 64 rows of the tile at `sb`, as
+// `tile_scores` with the A fragments read from shared memory one 16-column
+// step at a time, so no operand row is held in registers.
+template <int DHP>
+__device__ __forceinline__ void tile_scores_shared(float (&s)[8][4],
+                                                   const uint16_t* sa,
+                                                   const uint16_t* sb,
+                                                   int groups, int lane) {
+  constexpr int ld = row_stride(DHP);
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+  }
+  const uint16_t* pa = sa + (lane % 16) * ld + (lane / 16) * 8;
+  const uint16_t* pb =
+      sb + ((lane / 16) * 8 + lane % 8) * ld + ((lane / 8) % 2) * 8;
+#pragma unroll
+  for (int kk = 0; kk < DHP / 16; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4(a, pa + kk * 16);
+#pragma unroll
+    for (int gq = 0; gq < kKeyGroups; ++gq) {
+      if (gq < groups) {
+        uint32_t b[4];
+        ldmatrix_x4(b, pb + gq * 16 * ld + kk * 16);
+        mma(s[2 * gq], a, b[0], b[1]);
+        mma(s[2 * gq + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
 // -inf at keys >= n and, when `causal`, at keys past the row. j0: the
 // tile's first key; row: the absolute row of the lane's first fragment row.
 __device__ __forceinline__ void mask_tile(float (&s)[8][4], int j0, int n,
@@ -259,12 +298,13 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Scores times log2(e), for exp2.
-__device__ __forceinline__ void to_log2(float (&s)[8][4]) {
+// Scores times f: log2(e) (and the scale, where it multiplies the fp32
+// sums) puts them in log2 units, for exp2.
+__device__ __forceinline__ void scale_tile(float (&s)[8][4], float f) {
 #pragma unroll
   for (int nb = 0; nb < 8; ++nb) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[nb][e] *= kLog2e;
+    for (int e = 0; e < 4; ++e) s[nb][e] *= f;
   }
 }
 

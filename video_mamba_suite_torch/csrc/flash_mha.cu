@@ -35,7 +35,9 @@
 //
 // Two C entries. `flash_mha_fwd` launches one kernel; `flash_mha_bwd`
 // launches three in order on the stream:
-//   di:   one warp per (batch, row, head) sums o * do;
+//   di:   8 to 32 lanes per (batch, row, head) sum o * do, 16 bytes of
+//         each a lane (one warp a row reading 2 bytes a lane took 3x as
+//         long at the vision width on an H100);
 //   dkdv: a block per 64 keys of one (batch, head) holds K and V and walks
 //         the query tiles (from the diagonal when causal), accumulating dk
 //         and dv in registers;
@@ -54,18 +56,20 @@
 // (5 us) against 8.6 GFLOP of the causal half (9 us). So short rows are
 // bound by the bytes, long ones by the products.
 //
-// Dispatch by type: the bf16 forward runs `flash_mha_fwd_mma_kernel` on the
-// tensor cores; the fp32 forward and the backward (both types) run the SIMT
-// kernels below. fp32 stays on the CUDA cores on purpose: the TPU kernels'
-// fp32 products are full fp32, and TF32 tensor cores (about three decimal
-// digits) would not hold the fp32 tolerances. No bf16 input of the
-// forward reaches the SIMT forward kernel.
+// Dispatch by type: bf16 runs on the tensor cores, the forward in
+// `flash_mha_fwd_mma_kernel` and the backward in
+// `flash_mha_bwd_dkdv_mma_kernel` and `flash_mha_bwd_dq_mma_kernel`; fp32
+// runs the SIMT kernels (`flash_mha_fwd_kernel`, `flash_mha_bwd_dkdv_kernel`,
+// `flash_mha_bwd_dq_kernel`). fp32 stays on the CUDA cores on purpose: the
+// TPU kernels' fp32 products are full fp32, and TF32 tensor cores (about
+// three decimal digits) would not hold the fp32 tolerances. No bf16 input
+// reaches a SIMT kernel but di, which both types share.
 //
-// SIMT design (CUDA cores): every kernel but di runs 256 threads on 64-row
-// tiles held in shared memory as fp32 rows padded to dh + 4 floats, so the
-// products read float4s without bank conflicts. Thread (ty, tx) of the
-// 16 x 16 grid holds a 4 x 4 piece of each 64 x 64 score tile (rows 4 ty +
-// r, columns tx + 16 q), writes its rounded p (or ds) into a 64 x 68 tile
+// SIMT design (CUDA cores, fp32 only): every kernel but di runs 256 threads
+// on 64-row tiles held in shared memory as fp32 rows padded to dh + 4
+// floats, so the products read float4s without bank conflicts. Thread (ty,
+// tx) of the 16 x 16 grid holds a 4 x 4 piece of each 64 x 64 score tile
+// (rows 4 ty + r, columns tx + 16 q), writes its p (or ds) into a 64 x 68 tile
 // for the product that follows, and accumulates rows 4 ty + r, columns 4
 // tx + 64 g of its outputs in registers. The forward takes 64 query rows
 // of one (batch, head), walks the key tiles up to the diagonal when
@@ -74,13 +78,15 @@
 // tile. Rows and keys past L are zero in shared memory. Shared memory:
 // forward 3 x 64 x (dh + 4) + 64 x 68 floats (68 KB at dh 64, 116 KB at dh
 // 128); backward 4 x 64 x (dh + 4) floats plus one (dq) or two (dkdv) 64 x
-// 68 tiles, at most 169 KB (dkdv at dh 128). What held the SIMT forward
-// back in bf16: every FMA fed from fp32 operands in shared memory (at 67
-// TFLOP/s the two products alone take 0.23 ms at the vision width, 5x the
+// 68 tiles, at most 169 KB (dkdv at dh 128). Why bf16 does not run them:
+// every FMA fed from fp32 operands in shared memory (at 67 TFLOP/s the
+// forward's two products alone take 0.23 ms at the vision width, 5x the
 // bound; it reached about 17 TFLOP/s); q, k and v widened to fp32 in
 // shared memory (twice the bytes) by synchronous loads (`load_tile`) that
-// overlap no arithmetic; and every P tile written to shared memory and read
-// back for p @ v.
+// overlap no arithmetic; and every P (and dS) tile written to shared memory
+// and read back for the product that follows. The backward runs seven such
+// products a score (s, dp, dv and dk per key tile, s, dp and dq per query
+// tile): in bf16 it took 3.27 ms at the vision width, 35x its bound.
 //
 // `flash_mha_fwd_mma_kernel` (bf16 on the tensor cores; attention_mma.cuh):
 // 4 warps take 64 query rows of one (batch, head), 16 a warp, their q in
@@ -93,13 +99,45 @@
 // in it each warp skips the 16-key groups wholly past its rows. The same
 // quantities as the SIMT forward: p = round(exp(s - m_running)), the output
 // rescaled by exp(m_old - m_new) at every tile and divided by l at the
-// end, lse = m + log(l) in fp32, which the unchanged backward reads (exp
+// end, lse = m + log(l) in fp32, which the backward reads (exp
 // taken as exp2 of the scores times scale log2(e), m kept in those units).
 // One barrier a tile. Strides that are multiples of 4 but not 8 bf16 take
 // 8-byte copies in the same kernel (kVec 4). q is staged in the ring's
 // second stage and read into registers before that stage takes a tile.
 // Shared memory: 4 x 64 x (dh + 8) bf16 (36 KB at dh 64, 68 KB at dh 128),
 // so registers (ptxas: about 115 a thread at dh 64) set 4 blocks an SM.
+//
+// The bf16 backward on the tensor cores (attention_mma.cuh), the library's
+// split and rounding points kept (di, then dk/dv per key tile, then dq per
+// query tile; every output written once by one block, no atomics):
+//   `flash_mha_bwd_dkdv_mma_kernel`: 4 warps take 64 keys of one (batch,
+//     head), 16 a warp, K and V in shared memory for the whole walk. Q and
+//     dO tiles of 64 rows, with their 64 lse and di values, arrive by
+//     cp.async into a two-stage ring. Per tile a warp computes S^T = K Q^T
+//     and dP^T = V dO^T (A rows from shared memory, Q and dO the `.col` B
+//     operands through `ldmatrix`), P^T = exp(S^T scale - lse) in fp32,
+//     rounds it into A fragments in registers for dV += P^T dO, then dS^T =
+//     P^T (dP^T - di) scale, rounded the same way for dK += dS^T Q (dO and
+//     Q read as B operands through `ldmatrix.trans` from the same tiles).
+//     dK and dV stay in fp32 registers. Causal blocks start at the
+//     diagonal tile.
+//   `flash_mha_bwd_dq_mma_kernel`: 4 warps take 64 query rows, Q and dO in
+//     shared memory, each lane's two rows' lse and di in registers; K and V
+//     tiles stream through the ring. S = Q K^T, dP = dO V^T, dS packed into
+//     A fragments for dQ += dS K (K through `ldmatrix.trans`). Causal blocks
+//     stop at the diagonal tile, where each warp skips the key groups
+//     wholly past its rows.
+// The A operands are read from shared memory at every tile, not held in
+// registers: at dh 128 the dK and dV sums alone take 128 registers a
+// thread, and K and V fragments as well would pass 255 and spill; at dh 64,
+// where they fit, they left dk/dv 2 blocks an SM instead of 3, and both
+// kernels ran slower on an H100. exp is exp2 of the scores in log2 units,
+// lse scaled by log2(e) as it is read.
+// Only the tiles at the diagonal or holding L are masked: p is set to 0
+// explicitly at keys or rows at or past L (zero-filled rows score 0, not
+// -inf) and past the diagonal; lse and di past L are staged as 0, never
+// read out of bounds. Shared memory: 6 x 64 x (dh + 8) bf16 (55 KB at dh
+// 64, 104 KB at dh 128), dk/dv 512 bytes more for lse and di.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -151,42 +189,14 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // Rows r0 .. r0 + 63 (row stride in elements) into shared memory as fp32
 // rows of dh + kPad floats; rows at or past L are zeros.
-template <typename T, int DH>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+template <int DH>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long row_stride, int r0,
                                           int seqlen) {
   constexpr int kVec = DH / 4;
@@ -274,8 +284,8 @@ __device__ __forceinline__ void product_nn(float (&acc)[4][DH / 16],
 }
 
 // Rows i0 + 4 ty + r (< L) of a contiguous (B, L, H, dh) output.
-template <typename T, int DH>
-__device__ __forceinline__ void store_rows(T* dst, const Inputs& p,
+template <int DH>
+__device__ __forceinline__ void store_rows(float* dst, const Inputs& p,
                                            long long b, int h, int i0,
                                            const float (&acc)[4][DH / 16],
                                            int ty, int tx) {
@@ -283,7 +293,7 @@ __device__ __forceinline__ void store_rows(T* dst, const Inputs& p,
   for (int r = 0; r < 4; ++r) {
     const int i = i0 + ty * 4 + r;
     if (i >= p.seqlen) continue;
-    T* row = dst + ((b * p.seqlen + i) * p.heads + h) * DH;
+    float* row = dst + ((b * p.seqlen + i) * p.heads + h) * DH;
 #pragma unroll
     for (int g = 0; g < DH / 64; ++g) {
       store4(row + tx * 4 + 64 * g,
@@ -311,7 +321,7 @@ __device__ __forceinline__ float sum16(float x) {
 }
 
 // Forward: 64 query rows of one (batch, head).
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
     flash_mha_fwd_kernel(FwdParams p) {
   extern __shared__ float smem[];
@@ -327,11 +337,11 @@ __global__ void __launch_bounds__(kThreads)
   const int i0 = blockIdx.x * kBlock;
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
-  const T* q = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
-  const T* k = static_cast<const T*>(p.k) + b * p.skb + h * p.skh;
-  const T* v = static_cast<const T*>(p.v) + b * p.svb + h * p.svh;
+  const float* q = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
+  const float* k = static_cast<const float*>(p.k) + b * p.skb + h * p.skh;
+  const float* v = static_cast<const float*>(p.v) + b * p.svb + h * p.svh;
 
-  load_tile<T, DH>(Qs, q, p.sql, i0, p.seqlen);
+  load_tile<DH>(Qs, q, p.sql, i0, p.seqlen);
 
   float m[4], l[4], o[4][kCols];
 #pragma unroll
@@ -347,8 +357,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < ntiles; ++kt) {
     const int j0 = kt * kBlock;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, DH>(Ks, k, p.skl, j0, p.seqlen);
-    load_tile<T, DH>(Vs, v, p.svl, j0, p.seqlen);
+    load_tile<DH>(Ks, k, p.skl, j0, p.seqlen);
+    load_tile<DH>(Vs, v, p.svl, j0, p.seqlen);
     __syncthreads();
 
     float s[4][4];
@@ -374,7 +384,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int qq = 0; qq < 4; ++qq) {
         const float pv = expf(s[r][qq] - m_use);
         rs += pv;
-        Ps[(ty * 4 + r) * kPRow + tx + 16 * qq] = round_to<T>(pv);
+        Ps[(ty * 4 + r) * kPRow + tx + 16 * qq] = pv;
       }
       rs = sum16(rs);
       l[r] = alpha * l[r] + rs;
@@ -395,21 +405,21 @@ __global__ void __launch_bounds__(kThreads)
     const int i = i0 + ty * 4 + r;
     if (tx == 0 && i < p.seqlen) lse[i] = m[r] + logf(l[r]);
   }
-  store_rows<T, DH>(static_cast<T*>(p.out), p, b, h, i0, o, ty, tx);
+  store_rows<DH>(static_cast<float*>(p.out), p, b, h, i0, o, ty, tx);
 }
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch(const FwdParams& p, long long batch,
                    cudaStream_t stream) {
   const int smem = (3 * kBlock * (DH + kPad) + kBlock * kPRow) *
                    static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_mha_fwd_kernel<T, DH>,
+      flash_mha_fwd_kernel<DH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.seqlen + kBlock - 1) / kBlock, p.heads,
                   static_cast<unsigned>(batch));
-  flash_mha_fwd_kernel<T, DH><<<grid, kThreads, smem, stream>>>(p);
+  flash_mha_fwd_kernel<DH><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -555,19 +565,26 @@ cudaError_t launch_mma(const FwdParams& p, long long batch,
   return cudaGetLastError();
 }
 
+// The widest copy (in bf16) that q, k, v and every stride allow (`extra`:
+// another pointer the kernels read, or 0).
+int copy_vec(const Inputs& p, const void* extra) {
+  const unsigned long long bits =
+      reinterpret_cast<unsigned long long>(p.q) |
+      reinterpret_cast<unsigned long long>(p.k) |
+      reinterpret_cast<unsigned long long>(p.v) |
+      reinterpret_cast<unsigned long long>(extra) |
+      2ull * static_cast<unsigned long long>(p.sqb | p.sql | p.sqh | p.skb |
+                                             p.skl | p.skh | p.svb | p.svl |
+                                             p.svh);
+  return attn_mma::vec_for(bits);
+}
+
 // The bf16 forward: 16-byte copies where every pointer and stride allows
 // them, else 8-byte ones (strides in multiples of 4, as the wrapper
 // requires).
 cudaError_t launch_fwd_mma(const FwdParams& p, int dh, long long batch,
                            cudaStream_t stream) {
-  const unsigned long long bits =
-      reinterpret_cast<unsigned long long>(p.q) |
-      reinterpret_cast<unsigned long long>(p.k) |
-      reinterpret_cast<unsigned long long>(p.v) |
-      2ull * static_cast<unsigned long long>(p.sqb | p.sql | p.sqh | p.skb |
-                                             p.skl | p.skh | p.svb | p.svl |
-                                             p.svh);
-  const int vec = attn_mma::vec_for(bits);
+  const int vec = copy_vec(p, nullptr);
   if (vec < 4) return cudaErrorInvalidValue;
   if (vec == 8) {
     return dh == 64 ? launch_mma<64, 8>(p, batch, stream)
@@ -579,23 +596,34 @@ cudaError_t launch_fwd_mma(const FwdParams& p, int dh, long long batch,
 
 // Backward.
 
-// di[b, h, i] = sum_c o[b, i, h, c] * do[b, i, h, c]: a warp per row.
-template <typename T>
+// di[b, h, i] = sum_c o[b, i, h, c] * do[b, i, h, c]: kLanes lanes a row
+// (8, 16 or 32), each reading 16 bytes of o and of do, so a warp takes 32 /
+// kLanes whole rows in one coalesced load each (out and do are 16-byte
+// aligned, as the wrapper requires).
+template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
-    flash_mha_bwd_di(BwdParams p, long long rows, int dh) {
+    flash_mha_bwd_di(BwdParams p, long long rows) {
+  constexpr int kElems = 16 / static_cast<int>(sizeof(T));
+  constexpr int kLanes = DH / kElems;
   const long long row =
-      static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
-  if (row >= rows) return;  // whole warps leave together
-  const int lane = threadIdx.x % 32;
-  const T* o = static_cast<const T*>(p.out) + row * dh;
-  const T* g = static_cast<const T*>(p.dout) + row * dh;
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / kLanes;
+  const int c = (threadIdx.x % kLanes) * kElems;
   float acc = 0.f;
-  for (int c = lane; c < dh; c += 32) acc += to_float(o[c]) * to_float(g[c]);
+  if (row < rows) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(
+        static_cast<const T*>(p.out) + row * DH + c);
+    const uint4 gv = *reinterpret_cast<const uint4*>(
+        static_cast<const T*>(p.dout) + row * DH + c);
+    const T* o = reinterpret_cast<const T*>(&ov);
+    const T* g = reinterpret_cast<const T*>(&gv);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
+    for (int e = 0; e < kElems; ++e) acc += to_float(o[e]) * to_float(g[e]);
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1) {
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   }
-  if (lane == 0) {
+  if (row < rows && threadIdx.x % kLanes == 0) {
     const int h = static_cast<int>(row % p.heads);
     const long long bi = row / p.heads;  // b * L + i
     const long long b = bi / p.seqlen;
@@ -605,9 +633,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // dk and dv for keys j0 .. j0 + 63 of one (batch, head).
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-    flash_mha_bwd_dkdv(BwdParams p) {
+    flash_mha_bwd_dkdv_kernel(BwdParams p) {
   extern __shared__ float smem[];
   constexpr int ld = DH + kPad;
   constexpr int kCols = DH / 16;
@@ -626,15 +654,15 @@ __global__ void __launch_bounds__(kThreads)
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
   const long long row_stride = static_cast<long long>(p.heads) * DH;
-  const T* q = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
-  const T* dout = static_cast<const T*>(p.dout) +
+  const float* q = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
+  const float* dout = static_cast<const float*>(p.dout) +
                   b * p.seqlen * row_stride + h * DH;
   const float* lse = p.lse + (b * p.heads + h) * p.seqlen;
   const float* di = p.di + (b * p.heads + h) * p.seqlen;
 
-  load_tile<T, DH>(Ks, static_cast<const T*>(p.k) + b * p.skb + h * p.skh,
+  load_tile<DH>(Ks, static_cast<const float*>(p.k) + b * p.skb + h * p.skh,
                    p.skl, j0, p.seqlen);
-  load_tile<T, DH>(Vs, static_cast<const T*>(p.v) + b * p.svb + h * p.svh,
+  load_tile<DH>(Vs, static_cast<const float*>(p.v) + b * p.svb + h * p.svh,
                    p.svl, j0, p.seqlen);
 
   float dk[4][kCols], dv[4][kCols];
@@ -651,8 +679,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int qt = p.causal ? blockIdx.x : 0; qt < ntiles; ++qt) {
     const int i0 = qt * kBlock;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, DH>(Qs, q, p.sql, i0, p.seqlen);
-    load_tile<T, DH>(Os, dout, row_stride, i0, p.seqlen);
+    load_tile<DH>(Qs, q, p.sql, i0, p.seqlen);
+    load_tile<DH>(Os, dout, row_stride, i0, p.seqlen);
     load_row(lse_s, lse, i0, p.seqlen);
     load_row(di_s, di, i0, p.seqlen);
     __syncthreads();
@@ -671,22 +699,22 @@ __global__ void __launch_bounds__(kThreads)
                           (!p.causal || j <= i);
         const float pv = keep ? expf(s[r][qq] * p.scale - lse_s[il]) : 0.f;
         const float ds = pv * (dp[r][qq] - di_s[il]) * p.scale;
-        Ps[(ty * 4 + r) * kPRow + il] = round_to<T>(pv);
-        Ss[(ty * 4 + r) * kPRow + il] = round_to<T>(ds);
+        Ps[(ty * 4 + r) * kPRow + il] = pv;
+        Ss[(ty * 4 + r) * kPRow + il] = ds;
       }
     }
     __syncthreads();
     product_nn<DH>(dv, Ps, Os, ty, tx);
     product_nn<DH>(dk, Ss, Qs, ty, tx);
   }
-  store_rows<T, DH>(static_cast<T*>(p.dk), p, b, h, j0, dk, ty, tx);
-  store_rows<T, DH>(static_cast<T*>(p.dv), p, b, h, j0, dv, ty, tx);
+  store_rows<DH>(static_cast<float*>(p.dk), p, b, h, j0, dk, ty, tx);
+  store_rows<DH>(static_cast<float*>(p.dv), p, b, h, j0, dv, ty, tx);
 }
 
 // dq for query rows i0 .. i0 + 63 of one (batch, head).
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-    flash_mha_bwd_dq(BwdParams p) {
+    flash_mha_bwd_dq_kernel(BwdParams p) {
   extern __shared__ float smem[];
   constexpr int ld = DH + kPad;
   constexpr int kCols = DH / 16;
@@ -704,12 +732,12 @@ __global__ void __launch_bounds__(kThreads)
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
   const long long row_stride = static_cast<long long>(p.heads) * DH;
-  const T* k = static_cast<const T*>(p.k) + b * p.skb + h * p.skh;
-  const T* v = static_cast<const T*>(p.v) + b * p.svb + h * p.svh;
+  const float* k = static_cast<const float*>(p.k) + b * p.skb + h * p.skh;
+  const float* v = static_cast<const float*>(p.v) + b * p.svb + h * p.svh;
 
-  load_tile<T, DH>(Qs, static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh,
+  load_tile<DH>(Qs, static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh,
                    p.sql, i0, p.seqlen);
-  load_tile<T, DH>(Os, static_cast<const T*>(p.dout) +
+  load_tile<DH>(Os, static_cast<const float*>(p.dout) +
                            b * p.seqlen * row_stride + h * DH,
                    row_stride, i0, p.seqlen);
   load_row(lse_s, p.lse + (b * p.heads + h) * p.seqlen, i0, p.seqlen);
@@ -727,8 +755,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < ntiles; ++kt) {
     const int j0 = kt * kBlock;
     __syncthreads();
-    load_tile<T, DH>(Ks, k, p.skl, j0, p.seqlen);
-    load_tile<T, DH>(Vs, v, p.svl, j0, p.seqlen);
+    load_tile<DH>(Ks, k, p.skl, j0, p.seqlen);
+    load_tile<DH>(Vs, v, p.svl, j0, p.seqlen);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -745,24 +773,33 @@ __global__ void __launch_bounds__(kThreads)
                           (!p.causal || j <= i);
         const float pv = keep ? expf(s[r][qq] * p.scale - lse_s[il]) : 0.f;
         const float ds = pv * (dp[r][qq] - di_s[il]) * p.scale;
-        Ss[il * kPRow + tx + 16 * qq] = round_to<T>(ds);
+        Ss[il * kPRow + tx + 16 * qq] = ds;
       }
     }
     __syncthreads();
     product_nn<DH>(dq, Ss, Ks, ty, tx);
   }
-  store_rows<T, DH>(static_cast<T*>(p.dq), p, b, h, i0, dq, ty, tx);
+  store_rows<DH>(static_cast<float*>(p.dq), p, b, h, i0, dq, ty, tx);
 }
 
+// di, the first of the backward's three kernels in both types.
 template <typename T, int DH>
+cudaError_t launch_di(const BwdParams& p, long long batch,
+                      cudaStream_t stream) {
+  constexpr int kRowsPerBlock = kThreads * 16 / (DH * sizeof(T));
+  const long long rows = batch * p.seqlen * p.heads;
+  const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_mha_bwd_di<T, DH><<<static_cast<unsigned>(blocks), kThreads, 0,
+                            stream>>>(p, rows);
+  return cudaGetLastError();
+}
+
+// The fp32 backward on the SIMT kernels.
+template <int DH>
 cudaError_t launch(const BwdParams& p, long long batch,
                    cudaStream_t stream) {
-  const long long rows = batch * p.seqlen * p.heads;
-  const long long di_blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
-  if (di_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_mha_bwd_di<T><<<static_cast<unsigned>(di_blocks), kThreads, 0,
-                        stream>>>(p, rows, DH);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_di<float, DH>(p, batch, stream);
   if (err != cudaSuccess) return err;
 
   const int tile = kBlock * (DH + kPad);
@@ -770,20 +807,295 @@ cudaError_t launch(const BwdParams& p, long long batch,
   const int smem_dkdv =
       (4 * tile + kBlock * kPRow + extra) * static_cast<int>(sizeof(float));
   const int smem_dq = (4 * tile + extra) * static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(flash_mha_bwd_dkdv<T, DH>,
+  err = cudaFuncSetAttribute(flash_mha_bwd_dkdv_kernel<DH>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_dkdv);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_mha_bwd_dq<T, DH>,
+  err = cudaFuncSetAttribute(flash_mha_bwd_dq_kernel<DH>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_dq);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.seqlen + kBlock - 1) / kBlock, p.heads,
                   static_cast<unsigned>(batch));
-  flash_mha_bwd_dkdv<T, DH><<<grid, kThreads, smem_dkdv, stream>>>(p);
+  flash_mha_bwd_dkdv_kernel<DH><<<grid, kThreads, smem_dkdv, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_mha_bwd_dq<T, DH><<<grid, kThreads, smem_dq, stream>>>(p);
+  flash_mha_bwd_dq_kernel<DH><<<grid, kThreads, smem_dq, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The backward in bf16 on the tensor cores (see the note at the top).
+
+// 64 fp32 values of a (B, H, L) row from r0 by 4-byte cp.async; 0 at and
+// past L (nothing read there).
+__device__ __forceinline__ void copy_row_async(float* dst, const float* src,
+                                               int r0, int seqlen) {
+  for (int idx = threadIdx.x; idx < kBlock; idx += blockDim.x) {
+    const bool valid = r0 + idx < seqlen;
+    attn_mma::cp_async<4>(dst + idx, valid ? src + r0 + idx : src,
+                          valid ? 4 : 0);
+  }
+}
+
+// bf16 rows i (< L) of a contiguous (B, L, H, dh) output from the fp32 C
+// fragments of a warp whose lane holds rows row and row + 8.
+template <int DH>
+__device__ __forceinline__ void store_fragments(void* dst, const Inputs& p,
+                                                long long b, int h, int row,
+                                                const float (&acc)[DH / 8][4],
+                                                int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row + 8 * r;
+    if (i >= p.seqlen) continue;
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(dst) +
+                         ((b * p.seqlen + i) * p.heads + h) * DH;
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c) {
+      *reinterpret_cast<__nv_bfloat162*>(out + c * 8 + 2 * (lane % 4)) =
+          __floats2bfloat162_rn(acc[c][2 * r], acc[c][2 * r + 1]);
+    }
+  }
+}
+
+template <int DH>
+__device__ __forceinline__ void zero(float (&acc)[DH / 8][4]) {
+#pragma unroll
+  for (int c = 0; c < DH / 8; ++c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  }
+}
+
+// dk and dv for keys j0 .. j0 + 63 of one (batch, head), 16 a warp.
+template <int DH, int kVec>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+    flash_mha_bwd_dkdv_mma_kernel(BwdParams p) {
+  using namespace attn_mma;
+  constexpr int ld = row_stride(DH);
+  constexpr int kTile = kBlock * ld;               // one 64-row bf16 tile
+  extern __shared__ float4 smem4[];
+  uint16_t* sk = reinterpret_cast<uint16_t*>(smem4);
+  uint16_t* sv = sk + kTile;
+  uint16_t* ring = sv + kTile;                     // 2 stages of Q, dO
+  float* rows = reinterpret_cast<float*>(ring + 4 * kTile);  // lse, di
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int j0 = blockIdx.x * kBlock;
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int L = p.seqlen;
+  const long long dstride = static_cast<long long>(p.heads) * DH;
+  const uint16_t* q = static_cast<const uint16_t*>(p.q) + b * p.sqb + h * p.sqh;
+  const uint16_t* k = static_cast<const uint16_t*>(p.k) + b * p.skb + h * p.skh;
+  const uint16_t* v = static_cast<const uint16_t*>(p.v) + b * p.svb + h * p.svh;
+  const uint16_t* dout =
+      static_cast<const uint16_t*>(p.dout) + b * L * dstride + h * DH;
+  const float* lse = p.lse + (b * p.heads + h) * L;
+  const float* di = p.di + (b * p.heads + h) * L;
+
+  const int first = p.causal ? static_cast<int>(blockIdx.x) : 0;
+  const int ntiles = (L + kBlock - 1) / kBlock;
+  auto issue = [&](int qt) {
+    const int stage = (qt - first) & 1;
+    uint16_t* sq = ring + stage * 2 * kTile;
+    copy_rows<kVec, DH>(sq, ld, q, p.sql, qt * kBlock, kBlock, L, DH);
+    copy_rows<kVec, DH>(sq + kTile, ld, dout, dstride, qt * kBlock, kBlock,
+                        L, DH);
+    copy_row_async(rows + stage * 2 * kBlock, lse, qt * kBlock, L);
+    copy_row_async(rows + stage * 2 * kBlock + kBlock, di, qt * kBlock, L);
+  };
+  copy_rows<kVec, DH>(sk, ld, k, p.skl, j0, kBlock, L, DH);
+  copy_rows<kVec, DH>(sv, ld, v, p.svl, j0, kBlock, L, DH);
+  issue(first);
+  cp_async_commit();
+
+  const int key = j0 + warp * 16 + lane / 4;       // the lane's first key
+  const bool active = j0 + warp * 16 < L;
+  const float scale2 = p.scale * kLog2e;
+  float dk[DH / 8][4], dv[DH / 8][4];
+  zero<DH>(dk);
+  zero<DH>(dv);
+
+  for (int qt = first; qt < ntiles; ++qt) {
+    cp_async_wait<0>();                            // this tile's copies,
+    __syncthreads();                               // and the other stage free
+    if (qt + 1 < ntiles) {
+      issue(qt + 1);
+      cp_async_commit();
+    }
+    if (!active) continue;
+    const int stage = (qt - first) & 1;
+    const uint16_t* sq = ring + stage * 2 * kTile;
+    const uint16_t* sdo = sq + kTile;
+    const float* slse = rows + stage * 2 * kBlock;
+    const float* sdi = slse + kBlock;
+    const int i0 = qt * kBlock;
+    const int groups = min(kKeyGroups, (L - i0 + 15) / 16);
+    const bool edge = (p.causal && qt == first) || i0 + kBlock > L;
+
+    // P^T = exp(S^T scale - lse) in fp32: rows keys, columns queries
+    float st[8][4];
+    tile_scores_shared<DH>(st, sk + warp * 16 * ld, sq, groups, lane);
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      const int col = nb * 8 + 2 * (lane % 4);
+      const float2 l2 = *reinterpret_cast<const float2*>(slse + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + col + (e & 1);
+        const int j = key + (e / 2) * 8;
+        const float lrow = (e & 1) ? l2.y : l2.x;
+        float x = exp2f(fmaf(st[nb][e], scale2, -lrow * kLog2e));
+        if (edge && (i >= L || (p.causal && j > i))) x = 0.f;
+        st[nb][e] = x;
+      }
+    }
+    uint32_t w[kKeyGroups][4];
+    pack_weights(w, st);                           // round(P^T)
+    tile_pv<DH>(dv, w, sdo, groups, lane);         // dV += round(P^T) dO
+
+    // dS^T = P^T (dP^T - di) scale
+    float dpt[8][4];
+    tile_scores_shared<DH>(dpt, sv + warp * 16 * ld, sdo, groups, lane);
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      const float2 d2 =
+          *reinterpret_cast<const float2*>(sdi + nb * 8 + 2 * (lane % 4));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        st[nb][e] = st[nb][e] * (dpt[nb][e] - ((e & 1) ? d2.y : d2.x)) *
+                    p.scale;
+      }
+    }
+    pack_weights(w, st);                           // round(dS^T)
+    tile_pv<DH>(dk, w, sq, groups, lane);          // dK += round(dS^T) Q
+  }
+  if (!active) return;
+  store_fragments<DH>(p.dk, p, b, h, key, dk, lane);
+  store_fragments<DH>(p.dv, p, b, h, key, dv, lane);
+}
+
+// dq for query rows i0 .. i0 + 63 of one (batch, head), 16 a warp.
+template <int DH, int kVec>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+    flash_mha_bwd_dq_mma_kernel(BwdParams p) {
+  using namespace attn_mma;
+  constexpr int ld = row_stride(DH);
+  constexpr int kTile = kBlock * ld;
+  extern __shared__ float4 smem4[];
+  uint16_t* sq = reinterpret_cast<uint16_t*>(smem4);
+  uint16_t* sdo = sq + kTile;
+  uint16_t* ring = sdo + kTile;                    // 2 stages of K, V
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int i0 = blockIdx.x * kBlock;
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int L = p.seqlen;
+  const long long dstride = static_cast<long long>(p.heads) * DH;
+  const uint16_t* k = static_cast<const uint16_t*>(p.k) + b * p.skb + h * p.skh;
+  const uint16_t* v = static_cast<const uint16_t*>(p.v) + b * p.svb + h * p.svh;
+
+  int ntiles = (L + kBlock - 1) / kBlock;
+  if (p.causal) ntiles = min(ntiles, static_cast<int>(blockIdx.x) + 1);
+  auto issue = [&](int kt) {
+    uint16_t* stage = ring + (kt & 1) * 2 * kTile;
+    copy_rows<kVec, DH>(stage, ld, k, p.skl, kt * kBlock, kBlock, L, DH);
+    copy_rows<kVec, DH>(stage + kTile, ld, v, p.svl, kt * kBlock, kBlock, L,
+                        DH);
+  };
+  copy_rows<kVec, DH>(sq, ld,
+                      static_cast<const uint16_t*>(p.q) + b * p.sqb +
+                          h * p.sqh,
+                      p.sql, i0, kBlock, L, DH);
+  copy_rows<kVec, DH>(sdo, ld,
+                      static_cast<const uint16_t*>(p.dout) + b * L * dstride +
+                          h * DH,
+                      dstride, i0, kBlock, L, DH);
+  issue(0);
+  cp_async_commit();
+
+  const int wrow = i0 + warp * 16;                 // the warp's first row
+  const int g = lane / 4;
+  const bool active = wrow < L;
+  // the lane's two rows' lse (in log2 units) and di; 0 past L
+  float lse2[2], dir[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = wrow + g + 8 * r;
+    const long long at = (b * p.heads + h) * L + i;
+    lse2[r] = i < L ? p.lse[at] * kLog2e : 0.f;
+    dir[r] = i < L ? p.di[at] : 0.f;
+  }
+  const float scale2 = p.scale * kLog2e;
+  float dq[DH / 8][4];
+  zero<DH>(dq);
+
+  for (int kt = 0; kt < ntiles; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (kt + 1 < ntiles) {
+      issue(kt + 1);
+      cp_async_commit();
+    }
+    if (!active) continue;
+    const uint16_t* stage = ring + (kt & 1) * 2 * kTile;
+    const int j0 = kt * kBlock;
+    const bool diag = p.causal && kt == static_cast<int>(blockIdx.x);
+    int groups = min(kKeyGroups, (L - j0 + 15) / 16);
+    if (diag) groups = min(groups, warp + 1);      // keys past the rows
+    const bool edge = diag || j0 + kBlock > L;
+    float s[8][4], dp[8][4];
+    tile_scores_shared<DH>(s, sq + warp * 16 * ld, stage, groups, lane);
+    tile_scores_shared<DH>(dp, sdo + warp * 16 * ld, stage + kTile, groups,
+                           lane);
+    // dS = P (dP - di) scale, P = exp(S scale - lse) in fp32
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e / 2;
+        const int j = j0 + nb * 8 + 2 * (lane % 4) + (e & 1);
+        float x = exp2f(fmaf(s[nb][e], scale2, -lse2[r]));
+        if (edge && (j >= L || (p.causal && j > wrow + g + 8 * r))) x = 0.f;
+        s[nb][e] = x * (dp[nb][e] - dir[r]) * p.scale;
+      }
+    }
+    uint32_t w[kKeyGroups][4];
+    pack_weights(w, s);                            // round(dS)
+    tile_pv<DH>(dq, w, stage, groups, lane);       // dQ += round(dS) K
+  }
+  if (!active) return;
+  store_fragments<DH>(p.dq, p, b, h, wrow + g, dq, lane);
+}
+
+template <int DH, int kVec>
+cudaError_t launch_mma_bwd(const BwdParams& p, long long batch,
+                           cudaStream_t stream) {
+  cudaError_t err = launch_di<__nv_bfloat16, DH>(p, batch, stream);
+  if (err != cudaSuccess) return err;
+  const int tiles = static_cast<int>(sizeof(uint16_t)) *
+                    attn_mma::row_stride(DH) * 6 * kBlock;
+  const int smem_dkdv = tiles + 4 * kBlock * static_cast<int>(sizeof(float));
+  err = cudaFuncSetAttribute(flash_mha_bwd_dkdv_mma_kernel<DH, kVec>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_dkdv);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_mha_bwd_dq_mma_kernel<DH, kVec>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             tiles);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.seqlen + kBlock - 1) / kBlock, p.heads,
+                  static_cast<unsigned>(batch));
+  flash_mha_bwd_dkdv_mma_kernel<DH, kVec>
+      <<<grid, kMmaWarps * 32, smem_dkdv, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_mha_bwd_dq_mma_kernel<DH, kVec>
+      <<<grid, kMmaWarps * 32, tiles, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -817,20 +1129,18 @@ bool set_inputs(Inputs& p, int dtype, long long batch, int seqlen,
   return true;
 }
 
-// The pass that `P` names (FwdParams or BwdParams) for the I/O type (0
-// float32, 1 bfloat16) and dh.
-template <typename P>
-int dispatch(int dtype, int dh, const P& p, long long batch, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = dh == 64 ? launch<float, 64>(p, batch, s)
-                   : launch<float, 128>(p, batch, s);
-  } else {
-    err = dh == 64 ? launch<__nv_bfloat16, 64>(p, batch, s)
-                   : launch<__nv_bfloat16, 128>(p, batch, s);
+// The bf16 backward: 16-byte copies where every pointer and stride allows
+// them, else 8-byte ones, as the forward.
+cudaError_t launch_bwd_mma(const BwdParams& p, int dh, long long batch,
+                           cudaStream_t stream) {
+  const int vec = copy_vec(p, p.dout);
+  if (vec < 4) return cudaErrorInvalidValue;
+  if (vec == 8) {
+    return dh == 64 ? launch_mma_bwd<64, 8>(p, batch, stream)
+                    : launch_mma_bwd<128, 8>(p, batch, stream);
   }
-  return static_cast<int>(err);
+  return dh == 64 ? launch_mma_bwd<64, 4>(p, batch, stream)
+                  : launch_mma_bwd<128, 4>(p, batch, stream);
 }
 
 }  // namespace
@@ -862,15 +1172,16 @@ int flash_mha_fwd(int dtype, long long batch, int seqlen, int heads, int dh,
   if (dtype == 1) {
     err = launch_fwd_mma(p, dh, batch, s);
   } else {
-    err = dh == 64 ? launch<float, 64>(p, batch, s)
-                   : launch<float, 128>(p, batch, s);
+    err = dh == 64 ? launch<64>(p, batch, s)
+                   : launch<128>(p, batch, s);
   }
   return static_cast<int>(err);
 }
 
-// Launches K11's backward on `stream` (three kernels: di, dkdv, dq). q, k,
-// v, dtype and dh as `flash_mha_fwd` takes them (out, dout, dq, dk and dv
-// share the dtype). out and dout: contiguous (batch, seqlen, heads * dh);
+// Launches K11's backward on `stream` (three kernels: di, dkdv, dq; bf16 on
+// the tensor cores, fp32 on the SIMT kernels). q, k, v, dtype and dh as
+// `flash_mha_fwd` takes them (out, dout, dq, dk and dv share the dtype).
+// out and dout: contiguous (batch, seqlen, heads * dh), 16-byte aligned;
 // lse and the scratch di: contiguous fp32 (batch, heads, seqlen); dq, dk,
 // dv: contiguous (batch, seqlen, heads, dh). Returns the cudaError_t of the
 // launches (0 on success).
@@ -893,7 +1204,16 @@ int flash_mha_bwd(int dtype, long long batch, int seqlen, int heads, int dh,
   p.dq = dq;
   p.dk = dk;
   p.dv = dv;
-  return dispatch(dtype, dh, p, batch, stream);
+  // bf16 on the tensor cores, fp32 on the SIMT kernels
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 1) {
+    err = launch_bwd_mma(p, dh, batch, s);
+  } else {
+    err = dh == 64 ? launch<64>(p, batch, s)
+                   : launch<128>(p, batch, s);
+  }
+  return static_cast<int>(err);
 }
 
 const char* flash_mha_fwd_error_string(int code) {

@@ -33,13 +33,15 @@
 // never touching device memory. K9 at the vision width (128 x 12 x 197 x
 // 64, bf16) is the same work.
 //
-// Dispatch by type: bf16 K9 runs `vision_mha_mma_kernel` on the tensor
-// cores; fp32 (K9 and K10) and bf16 K10 run `row_mha_kernel` on the CUDA
-// cores. fp32 stays there on purpose: the TPU kernels' fp32 products are
-// full fp32, and TF32 tensor cores (about three decimal digits) would not
-// hold the fp32 tolerances. No bf16 input of K9 reaches the SIMT kernel.
+// Dispatch by type: bf16 runs on the tensor cores, K9 in
+// `vision_mha_mma_kernel` and K10 in `row_mha_mma_kernel` (one body, which
+// differs only where the scale is applied); fp32 (K9 and K10) runs
+// `row_mha_kernel` on the CUDA cores. fp32 stays there on purpose: the TPU
+// kernels' fp32 products are full fp32, and TF32 tensor cores (about three
+// decimal digits) would not hold the fp32 tolerances. No bf16 input reaches
+// the SIMT kernel.
 //
-// `row_mha_kernel` (SIMT, fp32 arithmetic): a block of 4 warps takes 32
+// `row_mha_kernel` (SIMT, fp32 only): a block of 4 warps takes 32
 // query rows of one (instance, head), 8 rows a warp. It stages those rows
 // of q in shared memory as fp32, then walks the keys in tiles of 64: each
 // tile of K is staged transposed (dh x 64, padded against bank conflicts)
@@ -47,25 +49,28 @@
 // as float4 broadcasts. The fp32 scores of the block's rows over all N keys
 // stay in shared memory (at most 32 x 512 floats). Each warp then takes its
 // rows' exact max and sum with shuffles and overwrites the scores with the
-// rounded weights (0 past N). Last, tiles of V are staged and each lane
+// weights (0 past N). Last, tiles of V are staged and each lane
 // accumulates up to 4 output columns (dh <= 128) for the 8 rows in fp32
 // registers (kCols = 1, 2 or 4 columns, by dh). Every copy into shared
 // memory keeps 8 loads a thread in flight. Ragged N and dh are zero-padded
 // in shared memory, so no padded key or column can reach a sum. Shared
 // memory: 32 x dh (q) + 32 x ceil(N / 64) x 64 (scores) + about 68 x dh (a
 // K or V tile) floats, at most 114 KB (58 KB at the MIR shape: 3 blocks an
-// SM). What held it back as K9's bf16 kernel: every FMA fed from fp32
-// operands in shared memory (at 67 TFLOP/s the products alone take
-// 0.23 ms, 5x the bound); q, k and v widened to fp32 in shared memory
-// (twice the bytes) by synchronous loads that overlap no arithmetic; 58 KB
-// of scores a block (3 blocks an SM); and K and V read again for every 32
-// rows (7 times per (instance, head) at N = 197).
+// SM). Why bf16 does not run it: every FMA fed from fp32 operands in shared
+// memory (at 67 TFLOP/s the products alone take 0.23 ms, 5x the bound); q,
+// k and v widened to fp32 in shared memory (twice the bytes) by synchronous
+// loads that overlap no arithmetic; 58 KB of scores a block (3 blocks an
+// SM); and K and V read again for every 32 rows (7 times per (instance,
+// head) at N = 197): in bf16 it took 2.1 ms at the MIR shape, 46x its
+// bound.
 //
-// `vision_mha_mma_kernel` (bf16 on the tensor cores; attention_mma.cuh):
-// one block of up to kMmaWarps warps takes up to 16 x kMmaWarps query rows
-// of one (instance, head), 16 rows a warp, with q scaled by the bf16 scale
-// and rounded to bf16 in its registers (the products then run on bf16
-// operands with fp32 sums, exactly the TPU kernel's). The rows need the
+// `vision_mha_mma_kernel` and `row_mha_mma_kernel` (bf16 on the tensor
+// cores; attention_mma.cuh, one body `whole_row_mma`): one block of up to
+// kMmaWarps warps takes up to 16 x kMmaWarps query rows of one (instance,
+// head), 16 rows a warp, their q in registers as bf16 A fragments: K9's
+// scaled by the bf16 scale and rounded to bf16 there, K10's as they are,
+// its fp32 sums multiplied by the fp32 scale (the products run on bf16
+// operands with fp32 sums, exactly the TPU kernels'). The rows need the
 // whole row's max and sum before any weight is rounded, so the keys are
 // walked twice (design (b)): the first walk over K takes each row's max
 // and sum in fp32 (the sum rescaled when the max grows, so no score is
@@ -124,28 +129,6 @@ struct Params {
   float scale;    // K9: already rounded to the I/O type by the caller
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// the value rounded to T and back: what the TPU kernel holds after a cast
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_float(from_float<T>(v));
-}
-
 __device__ __forceinline__ long long offset(const Strides& s, long long o0,
                                             long long o1, long long h) {
   return o0 * s.outer0 + o1 * s.outer1 + h * s.head;
@@ -153,11 +136,11 @@ __device__ __forceinline__ long long offset(const Strides& s, long long o0,
 
 // Copies rows [r0, r0 + kRows) of an (n, dh) matrix with row stride
 // `stride` into shared memory as fp32, zero past n and dh: element (j, d)
-// goes to dst[j * sj + d * sd]. K9's q is scaled and rounded to T on the
-// way (kPrescale). Each thread keeps kStage loads in flight before it
-// stores, so the copy is not one load latency per element.
-template <typename T, int kRows, bool kPrescale>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src,
+// goes to dst[j * sj + d * sd]. K9's q is scaled on the way (kPrescale).
+// Each thread keeps kStage loads in flight before it stores, so the copy is
+// not one load latency per element.
+template <int kRows, bool kPrescale>
+__device__ __forceinline__ void stage_rows(const float* __restrict__ src,
                                            long long stride, int r0, int n,
                                            int dh, int dh4, float scale,
                                            float* dst, int sj, int sd) {
@@ -171,8 +154,8 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src,
       const int j = e / dh4, d = e - j * dh4;
       buf[u] = 0.f;
       if (e < total && r0 + j < n && d < dh) {
-        buf[u] = to_float(src[(r0 + j) * stride + d]);
-        if (kPrescale) buf[u] = round_to<T>(buf[u] * scale);
+        buf[u] = src[(r0 + j) * stride + d];
+        if (kPrescale) buf[u] *= scale;
       }
     }
 #pragma unroll
@@ -185,7 +168,7 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src,
 }
 
 // kCols: output columns a lane owns, ceil(dh / 32) rounded up to 1, 2, 4
-template <typename T, bool kPrescale, int kCols>
+template <bool kPrescale, int kCols>
 __global__ void __launch_bounds__(kWarps * 32)
 row_mha_kernel(const Params p) {
   extern __shared__ float4 smem4[];
@@ -205,17 +188,17 @@ row_mha_kernel(const Params p) {
   idx /= p.heads;
   const long long o1 = idx % p.outer1;
   const long long o0 = idx / p.outer1;
-  const T* __restrict__ q =
-      static_cast<const T*>(p.q) + offset(p.sq, o0, o1, h);
-  const T* __restrict__ k =
-      static_cast<const T*>(p.k) + offset(p.sk, o0, o1, h);
-  const T* __restrict__ v =
-      static_cast<const T*>(p.v) + offset(p.sv, o0, o1, h);
-  T* out = static_cast<T*>(p.out) + offset(p.so, o0, o1, h);
+  const float* __restrict__ q =
+      static_cast<const float*>(p.q) + offset(p.sq, o0, o1, h);
+  const float* __restrict__ k =
+      static_cast<const float*>(p.k) + offset(p.sk, o0, o1, h);
+  const float* __restrict__ v =
+      static_cast<const float*>(p.v) + offset(p.sv, o0, o1, h);
+  float* out = static_cast<float*>(p.out) + offset(p.so, o0, o1, h);
   const int row0 = blockIdx.y * kQueryRows;          // the block's first row
 
-  // q rows as fp32 (K9: scaled and rounded to T first), zero past n and dh
-  stage_rows<T, kQueryRows, kPrescale>(q, p.sq.row, row0, n, dh, dh4,
+  // q rows (K9's scaled first), zero past n and dh
+  stage_rows<kQueryRows, kPrescale>(q, p.sq.row, row0, n, dh, dh4,
                                        p.scale, sq, dh4, 1);
 
   // scores, one key tile at a time; the K tile is transposed in shared
@@ -225,7 +208,7 @@ row_mha_kernel(const Params p) {
   const int my_row = warp * kRowsPerWarp;            // in the block
   for (int kt = 0; kt < p.npad; kt += kKeyTile) {
     __syncthreads();
-    stage_rows<T, kKeyTile, false>(k, p.sk.row, kt, n, dh, dh4, 0.f, tile,
+    stage_rows<kKeyTile, false>(k, p.sk.row, kt, n, dh, dh4, 0.f, tile,
                                    1, ktile_stride);
     __syncthreads();
     float acc[kRowsPerWarp][kKeysPerLane];
@@ -280,7 +263,7 @@ row_mha_kernel(const Params p) {
     for (int o = 16; o > 0; o /= 2)
       sum += __shfl_xor_sync(0xffffffffu, sum, o);
     for (int j = lane; j < p.npad; j += 32)
-      srow[j] = j < n ? round_to<T>(srow[j] / sum) : 0.f;
+      srow[j] = j < n ? srow[j] / sum : 0.f;
   }
 
   // out = w v, one V tile at a time: tile[j * vtile_stride + d]
@@ -292,7 +275,7 @@ row_mha_kernel(const Params p) {
     for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
   for (int vt = 0; vt < p.npad; vt += kKeyTile) {
     __syncthreads();
-    stage_rows<T, kKeyTile, false>(v, p.sv.row, vt, n, dh, dh4, 0.f, tile,
+    stage_rows<kKeyTile, false>(v, p.sv.row, vt, n, dh, dh4, 0.f, tile,
                                    vtile_stride, 1);
     __syncthreads();
     // the tile's keys up to n, in steps of 4 (the weights are 0 past n)
@@ -327,7 +310,7 @@ row_mha_kernel(const Params p) {
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int d = lane + 32 * c;
-      if (d < dh) out[row * p.so.row + d] = from_float<T>(acc[r][c]);
+      if (d < dh) out[row * p.so.row + d] = acc[r][c];
     }
   }
 }
@@ -341,36 +324,37 @@ size_t smem_bytes(int dh4, int npad) {
                           (k_tile > v_tile ? k_tile : v_tile));
 }
 
-template <typename T, bool kPrescale, int kCols>
+template <bool kPrescale, int kCols>
 int launch_cols(const Params& p, long long blocks, cudaStream_t stream) {
   const size_t smem = smem_bytes(p.dh4, p.npad);
   cudaError_t err = cudaFuncSetAttribute(
-      row_mha_kernel<T, kPrescale, kCols>,
+      row_mha_kernel<kPrescale, kCols>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(blocks),
                   static_cast<unsigned>((p.n + kQueryRows - 1) / kQueryRows));
-  row_mha_kernel<T, kPrescale, kCols>
+  row_mha_kernel<kPrescale, kCols>
       <<<grid, kWarps * 32, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kPrescale>
+template <bool kPrescale>
 int launch(const Params& p, long long blocks, cudaStream_t stream) {
-  if (p.dh <= 32) return launch_cols<T, kPrescale, 1>(p, blocks, stream);
-  if (p.dh <= 64) return launch_cols<T, kPrescale, 2>(p, blocks, stream);
-  return launch_cols<T, kPrescale, kMaxCols>(p, blocks, stream);
+  if (p.dh <= 32) return launch_cols<kPrescale, 1>(p, blocks, stream);
+  if (p.dh <= 64) return launch_cols<kPrescale, 2>(p, blocks, stream);
+  return launch_cols<kPrescale, kMaxCols>(p, blocks, stream);
 }
 
-// K9 in bf16 on the tensor cores (see the note at the top). The most warps
-// a block takes: at N 197 two blocks of 7 warps a head, whose registers (at
-// most 128 a thread) let two blocks share an SM; one block of 13 warps a
-// head, one an SM, read slower on an H100.
+// K9 and K10 in bf16 on the tensor cores (see the note at the top). The
+// most warps a block takes: at N 197 two blocks of 7 warps a head, whose
+// registers (at most 128 a thread) let two blocks share an SM; one block
+// of 13 warps a head, one an SM, read slower on an H100.
 constexpr int kMmaWarps = 8;
 
-template <int DHP, int kVec>
-__global__ void __launch_bounds__(kMmaWarps * 32)
-vision_mha_mma_kernel(const Params p) {
+// The body of both tensor-core kernels; kPrescale: K9 (q times the scale,
+// rounded to bf16), else K10 (the fp32 sums times the scale).
+template <int DHP, int kVec, bool kPrescale>
+__device__ __forceinline__ void whole_row_mma(const Params& p) {
   using namespace attn_mma;
   constexpr int kKeys = attn_mma::kKeyTile;       // keys of a tile
   constexpr int ld = row_stride(DHP);
@@ -428,7 +412,9 @@ vision_mha_mma_kernel(const Params p) {
 
   // the first walk: each row's max and sum in fp32 over all keys; the sum
   // is rescaled when the max grows, each lane keeping its own part. The
-  // scores are taken in log2 units (times log2(e)), so exp is exp2.
+  // scores are taken in log2 units (times log2(e), and K10's times the
+  // scale too), so exp is exp2.
+  const float log2_units = kPrescale ? kLog2e : p.scale * kLog2e;
   for (int t = 0; t < tiles; ++t) {
     cp_async_wait<0>();                            // this step's copies,
     __syncthreads();                               // and the last stage free
@@ -438,14 +424,16 @@ vision_mha_mma_kernel(const Params p) {
     }
     if (active) {
       if (t == 0) {
-        // q times the bf16 scale, rounded to bf16, as the TPU kernel does
         load_q<DHP>(qf, sq + warp * 16 * ld, lane);
+        if constexpr (kPrescale) {
+          // K9: q times the bf16 scale, rounded to bf16, as the TPU kernel
 #pragma unroll
-        for (int kk = 0; kk < DHP / 16; ++kk) {
+          for (int kk = 0; kk < DHP / 16; ++kk) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 x = unpack_bf16(qf[kk][e]);
-            qf[kk][e] = pack_bf16(x.x * p.scale, x.y * p.scale);
+            for (int e = 0; e < 4; ++e) {
+              const float2 x = unpack_bf16(qf[kk][e]);
+              qf[kk][e] = pack_bf16(x.x * p.scale, x.y * p.scale);
+            }
           }
         }
       }
@@ -453,7 +441,7 @@ vision_mha_mma_kernel(const Params p) {
       const int groups = min(kKeyGroups, (n - j0 + 15) / 16);
       float s[8][4];
       tile_scores<DHP>(s, qf, ring + (t & 1) * 2 * kTile, groups, lane);
-      to_log2(s);
+      scale_tile(s, log2_units);
       if (j0 + kKeys > n) mask_tile(s, j0, n, wrow + g, false, lane);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -505,7 +493,7 @@ vision_mha_mma_kernel(const Params p) {
       const int groups = min(kKeyGroups, (n - j0 + 15) / 16);
       float s[8][4];
       tile_scores<DHP>(s, qf, stage, groups, lane);
-      to_log2(s);
+      scale_tile(s, log2_units);
       if (j0 + kKeys > n) mask_tile(s, j0, n, wrow + g, false, lane);
 #pragma unroll
       for (int nb = 0; nb < 8; ++nb) {
@@ -543,7 +531,21 @@ vision_mha_mma_kernel(const Params p) {
 }
 
 template <int DHP, int kVec>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+vision_mha_mma_kernel(const Params p) {
+  whole_row_mma<DHP, kVec, true>(p);
+}
+
+template <int DHP, int kVec>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+row_mha_mma_kernel(const Params p) {
+  whole_row_mma<DHP, kVec, false>(p);
+}
+
+template <int DHP, int kVec, bool kPrescale>
 int launch_mma(const Params& p, long long blocks, cudaStream_t stream) {
+  void (*kernel)(const Params) = kPrescale ? vision_mha_mma_kernel<DHP, kVec>
+                                           : row_mha_mma_kernel<DHP, kVec>;
   const int ld = attn_mma::row_stride(DHP);
   const int row_tiles = (p.n + 15) / 16;
   const int row_blocks = (row_tiles + kMmaWarps - 1) / kMmaWarps;
@@ -553,28 +555,28 @@ int launch_mma(const Params& p, long long blocks, cudaStream_t stream) {
   const size_t smem = sizeof(uint16_t) * static_cast<size_t>(ld) *
                       (warps * 16 + 4 * attn_mma::kKeyTile);
   cudaError_t err = cudaFuncSetAttribute(
-      vision_mha_mma_kernel<DHP, kVec>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  vision_mha_mma_kernel<DHP, kVec>
-      <<<static_cast<unsigned>(grid), warps * 32, smem, stream>>>(p);
+  kernel<<<static_cast<unsigned>(grid), warps * 32, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DHP>
+template <int DHP, bool kPrescale>
 int launch_mma_vec(const Params& p, int vec, long long blocks,
                    cudaStream_t stream) {
   switch (vec) {
-    case 8: return launch_mma<DHP, 8>(p, blocks, stream);
-    case 4: return launch_mma<DHP, 4>(p, blocks, stream);
-    case 2: return launch_mma<DHP, 2>(p, blocks, stream);
-    default: return launch_mma<DHP, 1>(p, blocks, stream);
+    case 8: return launch_mma<DHP, 8, kPrescale>(p, blocks, stream);
+    case 4: return launch_mma<DHP, 4, kPrescale>(p, blocks, stream);
+    case 2: return launch_mma<DHP, 2, kPrescale>(p, blocks, stream);
+    default: return launch_mma<DHP, 1, kPrescale>(p, blocks, stream);
   }
 }
 
-// K9 in bf16: the head width padded to DHP and the widest copy that every
-// pointer and stride allows.
-int launch_vision_mma(const Params& p, long long blocks, cudaStream_t stream) {
+// K9 or K10 in bf16: the head width padded to DHP and the widest copy that
+// every pointer and stride allows.
+template <bool kPrescale>
+int launch_bf16_mma(const Params& p, long long blocks, cudaStream_t stream) {
   unsigned long long bits = 0;
   const void* ptrs[4] = {p.q, p.k, p.v, p.out};
   const Strides* st[4] = {&p.sq, &p.sk, &p.sv, &p.so};
@@ -585,10 +587,11 @@ int launch_vision_mma(const Params& p, long long blocks, cudaStream_t stream) {
     bits |= 2ull * static_cast<unsigned long long>(strides);
   }
   const int vec = attn_mma::vec_for(bits);
-  if (p.dh <= 16) return launch_mma_vec<16>(p, vec, blocks, stream);
-  if (p.dh <= 32) return launch_mma_vec<32>(p, vec, blocks, stream);
-  if (p.dh <= 64) return launch_mma_vec<64>(p, vec, blocks, stream);
-  return launch_mma_vec<128>(p, vec, blocks, stream);
+  cudaStream_t s = stream;
+  if (p.dh <= 16) return launch_mma_vec<16, kPrescale>(p, vec, blocks, s);
+  if (p.dh <= 32) return launch_mma_vec<32, kPrescale>(p, vec, blocks, s);
+  if (p.dh <= 64) return launch_mma_vec<64, kPrescale>(p, vec, blocks, s);
+  return launch_mma_vec<128, kPrescale>(p, vec, blocks, s);
 }
 
 int run(bool prescale, int dtype, long long outer0, int outer1, int heads,
@@ -621,12 +624,12 @@ int run(bool prescale, int dtype, long long outer0, int outer1, int heads,
   p.scale = scale;
   cudaStream_t s0 = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return prescale ? launch<float, true>(p, blocks, s0)
-                    : launch<float, false>(p, blocks, s0);
+    return prescale ? launch<true>(p, blocks, s0)
+                    : launch<false>(p, blocks, s0);
   }
-  // bf16: K9 on the tensor cores, K10 on the SIMT kernel
-  return prescale ? launch_vision_mma(p, blocks, s0)
-                  : launch<__nv_bfloat16, false>(p, blocks, s0);
+  // bf16: K9 and K10 on the tensor cores
+  return prescale ? launch_bf16_mma<true>(p, blocks, s0)
+                  : launch_bf16_mma<false>(p, blocks, s0);
 }
 
 }  // namespace

@@ -21,16 +21,19 @@ layout only, so here keys at or past L are masked and nothing is padded.
 
 ``csrc/flash_mha.cu`` holds both kernels, one C entry each: the forward
 ``flash_mha_fwd`` and the backward ``flash_mha_bwd`` (a di pass, then dk and
-dv per key tile, then dq per query tile). The forward picks its kernel by
-dtype: bf16 runs ``flash_mha_fwd_mma_kernel`` on the tensor cores (bf16
-``mma.sync`` tiles with fp32 sums, ``csrc/attention_mma.cuh``), fp32 the
-SIMT kernel ``flash_mha_fwd_kernel``, because the library's fp32 products
-are full fp32, which TF32 tensor cores would not hold to the fp32
-tolerances; the backward is SIMT in both. Both read q, k and v through
-strides: any (B, L, H, dh) view whose last dimension is contiguous, so
-``FusedMHA`` hands them the projection's own (B, L, 3D) output without a
-copy. The wrappers ``flash_mha_fwd`` and ``flash_mha_bwd`` launch them on
-CUDA tensors and raise on anything they do not take; ``flash_mha_ref`` and
+dv per key tile, then dq per query tile). Both pick their kernels by
+dtype: bf16 runs on the tensor cores (bf16 ``mma.sync`` tiles with fp32
+sums, ``csrc/attention_mma.cuh``: ``flash_mha_fwd_mma_kernel``, and
+``flash_mha_bwd_dkdv_mma_kernel`` and ``flash_mha_bwd_dq_mma_kernel``
+after the shared di kernel), fp32 on the SIMT kernels
+(``flash_mha_fwd_kernel``, ``flash_mha_bwd_dkdv_kernel``,
+``flash_mha_bwd_dq_kernel``), because the library's fp32 products are
+full fp32, which TF32 tensor cores would not hold to the fp32
+tolerances. Both read q, k and v through strides: any (B, L, H, dh) view
+whose last dimension is contiguous, so ``FusedMHA`` hands them the
+projection's own (B, L, 3D) output without a copy. The wrappers
+``flash_mha_fwd`` and ``flash_mha_bwd`` launch them on CUDA tensors and
+raise on anything they do not take; ``flash_mha_ref`` and
 ``flash_mha_bwd_ref`` are the plain versions. ``flash_mha`` is the autograd
 Function ``FlashMHA``: the kernels on CUDA, the plain versions on the CPU.
 """
@@ -167,9 +170,12 @@ def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_mha_bwd(q, k, v, out, lse, dout, causal: bool = False):
     """Launch K11's backward on CUDA tensors: q, k, v as ``flash_mha_fwd``
     takes them, its ``out`` and ``lse``, and the output's cotangent
-    ``dout`` (contiguous (B, L, H·dh) in q's dtype). Returns (dq, dk, dv),
-    contiguous (B, L, H, dh) in q's dtype, as ``flash_mha_bwd_ref``.
-    Raises on anything else."""
+    ``dout`` (contiguous (B, L, H·dh) in q's dtype; out and dout 16-byte
+    aligned). Returns (dq, dk, dv), contiguous (B, L, H, dh) in q's dtype,
+    as ``flash_mha_bwd_ref``. bfloat16 runs on the tensor cores
+    (``flash_mha_bwd_dkdv_mma_kernel``, ``flash_mha_bwd_dq_mma_kernel``),
+    float32 on the SIMT kernels to keep full fp32 products. Raises on
+    anything else."""
     _check(q, k, v, BWD_KERNEL)
     B, L, H, dh = q.shape
     for label, t, shape, dtype in (("out", out, (B, L, H * dh), q.dtype),
@@ -186,6 +192,9 @@ def flash_mha_bwd(q, k, v, out, lse, dout, causal: bool = False):
                              f"{shape}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{BWD_KERNEL}: {label} must be contiguous")
+        if label != "lse" and t.data_ptr() % 16:   # read 16 bytes a lane
+            raise ValueError(f"{BWD_KERNEL}: {label} needs a 16-byte "
+                             "aligned start")
     dq, dk, dv = (torch.empty(B, L, H, dh, dtype=q.dtype, device=q.device)
                   for _ in range(3))
     if q.numel():

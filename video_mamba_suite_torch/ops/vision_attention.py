@@ -13,12 +13,13 @@ places show, so the plain versions ``vision_mha_ref`` and
 ``row_mha_qkv_ref`` keep them.
 
 ``csrc/row_mha_fwd.cu`` holds both kernels (entries ``vision_mha_fwd`` and
-``row_mha_fwd``). The C entries pick the kernel by dtype: bf16 K9 runs
-``vision_mha_mma_kernel`` on the tensor cores (bf16 ``mma.sync`` tiles
-with fp32 sums, ``csrc/attention_mma.cuh``); fp32 (K9 and K10) and bf16
-K10 run the SIMT kernel ``row_mha_kernel``, fp32 because the TPU kernels'
-fp32 products are full fp32, which TF32 tensor cores would not hold to
-the fp32 tolerances. Both read q, k and v through strides: any view whose
+``row_mha_fwd``). The C entries pick the kernel by dtype: bf16 runs on
+the tensor cores (bf16 ``mma.sync`` tiles with fp32 sums,
+``csrc/attention_mma.cuh``), K9 in ``vision_mha_mma_kernel`` and K10 in
+``row_mha_mma_kernel``; fp32 (K9 and K10) runs the SIMT kernel
+``row_mha_kernel``, because the TPU kernels' fp32 products are full fp32,
+which TF32 tensor cores would not hold to the fp32 tolerances. Both read
+q, k and v through strides: any view whose
 last dimension is contiguous, so ``FusedMHA`` hands K10 the projection's
 own (B, S, T, 3D) output and takes the output in (B, S, T, D) without a
 copy either way. ``vision_mha_fwd`` and ``row_mha_fwd`` launch them on
@@ -157,7 +158,9 @@ def row_mha_fwd(qkv5: torch.Tensor,
                 sm_scale: Optional[float] = None) -> torch.Tensor:
     """Launch K10 on a CUDA (B, T, 3H, N, dh) qkv, float32 or bfloat16,
     N <= 512, dh <= 128, any strides with the last dimension contiguous:
-    returns (B, T, H, N, dh), laid out in memory as qkv5 is. Raises on
+    returns (B, T, H, N, dh), laid out in memory as qkv5 is. bfloat16 runs
+    on the tensor cores (``row_mha_mma_kernel``), float32 on the SIMT
+    kernel (``row_mha_kernel``) to keep full fp32 products. Raises on
     anything else."""
     if qkv5.dim() != 5 or qkv5.shape[2] % 3:
         raise ValueError(f"qkv5 must be (B, T, 3H, N, dh), got "
