@@ -6,16 +6,20 @@ Phases, each of which fails the run:
   1. device: require CUDA; print the card's name and power limit.
   2. build: compile every kernel of the port from ``csrc/`` with nvcc, one
      process per source, and print each one's registers, spills and shared
-     memory, and a line per tensor-core kernel (registers, spill bytes).
+     memory, and a line per tensor-core attention kernel and lane-split
+     scan kernel (``RESOURCE_KERNELS``: registers, spill bytes).
   3. kernels: hold each kernel against its plain PyTorch version on the
      card, at the shape the main path gives it and at the other cases of
      its table (``K1_CASES``, ``K2_CASES``, ``K3_CASES`` with K3's
      checkpoints, ``K4_CASES``, ``K5_CASES``, ``K6_CASES``, ``K10_CASES``,
      ``K9_CASES``, ``K11_CASES`` (forward and backward), ``K7_CASES`` with
      K7's checkpoints, ``K8_CASES``, which tests/test_torch_kernels_cuda.py
-     runs too; for K9, K10 and K11 (forward and backward) also the
-     kernels the profiler saw run, ``ROUTES``: bf16 on the tensor cores,
-     fp32 on the SIMT kernels), and time kernel, plain version and the
+     runs too; for K2, K4, K9, K10 and K11 (forward and backward) also
+     the kernels the profiler saw run, ``ROUTES``: K2 and K4 their
+     lane-split walks, K4's three (local, combine, main) each with its
+     device time, and the K2 and K4 phases print those kernels' registers
+     and spills; attention bf16 on the tensor cores, fp32 on the SIMT
+     kernels, at head widths up to 384), and time kernel, plain version and the
      roofline bound (K3 and K7 also with their checkpoint output; K5, K6,
      K10, K9 and K11 also with their device time from the profiler; K10,
      K9 and K11 also SDPA on the same q, k, v; for K11 SDPA's forward, its
@@ -149,11 +153,17 @@ K1_CASES = [
 # fp32 as the JAX kernel tests; bf16 output one to two bf16 ulps apart
 # (both round an fp32 result; sums differ in order)
 K1_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 2e-2)}
-# K2 against its plain version, at K1's cases: each gradient within
+# K2 against its plain version, at K1's cases and the edges of its lane
+# groups: one step and 130 channels (a 128-channel block and 2 channels of
+# the next), and 63 steps of 64 channels with 7 states (a lane group whose
+# last lane holds no state, element copies). Each gradient within
 # atol · (its largest magnitude) + rtol · |value|. fp32 as K1; bf16 outputs
 # (du, ddt, dz, dB, dC) one to two bf16 ulps apart, the fp32 sums (dA, dD,
 # dbias) in another order.
-K2_CASES = K1_CASES
+K2_CASES = K1_CASES + [
+    ("one-step-ragged", (9, 1, 130, 16), "float32", True),
+    ("l63-n7", (3, 63, 64, 7), "bfloat16", True),
+]
 K2_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 2e-2)}
 K3_SOURCE = "video_mamba_suite_torch/csrc/chunked_scan_fwd.cu"
 K3_REPLACES = ("video_mamba_suite_tpu/ops/selective_scan_pallas.py:113 "
@@ -189,8 +199,10 @@ K4_REPLACES = ("video_mamba_suite_tpu/ops/selective_scan_pallas.py:187 "
 # main path (one per direction); batch 1 is the TPU package's batch <= 4
 # body; ragged: a length that is no multiple of the checkpoint interval,
 # 200 channels (no multiple of a 32-channel warp) and 13 states; grouped:
-# groups of 48 channels, so the second warp of a group is half idle.
-# tests/test_torch_kernels_cuda.py runs the same cases.
+# groups of 48 channels, so the second warp of a group is half idle; then
+# a length that is no multiple of 16 with 100 channels (the last 32-channel
+# unit holds 4) and 5 states (element copies), and bf16 with 4 groups of
+# 96 channels. tests/test_torch_kernels_cuda.py runs the same cases.
 K4_CASES = [
     ("vivim", (8, 3152, 384, 16), "float32", {}),
     ("vivim-reverse", (8, 3152, 384, 16), "float32", {"reverse": True}),
@@ -201,6 +213,9 @@ K4_CASES = [
      {"reverse": True, "h0": True}),
     ("grouped-h0-no-Dz", (5, 100, 96, 16), "float32",
      {"groups": 2, "h0": True, "no_dz": True}),
+    ("l37-d100-n5-reverse-h0", (2, 37, 100, 5), "float32",
+     {"reverse": True, "h0": True}),
+    ("grouped4-bf16", (4, 64, 384, 16), "bfloat16", {"groups": 4}),
 ]
 # each gradient within atol · (its largest magnitude) + rtol · |value|, as
 # K2: fp32 sums (dA over 3152 steps and the rows, dB and dC over the
@@ -328,6 +343,9 @@ K10_CASES = [
     ("ragged-bf16", (2, 3, 4, 37, 16), "bfloat16", "projection"),
     ("dh8", (1, 2, 2, 197, 8), "float32", "packed"),
     ("dh8-bf16", (1, 2, 2, 197, 8), "bfloat16", "packed"),
+    ("dh256", (2, 2, 4, 197, 256), "bfloat16", "projection"),
+    ("dh200", (1, 2, 2, 100, 200), "bfloat16", "packed"),
+    ("dh200-fp32", (1, 2, 2, 100, 200), "float32", "packed"),
 ]
 # K9 against its plain version: (label, (I, H, N, dh), I/O dtype, layout):
 # "contiguous" q, k, v of (I, H, N, dh); "projection": (I, H, N, dh) views
@@ -338,7 +356,9 @@ K10_CASES = [
 # tensor-core kernel: one and two 16-row warps (N 16, 17), a whole and a
 # started fifth 64-key tile (N 256, 257), the most rows and columns (N 512
 # at dh 128), and head widths whose strides allow only 8-, 4- or 2-byte
-# copies (dh 20 in the projection layout, 18, 17).
+# copies (dh 20 in the projection layout, 18, 17); then head widths above
+# 128 (two 128-column slices, the second full at 256 and ragged at 200).
+# K10's cases end the same way.
 K9_CASES = [
     ("vision", (128, 12, 197, 64), "bfloat16", "contiguous"),
     ("text", (8, 8, 77, 64), "float32", "projection"),
@@ -355,6 +375,9 @@ K9_CASES = [
     ("dh20-unaligned", (4, 3, 50, 20), "bfloat16", "projection"),
     ("dh18", (2, 3, 40, 18), "bfloat16", "contiguous"),
     ("dh17", (2, 3, 45, 17), "bfloat16", "projection"),
+    ("dh256", (8, 4, 197, 256), "bfloat16", "contiguous"),
+    ("dh200", (2, 3, 60, 200), "bfloat16", "projection"),
+    ("dh200-fp32", (2, 3, 60, 200), "float32", "contiguous"),
 ]
 # largest |kernel - plain| over the output (values below 2): fp32 read at
 # most 3.6e-7 on an H100 80GB HBM3 (sums in another order; PERF.md), held
@@ -384,7 +407,10 @@ K11_BWD_REPLACES = ("video_mamba_suite_tpu/models/common.py:320 (_flash_mha:"
 # the causal mask in fp32 (the masking of keys at or past L alone); then
 # the edges of the bf16 tensor-core kernels' 64-row blocks and 64-key
 # tiles (L 63, 64, 65, causal and not; dh 128 causal at L 300, whose
-# backward holds the most registers) and 8-byte copies (stride4).
+# backward holds the most registers) and 8-byte copies (stride4); then the
+# head widths of jax's flash_attention other than 64 and 128: 96 (zero-
+# filled to 128), 36 (no multiple of 8: a padded copy), 256 and 384 (two
+# and three 128-column slices), both types, causal and not.
 # tests/test_torch_kernels_cuda.py runs the same cases.
 K11_CASES = [
     ("vision", (128, 197, 12, 64), False, "bfloat16", "projection"),
@@ -402,13 +428,29 @@ K11_CASES = [
     ("l65-full", (2, 65, 3, 64), False, "bfloat16", "projection"),
     ("stride4", (2, 100, 3, 64), True, "bfloat16", "stride4"),
     ("dh128-bf16-causal", (2, 300, 2, 128), True, "bfloat16", "contiguous"),
+    ("dh96", (2, 100, 3, 96), True, "bfloat16", "projection"),
+    ("dh96-fp32", (2, 100, 3, 96), False, "float32", "contiguous"),
+    ("dh36", (2, 50, 2, 36), True, "bfloat16", "contiguous"),
+    ("dh256", (2, 150, 2, 256), False, "bfloat16", "projection"),
+    ("dh256-fp32-causal", (2, 150, 2, 256), True, "float32", "contiguous"),
+    ("dh384-causal", (2, 130, 2, 384), True, "bfloat16", "contiguous"),
+    ("dh384-fp32", (1, 70, 2, 384), False, "float32", "projection"),
 ]
-# The kernels each attention entry must run, by I/O dtype (the C entries
-# pick them): bf16 on the tensor cores, fp32 on the SIMT kernels (K11's
-# backward starts with the di kernel in both); checked by name from the
-# profiler at every case. K9 and K10 share a source, so each is checked
-# against both entries' kernels.
+# The kernels each entry must run, by I/O dtype (the C entries pick them):
+# for attention, bf16 on the tensor cores, fp32 on the SIMT kernels (K11's
+# backward starts with the di kernel in both); K2 and K4 the lane-split
+# walks (K4: the local pass, the combine and the main pass) in both types.
+# Checked by name from the profiler at every case. K9 and K10 share a
+# source, so each is checked against both entries' kernels.
 ROUTES = {
+    ("K2", "bfloat16"): ("short_bidir_bwd_lanes_kernel",),
+    ("K2", "float32"): ("short_bidir_bwd_lanes_kernel",),
+    ("K4", "bfloat16"): ("chunked_scan_bwd_local_lanes",
+                         "chunked_scan_bwd_combine",
+                         "chunked_scan_bwd_main_lanes"),
+    ("K4", "float32"): ("chunked_scan_bwd_local_lanes",
+                        "chunked_scan_bwd_combine",
+                        "chunked_scan_bwd_main_lanes"),
     ("K9", "bfloat16"): ("vision_mha_mma_kernel",),
     ("K9", "float32"): ("row_mha_kernel",),
     ("K10", "bfloat16"): ("row_mha_mma_kernel",),
@@ -421,7 +463,7 @@ ROUTES = {
     ("K11 bwd", "float32"): ("flash_mha_bwd_di", "flash_mha_bwd_dkdv_kernel",
                              "flash_mha_bwd_dq_kernel"),
 }
-ROUTE_FAMILIES = (("K9", "K10"), ("K11",), ("K11 bwd",))
+ROUTE_FAMILIES = (("K2",), ("K4",), ("K9", "K10"), ("K11",), ("K11 bwd",))
 # largest |kernel - plain| over each output's largest magnitude (at least
 # 1), the forward (out, lse) and the backward (dq, dk, dv), on an H100
 # 80GB HBM3 (PERF.md): fp32 sums in another order and an online max, read
@@ -746,16 +788,45 @@ def k2_bound_ms(args, cot, grads):
         "operations"
 
 
+def log_resources(source, tag):
+    """Registers and spills of ``source``'s kernels (``RESOURCE_KERNELS``)
+    from its build log."""
+    from video_mamba_suite_torch.ops import _build
+
+    for kernel, regs, stores, loads in kernel_resources(
+            _build.build_log(source)):
+        log(f"[{tag}] {kernel}: {regs} registers, {stores} bytes spill "
+            f"stores, {loads} bytes spill loads")
+
+
+def check_scan_route(kernel, label, dtype, fn, tag):
+    """Profile three calls of ``fn``: raise unless the kernels of
+    ``kernel``'s route at ``dtype`` ran, and log each one's device ms per
+    call."""
+    device = profile("call", fn, tag=tag, calls=3, top=0)
+    check_route(kernel, label, dtype,
+                route_names(fn, device, (kernel, dtype)))
+    split = route_split(kernel, dtype, device)
+    log(f"[{tag}] {label}: device ms per call " + ", ".join(
+        f"{k} {ms:.4f}" for k, ms in split) +
+        f" (total {sum(ms for _, ms in split):.4f})")
+
+
 def check_k2():
-    """Every case of ``K2_CASES``; the main-path case is also timed."""
+    """Every case of ``K2_CASES`` with the kernel the profiler saw run
+    (``ROUTES``) and its device time; the main-path case is also timed."""
     from video_mamba_suite_torch.ops import (
         selective_scan_bidir_bwd,
         selective_scan_bidir_bwd_ref,
     )
 
+    log_resources("short_bidir_bwd", "k2")
     result = {}
     for case in K2_CASES:
         args, cot, got, err = k2_check(*case)
+        check_scan_route("K2", case[0], case[2],
+                         lambda: selective_scan_bidir_bwd(**args, **cot),
+                         "k2")
         if case[0] == "main":
             result["max_abs_err"] = err
             result["ms"] = cuda_time_ms(
@@ -1003,17 +1074,23 @@ def k4_bound_ms(args, states, grads):
 
 
 def check_k4():
-    """Every case of ``K4_CASES``, each with the kernel's time, the plain
-    version's (one call: an eager loop and its autograd) and the bound.
-    Returns the main-path case's (the first) numbers."""
+    """Every case of ``K4_CASES``, each with the kernels the profiler saw
+    run (``ROUTES``: the local pass, the combine and the main pass, each
+    with its device time), the kernel's time, the plain version's (one
+    call: an eager loop and its autograd) and the bound. Returns the
+    main-path case's (the first) numbers."""
     from video_mamba_suite_torch.ops import (
         chunked_scan_bwd,
         chunked_scan_bwd_ref,
     )
 
+    log_resources("chunked_scan_bwd", "k4")
     result = {}
     for case in K4_CASES:
         args, states, got, err = k4_check(*case)
+        check_scan_route("K4", case[0], case[2],
+                         lambda: chunked_scan_bwd(**args, states=states),
+                         "k4")
         ms = cuda_time_ms(lambda: chunked_scan_bwd(**args, states=states),
                           iters=10)
         plain_ms = cuda_time_ms(lambda: chunked_scan_bwd_ref(**args),
@@ -1292,25 +1369,46 @@ def attn_kernel(label):
     return vision_mha_fwd, vision_mha_ref, "vision_mha_fwd"
 
 
-def kernel_names(fn, tries=3):
+def kernel_names(fn, tries=3, want=()):
     """Names of the CUDA kernels that one call of ``fn`` launches, from the
-    profiler. A session that records no kernel at all (on the H100 the
-    profiler now and then returns an empty window) is repeated, up to
-    ``tries`` sessions."""
+    profiler, in a session padded on the host's clock (``padded_profile``:
+    the card's timestamps stray from the host's by milliseconds, which
+    left unpadded windows short or empty). A session is still repeated,
+    up to ``tries`` sessions of the same call, until one records a kernel
+    and the sessions together record every kernel named in ``want``; the
+    names of all of them are returned."""
     import torch
     from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
+
+    from video_mamba_suite_torch.utils.profiler_window import padded_profile
 
     names = set()
     for _ in range(tries):
-        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with padded_profile([ProfilerActivity.CUDA]) as prof:
             fn()
-            torch.cuda.synchronize()
-        names = {e.key for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA}
-        if names:
+        names |= {e.key for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA}
+        if names and all(any(runs(k, n) for n in names) for k in want):
             break
     return names
+
+
+def route_names(fn, device, *routes):
+    """The kernel names of ``fn``'s profile window ``device`` (kernel name
+    → ms), with those of more profiler sessions of ``fn`` where the
+    window missed a kernel that ``ROUTES[route]`` names for one of
+    ``routes``."""
+    want = [k for route in routes for k in ROUTES[route]]
+    names = set(device)
+    if not all(any(runs(k, n) for n in names) for k in want):
+        names |= kernel_names(fn, want=want)
+    return names
+
+
+def runs(kernel_name, profiled):
+    """Whether ``profiled`` (a kernel's name in the profiler) is the
+    kernel ``kernel_name``: a template instance or a plain function."""
+    return re.search(rf"\b{kernel_name}[<(]", profiled) is not None
 
 
 def route_ms(kernel, dtype, device):
@@ -1318,8 +1416,15 @@ def route_ms(kernel, dtype, device):
     ``dtype``, summed from a profile's per-kernel times (nan where the
     profiler's window came back empty)."""
     return sum(ms for key, ms in device.items()
-               if any(k + "<" in key for k in ROUTES[(kernel, dtype)])) or \
+               if any(runs(k, key) for k in ROUTES[(kernel, dtype)])) or \
         float("nan")
+
+
+def route_split(kernel, dtype, device):
+    """Each kernel of ``ROUTES[(kernel, dtype)]`` with its device ms per
+    call from a profile (nan where the window missed it)."""
+    return [(k, sum(ms for key, ms in device.items() if runs(k, key))
+             or float("nan")) for k in ROUTES[(kernel, dtype)]]
 
 
 def check_route(kernel, label, dtype, names):
@@ -1330,15 +1435,42 @@ def check_route(kernel, label, dtype, names):
     known = {k for (entry, _), ks in ROUTES.items() if entry in family
              for k in ks}
     want = sorted(ROUTES[(kernel, dtype)])
-    ran = sorted({k for k in known for name in names if k + "<" in name})
+    ran = sorted({k for k in known for name in names if runs(k, name)})
     if ran != want:
         raise AssertionError(f"{kernel} at {label} ({dtype}) ran {ran}, "
                              f"want {want}")
 
 
-def mma_resources(build_log):
+# kernels whose registers and spills the build phase reports one by one:
+# the tensor-core attention kernels and the lane-split scan backwards
+RESOURCE_KERNELS = ("_mma_kernel", "_lanes", "chunked_scan_bwd_combine")
+
+
+def kernel_label(mangled):
+    """``name<args>`` of a mangled kernel (template arguments: integers,
+    bools, float and bf16), or the mangled name itself."""
+    rest, name = mangled[3:] if mangled.startswith("_ZN") else "", None
+    while rest[:1].isdigit():     # the nested names, each length-prefixed
+        digits = re.match(r"\d+", rest).group(0)
+        end = len(digits) + int(digits)
+        name, rest = rest[len(digits):end], rest[end:]
+    if name is None:
+        return mangled
+    if not rest.startswith("I"):
+        return name
+    args = []
+    for num, flag, bf16, f32 in re.findall(
+            r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16)|(f)",
+            rest[1:rest.find("EEv")]):
+        args.append(num or ("true" if flag == "1" else "false") if
+                    (num or flag) else "bf16" if bf16 else "float")
+    return f"{name}<{', '.join(args)}>"
+
+
+def kernel_resources(build_log):
     """(kernel, registers, spill store bytes, spill load bytes) of each
-    tensor-core kernel in nvcc's ``-Xptxas -v`` output."""
+    kernel named by ``RESOURCE_KERNELS`` in nvcc's ``-Xptxas -v``
+    output."""
     found, name, spills = [], None, (0, 0)
     for line in build_log.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties "
@@ -1350,13 +1482,8 @@ def mma_resources(build_log):
         if m:
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
-        if m and name and "_mma_kernel" in name:
-            k = re.search(r"\d([a-z_]+_mma_kernel)I((?:Li\d+E)+)E", name)
-            label = name
-            if k:
-                args = re.findall(r"Li(\d+)E", k.group(2))
-                label = f"{k.group(1)}<{', '.join(args)}>"
-            found.append((label, int(m.group(1)), *spills))
+        if m and name and any(k in name for k in RESOURCE_KERNELS):
+            found.append((kernel_label(name), int(m.group(1)), *spills))
             spills = (0, 0)
     return found
 
@@ -1440,7 +1567,8 @@ def check_attention(kernel, cases):
         device = profile("call", lambda: fwd(*args), tag=kernel.lower(),
                          calls=20, top=0)
         check_route(kernel, case[0], case[2],
-                    set(device) or kernel_names(lambda: fwd(*args)))
+                    route_names(lambda: fwd(*args), device,
+                                (kernel, case[2])))
         device_ms = route_ms(kernel, case[2], device)
         plain_ms = cuda_time_ms(lambda: ref(*args), iters=5, warmup=1)
         library_ms = cuda_time_ms(library_attention(args), iters=50)
@@ -1627,9 +1755,10 @@ def check_k11():
             flash_mha_fwd(q, k, v, causal),
             flash_mha_bwd(q, k, v, out, lse, dout, causal)),
             tag="k11", calls=3, top=0)
-        names = set(device) or kernel_names(lambda: (
+        names = route_names(lambda: (
             flash_mha_fwd(q, k, v, causal),
-            flash_mha_bwd(q, k, v, out, lse, dout, causal)))
+            flash_mha_bwd(q, k, v, out, lse, dout, causal)), device,
+            ("K11", case[3]), ("K11 bwd", case[3]))
         check_route("K11", label, case[3], names)
         check_route("K11 bwd", label, case[3], names)
         dev_fwd = route_ms("K11", case[3], device)
@@ -1974,14 +2103,16 @@ def run_main_path():
 def profile(what, fn, tag="profile", calls=2, top=15):
     """Device time over ``calls`` calls of ``fn``: the busy share, the
     ``top`` kernels, and the torch ops that launched them (each op's own
-    kernels only, so the op rows do not overlap). Returns each kernel's
-    device ms per call, by name."""
+    kernels only, so the op rows do not overlap), in a session padded on
+    the host's clock (``padded_profile``; the padding is outside the wall
+    time). Returns each kernel's device ms per call, by name."""
     import torch
     from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
+
+    from video_mamba_suite_torch.utils.profiler_window import padded_profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with torch_profile(activities=acts) as prof:
+    with padded_profile(acts) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
@@ -3402,11 +3533,10 @@ def main() -> int:
                                        "stack frame")):
                 log(f"[build] {name}: {line.strip()}")
     for name in built:
-        for kernel, regs, stores, loads in mma_resources(
+        for kernel, regs, stores, loads in kernel_resources(
                 _build.build_log(name)):
-            log(f"[build] {name}: tensor-core kernel {kernel}: {regs} "
-                f"registers, {stores} bytes spill stores, {loads} bytes "
-                f"spill loads")
+            log(f"[build] {name}: kernel {kernel}: {regs} registers, "
+                f"{stores} bytes spill stores, {loads} bytes spill loads")
 
     k1 = check_k1()
     k2 = check_k2()

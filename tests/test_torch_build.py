@@ -51,14 +51,17 @@ def test_key_changes_with_a_new_header_source_and_flags(csrc_copy,
     assert _build._target("short_scan_fwd").parent == _build.BUILD_DIR
 
 
-@pytest.mark.parametrize("entry", ["K9", "K10", "K11", "K11 bwd"])
+@pytest.mark.parametrize("entry", ["K2", "K4", "K9", "K10", "K11",
+                                   "K11 bwd"])
 def test_routes_name_kernels_of_their_sources(entry):
-    """Each kernel ``ROUTES`` names for an attention entry is a
-    ``__global__`` function of the entry's source, so a renamed kernel
-    fails here rather than on the card; bf16 names only tensor-core
-    kernels (``*_mma_kernel``; K11's backward also the di kernel both
-    types share) and fp32 none."""
-    source = {"K9": chip_smoke.K9_SOURCE, "K10": chip_smoke.K10_SOURCE,
+    """Each kernel ``ROUTES`` names for an entry is a ``__global__``
+    function of the entry's source, so a renamed kernel fails here rather
+    than on the card; for attention, bf16 names only tensor-core kernels
+    (``*_mma_kernel``; K11's backward also the di kernel both types share)
+    and fp32 none; K2 and K4 name the same lane-split kernels for both
+    types."""
+    source = {"K2": chip_smoke.K2_SOURCE, "K4": chip_smoke.K4_SOURCE,
+              "K9": chip_smoke.K9_SOURCE, "K10": chip_smoke.K10_SOURCE,
               "K11": chip_smoke.K11_SOURCE,
               "K11 bwd": chip_smoke.K11_SOURCE}[entry]
     text = (REPO / source).read_text()
@@ -72,3 +75,22 @@ def test_routes_name_kernels_of_their_sources(entry):
     assert all(name.endswith("_mma_kernel")
                for name in set(routes["bfloat16"]) - shared)
     assert not any("_mma_" in name for name in routes["float32"])
+
+
+@pytest.mark.parametrize("mangled,label", [
+    ("_ZN52_GLOBAL__N__54c4fcbc_19_chunked_scan_bwd_cu_694fb74127chunked_"
+     "scan_bwd_main_lanesI13__nv_bfloat16Lb0EEEvNS_6ParamsE",
+     "chunked_scan_bwd_main_lanes<bf16, false>"),
+    ("_ZN52_GLOBAL__N__54c4fcbc_19_chunked_scan_bwd_cu_694fb74124chunked_"
+     "scan_bwd_combineENS_6ParamsEl", "chunked_scan_bwd_combine"),
+    ("_ZN12_GLOBAL__N_124flash_mha_fwd_mma_kernelILi128ELi8ELb1EEEvNS_9Fwd"
+     "ParamsE", "flash_mha_fwd_mma_kernel<128, 8, true>"),
+    ("_ZN12_GLOBAL__N_128short_bidir_bwd_lanes_kernelIfLb1EEEvNS_10"
+     "DirectionsEiiii", "short_bidir_bwd_lanes_kernel<float, true>"),
+])
+def test_kernel_label_reads_mangled_names(mangled, label):
+    """The build phase names each kernel of ``RESOURCE_KERNELS`` from
+    ptxas's mangled name: the length-prefixed nested names (nvcc's
+    anonymous namespace carries a hash with digits) and the template
+    arguments."""
+    assert chip_smoke.kernel_label(mangled) == label

@@ -36,8 +36,10 @@ TOL = {"float32": 1e-5, "bfloat16": 5e-3}
 # (L, dh, causal, dtype): L under, over and across the library's pad to
 # 128, both head widths, causal and not, L 63, 64 and 65 at the card
 # kernels' 64-row blocks and 64-key tiles, and bf16 at dh 128, the width
-# whose tensor-core backward holds the most registers (each new (padded L,
-# dh, causal, dtype) costs the JAX side a few seconds of compiling)
+# whose tensor-core backward holds the most registers; then a width above
+# 128 (two of the card kernels' 128-column slices) and one below 128 that
+# is neither 64 nor 128 (zero-filled on the card) (each new (padded L, dh,
+# causal, dtype) costs the JAX side a few seconds of compiling)
 CASES = [
     (1, 64, True, "float32"),
     (77, 64, True, "float32"),
@@ -48,6 +50,8 @@ CASES = [
     (64, 64, False, "float32"),
     (65, 64, True, "float32"),
     (130, 128, False, "bfloat16"),
+    (40, 256, True, "float32"),
+    (40, 96, False, "float32"),
 ]
 IDS = [f"L{c[0]}-dh{c[1]}-{'causal' if c[2] else 'full'}-{c[3]}"
        for c in CASES]

@@ -41,8 +41,10 @@ def _np(x):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(2, 3, 4, 37, 16), (1, 2, 2, 197, 8)])
+@pytest.mark.parametrize("shape", [(2, 3, 4, 37, 16), (1, 2, 2, 197, 8),
+                                   (1, 1, 2, 29, 200)])
 def test_row_mha_qkv_ref_matches_jax_kernel(shape, dtype):
+    """dh 200: above the card kernel's 128, in two column slices there."""
     B, T, H, N, dh = shape
     x = _rand((B, T, 3 * H, N, dh), sum(shape))
     want = jva.row_mha_qkv(jnp.asarray(x, JDT[dtype]), interpret=True)
@@ -54,11 +56,13 @@ def test_row_mha_qkv_ref_matches_jax_kernel(shape, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(4, 3, 37, 16), (2, 2, 197, 8),
                                    (2, 2, 16, 8), (2, 1, 17, 16),
-                                   (1, 2, 256, 8), (1, 1, 257, 16)])
+                                   (1, 2, 256, 8), (1, 1, 257, 16),
+                                   (1, 2, 29, 200)])
 def test_vision_mha_ref_matches_jax_kernel(shape, dtype):
     """K9 scales q in its own dtype: at dh 8 the bf16 scale (0.3535) is
     rounded, which the plain version keeps. N 16, 17, 256 and 257 are the
-    edges of the card kernel's 16-row warps and 64-key tiles."""
+    edges of the card kernel's 16-row warps and 64-key tiles; dh 200 is
+    above its 128, in two column slices there."""
     q, k, v = (_rand(shape, sum(shape) + i) for i in range(3))
     want = jva.vision_mha(*(jnp.asarray(t, JDT[dtype]) for t in (q, k, v)),
                           interpret=True)

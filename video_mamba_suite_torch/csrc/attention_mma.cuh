@@ -200,21 +200,17 @@ __device__ __forceinline__ void tile_scores(float (&s)[8][4],
   }
 }
 
-// s = the scores of the warp's 16 rows at `sa` (shared, DHP columns at row
-// stride row_stride(DHP)) against the 64 rows of the tile at `sb`, as
+// s += the scores of the warp's 16 rows at `sa` (shared, DHP columns at
+// row stride row_stride(DHP)) against the 64 rows of the tile at `sb`, as
 // `tile_scores` with the A fragments read from shared memory one 16-column
-// step at a time, so no operand row is held in registers.
-template <int DHP>
-__device__ __forceinline__ void tile_scores_shared(float (&s)[8][4],
-                                                   const uint16_t* sa,
-                                                   const uint16_t* sb,
-                                                   int groups, int lane) {
+// step at a time, so no operand row is held in registers. Head widths
+// above 128 are summed this way over 128-column slices. kScaleA: each A
+// value multiplied by a_scale and rounded to bf16 first (K9's scaled q).
+template <int DHP, bool kScaleA = false>
+__device__ __forceinline__ void tile_scores_shared_add(
+    float (&s)[8][4], const uint16_t* sa, const uint16_t* sb, int groups,
+    int lane, float a_scale = 1.f) {
   constexpr int ld = row_stride(DHP);
-#pragma unroll
-  for (int nb = 0; nb < 8; ++nb) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
-  }
   const uint16_t* pa = sa + (lane % 16) * ld + (lane / 16) * 8;
   const uint16_t* pb =
       sb + ((lane / 16) * 8 + lane % 8) * ld + ((lane / 8) % 2) * 8;
@@ -222,6 +218,13 @@ __device__ __forceinline__ void tile_scores_shared(float (&s)[8][4],
   for (int kk = 0; kk < DHP / 16; ++kk) {
     uint32_t a[4];
     ldmatrix_x4(a, pa + kk * 16);
+    if constexpr (kScaleA) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = unpack_bf16(a[e]);
+        a[e] = pack_bf16(x.x * a_scale, x.y * a_scale);
+      }
+    }
 #pragma unroll
     for (int gq = 0; gq < kKeyGroups; ++gq) {
       if (gq < groups) {
@@ -232,6 +235,24 @@ __device__ __forceinline__ void tile_scores_shared(float (&s)[8][4],
       }
     }
   }
+}
+
+__device__ __forceinline__ void zero_tile(float (&s)[8][4]) {
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+  }
+}
+
+// s = the scores of `tile_scores_shared_add` alone.
+template <int DHP>
+__device__ __forceinline__ void tile_scores_shared(float (&s)[8][4],
+                                                   const uint16_t* sa,
+                                                   const uint16_t* sb,
+                                                   int groups, int lane) {
+  zero_tile(s);
+  tile_scores_shared_add<DHP>(s, sa, sb, groups, lane);
 }
 
 // -inf at keys >= n and, when `causal`, at keys past the row. j0: the

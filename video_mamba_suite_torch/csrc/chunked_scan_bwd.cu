@@ -31,46 +31,54 @@
 // 38.7 MB of checkpoints and 3.2 MB of B and C and writes 3.2 MB of dB and
 // dC: about 316 MB, 94 us. The arithmetic (a forward recompute and the
 // adjoint step, about 18 operations per state update) is about 2.8 GFLOP,
-// 42 us. So the bytes bound it; the partials below add about 50 MB.
+// 42 us; its exponentials go to the special function units (16 results a
+// clock an SM), 155 M of them a pass, about 42 us a pass. So the bytes
+// bound it; the partials below add about 50 MB.
 //
-// Design. As in the forward, there are only 8 x 384 recurrences, each 3152
-// steps long, so the walk is split in time, here at the checkpoints: one
-// thread per (row, chunk, channel), the 16 states in registers, a warp on
-// 32 channels of one group and one chunk. Three kernels, in order on the
+// Design. There are only 8 x 384 recurrences, each 3152 steps long, so the
+// walk is split in time at the checkpoints. Three kernels, in order on the
 // stream:
-//   local:   each thread walks its chunk backwards from a zero adjoint and
-//            leaves the adjoint that leaves the chunk at its first step
-//            (E) and the chunk's sum of dt;
+//   local:   each chunk walked backwards from a zero adjoint; leaves the
+//            adjoint that leaves the chunk at its first step (E) and the
+//            chunk's sum of dt;
 //   combine: one thread per (row, channel, state) chains the chunks from
 //            the walk's end, M <- exp(A * sum dt) * M + E, starting from
 //            g_last (the decay of a chunk is exactly exp(A * sum dt)), and
 //            leaves each chunk's exact incoming adjoint; after the first
 //            chunk M is dh0. The chain is serial, so it loads kCombineBatch
 //            chunks' values at once (one memory latency per batch);
-//   main:    each thread walks its chunk backwards again from that adjoint,
-//            in pieces of kPiece steps, last piece first. A piece's states
-//            are recomputed forward from the chunk's checkpoint into
-//            registers (h_{t-1} is never rebuilt as (h_t - dt u B) / a_t,
-//            which fails where a_t underflows to 0), then the adjoint step
-//            above runs over them and writes du, ddt, dz.
+//   main:    each chunk walked backwards again from that adjoint and its
+//            checkpoint (scan_lanes.cuh's `adjoint_walk`: the chunk walked
+//            forward once with its pieces' starts in shared memory, then
+//            each 4-step piece again with its states and decays in
+//            registers for the adjoint step), writing du, ddt, dz and the
+//            partials.
+// The local and main passes run scan_lanes.cuh's units: one block of 128
+// threads takes 32 channels of one group and row, 4 lanes a channel (4
+// states a lane), and walks kChunksPerBlock chunks one after the other,
+// each chunk's u, dt, z, g, B and C staged in shared memory by cp.async
+// while the block walks the chunk before it. Exponentials per state
+// update: 1 in the local pass, 1.75 in the main one (its forward walks).
+// The note in scan_lanes.cuh has the rest.
 // Reductions without atomics, so the result does not depend on the order
-// in which blocks run: dB and dC are summed over the warp's 32 channels
-// with a transposing butterfly (16 shuffles for 16 values) and written as
-// one fp32 partial per 32-channel tile; dA, dD and dbias are summed over
-// the block's kWarps chunks in shared memory and written as one fp32
-// partial per (row, block of chunks). The wrapper adds the partials with
-// torch.sum. Lanes past the group's width load zeros and store nothing.
+// in which blocks run: dB and dC are summed over the unit's 32 channels
+// and written as one fp32 partial per 32-channel tile; dA, dD and dbias are
+// summed in each lane's registers over the block's chunks and written as
+// one fp32 partial per (row, block of chunks). The wrapper adds the
+// partials with torch.sum. Channels past the group's width load zeros and
+// store nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "scan_lanes.cuh"
+
 namespace {
 
-constexpr int kMaxDstate = 16;
-constexpr int kWarps = 4;  // chunks per block of the walking kernels
-constexpr int kThreads = 32 * kWarps;
-constexpr int kPiece = 4;  // steps whose states are held in registers
+using namespace scan_lanes;
+
+constexpr int kChunksPerBlock = 8;  // chunks a block of the walking kernels
 constexpr int kMaxChunk = 64;
 constexpr int kCombineThreads = 256;
 constexpr int kCombineBatch = 16;  // chunks the combine loads at once
@@ -101,143 +109,127 @@ struct Params {
   int64_t batch;
   int seqlen, dim, dstate, ngroups;
   int chunk;     // walk steps per chunk (between checkpoints)
+  int S;         // chunk rounded up to kPiece: the rows of a unit's tiles
   int nchunks;   // ceil(seqlen / chunk)
   int width;     // channels per group
   int tiles;     // 32-channel tiles per group
-  int ncgroups;  // blocks of kWarps chunks per row
+  int ncgroups;  // blocks of kChunksPerBlock chunks per row
   int reverse, softplus;
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-// softplus as torch computes it (threshold 20), and its derivative.
-__device__ __forceinline__ float softplus(float x) {
-  return x > 20.f ? x : log1pf(expf(x));
-}
-__device__ __forceinline__ float softplus_grad(float x) {
-  return x > 20.f ? 1.f : sigmoid(x);
-}
-
-// One stage of the transposing butterfly: lanes that differ in bit kOff
-// swap halves of their first 2*kOff values and add.
-template <int kOff>
-__device__ __forceinline__ void butterfly_stage(float (&v)[kMaxDstate],
-                                                int lane) {
-  const bool upper = lane & kOff;
-#pragma unroll
-  for (int i = 0; i < kOff; ++i) {
-    const float send = upper ? v[i] : v[i + kOff];
-    const float keep = upper ? v[i + kOff] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, kOff);
-  }
-}
-
-// The sum over the warp's 32 lanes of v[lane % 16] (v is clobbered).
-__device__ __forceinline__ float warp_transpose_sum(float (&v)[kMaxDstate],
-                                                    int lane) {
-  butterfly_stage<8>(v, lane);
-  butterfly_stage<4>(v, lane);
-  butterfly_stage<2>(v, lane);
-  butterfly_stage<1>(v, lane);
-  return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 16);
-}
-
-// Where a thread of the walking kernels works: block (row, block of chunks,
-// group, tile), warp w -> chunk cg * kWarps + w, lane -> a channel.
-struct Place {
-  int64_t row;
-  int cg, c, group, tile, cw, ch;
-  bool chunk_ok;  // the warp's chunk exists (the same for the whole warp)
-  bool active;    // ... and the lane's channel too
-  int i_lo, i_hi;
+// Where a block of the walking kernels works: block (row, block of chunks,
+// group, tile); lane -> (channel, quarter of its states).
+struct Block {
+  UnitPlace q;
+  int cg, tile, c_first, c_last;
+  int ch;        // the lane's channel (clamped into the group)
+  bool active;   // the lane's channel lies inside the group
 };
 
-__device__ __forceinline__ Place place(const Params& p) {
-  Place q;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+__device__ __forceinline__ Block place(const Params& p, Lane& L) {
+  Block b;
   const int nwt = p.ngroups * p.tiles;
   const int wt = blockIdx.x % nwt;
   const int64_t rc = blockIdx.x / nwt;
-  q.cg = static_cast<int>(rc % p.ncgroups);
-  q.row = rc / p.ncgroups;
-  q.c = q.cg * kWarps + warp;
-  q.group = wt / p.tiles;
-  q.tile = wt % p.tiles;
-  q.cw = q.tile * 32 + lane;
-  q.chunk_ok = q.c < p.nchunks;
-  q.active = q.chunk_ok && q.cw < p.width;
-  q.ch = q.group * p.width + min(q.cw, p.width - 1);
-  q.i_lo = q.c * p.chunk;
-  q.i_hi = min(q.i_lo + p.chunk, p.seqlen);
-  return q;
+  b.cg = static_cast<int>(rc % p.ncgroups);
+  b.tile = wt % p.tiles;
+  b.q.row = rc / p.ncgroups;
+  b.q.group = wt / p.tiles;
+  b.q.ch0 = b.q.group * p.width + b.tile * kChannels;
+  b.q.valid = min(kChannels, p.width - b.tile * kChannels);
+  b.q.seqlen = p.seqlen;
+  b.q.dim = p.dim;
+  b.q.dstate = p.dstate;
+  b.q.ngroups = p.ngroups;
+  b.q.reverse = p.reverse;
+  b.c_first = b.cg * kChunksPerBlock;
+  b.c_last = min(p.nchunks, b.c_first + kChunksPerBlock);
+  L.lane = threadIdx.x & 31;
+  L.warp = threadIdx.x >> 5;
+  L.cw = L.warp * (32 / kLanes) + L.lane / kLanes;
+  L.quarter = L.lane % kLanes;
+  b.active = L.cw < b.q.valid;
+  b.ch = b.q.ch0 + min(L.cw, b.q.valid - 1);
+#pragma unroll
+  for (int k = 0; k < kStates; ++k) {
+    const int n = L.quarter * kStates + k;
+    L.A2[k] = b.active && n < p.dstate ? p.A[b.ch * p.dstate + n] * kLog2e
+                                       : 0.f;
+    L.dA[k] = 0.f;
+  }
+  L.D = b.active && p.D ? p.D[b.ch] : 0.f;
+  L.dD = 0.f;
+  L.dbias = 0.f;
+  return b;
+}
+
+__device__ __forceinline__ void set_chunk(UnitPlace& q, const Params& p,
+                                          int c) {
+  q.i0 = c * p.chunk;
+  q.nsteps = min(p.chunk, p.seqlen - q.i0);
 }
 
 // Pass "local": each chunk's outgoing adjoint from a zero incoming one,
 // and its sum of dt.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    chunked_scan_bwd_local(Params p) {
-  const Place q = place(p);
-  if (!q.active) return;  // no shuffles or barriers in this kernel
-  float A[kMaxDstate];
-  float dh[kMaxDstate];
-#pragma unroll
-  for (int k = 0; k < kMaxDstate; ++k) {
-    A[k] = k < p.dstate ? p.A[q.ch * p.dstate + k] : 0.f;
-    dh[k] = 0.f;
-  }
-  const float bias = p.bias ? p.bias[q.ch] : 0.f;
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads, 4)
+    chunked_scan_bwd_local_lanes(Params p) {
+  extern __shared__ float4 smem4[];
+  const Tiles<T> w(smem4, p.S);
+  Lane L;
+  Block b = place(p, L);
+  if (b.c_first >= b.c_last) return;  // the whole block
   const T* dtp = static_cast<const T*>(p.dt);
+  const T* zp = static_cast<const T*>(p.z);
   const T* gp = static_cast<const T*>(p.g);
-  const T* z = static_cast<const T*>(p.z);
-  const int64_t bc_step = static_cast<int64_t>(p.ngroups) * p.dstate;
-  const T* Cp = static_cast<const T*>(p.C) + q.row * p.seqlen * bc_step +
-                q.group * p.dstate;
-  float dtsum = 0.f;
-  for (int i = q.i_hi - 1; i >= q.i_lo; --i) {
-    const int t = p.reverse ? p.seqlen - 1 - i : i;
-    const int64_t off = (q.row * p.seqlen + t) * p.dim + q.ch;
-    float gy = to_float(gp[off]);
-    if (z) {
-      const float zv = to_float(z[off]);
-      gy *= zv * sigmoid(zv);
+  const T* Cp = static_cast<const T*>(p.C);
+  const float* bias = p.bias ? p.bias + b.q.ch0 : nullptr;
+  const int q4 = L.quarter * kStates;
+
+  UnitPlace next = b.q;
+  set_chunk(next, p, b.c_first);
+  stage<T, kVec, true>(w.raw, p.S, next, nullptr, dtp, zp, gp, nullptr, Cp);
+  cp_async_commit();
+  for (int c = b.c_first; c < b.c_last; ++c) {
+    set_chunk(b.q, p, c);
+    cp_async_wait_all();
+    __syncthreads();  // this chunk's tiles are in; the last walk is done
+    prep<T, true>(w, w.raw, b.q, bias, zp != nullptr, p.softplus);
+    __syncthreads();  // the raw tiles are read: the next chunk's copy
+    if (c + 1 < b.c_last) {
+      set_chunk(next, p, c + 1);
+      stage<T, kVec, true>(w.raw, p.S, next, nullptr, dtp, zp, gp, nullptr,
+                           Cp);
+      cp_async_commit();
     }
-    float dt = to_float(dtp[off]) + bias;
-    if (p.softplus) dt = softplus(dt);
-    const T* Ct = Cp + t * bc_step;
+
+    // every row of the tile, last first (rows past the chunk are
+    // identities), kPiece at a time with no branch
+    float dh[kStates] = {0.f, 0.f, 0.f, 0.f};
+    float dtsum = 0.f;
+    for (int i0 = p.S - kPiece; i0 >= 0; i0 -= kPiece) {
 #pragma unroll
-    for (int k = 0; k < kMaxDstate; ++k) {
-      if (k < p.dstate) {
-        dh[k] = (dh[k] + to_float(Ct[k]) * gy) * expf(dt * A[k]);
+      for (int j = kPiece - 1; j >= 0; --j) {
+        const int i = i0 + j;
+        const float gy = w.gy[i * kChannels + L.cw];
+        const float dt = w.dt[i * kChannels + L.cw];
+        const float4 cv = ld4(w.C + i * kMaxDstate + q4);
+#pragma unroll
+        for (int k = 0; k < kStates; ++k) {
+          dh[k] = (dh[k] + at(cv, k) * gy) * exp2_sfu(dt * L.A2[k]);
+        }
+        dtsum += dt;
       }
     }
-    dtsum += dt;
-  }
-  const int64_t cidx = (q.row * p.nchunks + q.c) * p.dim + q.ch;
+    if (b.active) {
+      const int64_t cidx = (b.q.row * p.nchunks + c) * p.dim + b.ch;
 #pragma unroll
-  for (int k = 0; k < kMaxDstate; ++k) {
-    if (k < p.dstate) p.carry[cidx * p.dstate + k] = dh[k];
+      for (int k = 0; k < kStates; ++k) {
+        if (q4 + k < p.dstate) p.carry[cidx * p.dstate + q4 + k] = dh[k];
+      }
+      if (L.quarter == 0) p.dtsum[cidx] = dtsum;
+    }
   }
-  p.dtsum[cidx] = dtsum;
 }
 
 // Pass "combine": each chunk's exact incoming adjoint, and dh0.
@@ -274,201 +266,97 @@ __global__ void __launch_bounds__(kCombineThreads)
   p.dh0[idx] = mu;
 }
 
-// One step of the forward recompute at walk step i (zeros where the lane
-// is not active).
-template <typename T>
-__device__ __forceinline__ void fwd_step(const Params& p, const Place& q,
-                                         const float (&A)[kMaxDstate],
-                                         float bias, int i,
-                                         float (&h)[kMaxDstate]) {
-  const int t = p.reverse ? p.seqlen - 1 - i : i;
-  const int64_t off = (q.row * p.seqlen + t) * p.dim + q.ch;
-  const float uv = q.active ? to_float(static_cast<const T*>(p.u)[off]) : 0.f;
-  float dt =
-      (q.active ? to_float(static_cast<const T*>(p.dt)[off]) : 0.f) + bias;
-  if (p.softplus) dt = softplus(dt);
-  const float dtu = dt * uv;
-  const int64_t bc_step = static_cast<int64_t>(p.ngroups) * p.dstate;
-  const T* Bt = static_cast<const T*>(p.B) +
-                (q.row * p.seqlen + t) * bc_step + q.group * p.dstate;
-#pragma unroll
-  for (int k = 0; k < kMaxDstate; ++k) {
-    if (k < p.dstate) h[k] = expf(dt * A[k]) * h[k] + dtu * to_float(Bt[k]);
-  }
-}
-
-// Pass "main": the adjoint walk with the exact incoming adjoint.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    chunked_scan_bwd_main(Params p) {
-  __shared__ float s_dA[kWarps][kMaxDstate][32];
-  __shared__ float s_dD[kWarps][32];
-  __shared__ float s_dbias[kWarps][32];
-
-  const Place q = place(p);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const bool act = q.active;
-
-  float A[kMaxDstate];
-  float dA[kMaxDstate];
-  float dh[kMaxDstate];
-  const int64_t cidx = (q.row * p.nchunks + q.c) * p.dim + q.ch;
-#pragma unroll
-  for (int k = 0; k < kMaxDstate; ++k) {
-    A[k] = act && k < p.dstate ? p.A[q.ch * p.dstate + k] : 0.f;
-    dh[k] = act && k < p.dstate ? p.carry[cidx * p.dstate + k] : 0.f;
-    dA[k] = 0.f;
-  }
-  const float bias = act && p.bias ? p.bias[q.ch] : 0.f;
-  const float D = act && p.D ? p.D[q.ch] : 0.f;
-  float dD = 0.f;
-  float dbias = 0.f;
-
-  const T* u = static_cast<const T*>(p.u);
+// Pass "main": the adjoint walk with the exact incoming adjoint. Five
+// blocks an SM (96 registers a thread; its shared memory allows five at
+// fp32) ran faster on an H100 than four at 128 registers, for a spill of
+// 4 bytes; six (80 registers) spilled more and ran slower.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads, 5)
+    chunked_scan_bwd_main_lanes(Params p) {
+  extern __shared__ float4 smem4[];
+  const Tiles<T> w(smem4, p.S);
+  Lane L;
+  Block b = place(p, L);
+  if (b.c_first >= b.c_last) return;  // the whole block
+  const T* up = static_cast<const T*>(p.u);
   const T* dtp = static_cast<const T*>(p.dt);
-  const T* z = static_cast<const T*>(p.z);
+  const T* zp = static_cast<const T*>(p.z);
   const T* gp = static_cast<const T*>(p.g);
-  T* du = static_cast<T*>(p.du);
-  T* ddtp = static_cast<T*>(p.ddt);
-  T* dz = static_cast<T*>(p.dz);
-  const int64_t bc_step = static_cast<int64_t>(p.ngroups) * p.dstate;
-  const T* Bp = static_cast<const T*>(p.B) + q.row * p.seqlen * bc_step +
-                q.group * p.dstate;
-  const T* Cp = static_cast<const T*>(p.C) + q.row * p.seqlen * bc_step +
-                q.group * p.dstate;
-  const float* ck = p.states + cidx * p.dstate;
+  const T* Bp = static_cast<const T*>(p.B);
+  const T* Cp = static_cast<const T*>(p.C);
+  const float* bias = p.bias ? p.bias + b.q.ch0 : nullptr;
+  const int q4 = L.quarter * kStates;
   // this tile's dB and dC partials of the row start at part_row * ngroups
-  const int64_t part_row = (q.tile * p.batch + q.row) * p.seqlen;
-  const int kk = lane & 15;
+  const int64_t part_row = (b.tile * p.batch + b.q.row) * p.seqlen;
 
-  if (q.chunk_ok) {  // the same for the whole warp
-    const int npieces = (q.i_hi - q.i_lo + kPiece - 1) / kPiece;
-    for (int pc = npieces - 1; pc >= 0; --pc) {
-      // recompute the piece's states from the chunk's checkpoint
-      float h[kMaxDstate];
+  UnitPlace next = b.q;
+  set_chunk(next, p, b.c_first);
+  stage<T, kVec, false>(w.raw, p.S, next, up, dtp, zp, gp, Bp, Cp);
+  cp_async_commit();
+  for (int c = b.c_first; c < b.c_last; ++c) {
+    set_chunk(b.q, p, c);
+    // the chunk's checkpoint and incoming adjoint, loaded while the tiles
+    // are prepared
+    const int64_t cidx = (b.q.row * p.nchunks + c) * p.dim + b.ch;
+    float h[kStates], dh[kStates];
 #pragma unroll
-      for (int k = 0; k < kMaxDstate; ++k) {
-        h[k] = act && k < p.dstate ? ck[k] : 0.f;
-      }
-      for (int r = 0; r < pc; ++r) {
-#pragma unroll
-        for (int j = 0; j < kPiece; ++j) {
-          fwd_step<T>(p, q, A, bias, q.i_lo + r * kPiece + j, h);
-        }
-      }
-      float hp[kMaxDstate];  // the state before the piece
-      float hs[kPiece][kMaxDstate];
-#pragma unroll
-      for (int k = 0; k < kMaxDstate; ++k) hp[k] = h[k];
-#pragma unroll
-      for (int j = 0; j < kPiece; ++j) {
-        const int i = q.i_lo + pc * kPiece + j;
-        if (i < q.i_hi) fwd_step<T>(p, q, A, bias, i, h);
-#pragma unroll
-        for (int k = 0; k < kMaxDstate; ++k) hs[j][k] = h[k];
-      }
+    for (int k = 0; k < kStates; ++k) {
+      const bool on = b.active && q4 + k < p.dstate;
+      h[k] = on ? p.states[cidx * p.dstate + q4 + k] : 0.f;
+      dh[k] = on ? p.carry[cidx * p.dstate + q4 + k] : 0.f;
+    }
+    cp_async_wait_all();
+    __syncthreads();  // this chunk's tiles are in; the last unit is out
+    prep<T, false>(w, w.raw, b.q, bias, zp != nullptr, p.softplus);
+    __syncthreads();  // the raw tiles are read: the next chunk's copy
+    if (c + 1 < b.c_last) {
+      set_chunk(next, p, c + 1);
+      stage<T, kVec, false>(w.raw, p.S, next, up, dtp, zp, gp, Bp, Cp);
+      cp_async_commit();
+    }
 
-      // the adjoint walk over the piece, last step first
-#pragma unroll
-      for (int j = kPiece - 1; j >= 0; --j) {
-        const int i = q.i_lo + pc * kPiece + j;
-        if (i >= q.i_hi) continue;  // the same for the whole warp
-        const int t = p.reverse ? p.seqlen - 1 - i : i;
-        const int64_t off = (q.row * p.seqlen + t) * p.dim + q.ch;
-        const float uv = act ? to_float(u[off]) : 0.f;
-        const float x = (act ? to_float(dtp[off]) : 0.f) + bias;
-        const float dt = p.softplus ? softplus(x) : x;
-        const float g = act ? to_float(gp[off]) : 0.f;
-        const T* Bt = Bp + t * bc_step;
-        const T* Ct = Cp + t * bc_step;
-        float Cv[kMaxDstate];
-#pragma unroll
-        for (int k = 0; k < kMaxDstate; ++k) {
-          Cv[k] = k < p.dstate ? to_float(Ct[k]) : 0.f;
-        }
-        float gy = g;
-        if (z) {
-          float y = D * uv;
-#pragma unroll
-          for (int k = 0; k < kMaxDstate; ++k) y += Cv[k] * hs[j][k];
-          const float zv = act ? to_float(z[off]) : 0.f;
-          const float s = sigmoid(zv);
-          const float silu = zv * s;
-          if (act) dz[off] = from_float<T>(g * y * (s + silu * (1.f - s)));
-          gy = g * silu;
-        }
-        const float dtu = dt * uv;
-        float v[kMaxDstate];  // dB of the 16 states, then dC
-        float ddt = 0.f;
-        float dhB = 0.f;
-#pragma unroll
-        for (int k = 0; k < kMaxDstate; ++k) {
-          const float Bv = k < p.dstate ? to_float(Bt[k]) : 0.f;
-          const float a = expf(dt * A[k]);
-          const float h_prev = j > 0 ? hs[j - 1][k] : hp[k];
-          dh[k] += Cv[k] * gy;
-          v[k] = dh[k] * dtu;
-          const float el = dh[k] * h_prev * a;
-          dA[k] += el * dt;
-          ddt += el * A[k];
-          dhB += dh[k] * Bv;
-          dh[k] *= a;
-        }
-        ddt += dhB * uv;
-        if (p.softplus) ddt *= softplus_grad(x);
-        dD += gy * uv;
-        dbias += ddt;
-        if (act) {
-          du[off] = from_float<T>(dhB * dt + gy * D);
-          ddtp[off] = from_float<T>(ddt);
-        }
-        const float sum_b = warp_transpose_sum(v, lane);
-#pragma unroll
-        for (int k = 0; k < kMaxDstate; ++k) v[k] = gy * hs[j][k];
-        const float sum_c = warp_transpose_sum(v, lane);
-        if (kk < p.dstate) {
-          const int64_t o =
-              ((part_row + t) * p.ngroups + q.group) * p.dstate + kk;
-          if (lane < 16) {
-            p.dB[o] = sum_b;
-          } else {
-            p.dC[o] = sum_c;
-          }
-        }
-      }
+    adjoint_walk<T>(w, b.q.nsteps, L, h, dh);
+    __syncthreads();
+
+    store_outputs<T, kVec>(w, b.q, static_cast<T*>(p.du),
+                           static_cast<T*>(p.ddt), static_cast<T*>(p.dz));
+    for (int e = threadIdx.x; e < b.q.nsteps * 32; e += kThreads) {
+      const int n = e % kMaxDstate;
+      if (n >= p.dstate) continue;
+      const int64_t o =
+          ((part_row + b.q.time(e / 32)) * p.ngroups + b.q.group) *
+              p.dstate + n;
+      ((e % 32) < kMaxDstate ? p.dB : p.dC)[o] = warp_total(w.red, p.S, e);
     }
   }
 
-  // dA, dD and dbias over the block's chunks (the same channels)
+  if (b.active) {
+    const int64_t prow = (b.q.row * p.ncgroups + b.cg) * p.dim + b.ch;
 #pragma unroll
-  for (int k = 0; k < kMaxDstate; ++k) s_dA[warp][k][lane] = dA[k];
-  s_dD[warp][lane] = dD;
-  s_dbias[warp][lane] = dbias;
-  __syncthreads();
-  if (warp == 0 && q.cw < p.width) {
-    const int64_t prow =
-        (q.row * p.ncgroups + q.cg) * p.dim + q.ch;  // q.ch exact here
-    for (int k = 0; k < p.dstate; ++k) {
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) s += s_dA[w][k][lane];
-      p.dA[prow * p.dstate + k] = s;
+    for (int k = 0; k < kStates; ++k) {
+      if (q4 + k < p.dstate) p.dA[prow * p.dstate + q4 + k] = L.dA[k];
     }
-    float sd = 0.f;
-    float sb = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      sd += s_dD[w][lane];
-      sb += s_dbias[w][lane];
+    if (L.quarter == 0) {
+      if (p.dD) p.dD[prow] = L.dD;
+      if (p.dbias) p.dbias[prow] = L.dbias;
     }
-    if (p.dD) p.dD[prow] = sd;
-    if (p.dbias) p.dbias[prow] = sb;
   }
 }
 
-template <typename T>
-int launch(const Params& p, long long batch, cudaStream_t s) {
+// 16-byte copies need every channel tensor's rows and tiles and every B/C
+// step on 16-byte boundaries.
+bool vec_ok(const Params& p, int esize) {
+  const void* ptrs[] = {p.u, p.dt, p.z, p.B, p.C, p.g, p.du, p.ddt, p.dz};
+  for (const void* q : ptrs) {
+    if (reinterpret_cast<uintptr_t>(q) % 16) return false;
+  }
+  return (static_cast<int64_t>(p.dim) * esize) % 16 == 0 &&
+         (static_cast<int64_t>(p.width) * esize) % 16 == 0 &&
+         (p.dstate * esize) % 16 == 0;
+}
+
+template <typename T, bool kVec>
+int launch_walks(const Params& p, long long batch, cudaStream_t s) {
   const long long walk_blocks =
       batch * p.ncgroups * static_cast<long long>(p.ngroups) * p.tiles;
   const int64_t total = static_cast<int64_t>(batch) * p.dim * p.dstate;
@@ -477,16 +365,31 @@ int launch(const Params& p, long long batch, cudaStream_t s) {
   if (walk_blocks > 0x7fffffffLL || combine_blocks > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int smem = static_cast<int>(Layout<T>::bytes(p.S));
+  cudaError_t err = cudaFuncSetAttribute(
+      chunked_scan_bwd_local_lanes<T, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(chunked_scan_bwd_main_lanes<T, kVec>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(walk_blocks));
-  chunked_scan_bwd_local<T><<<grid, kThreads, 0, s>>>(p);
-  cudaError_t err = cudaGetLastError();
+  chunked_scan_bwd_local_lanes<T, kVec><<<grid, kThreads, smem, s>>>(p);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   chunked_scan_bwd_combine<<<static_cast<unsigned>(combine_blocks),
                              kCombineThreads, 0, s>>>(p, total);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  chunked_scan_bwd_main<T><<<grid, kThreads, 0, s>>>(p);
+  chunked_scan_bwd_main_lanes<T, kVec><<<grid, kThreads, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const Params& p, long long batch, cudaStream_t s) {
+  return vec_ok(p, sizeof(T)) ? launch_walks<T, true>(p, batch, s)
+                              : launch_walks<T, false>(p, batch, s);
 }
 
 }  // namespace
@@ -498,8 +401,8 @@ extern "C" {
 // states, glast, dh0, every partial and the scratch are float32). `chunk`
 // is the forward's checkpoint interval (a multiple of 4, at most 64) and
 // `states` its checkpoints, (batch, ceil(seqlen / chunk), dim, dstate).
-// Partials: dA (batch * ceil(nchunks / 4), dim, dstate), dD and dbias
-// (batch * ceil(nchunks / 4), dim), dB and dC (ceil(dim / ngroups / 32),
+// Partials: dA (batch * ceil(nchunks / 8), dim, dstate), dD and dbias
+// (batch * ceil(nchunks / 8), dim), dB and dC (ceil(dim / ngroups / 32),
 // batch, seqlen, ngroups, dstate). Scratch: carry (batch, nchunks, dim,
 // dstate), dtsum (batch, nchunks, dim). z, D, bias and glast may be null;
 // dz is read only with z, dD only with D, dbias only with bias. Returns
@@ -515,7 +418,7 @@ int chunked_scan_bwd(int dtype, long long batch, int seqlen, int dim,
                      void* stream) {
   if (batch < 1 || seqlen < 1 || dim < 1 || dstate < 1 ||
       dstate > kMaxDstate || ngroups < 1 || dim % ngroups != 0 ||
-      chunk < kPiece || chunk > kMaxChunk || chunk % kPiece != 0 ||
+      chunk < 4 || chunk > kMaxChunk || chunk % 4 != 0 ||
       (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -548,10 +451,11 @@ int chunked_scan_bwd(int dtype, long long batch, int seqlen, int dim,
   p.dstate = dstate;
   p.ngroups = ngroups;
   p.chunk = chunk;
+  p.S = (chunk + kPiece - 1) / kPiece * kPiece;
   p.nchunks = (seqlen + chunk - 1) / chunk;
   p.width = dim / ngroups;
-  p.tiles = (p.width + 31) / 32;
-  p.ncgroups = (p.nchunks + kWarps - 1) / kWarps;
+  p.tiles = (p.width + kChannels - 1) / kChannels;
+  p.ncgroups = (p.nchunks + kChunksPerBlock - 1) / kChunksPerBlock;
   p.reverse = reverse;
   p.softplus = softplus;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

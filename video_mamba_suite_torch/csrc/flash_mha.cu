@@ -26,6 +26,18 @@
 // weights and of ds before their products), and the forward keeps m and l
 // online over key tiles.
 //
+// Head widths: those jax's flash_attention computes, any dh <= 128 (the
+// wrapper gives the kernels a multiple of 8, padding a copy where needed)
+// and multiples of 128 above that. Up to 128 the tiles are 64 or 128
+// columns wide, zero-filled in shared memory past dh: zero columns change
+// neither the scores nor the kept columns of o, dq, dk and dv. Above 128
+// (`slices` > 1) every kernel works in 128-column slices: a block owns one
+// slice of its outputs (grid x: tile x slices + slice), the score products
+// (s, and in the backward dp) are summed over all slices as their operands
+// stream through shared memory a slice at a time, and the products that
+// make the outputs run on the block's own slice, the one the backward
+// walks last. So registers and shared memory stay those of dh 128.
+//
 // Layout: q, k and v are (B, L, H, dh), each given by three strides in
 // elements (batch, row, head) with the dh elements of a row contiguous, so
 // the projection's (B, L, 3D) output is read in place; out and do are
@@ -160,6 +172,8 @@ struct Inputs {
   const void* v;
   long long sqb, sql, sqh, skb, skl, skh, svb, svl, svh;
   int seqlen, heads, causal;
+  int dh;       // the head width (the row length of out, do, dq, dk, dv)
+  int slices;   // 128-column slices of a head wider than 128, else 1
   float scale;
 };
 
@@ -194,17 +208,18 @@ __device__ __forceinline__ void store4(float* p, float4 v) {
 }
 
 // Rows r0 .. r0 + 63 (row stride in elements) into shared memory as fp32
-// rows of dh + kPad floats; rows at or past L are zeros.
+// rows of DH + kPad floats; rows at or past L and columns at or past `cols`
+// are zeros.
 template <int DH>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long row_stride, int r0,
-                                          int seqlen) {
+                                          int seqlen, int cols) {
   constexpr int kVec = DH / 4;
   for (int idx = threadIdx.x; idx < kBlock * kVec; idx += kThreads) {
     const int r = idx / kVec;
     const int c = (idx % kVec) * 4;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < seqlen) {
+    if (r0 + r < seqlen && c < cols) {
       val = load4(src + static_cast<long long>(r0 + r) * row_stride + c);
     }
     store4(dst + r * (DH + kPad) + c, val);
@@ -220,17 +235,20 @@ __device__ __forceinline__ void load_row(float* dst, const float* src,
   }
 }
 
-// acc[r][q] = sum_c X[4 ty + r][c] * Y[tx + 16 q][c].
-template <int DH>
-__device__ __forceinline__ void product_nt(float (&acc)[4][4],
-                                           const float* X, const float* Y,
-                                           int ty, int tx) {
-  constexpr int ld = DH + kPad;
+__device__ __forceinline__ void zero4(float (&acc)[4][4]) {
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
   }
+}
+
+// acc[r][q] += sum_c X[4 ty + r][c] * Y[tx + 16 q][c].
+template <int DH>
+__device__ __forceinline__ void product_nt_add(float (&acc)[4][4],
+                                               const float* X, const float* Y,
+                                               int ty, int tx) {
+  constexpr int ld = DH + kPad;
 #pragma unroll 2
   for (int c = 0; c < DH; c += 4) {
     float4 a[4], b[4];
@@ -283,19 +301,23 @@ __device__ __forceinline__ void product_nn(float (&acc)[4][DH / 16],
   }
 }
 
-// Rows i0 + 4 ty + r (< L) of a contiguous (B, L, H, dh) output.
+// Rows i0 + 4 ty + r (< L) of a contiguous (B, L, H, dh) output: columns
+// os DH .. os DH + DH - 1 (slice os), those below dh.
 template <int DH>
 __device__ __forceinline__ void store_rows(float* dst, const Inputs& p,
                                            long long b, int h, int i0,
+                                           int os,
                                            const float (&acc)[4][DH / 16],
                                            int ty, int tx) {
+  const int cols = min(DH, p.dh - os * DH);
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int i = i0 + ty * 4 + r;
     if (i >= p.seqlen) continue;
-    float* row = dst + ((b * p.seqlen + i) * p.heads + h) * DH;
+    float* row = dst + ((b * p.seqlen + i) * p.heads + h) * p.dh + os * DH;
 #pragma unroll
     for (int g = 0; g < DH / 64; ++g) {
+      if (tx * 4 + 64 * g >= cols) continue;
       store4(row + tx * 4 + 64 * g,
              make_float4(acc[r][4 * g], acc[r][4 * g + 1],
                          acc[r][4 * g + 2], acc[r][4 * g + 3]));
@@ -334,14 +356,17 @@ __global__ void __launch_bounds__(kThreads)
 
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
-  const int i0 = blockIdx.x * kBlock;
+  const int tile = blockIdx.x / p.slices;  // the query tile
+  const int os = blockIdx.x % p.slices;    // the output's column slice
+  const int cols = min(DH, p.dh);
+  const int i0 = tile * kBlock;
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
   const float* q = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
   const float* k = static_cast<const float*>(p.k) + b * p.skb + h * p.skh;
   const float* v = static_cast<const float*>(p.v) + b * p.svb + h * p.svh;
 
-  load_tile<DH>(Qs, q, p.sql, i0, p.seqlen);
+  if (p.slices == 1) load_tile<DH>(Qs, q, p.sql, i0, p.seqlen, cols);
 
   float m[4], l[4], o[4][kCols];
 #pragma unroll
@@ -353,16 +378,24 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   int ntiles = (p.seqlen + kBlock - 1) / kBlock;
-  if (p.causal) ntiles = min(ntiles, static_cast<int>(blockIdx.x) + 1);
+  if (p.causal) ntiles = min(ntiles, tile + 1);
   for (int kt = 0; kt < ntiles; ++kt) {
     const int j0 = kt * kBlock;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<DH>(Ks, k, p.skl, j0, p.seqlen);
-    load_tile<DH>(Vs, v, p.svl, j0, p.seqlen);
-    __syncthreads();
-
+    // the scores summed over the head's column slices; V of the output's
     float s[4][4];
-    product_nt<DH>(s, Qs, Ks, ty, tx);
+    zero4(s);
+    for (int sl = 0; sl < p.slices; ++sl) {
+      __syncthreads();  // the previous readers are done
+      if (p.slices > 1) {
+        load_tile<DH>(Qs, q + sl * DH, p.sql, i0, p.seqlen, DH);
+      }
+      load_tile<DH>(Ks, k + sl * DH, p.skl, j0, p.seqlen, cols);
+      if (sl == p.slices - 1) {
+        load_tile<DH>(Vs, v + os * DH, p.svl, j0, p.seqlen, cols);
+      }
+      __syncthreads();
+      product_nt_add<DH>(s, Qs, Ks, ty, tx);
+    }
 
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -403,9 +436,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < kCols; ++c) o[r][c] *= inv;
     const int i = i0 + ty * 4 + r;
-    if (tx == 0 && i < p.seqlen) lse[i] = m[r] + logf(l[r]);
+    if (os == 0 && tx == 0 && i < p.seqlen) lse[i] = m[r] + logf(l[r]);
   }
-  store_rows<DH>(static_cast<float*>(p.out), p, b, h, i0, o, ty, tx);
+  store_rows<DH>(static_cast<float*>(p.out), p, b, h, i0, os, o, ty, tx);
 }
 
 template <int DH>
@@ -417,7 +450,7 @@ cudaError_t launch(const FwdParams& p, long long batch,
       flash_mha_fwd_kernel<DH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.seqlen + kBlock - 1) / kBlock, p.heads,
+  const dim3 grid((p.seqlen + kBlock - 1) / kBlock * p.slices, p.heads,
                   static_cast<unsigned>(batch));
   flash_mha_fwd_kernel<DH><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
@@ -427,19 +460,26 @@ cudaError_t launch(const FwdParams& p, long long batch,
 // 16 a warp (see the note at the top).
 constexpr int kMmaWarps = 4;
 
-template <int DH, int kVec>
+template <int DH, int kVec, bool kSliced>
 __global__ void __launch_bounds__(kMmaWarps * 32)
     flash_mha_fwd_mma_kernel(FwdParams p) {
+  // the column slices: 1 at compile time below 128 columns
+  const int slices = kSliced ? p.slices : 1;
   using namespace attn_mma;
   constexpr int ld = row_stride(DH);
-  constexpr int kTile = kKeyTile * ld;             // one K or V tile
+  constexpr int kTile = kKeyTile * ld;             // one 64-row tile
+  // a stage: K and V tiles (kSliced: the q, K and V column slices)
+  constexpr int kStage = (kSliced ? 3 : 2) * kTile;
   extern __shared__ float4 smem4[];
-  uint16_t* ring = reinterpret_cast<uint16_t*>(smem4);   // 2 stages of K, V
-  uint16_t* sq = ring + 2 * kTile;                 // q, in stage 1 at first
+  uint16_t* ring = reinterpret_cast<uint16_t*>(smem4);   // 2 stages
+  uint16_t* sq = ring + kStage;                    // q, in stage 1 at first
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int i0 = blockIdx.x * kBlock;
+  const int tile = blockIdx.x / slices;          // the query tile
+  const int os = blockIdx.x % slices;            // the output's slice
+  const int cols = min(DH, p.dh);
+  const int i0 = tile * kBlock;
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
   const int L = p.seqlen;
@@ -448,14 +488,31 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
   const uint16_t* v = static_cast<const uint16_t*>(p.v) + b * p.svb + h * p.svh;
 
   int ntiles = (L + kKeyTile - 1) / kKeyTile;
-  if (p.causal) ntiles = min(ntiles, static_cast<int>(blockIdx.x) + 1);
-  auto issue = [&](int kt) {
-    uint16_t* stage = ring + (kt & 1) * 2 * kTile;
-    copy_rows<kVec, DH>(stage, ld, k, p.skl, kt * kKeyTile, kKeyTile, L, DH);
-    copy_rows<kVec, DH>(stage + kTile, ld, v, p.svl, kt * kKeyTile,
-                        kKeyTile, L, DH);
+  if (p.causal) ntiles = min(ntiles, tile + 1);
+  // walk step t: key tile t / slices, column slice t % slices (the scores
+  // summed over the slices; V of the output's slice with the last)
+  const int steps = ntiles * slices;
+  auto issue = [&](int t) {
+    uint16_t* stage = ring + (t & 1) * kStage;
+    const int j0 = t / slices * kKeyTile;
+    const int sl = t % slices;
+    if constexpr (kSliced) {
+      copy_rows<kVec, DH>(stage, ld, q + sl * DH, p.sql, i0, kBlock, L, DH);
+      copy_rows<kVec, DH>(stage + kTile, ld, k + sl * DH, p.skl, j0,
+                          kKeyTile, L, DH);
+      if (sl == slices - 1) {
+        copy_rows<kVec, DH>(stage + 2 * kTile, ld, v + os * DH, p.svl, j0,
+                            kKeyTile, L, DH);
+      }
+    } else {
+      copy_rows<kVec, DH>(stage, ld, k, p.skl, j0, kKeyTile, L, cols);
+      copy_rows<kVec, DH>(stage + kTile, ld, v, p.svl, j0, kKeyTile, L,
+                          cols);
+    }
   };
-  copy_rows<kVec, DH>(sq, ld, q, p.sql, i0, kBlock, L, DH);
+  if constexpr (!kSliced) {
+    copy_rows<kVec, DH>(sq, ld, q, p.sql, i0, kBlock, L, cols);
+  }
   issue(0);
   cp_async_commit();
 
@@ -464,9 +521,11 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
   const bool active = wrow < L;
   // q into registers before stage 1 takes the next tile
   uint32_t qf[DH / 16][4];
-  cp_async_wait<0>();
-  __syncthreads();
-  if (active) load_q<DH>(qf, sq + warp * 16 * ld, lane);
+  if constexpr (!kSliced) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (active) load_q<DH>(qf, sq + warp * 16 * ld, lane);
+  }
 
   float o[DH / 8][4];
 #pragma unroll
@@ -479,55 +538,62 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
   const float scale2 = p.scale * kLog2e;
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
+  float s[8][4];
 
-  for (int kt = 0; kt < ntiles; ++kt) {
-    cp_async_wait<0>();                            // this tile's copies,
-    __syncthreads();                               // and q or the last tile's
-    if (kt + 1 < ntiles) {                         // stage read: it is free
-      issue(kt + 1);                               // during this tile
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait<0>();                            // this step's copies,
+    __syncthreads();                               // and q or the last step's
+    if (t + 1 < steps) {                           // stage read: it is free
+      issue(t + 1);                                // during this step
       cp_async_commit();
     }
-    if (active) {
-      const uint16_t* stage = ring + (kt & 1) * 2 * kTile;
-      const int j0 = kt * kKeyTile;
-      const bool diag = p.causal && kt == static_cast<int>(blockIdx.x);
-      int groups = min(kKeyGroups, (L - j0 + 15) / 16);
-      if (diag) groups = min(groups, warp + 1);    // keys past the rows
-      float s[8][4];
+    if (!active) continue;
+    const uint16_t* stage = ring + (t & 1) * kStage;
+    const int kt = t / slices;
+    const int j0 = kt * kKeyTile;
+    const bool diag = p.causal && kt == tile;
+    int groups = min(kKeyGroups, (L - j0 + 15) / 16);
+    if (diag) groups = min(groups, warp + 1);      // keys past the rows
+    if constexpr (kSliced) {
+      if (t % slices == 0) zero_tile(s);
+      tile_scores_shared_add<DH>(s, stage + warp * 16 * ld, stage + kTile,
+                                 groups, lane);
+      if (t % slices != slices - 1) continue;
+    } else {
       tile_scores<DH>(s, qf, stage, groups, lane);
+    }
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] *= scale2;
+    }
+    if (diag || j0 + kKeyTile > L) mask_tile(s, j0, L, wrow + g, diag, lane);
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(row_max(s, r)));
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      alpha[r] = exp2f(m[r] - m_use);
+      float sum = 0.f;
 #pragma unroll
       for (int nb = 0; nb < 8; ++nb) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nb][e] *= scale2;
-      }
-      if (diag || j0 + kKeyTile > L) mask_tile(s, j0, L, wrow + g, diag, lane);
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float m_new = fmaxf(m[r], quad_max(row_max(s, r)));
-        const float m_use = m_new == -INFINITY ? 0.f : m_new;
-        alpha[r] = exp2f(m[r] - m_use);
-        float sum = 0.f;
-#pragma unroll
-        for (int nb = 0; nb < 8; ++nb) {
-#pragma unroll
-          for (int e = 2 * r; e < 2 * r + 2; ++e) {
-            s[nb][e] = nb / 2 < groups ? exp2f(s[nb][e] - m_use) : 0.f;
-            sum += s[nb][e];
-          }
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          s[nb][e] = nb / 2 < groups ? exp2f(s[nb][e] - m_use) : 0.f;
+          sum += s[nb][e];
         }
-        l[r] = alpha[r] * l[r] + sum;
-        m[r] = m_new;
       }
-#pragma unroll
-      for (int c = 0; c < DH / 8; ++c) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[c][e] *= alpha[e / 2];
-      }
-      uint32_t w[kKeyGroups][4];
-      pack_weights(w, s);                          // p rounded to bf16
-      tile_pv<DH>(o, w, stage + kTile, groups, lane);
+      l[r] = alpha[r] * l[r] + sum;
+      m[r] = m_new;
     }
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[c][e] *= alpha[e / 2];
+    }
+    uint32_t w[kKeyGroups][4];
+    pack_weights(w, s);                            // p rounded to bf16
+    tile_pv<DH>(o, w, stage + (kSliced ? 2 : 1) * kTile, groups, lane);
   }
 
   if (!active) return;
@@ -537,30 +603,32 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
     const int i = wrow + g + 8 * r;
     const float lr = quad_sum(l[r]);
     if (i >= L) continue;
-    if (lane % 4 == 0) lse[i] = m[r] * kLn2 + logf(lr);
+    if (os == 0 && lane % 4 == 0) lse[i] = m[r] * kLn2 + logf(lr);
     const float inv = 1.f / lr;
     __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(p.out) +
-                         ((b * L + i) * p.heads + h) * DH;
+                         ((b * L + i) * p.heads + h) * p.dh + os * DH;
 #pragma unroll
     for (int c = 0; c < DH / 8; ++c) {
+      if (c * 8 >= cols) continue;
       *reinterpret_cast<__nv_bfloat162*>(dst + c * 8 + 2 * (lane % 4)) =
           __floats2bfloat162_rn(o[c][2 * r] * inv, o[c][2 * r + 1] * inv);
     }
   }
 }
 
-template <int DH, int kVec>
+template <int DH, int kVec, bool kSliced>
 cudaError_t launch_mma(const FwdParams& p, long long batch,
                        cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(uint16_t)) *
-                   attn_mma::row_stride(DH) * 4 * attn_mma::kKeyTile;
+                   attn_mma::row_stride(DH) * (kSliced ? 6 : 4) *
+                   attn_mma::kKeyTile;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_mha_fwd_mma_kernel<DH, kVec>,
+      flash_mha_fwd_mma_kernel<DH, kVec, kSliced>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.seqlen + kBlock - 1) / kBlock, p.heads,
+  const dim3 grid((p.seqlen + kBlock - 1) / kBlock * p.slices, p.heads,
                   static_cast<unsigned>(batch));
-  flash_mha_fwd_mma_kernel<DH, kVec>
+  flash_mha_fwd_mma_kernel<DH, kVec, kSliced>
       <<<grid, kMmaWarps * 32, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -579,45 +647,60 @@ int copy_vec(const Inputs& p, const void* extra) {
   return attn_mma::vec_for(bits);
 }
 
+// One of a kernel family's instantiations by head width: 64 or 128
+// columns (zero-filled past dh), or 128-column slices above 128.
+template <template <int, int, bool> class F, int kVec, typename P>
+cudaError_t by_width(const P& p, long long batch, cudaStream_t stream) {
+  if (p.slices > 1) return F<128, kVec, true>::run(p, batch, stream);
+  if (p.dh <= 64) return F<64, kVec, false>::run(p, batch, stream);
+  return F<128, kVec, false>::run(p, batch, stream);
+}
+
+template <int DH, int kVec, bool kSliced>
+struct FwdMma {
+  static cudaError_t run(const FwdParams& p, long long batch,
+                         cudaStream_t stream) {
+    return launch_mma<DH, kVec, kSliced>(p, batch, stream);
+  }
+};
+
 // The bf16 forward: 16-byte copies where every pointer and stride allows
 // them, else 8-byte ones (strides in multiples of 4, as the wrapper
 // requires).
-cudaError_t launch_fwd_mma(const FwdParams& p, int dh, long long batch,
+cudaError_t launch_fwd_mma(const FwdParams& p, long long batch,
                            cudaStream_t stream) {
   const int vec = copy_vec(p, nullptr);
   if (vec < 4) return cudaErrorInvalidValue;
-  if (vec == 8) {
-    return dh == 64 ? launch_mma<64, 8>(p, batch, stream)
-                    : launch_mma<128, 8>(p, batch, stream);
-  }
-  return dh == 64 ? launch_mma<64, 4>(p, batch, stream)
-                  : launch_mma<128, 4>(p, batch, stream);
+  return vec == 8 ? by_width<FwdMma, 8>(p, batch, stream)
+                  : by_width<FwdMma, 4>(p, batch, stream);
 }
 
 // Backward.
 
 // di[b, h, i] = sum_c o[b, i, h, c] * do[b, i, h, c]: kLanes lanes a row
-// (8, 16 or 32), each reading 16 bytes of o and of do, so a warp takes 32 /
-// kLanes whole rows in one coalesced load each (out and do are 16-byte
-// aligned, as the wrapper requires).
-template <typename T, int DH>
+// (8, 16 or 32), each reading 16 bytes of o and of do at a time, so a warp
+// takes 32 / kLanes whole rows in one coalesced load each at dh 64 and 128
+// (out and do are 16-byte aligned, as the wrapper requires, and dh a
+// multiple of 8).
+template <typename T, int kLanes>
 __global__ void __launch_bounds__(kThreads)
     flash_mha_bwd_di(BwdParams p, long long rows) {
   constexpr int kElems = 16 / static_cast<int>(sizeof(T));
-  constexpr int kLanes = DH / kElems;
   const long long row =
       (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / kLanes;
-  const int c = (threadIdx.x % kLanes) * kElems;
   float acc = 0.f;
   if (row < rows) {
-    const uint4 ov = *reinterpret_cast<const uint4*>(
-        static_cast<const T*>(p.out) + row * DH + c);
-    const uint4 gv = *reinterpret_cast<const uint4*>(
-        static_cast<const T*>(p.dout) + row * DH + c);
-    const T* o = reinterpret_cast<const T*>(&ov);
-    const T* g = reinterpret_cast<const T*>(&gv);
+    for (int c = (threadIdx.x % kLanes) * kElems; c < p.dh;
+         c += kLanes * kElems) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(
+          static_cast<const T*>(p.out) + row * p.dh + c);
+      const uint4 gv = *reinterpret_cast<const uint4*>(
+          static_cast<const T*>(p.dout) + row * p.dh + c);
+      const T* o = reinterpret_cast<const T*>(&ov);
+      const T* g = reinterpret_cast<const T*>(&gv);
 #pragma unroll
-    for (int e = 0; e < kElems; ++e) acc += to_float(o[e]) * to_float(g[e]);
+      for (int e = 0; e < kElems; ++e) acc += to_float(o[e]) * to_float(g[e]);
+    }
   }
 #pragma unroll
   for (int off = kLanes / 2; off > 0; off >>= 1) {
@@ -650,20 +733,25 @@ __global__ void __launch_bounds__(kThreads)
 
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
-  const int j0 = blockIdx.x * kBlock;
+  const int tile = blockIdx.x / p.slices;  // the key tile
+  const int os = blockIdx.x % p.slices;    // the outputs' column slice
+  const int cols = min(DH, p.dh);
+  const int j0 = tile * kBlock;
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
-  const long long row_stride = static_cast<long long>(p.heads) * DH;
+  const long long row_stride = static_cast<long long>(p.heads) * p.dh;
   const float* q = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
+  const float* k = static_cast<const float*>(p.k) + b * p.skb + h * p.skh;
+  const float* v = static_cast<const float*>(p.v) + b * p.svb + h * p.svh;
   const float* dout = static_cast<const float*>(p.dout) +
-                  b * p.seqlen * row_stride + h * DH;
+                  b * p.seqlen * row_stride + h * p.dh;
   const float* lse = p.lse + (b * p.heads + h) * p.seqlen;
   const float* di = p.di + (b * p.heads + h) * p.seqlen;
 
-  load_tile<DH>(Ks, static_cast<const float*>(p.k) + b * p.skb + h * p.skh,
-                   p.skl, j0, p.seqlen);
-  load_tile<DH>(Vs, static_cast<const float*>(p.v) + b * p.svb + h * p.svh,
-                   p.svl, j0, p.seqlen);
+  if (p.slices == 1) {
+    load_tile<DH>(Ks, k, p.skl, j0, p.seqlen, cols);
+    load_tile<DH>(Vs, v, p.svl, j0, p.seqlen, cols);
+  }
 
   float dk[4][kCols], dv[4][kCols];
 #pragma unroll
@@ -676,18 +764,30 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   const int ntiles = (p.seqlen + kBlock - 1) / kBlock;
-  for (int qt = p.causal ? blockIdx.x : 0; qt < ntiles; ++qt) {
+  for (int qt = p.causal ? tile : 0; qt < ntiles; ++qt) {
     const int i0 = qt * kBlock;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<DH>(Qs, q, p.sql, i0, p.seqlen);
-    load_tile<DH>(Os, dout, row_stride, i0, p.seqlen);
-    load_row(lse_s, lse, i0, p.seqlen);
-    load_row(di_s, di, i0, p.seqlen);
-    __syncthreads();
-
+    // s^T: [key][query] and (do v^T)^T summed over the column slices, the
+    // output's slice last, so that Qs and Os end holding it
     float s[4][4], dp[4][4];
-    product_nt<DH>(s, Ks, Qs, ty, tx);     // s^T: [key][query]
-    product_nt<DH>(dp, Vs, Os, ty, tx);    // (do v^T)^T
+    zero4(s);
+    zero4(dp);
+    for (int r = 0; r < p.slices; ++r) {
+      const int sl = (os + 1 + r) % p.slices;
+      __syncthreads();  // the previous readers are done
+      if (p.slices > 1) {
+        load_tile<DH>(Ks, k + sl * DH, p.skl, j0, p.seqlen, DH);
+        load_tile<DH>(Vs, v + sl * DH, p.svl, j0, p.seqlen, DH);
+      }
+      load_tile<DH>(Qs, q + sl * DH, p.sql, i0, p.seqlen, cols);
+      load_tile<DH>(Os, dout + sl * DH, row_stride, i0, p.seqlen, cols);
+      if (r == 0) {
+        load_row(lse_s, lse, i0, p.seqlen);
+        load_row(di_s, di, i0, p.seqlen);
+      }
+      __syncthreads();
+      product_nt_add<DH>(s, Ks, Qs, ty, tx);
+      product_nt_add<DH>(dp, Vs, Os, ty, tx);
+    }
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int j = j0 + ty * 4 + r;
@@ -707,8 +807,8 @@ __global__ void __launch_bounds__(kThreads)
     product_nn<DH>(dv, Ps, Os, ty, tx);
     product_nn<DH>(dk, Ss, Qs, ty, tx);
   }
-  store_rows<DH>(static_cast<float*>(p.dk), p, b, h, j0, dk, ty, tx);
-  store_rows<DH>(static_cast<float*>(p.dv), p, b, h, j0, dv, ty, tx);
+  store_rows<DH>(static_cast<float*>(p.dk), p, b, h, j0, os, dk, ty, tx);
+  store_rows<DH>(static_cast<float*>(p.dv), p, b, h, j0, os, dv, ty, tx);
 }
 
 // dq for query rows i0 .. i0 + 63 of one (batch, head).
@@ -728,18 +828,23 @@ __global__ void __launch_bounds__(kThreads)
 
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
-  const int i0 = blockIdx.x * kBlock;
+  const int tile = blockIdx.x / p.slices;  // the query tile
+  const int os = blockIdx.x % p.slices;    // the output's column slice
+  const int cols = min(DH, p.dh);
+  const int i0 = tile * kBlock;
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
-  const long long row_stride = static_cast<long long>(p.heads) * DH;
+  const long long row_stride = static_cast<long long>(p.heads) * p.dh;
+  const float* q = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
   const float* k = static_cast<const float*>(p.k) + b * p.skb + h * p.skh;
   const float* v = static_cast<const float*>(p.v) + b * p.svb + h * p.svh;
+  const float* dout = static_cast<const float*>(p.dout) +
+                      b * p.seqlen * row_stride + h * p.dh;
 
-  load_tile<DH>(Qs, static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh,
-                   p.sql, i0, p.seqlen);
-  load_tile<DH>(Os, static_cast<const float*>(p.dout) +
-                           b * p.seqlen * row_stride + h * DH,
-                   row_stride, i0, p.seqlen);
+  if (p.slices == 1) {
+    load_tile<DH>(Qs, q, p.sql, i0, p.seqlen, cols);
+    load_tile<DH>(Os, dout, row_stride, i0, p.seqlen, cols);
+  }
   load_row(lse_s, p.lse + (b * p.heads + h) * p.seqlen, i0, p.seqlen);
   load_row(di_s, p.di + (b * p.heads + h) * p.seqlen, i0, p.seqlen);
 
@@ -751,17 +856,27 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   int ntiles = (p.seqlen + kBlock - 1) / kBlock;
-  if (p.causal) ntiles = min(ntiles, static_cast<int>(blockIdx.x) + 1);
+  if (p.causal) ntiles = min(ntiles, tile + 1);
   for (int kt = 0; kt < ntiles; ++kt) {
     const int j0 = kt * kBlock;
-    __syncthreads();
-    load_tile<DH>(Ks, k, p.skl, j0, p.seqlen);
-    load_tile<DH>(Vs, v, p.svl, j0, p.seqlen);
-    __syncthreads();
-
+    // s and do v^T summed over the column slices, the output's slice last,
+    // so that Ks ends holding it
     float s[4][4], dp[4][4];
-    product_nt<DH>(s, Qs, Ks, ty, tx);
-    product_nt<DH>(dp, Os, Vs, ty, tx);
+    zero4(s);
+    zero4(dp);
+    for (int r = 0; r < p.slices; ++r) {
+      const int sl = (os + 1 + r) % p.slices;
+      __syncthreads();
+      if (p.slices > 1) {
+        load_tile<DH>(Qs, q + sl * DH, p.sql, i0, p.seqlen, DH);
+        load_tile<DH>(Os, dout + sl * DH, row_stride, i0, p.seqlen, DH);
+      }
+      load_tile<DH>(Ks, k + sl * DH, p.skl, j0, p.seqlen, cols);
+      load_tile<DH>(Vs, v + sl * DH, p.svl, j0, p.seqlen, cols);
+      __syncthreads();
+      product_nt_add<DH>(s, Qs, Ks, ty, tx);
+      product_nt_add<DH>(dp, Os, Vs, ty, tx);
+    }
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int il = ty * 4 + r;
@@ -779,27 +894,37 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     product_nn<DH>(dq, Ss, Ks, ty, tx);
   }
-  store_rows<DH>(static_cast<float*>(p.dq), p, b, h, i0, dq, ty, tx);
+  store_rows<DH>(static_cast<float*>(p.dq), p, b, h, i0, os, dq, ty, tx);
 }
 
 // di, the first of the backward's three kernels in both types.
-template <typename T, int DH>
-cudaError_t launch_di(const BwdParams& p, long long batch,
-                      cudaStream_t stream) {
-  constexpr int kRowsPerBlock = kThreads * 16 / (DH * sizeof(T));
+template <typename T, int kLanes>
+cudaError_t launch_di_lanes(const BwdParams& p, long long batch,
+                            cudaStream_t stream) {
+  constexpr int kRowsPerBlock = kThreads / kLanes;
   const long long rows = batch * p.seqlen * p.heads;
   const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_mha_bwd_di<T, DH><<<static_cast<unsigned>(blocks), kThreads, 0,
-                            stream>>>(p, rows);
+  flash_mha_bwd_di<T, kLanes><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                stream>>>(p, rows);
   return cudaGetLastError();
+}
+
+// As many lanes a row as its 16-byte pieces, 8 to 32.
+template <typename T>
+cudaError_t launch_di(const BwdParams& p, long long batch,
+                      cudaStream_t stream) {
+  const int pieces = p.dh * static_cast<int>(sizeof(T)) / 16;
+  if (pieces <= 8) return launch_di_lanes<T, 8>(p, batch, stream);
+  if (pieces <= 16) return launch_di_lanes<T, 16>(p, batch, stream);
+  return launch_di_lanes<T, 32>(p, batch, stream);
 }
 
 // The fp32 backward on the SIMT kernels.
 template <int DH>
 cudaError_t launch(const BwdParams& p, long long batch,
                    cudaStream_t stream) {
-  cudaError_t err = launch_di<float, DH>(p, batch, stream);
+  cudaError_t err = launch_di<float>(p, batch, stream);
   if (err != cudaSuccess) return err;
 
   const int tile = kBlock * (DH + kPad);
@@ -815,7 +940,7 @@ cudaError_t launch(const BwdParams& p, long long batch,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_dq);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.seqlen + kBlock - 1) / kBlock, p.heads,
+  const dim3 grid((p.seqlen + kBlock - 1) / kBlock * p.slices, p.heads,
                   static_cast<unsigned>(batch));
   flash_mha_bwd_dkdv_kernel<DH><<<grid, kThreads, smem_dkdv, stream>>>(p);
   err = cudaGetLastError();
@@ -838,20 +963,24 @@ __device__ __forceinline__ void copy_row_async(float* dst, const float* src,
 }
 
 // bf16 rows i (< L) of a contiguous (B, L, H, dh) output from the fp32 C
-// fragments of a warp whose lane holds rows row and row + 8.
+// fragments of a warp whose lane holds rows row and row + 8: columns os DH
+// .. os DH + DH - 1 (slice os), those below dh.
 template <int DH>
 __device__ __forceinline__ void store_fragments(void* dst, const Inputs& p,
                                                 long long b, int h, int row,
+                                                int os,
                                                 const float (&acc)[DH / 8][4],
                                                 int lane) {
+  const int cols = min(DH, p.dh - os * DH);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = row + 8 * r;
     if (i >= p.seqlen) continue;
     __nv_bfloat16* out = static_cast<__nv_bfloat16*>(dst) +
-                         ((b * p.seqlen + i) * p.heads + h) * DH;
+                         ((b * p.seqlen + i) * p.heads + h) * p.dh + os * DH;
 #pragma unroll
     for (int c = 0; c < DH / 8; ++c) {
+      if (c * 8 >= cols) continue;
       *reinterpret_cast<__nv_bfloat162*>(out + c * 8 + 2 * (lane % 4)) =
           __floats2bfloat162_rn(acc[c][2 * r], acc[c][2 * r + 1]);
     }
@@ -867,48 +996,68 @@ __device__ __forceinline__ void zero(float (&acc)[DH / 8][4]) {
   }
 }
 
-// dk and dv for keys j0 .. j0 + 63 of one (batch, head), 16 a warp.
-template <int DH, int kVec>
+// dk and dv for keys j0 .. j0 + 63 of one (batch, head), 16 a warp. Above
+// 128 columns (kSliced) a stage holds the Q, dO, K and V column slices, the
+// scores are summed over the slices and the outputs' slice comes last.
+template <int DH, int kVec, bool kSliced>
 __global__ void __launch_bounds__(kMmaWarps * 32)
     flash_mha_bwd_dkdv_mma_kernel(BwdParams p) {
+  // the column slices: 1 at compile time below 128 columns
+  const int slices = kSliced ? p.slices : 1;
   using namespace attn_mma;
   constexpr int ld = row_stride(DH);
   constexpr int kTile = kBlock * ld;               // one 64-row bf16 tile
+  constexpr int kStage = (kSliced ? 4 : 2) * kTile;
   extern __shared__ float4 smem4[];
   uint16_t* sk = reinterpret_cast<uint16_t*>(smem4);
   uint16_t* sv = sk + kTile;
-  uint16_t* ring = sv + kTile;                     // 2 stages of Q, dO
-  float* rows = reinterpret_cast<float*>(ring + 4 * kTile);  // lse, di
+  uint16_t* ring = kSliced ? sk : sv + kTile;      // 2 stages of Q, dO
+  float* rows = reinterpret_cast<float*>(ring + 2 * kStage);  // lse, di
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int j0 = blockIdx.x * kBlock;
+  const int tile = blockIdx.x / slices;          // the key tile
+  const int os = blockIdx.x % slices;            // the outputs' slice
+  const int cols = min(DH, p.dh);
+  const int j0 = tile * kBlock;
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
   const int L = p.seqlen;
-  const long long dstride = static_cast<long long>(p.heads) * DH;
+  const long long dstride = static_cast<long long>(p.heads) * p.dh;
   const uint16_t* q = static_cast<const uint16_t*>(p.q) + b * p.sqb + h * p.sqh;
   const uint16_t* k = static_cast<const uint16_t*>(p.k) + b * p.skb + h * p.skh;
   const uint16_t* v = static_cast<const uint16_t*>(p.v) + b * p.svb + h * p.svh;
   const uint16_t* dout =
-      static_cast<const uint16_t*>(p.dout) + b * L * dstride + h * DH;
+      static_cast<const uint16_t*>(p.dout) + b * L * dstride + h * p.dh;
   const float* lse = p.lse + (b * p.heads + h) * L;
   const float* di = p.di + (b * p.heads + h) * L;
 
-  const int first = p.causal ? static_cast<int>(blockIdx.x) : 0;
+  const int first = p.causal ? tile : 0;
   const int ntiles = (L + kBlock - 1) / kBlock;
-  auto issue = [&](int qt) {
-    const int stage = (qt - first) & 1;
-    uint16_t* sq = ring + stage * 2 * kTile;
-    copy_rows<kVec, DH>(sq, ld, q, p.sql, qt * kBlock, kBlock, L, DH);
-    copy_rows<kVec, DH>(sq + kTile, ld, dout, dstride, qt * kBlock, kBlock,
-                        L, DH);
-    copy_row_async(rows + stage * 2 * kBlock, lse, qt * kBlock, L);
-    copy_row_async(rows + stage * 2 * kBlock + kBlock, di, qt * kBlock, L);
+  // walk step t: query tile first + t / slices, column slice (os + 1 +
+  // t % slices) % slices
+  const int steps = (ntiles - first) * slices;
+  auto issue = [&](int t) {
+    const int i0 = (first + t / slices) * kBlock;
+    const int sl = (os + 1 + t % slices) % slices;
+    uint16_t* sq = ring + (t & 1) * kStage;
+    copy_rows<kVec, DH>(sq, ld, q + sl * DH, p.sql, i0, kBlock, L, cols);
+    copy_rows<kVec, DH>(sq + kTile, ld, dout + sl * DH, dstride, i0, kBlock,
+                        L, cols);
+    if constexpr (kSliced) {
+      copy_rows<kVec, DH>(sq + 2 * kTile, ld, k + sl * DH, p.skl, j0,
+                          kBlock, L, DH);
+      copy_rows<kVec, DH>(sq + 3 * kTile, ld, v + sl * DH, p.svl, j0,
+                          kBlock, L, DH);
+    }
+    copy_row_async(rows + (t & 1) * 2 * kBlock, lse, i0, L);
+    copy_row_async(rows + (t & 1) * 2 * kBlock + kBlock, di, i0, L);
   };
-  copy_rows<kVec, DH>(sk, ld, k, p.skl, j0, kBlock, L, DH);
-  copy_rows<kVec, DH>(sv, ld, v, p.svl, j0, kBlock, L, DH);
-  issue(first);
+  if constexpr (!kSliced) {
+    copy_rows<kVec, DH>(sk, ld, k, p.skl, j0, kBlock, L, cols);
+    copy_rows<kVec, DH>(sv, ld, v, p.svl, j0, kBlock, L, cols);
+  }
+  issue(0);
   cp_async_commit();
 
   const int key = j0 + warp * 16 + lane / 4;       // the lane's first key
@@ -917,27 +1066,40 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
   float dk[DH / 8][4], dv[DH / 8][4];
   zero<DH>(dk);
   zero<DH>(dv);
+  float st[8][4], dpt[8][4];
 
-  for (int qt = first; qt < ntiles; ++qt) {
-    cp_async_wait<0>();                            // this tile's copies,
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait<0>();                            // this step's copies,
     __syncthreads();                               // and the other stage free
-    if (qt + 1 < ntiles) {
-      issue(qt + 1);
+    if (t + 1 < steps) {
+      issue(t + 1);
       cp_async_commit();
     }
     if (!active) continue;
-    const int stage = (qt - first) & 1;
-    const uint16_t* sq = ring + stage * 2 * kTile;
+    const int qt = first + t / slices;
+    const uint16_t* sq = ring + (t & 1) * kStage;
     const uint16_t* sdo = sq + kTile;
-    const float* slse = rows + stage * 2 * kBlock;
+    const float* slse = rows + (t & 1) * 2 * kBlock;
     const float* sdi = slse + kBlock;
     const int i0 = qt * kBlock;
     const int groups = min(kKeyGroups, (L - i0 + 15) / 16);
     const bool edge = (p.causal && qt == first) || i0 + kBlock > L;
 
+    // S^T (and, sliced, dP^T) summed over the slices
+    if constexpr (kSliced) {
+      if (t % slices == 0) {
+        zero_tile(st);
+        zero_tile(dpt);
+      }
+      tile_scores_shared_add<DH>(st, sq + 2 * kTile + warp * 16 * ld, sq,
+                                 groups, lane);
+      tile_scores_shared_add<DH>(dpt, sq + 3 * kTile + warp * 16 * ld, sdo,
+                                 groups, lane);
+      if (t % slices != slices - 1) continue;
+    } else {
+      tile_scores_shared<DH>(st, sk + warp * 16 * ld, sq, groups, lane);
+    }
     // P^T = exp(S^T scale - lse) in fp32: rows keys, columns queries
-    float st[8][4];
-    tile_scores_shared<DH>(st, sk + warp * 16 * ld, sq, groups, lane);
 #pragma unroll
     for (int nb = 0; nb < 8; ++nb) {
       const int col = nb * 8 + 2 * (lane % 4);
@@ -957,8 +1119,9 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
     tile_pv<DH>(dv, w, sdo, groups, lane);         // dV += round(P^T) dO
 
     // dS^T = P^T (dP^T - di) scale
-    float dpt[8][4];
-    tile_scores_shared<DH>(dpt, sv + warp * 16 * ld, sdo, groups, lane);
+    if constexpr (!kSliced) {
+      tile_scores_shared<DH>(dpt, sv + warp * 16 * ld, sdo, groups, lane);
+    }
 #pragma unroll
     for (int nb = 0; nb < 8; ++nb) {
       const float2 d2 =
@@ -973,48 +1136,66 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
     tile_pv<DH>(dk, w, sq, groups, lane);          // dK += round(dS^T) Q
   }
   if (!active) return;
-  store_fragments<DH>(p.dk, p, b, h, key, dk, lane);
-  store_fragments<DH>(p.dv, p, b, h, key, dv, lane);
+  store_fragments<DH>(p.dk, p, b, h, key, os, dk, lane);
+  store_fragments<DH>(p.dv, p, b, h, key, os, dv, lane);
 }
 
-// dq for query rows i0 .. i0 + 63 of one (batch, head), 16 a warp.
-template <int DH, int kVec>
+// dq for query rows i0 .. i0 + 63 of one (batch, head), 16 a warp. Above
+// 128 columns (kSliced) a stage holds the K, V, Q and dO column slices, the
+// scores are summed over the slices and the output's slice comes last.
+template <int DH, int kVec, bool kSliced>
 __global__ void __launch_bounds__(kMmaWarps * 32)
     flash_mha_bwd_dq_mma_kernel(BwdParams p) {
+  // the column slices: 1 at compile time below 128 columns
+  const int slices = kSliced ? p.slices : 1;
   using namespace attn_mma;
   constexpr int ld = row_stride(DH);
   constexpr int kTile = kBlock * ld;
+  constexpr int kStage = (kSliced ? 4 : 2) * kTile;
   extern __shared__ float4 smem4[];
   uint16_t* sq = reinterpret_cast<uint16_t*>(smem4);
   uint16_t* sdo = sq + kTile;
-  uint16_t* ring = sdo + kTile;                    // 2 stages of K, V
+  uint16_t* ring = kSliced ? sq : sdo + kTile;     // 2 stages of K, V
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int i0 = blockIdx.x * kBlock;
+  const int tile = blockIdx.x / slices;          // the query tile
+  const int os = blockIdx.x % slices;            // the output's slice
+  const int cols = min(DH, p.dh);
+  const int i0 = tile * kBlock;
   const int h = blockIdx.y;
   const long long b = blockIdx.z;
   const int L = p.seqlen;
-  const long long dstride = static_cast<long long>(p.heads) * DH;
+  const long long dstride = static_cast<long long>(p.heads) * p.dh;
+  const uint16_t* q = static_cast<const uint16_t*>(p.q) + b * p.sqb + h * p.sqh;
   const uint16_t* k = static_cast<const uint16_t*>(p.k) + b * p.skb + h * p.skh;
   const uint16_t* v = static_cast<const uint16_t*>(p.v) + b * p.svb + h * p.svh;
+  const uint16_t* dout =
+      static_cast<const uint16_t*>(p.dout) + b * L * dstride + h * p.dh;
 
   int ntiles = (L + kBlock - 1) / kBlock;
-  if (p.causal) ntiles = min(ntiles, static_cast<int>(blockIdx.x) + 1);
-  auto issue = [&](int kt) {
-    uint16_t* stage = ring + (kt & 1) * 2 * kTile;
-    copy_rows<kVec, DH>(stage, ld, k, p.skl, kt * kBlock, kBlock, L, DH);
-    copy_rows<kVec, DH>(stage + kTile, ld, v, p.svl, kt * kBlock, kBlock, L,
-                        DH);
+  if (p.causal) ntiles = min(ntiles, tile + 1);
+  // walk step t: key tile t / slices, column slice (os + 1 + t % slices) %
+  // slices
+  const int steps = ntiles * slices;
+  auto issue = [&](int t) {
+    const int j0 = t / slices * kBlock;
+    const int sl = (os + 1 + t % slices) % slices;
+    uint16_t* stage = ring + (t & 1) * kStage;
+    copy_rows<kVec, DH>(stage, ld, k + sl * DH, p.skl, j0, kBlock, L, cols);
+    copy_rows<kVec, DH>(stage + kTile, ld, v + sl * DH, p.svl, j0, kBlock, L,
+                        cols);
+    if constexpr (kSliced) {
+      copy_rows<kVec, DH>(stage + 2 * kTile, ld, q + sl * DH, p.sql, i0,
+                          kBlock, L, DH);
+      copy_rows<kVec, DH>(stage + 3 * kTile, ld, dout + sl * DH, dstride, i0,
+                          kBlock, L, DH);
+    }
   };
-  copy_rows<kVec, DH>(sq, ld,
-                      static_cast<const uint16_t*>(p.q) + b * p.sqb +
-                          h * p.sqh,
-                      p.sql, i0, kBlock, L, DH);
-  copy_rows<kVec, DH>(sdo, ld,
-                      static_cast<const uint16_t*>(p.dout) + b * L * dstride +
-                          h * DH,
-                      dstride, i0, kBlock, L, DH);
+  if constexpr (!kSliced) {
+    copy_rows<kVec, DH>(sq, ld, q, p.sql, i0, kBlock, L, cols);
+    copy_rows<kVec, DH>(sdo, ld, dout, dstride, i0, kBlock, L, cols);
+  }
   issue(0);
   cp_async_commit();
 
@@ -1033,25 +1214,38 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
   const float scale2 = p.scale * kLog2e;
   float dq[DH / 8][4];
   zero<DH>(dq);
+  float s[8][4], dp[8][4];
 
-  for (int kt = 0; kt < ntiles; ++kt) {
+  for (int t = 0; t < steps; ++t) {
     cp_async_wait<0>();
     __syncthreads();
-    if (kt + 1 < ntiles) {
-      issue(kt + 1);
+    if (t + 1 < steps) {
+      issue(t + 1);
       cp_async_commit();
     }
     if (!active) continue;
-    const uint16_t* stage = ring + (kt & 1) * 2 * kTile;
+    const uint16_t* stage = ring + (t & 1) * kStage;
+    const int kt = t / slices;
     const int j0 = kt * kBlock;
-    const bool diag = p.causal && kt == static_cast<int>(blockIdx.x);
+    const bool diag = p.causal && kt == tile;
     int groups = min(kKeyGroups, (L - j0 + 15) / 16);
     if (diag) groups = min(groups, warp + 1);      // keys past the rows
     const bool edge = diag || j0 + kBlock > L;
-    float s[8][4], dp[8][4];
-    tile_scores_shared<DH>(s, sq + warp * 16 * ld, stage, groups, lane);
-    tile_scores_shared<DH>(dp, sdo + warp * 16 * ld, stage + kTile, groups,
-                           lane);
+    if constexpr (kSliced) {
+      if (t % slices == 0) {
+        zero_tile(s);
+        zero_tile(dp);
+      }
+      tile_scores_shared_add<DH>(s, stage + 2 * kTile + warp * 16 * ld,
+                                 stage, groups, lane);
+      tile_scores_shared_add<DH>(dp, stage + 3 * kTile + warp * 16 * ld,
+                                 stage + kTile, groups, lane);
+      if (t % slices != slices - 1) continue;
+    } else {
+      tile_scores_shared<DH>(s, sq + warp * 16 * ld, stage, groups, lane);
+      tile_scores_shared<DH>(dp, sdo + warp * 16 * ld, stage + kTile, groups,
+                             lane);
+    }
     // dS = P (dP - di) scale, P = exp(S scale - lse) in fp32
 #pragma unroll
     for (int nb = 0; nb < 8; ++nb) {
@@ -1069,35 +1263,43 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
     tile_pv<DH>(dq, w, stage, groups, lane);       // dQ += round(dS) K
   }
   if (!active) return;
-  store_fragments<DH>(p.dq, p, b, h, wrow + g, dq, lane);
+  store_fragments<DH>(p.dq, p, b, h, wrow + g, os, dq, lane);
 }
 
-template <int DH, int kVec>
+template <int DH, int kVec, bool kSliced>
 cudaError_t launch_mma_bwd(const BwdParams& p, long long batch,
                            cudaStream_t stream) {
-  cudaError_t err = launch_di<__nv_bfloat16, DH>(p, batch, stream);
+  cudaError_t err = launch_di<__nv_bfloat16>(p, batch, stream);
   if (err != cudaSuccess) return err;
   const int tiles = static_cast<int>(sizeof(uint16_t)) *
-                    attn_mma::row_stride(DH) * 6 * kBlock;
+                    attn_mma::row_stride(DH) * (kSliced ? 8 : 6) * kBlock;
   const int smem_dkdv = tiles + 4 * kBlock * static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(flash_mha_bwd_dkdv_mma_kernel<DH, kVec>,
+  err = cudaFuncSetAttribute(flash_mha_bwd_dkdv_mma_kernel<DH, kVec, kSliced>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_dkdv);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_mha_bwd_dq_mma_kernel<DH, kVec>,
+  err = cudaFuncSetAttribute(flash_mha_bwd_dq_mma_kernel<DH, kVec, kSliced>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              tiles);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.seqlen + kBlock - 1) / kBlock, p.heads,
+  const dim3 grid((p.seqlen + kBlock - 1) / kBlock * p.slices, p.heads,
                   static_cast<unsigned>(batch));
-  flash_mha_bwd_dkdv_mma_kernel<DH, kVec>
+  flash_mha_bwd_dkdv_mma_kernel<DH, kVec, kSliced>
       <<<grid, kMmaWarps * 32, smem_dkdv, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_mha_bwd_dq_mma_kernel<DH, kVec>
+  flash_mha_bwd_dq_mma_kernel<DH, kVec, kSliced>
       <<<grid, kMmaWarps * 32, tiles, stream>>>(p);
   return cudaGetLastError();
 }
+
+template <int DH, int kVec, bool kSliced>
+struct BwdMma {
+  static cudaError_t run(const BwdParams& p, long long batch,
+                         cudaStream_t stream) {
+    return launch_mma_bwd<DH, kVec, kSliced>(p, batch, stream);
+  }
+};
 
 // The inputs both entries share; false if the kernels do not take them.
 bool set_inputs(Inputs& p, int dtype, long long batch, int seqlen,
@@ -1105,9 +1307,10 @@ bool set_inputs(Inputs& p, int dtype, long long batch, int seqlen,
                 long long sql, long long sqh, long long skb, long long skl,
                 long long skh, long long svb, long long svl, long long svh,
                 const void* q, const void* k, const void* v) {
+  // head widths: any multiple of 8 up to 128, or of 128 above that
+  const bool width_ok = dh > 0 && (dh <= 128 ? dh % 8 == 0 : dh % 128 == 0);
   if (batch < 1 || batch > 65535 || seqlen < 1 || heads < 1 ||
-      heads > 65535 || (dh != 64 && dh != 128) ||
-      (dtype != 0 && dtype != 1)) {
+      heads > 65535 || !width_ok || (dtype != 0 && dtype != 1)) {
     return false;
   }
   p.q = q;
@@ -1125,22 +1328,28 @@ bool set_inputs(Inputs& p, int dtype, long long batch, int seqlen,
   p.seqlen = seqlen;
   p.heads = heads;
   p.causal = causal;
+  p.dh = dh;
+  p.slices = dh > 128 ? dh / 128 : 1;
   p.scale = scale;
   return true;
 }
 
 // The bf16 backward: 16-byte copies where every pointer and stride allows
 // them, else 8-byte ones, as the forward.
-cudaError_t launch_bwd_mma(const BwdParams& p, int dh, long long batch,
+cudaError_t launch_bwd_mma(const BwdParams& p, long long batch,
                            cudaStream_t stream) {
   const int vec = copy_vec(p, p.dout);
   if (vec < 4) return cudaErrorInvalidValue;
-  if (vec == 8) {
-    return dh == 64 ? launch_mma_bwd<64, 8>(p, batch, stream)
-                    : launch_mma_bwd<128, 8>(p, batch, stream);
-  }
-  return dh == 64 ? launch_mma_bwd<64, 4>(p, batch, stream)
-                  : launch_mma_bwd<128, 4>(p, batch, stream);
+  return vec == 8 ? by_width<BwdMma, 8>(p, batch, stream)
+                  : by_width<BwdMma, 4>(p, batch, stream);
+}
+
+// The fp32 SIMT kernels by head width: 64 or 128 columns (zero-filled past
+// dh), or 128-column slices.
+template <typename P>
+cudaError_t launch_simt(const P& p, long long batch, cudaStream_t stream) {
+  return p.dh <= 64 ? launch<64>(p, batch, stream)
+                    : launch<128>(p, batch, stream);
 }
 
 }  // namespace
@@ -1150,7 +1359,8 @@ extern "C" {
 // Launches K11's forward on `stream`. dtype: 0 float32 (the SIMT kernel),
 // 1 bfloat16 (the tensor-core kernel); q, k, v and out share it. q, k, v:
 // (batch, seqlen, heads, dh) with strides (batch, row, head) in elements,
-// each a multiple of 4, 16-byte aligned; dh is 64 or 128. out: contiguous
+// each a multiple of 4, 16-byte aligned; dh a multiple of 8 up to 128, or
+// of 128 above that. out: contiguous
 // (batch, seqlen, heads * dh); lse: contiguous fp32 (batch, heads,
 // seqlen). Returns the cudaError_t of the launch (0 on success).
 int flash_mha_fwd(int dtype, long long batch, int seqlen, int heads, int dh,
@@ -1170,10 +1380,9 @@ int flash_mha_fwd(int dtype, long long batch, int seqlen, int heads, int dh,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 1) {
-    err = launch_fwd_mma(p, dh, batch, s);
+    err = launch_fwd_mma(p, batch, s);
   } else {
-    err = dh == 64 ? launch<64>(p, batch, s)
-                   : launch<128>(p, batch, s);
+    err = launch_simt(p, batch, s);
   }
   return static_cast<int>(err);
 }
@@ -1208,10 +1417,9 @@ int flash_mha_bwd(int dtype, long long batch, int seqlen, int heads, int dh,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 1) {
-    err = launch_bwd_mma(p, dh, batch, s);
+    err = launch_bwd_mma(p, batch, s);
   } else {
-    err = dh == 64 ? launch<64>(p, batch, s)
-                   : launch<128>(p, batch, s);
+    err = launch_simt(p, batch, s);
   }
   return static_cast<int>(err);
 }

@@ -5,7 +5,7 @@
 // `_row_mha_fwd_impl`, reached through `row_mha_qkv`) and `_mha_kernel`
 // (K9, launched from `_mha_fwd_impl`, reached through `vision_mha`) in
 // video_mamba_suite_tpu/ops/vision_attention.py. For every (instance, head)
-// and query row i over N <= 512 tokens of width dh <= 128:
+// and query row i over N <= 512 tokens of any width dh:
 //
 //     s_ij = (q_i . k_j) * scale          (K10: fp32 scores times scale)
 //     s_ij = (round(q_i * scale) . k_j)   (K9: q scaled in its own type)
@@ -17,6 +17,13 @@
 // or bf16), which is where the TPU kernels cast the scaled q (K9) and the
 // weights (both) before their products. Entry `row_mha_fwd` is K10, entry
 // `vision_mha_fwd` K9; they differ only in where the scale is applied.
+//
+// Head widths above 128 run in 128-column slices (`slices` > 1): a block
+// owns one slice of its output (grid: the slices of a row block are
+// neighbours), the scores are summed over every slice as q and K stream
+// through shared memory a slice at a time, and V comes in the output's
+// slice alone; the last slice is zero-filled past dh. Registers and shared
+// memory stay those of dh 128.
 //
 // Layout: q, k, v and out are each described by four strides in elements,
 // (outer0, outer1, head, row), with the dh elements of a row contiguous. So
@@ -109,9 +116,9 @@ constexpr int kRowsPerWarp = 8;
 constexpr int kQueryRows = kWarps * kRowsPerWarp;   // 32 per block
 constexpr int kKeysPerLane = 2;
 constexpr int kKeyTile = 32 * kKeysPerLane;         // 64 keys per tile
-constexpr int kMaxCols = 4;                         // dh <= 32 x 4
+constexpr int kMaxCols = 4;                         // 32 x 4 columns
 constexpr int kMaxRow = 512;
-constexpr int kMaxHeadDim = 32 * kMaxCols;
+constexpr int kSlice = 32 * kMaxCols;   // columns of a slice of a wide head
 
 struct Strides {
   long long outer0, outer1, head, row;
@@ -124,7 +131,9 @@ struct Params {
   void* out;
   Strides sq, sk, sv, so;
   int outer1, heads, n, dh;
-  int dh4;        // dh rounded up to 4 (q's row stride in shared memory)
+  int slices;     // kSlice-column slices of a head wider than kSlice, else 1
+  int dh4;        // a slice's width rounded up to 4 (q's row stride in
+                  // shared memory)
   int npad;       // n rounded up to the key tile (the scores' row stride)
   float scale;    // K9: already rounded to the I/O type by the caller
 };
@@ -194,12 +203,18 @@ row_mha_kernel(const Params p) {
       static_cast<const float*>(p.k) + offset(p.sk, o0, o1, h);
   const float* __restrict__ v =
       static_cast<const float*>(p.v) + offset(p.sv, o0, o1, h);
-  float* out = static_cast<float*>(p.out) + offset(p.so, o0, o1, h);
-  const int row0 = blockIdx.y * kQueryRows;          // the block's first row
+  const int os = blockIdx.y % p.slices;              // the output's slice
+  float* out = static_cast<float*>(p.out) + offset(p.so, o0, o1, h) +
+               os * kSlice;
+  const int row0 = blockIdx.y / p.slices * kQueryRows;  // the first row
+  // the columns of slice sl (all of dh when there is one)
+  auto width = [&](int sl) { return min(dh - sl * kSlice, kSlice); };
 
   // q rows (K9's scaled first), zero past n and dh
-  stage_rows<kQueryRows, kPrescale>(q, p.sq.row, row0, n, dh, dh4,
-                                       p.scale, sq, dh4, 1);
+  if (p.slices == 1) {
+    stage_rows<kQueryRows, kPrescale>(q, p.sq.row, row0, n, dh, dh4,
+                                      p.scale, sq, dh4, 1);
+  }
 
   // scores, one key tile at a time; the K tile is transposed in shared
   // memory: tile[d * ktile_stride + j], zero past n and dh
@@ -207,32 +222,39 @@ row_mha_kernel(const Params p) {
   const float score_scale = kPrescale ? 1.f : p.scale;
   const int my_row = warp * kRowsPerWarp;            // in the block
   for (int kt = 0; kt < p.npad; kt += kKeyTile) {
-    __syncthreads();
-    stage_rows<kKeyTile, false>(k, p.sk.row, kt, n, dh, dh4, 0.f, tile,
-                                   1, ktile_stride);
-    __syncthreads();
     float acc[kRowsPerWarp][kKeysPerLane];
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r)
 #pragma unroll
       for (int c = 0; c < kKeysPerLane; ++c) acc[r][c] = 0.f;
-    for (int d = 0; d < dh4; d += 4) {
-      float kv[4][kKeysPerLane];
+    // summed over the head's column slices
+    for (int sl = 0; sl < p.slices; ++sl) {
+      __syncthreads();
+      if (p.slices > 1) {
+        stage_rows<kQueryRows, kPrescale>(q + sl * kSlice, p.sq.row, row0, n,
+                                          width(sl), dh4, p.scale, sq, dh4, 1);
+      }
+      stage_rows<kKeyTile, false>(k + sl * kSlice, p.sk.row, kt, n, width(sl),
+                                  dh4, 0.f, tile, 1, ktile_stride);
+      __syncthreads();
+      for (int d = 0; d < dh4; d += 4) {
+        float kv[4][kKeysPerLane];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int c = 0; c < kKeysPerLane; ++c)
-          kv[i][c] = tile[(d + i) * ktile_stride + lane + 32 * c];
+          for (int c = 0; c < kKeysPerLane; ++c)
+            kv[i][c] = tile[(d + i) * ktile_stride + lane + 32 * c];
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(&sq[(my_row + r) * dh4 + d]);
+        for (int r = 0; r < kRowsPerWarp; ++r) {
+          const float4 qv =
+              *reinterpret_cast<const float4*>(&sq[(my_row + r) * dh4 + d]);
 #pragma unroll
-        for (int c = 0; c < kKeysPerLane; ++c) {
-          acc[r][c] = fmaf(qv.x, kv[0][c], acc[r][c]);
-          acc[r][c] = fmaf(qv.y, kv[1][c], acc[r][c]);
-          acc[r][c] = fmaf(qv.z, kv[2][c], acc[r][c]);
-          acc[r][c] = fmaf(qv.w, kv[3][c], acc[r][c]);
+          for (int c = 0; c < kKeysPerLane; ++c) {
+            acc[r][c] = fmaf(qv.x, kv[0][c], acc[r][c]);
+            acc[r][c] = fmaf(qv.y, kv[1][c], acc[r][c]);
+            acc[r][c] = fmaf(qv.z, kv[2][c], acc[r][c]);
+            acc[r][c] = fmaf(qv.w, kv[3][c], acc[r][c]);
+          }
         }
       }
     }
@@ -275,8 +297,8 @@ row_mha_kernel(const Params p) {
     for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
   for (int vt = 0; vt < p.npad; vt += kKeyTile) {
     __syncthreads();
-    stage_rows<kKeyTile, false>(v, p.sv.row, vt, n, dh, dh4, 0.f, tile,
-                                   vtile_stride, 1);
+    stage_rows<kKeyTile, false>(v + os * kSlice, p.sv.row, vt, n, width(os),
+                                dh4, 0.f, tile, vtile_stride, 1);
     __syncthreads();
     // the tile's keys up to n, in steps of 4 (the weights are 0 past n)
     const int jend = min(kKeyTile, (n - vt + 3) / 4 * 4);
@@ -310,7 +332,7 @@ row_mha_kernel(const Params p) {
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int d = lane + 32 * c;
-      if (d < dh) out[row * p.so.row + d] = acc[r][c];
+      if (d < width(os)) out[row * p.so.row + d] = acc[r][c];
     }
   }
 }
@@ -332,7 +354,8 @@ int launch_cols(const Params& p, long long blocks, cudaStream_t stream) {
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(blocks),
-                  static_cast<unsigned>((p.n + kQueryRows - 1) / kQueryRows));
+                  static_cast<unsigned>((p.n + kQueryRows - 1) / kQueryRows *
+                                        p.slices));
   row_mha_kernel<kPrescale, kCols>
       <<<grid, kWarps * 32, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
@@ -340,6 +363,7 @@ int launch_cols(const Params& p, long long blocks, cudaStream_t stream) {
 
 template <bool kPrescale>
 int launch(const Params& p, long long blocks, cudaStream_t stream) {
+  if (p.slices > 1) return launch_cols<kPrescale, kMaxCols>(p, blocks, stream);
   if (p.dh <= 32) return launch_cols<kPrescale, 1>(p, blocks, stream);
   if (p.dh <= 64) return launch_cols<kPrescale, 2>(p, blocks, stream);
   return launch_cols<kPrescale, kMaxCols>(p, blocks, stream);
@@ -530,30 +554,198 @@ __device__ __forceinline__ void whole_row_mma(const Params& p) {
   }
 }
 
-template <int DHP, int kVec>
+// The body of both tensor-core kernels above kSlice columns: the walks of
+// `whole_row_mma` with every step split into the head's 128-column slices.
+// A stage holds the block's q rows, a K tile and (second walk, last slice)
+// a V tile of one slice, all from shared memory (no q in registers; K9's
+// q scaled as its fragments are read); the scores are summed over the
+// slices, and the block writes the output's slice `os` (grid: slices of a
+// row block are neighbours).
+template <int kVec, bool kPrescale>
+__device__ __forceinline__ void whole_row_mma_sliced(const Params& p) {
+  using namespace attn_mma;
+  constexpr int DHP = kSlice;
+  constexpr int kKeys = attn_mma::kKeyTile;
+  constexpr int ld = row_stride(DHP);
+  constexpr int kTile = kKeys * ld;
+  extern __shared__ float4 smem4[];
+  const int warps = blockDim.x / 32;
+  const int kQ = warps * 16 * ld;                  // the q rows of a stage
+  const int kStage = kQ + 2 * kTile;               // q, K and V slices
+  uint16_t* ring = reinterpret_cast<uint16_t*>(smem4);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int n = p.n;
+  const int dh = p.dh;
+  const int slices = p.slices;
+  const int row_blocks = ((n + 15) / 16 + kMmaWarps - 1) / kMmaWarps;
+  const int os = static_cast<int>(blockIdx.x % slices);
+  const long long rb = blockIdx.x / slices;
+  long long idx = rb / row_blocks;
+  const int row0 = static_cast<int>(rb % row_blocks) * warps * 16;
+  const long long h = idx % p.heads;
+  idx /= p.heads;
+  const long long o1 = idx % p.outer1;
+  const long long o0 = idx / p.outer1;
+  const uint16_t* q =
+      static_cast<const uint16_t*>(p.q) + offset(p.sq, o0, o1, h);
+  const uint16_t* k =
+      static_cast<const uint16_t*>(p.k) + offset(p.sk, o0, o1, h);
+  const uint16_t* v =
+      static_cast<const uint16_t*>(p.v) + offset(p.sv, o0, o1, h);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) +
+                       offset(p.so, o0, o1, h) + os * DHP;
+
+  // walk step t: walk t / per (the max and sum, then the output), key tile
+  // t % per / slices, column slice t % slices
+  const int tiles = (n + kKeys - 1) / kKeys;
+  const int per = tiles * slices;
+  const int steps = 2 * per;
+  auto issue = [&](int t) {
+    uint16_t* stage = ring + (t & 1) * kStage;
+    const int kt = t % per / slices;
+    const int sl = t % slices;
+    const int cols = dh - sl * DHP;
+    copy_rows<kVec, DHP>(stage, ld, q + sl * DHP, p.sq.row, row0, warps * 16,
+                         n, cols);
+    copy_rows<kVec, DHP>(stage + kQ, ld, k + sl * DHP, p.sk.row, kt * kKeys,
+                         kKeys, n, cols);
+    if (t >= per && sl == slices - 1) {
+      copy_rows<kVec, DHP>(stage + kQ + kTile, ld, v + os * DHP, p.sv.row,
+                           kt * kKeys, kKeys, n, dh - os * DHP);
+    }
+  };
+  issue(0);
+  cp_async_commit();
+
+  const int wrow = row0 + warp * 16;               // the warp's first row
+  const int g = lane / 4;
+  const bool active = wrow < n;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float rinv[2] = {0.f, 0.f};
+  float o[DHP / 8][4];
+#pragma unroll
+  for (int c = 0; c < DHP / 8; ++c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[c][e] = 0.f;
+  }
+  const float log2_units = kPrescale ? kLog2e : p.scale * kLog2e;
+  float s[8][4];
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait<0>();                            // this step's copies,
+    __syncthreads();                               // and the last stage free
+    if (t + 1 < steps) {
+      issue(t + 1);
+      cp_async_commit();
+    }
+    if (t == per && active) {                      // between the walks
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = quad_sum(l[r]);
+        rinv[r] = 1.f / l[r];
+      }
+    }
+    if (!active) continue;
+    const uint16_t* stage = ring + (t & 1) * kStage;
+    const int j0 = t % per / slices * kKeys;
+    const int groups = min(kKeyGroups, (n - j0 + 15) / 16);
+    if (t % slices == 0) zero_tile(s);
+    tile_scores_shared_add<DHP, kPrescale>(s, stage + warp * 16 * ld,
+                                           stage + kQ, groups, lane,
+                                           p.scale);
+    if (t % slices != slices - 1) continue;
+    scale_tile(s, log2_units);
+    if (j0 + kKeys > n) mask_tile(s, j0, n, wrow + g, false, lane);
+    if (t < per) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(row_max(s, r)));
+        float sum = 0.f;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+          if (nb / 2 < groups) {
+            sum += exp2f(s[nb][2 * r] - m_new) +
+                   exp2f(s[nb][2 * r + 1] - m_new);
+          }
+        }
+        l[r] = l[r] * exp2f(m[r] - m_new) + sum;
+        m[r] = m_new;
+      }
+      continue;
+    }
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = nb / 2 < groups ? exp2f(s[nb][e] - m[e / 2]) : 0.f;
+        const float qq = x * rinv[e / 2];
+        s[nb][e] = fmaf(fmaf(-l[e / 2], qq, x), rinv[e / 2], qq);
+      }
+    }
+    uint32_t w[kKeyGroups][4];
+    pack_weights(w, s);
+    tile_pv<DHP>(o, w, stage + kQ + kTile, groups, lane);
+  }
+
+  if (!active) return;
+  const int cols = dh - os * DHP;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wrow + g + 8 * r;
+    if (row >= n) continue;
+    __nv_bfloat16* dst = out + row * p.so.row;
+#pragma unroll
+    for (int c = 0; c < DHP / 8; ++c) {
+      const int col = c * 8 + 2 * (lane % 4);
+      if (kVec > 1 && col + 1 < cols) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+            __floats2bfloat162_rn(o[c][2 * r], o[c][2 * r + 1]);
+      } else {
+        if (col < cols) dst[col] = __float2bfloat16_rn(o[c][2 * r]);
+        if (col + 1 < cols) dst[col + 1] = __float2bfloat16_rn(o[c][2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int DHP, int kVec, bool kSliced>
 __global__ void __launch_bounds__(kMmaWarps * 32)
 vision_mha_mma_kernel(const Params p) {
-  whole_row_mma<DHP, kVec, true>(p);
+  if constexpr (kSliced) {
+    whole_row_mma_sliced<kVec, true>(p);
+  } else {
+    whole_row_mma<DHP, kVec, true>(p);
+  }
 }
 
-template <int DHP, int kVec>
+template <int DHP, int kVec, bool kSliced>
 __global__ void __launch_bounds__(kMmaWarps * 32)
 row_mha_mma_kernel(const Params p) {
-  whole_row_mma<DHP, kVec, false>(p);
+  if constexpr (kSliced) {
+    whole_row_mma_sliced<kVec, false>(p);
+  } else {
+    whole_row_mma<DHP, kVec, false>(p);
+  }
 }
 
-template <int DHP, int kVec, bool kPrescale>
+template <int DHP, int kVec, bool kPrescale, bool kSliced>
 int launch_mma(const Params& p, long long blocks, cudaStream_t stream) {
-  void (*kernel)(const Params) = kPrescale ? vision_mha_mma_kernel<DHP, kVec>
-                                           : row_mha_mma_kernel<DHP, kVec>;
+  void (*kernel)(const Params) =
+      kPrescale ? vision_mha_mma_kernel<DHP, kVec, kSliced>
+                : row_mha_mma_kernel<DHP, kVec, kSliced>;
   const int ld = attn_mma::row_stride(DHP);
   const int row_tiles = (p.n + 15) / 16;
   const int row_blocks = (row_tiles + kMmaWarps - 1) / kMmaWarps;
   const int warps = (row_tiles + row_blocks - 1) / row_blocks;
-  const long long grid = blocks * row_blocks;
+  const long long grid = blocks * row_blocks * p.slices;
   if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  // q rows and a stage pair of K and V tiles (sliced: two stages of q, K
+  // and V slices)
   const size_t smem = sizeof(uint16_t) * static_cast<size_t>(ld) *
-                      (warps * 16 + 4 * attn_mma::kKeyTile);
+                      (kSliced ? 2 * (warps * 16 + 2 * attn_mma::kKeyTile)
+                               : warps * 16 + 4 * attn_mma::kKeyTile);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -562,19 +754,20 @@ int launch_mma(const Params& p, long long blocks, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DHP, bool kPrescale>
+template <int DHP, bool kPrescale, bool kSliced = false>
 int launch_mma_vec(const Params& p, int vec, long long blocks,
                    cudaStream_t stream) {
   switch (vec) {
-    case 8: return launch_mma<DHP, 8, kPrescale>(p, blocks, stream);
-    case 4: return launch_mma<DHP, 4, kPrescale>(p, blocks, stream);
-    case 2: return launch_mma<DHP, 2, kPrescale>(p, blocks, stream);
-    default: return launch_mma<DHP, 1, kPrescale>(p, blocks, stream);
+    case 8: return launch_mma<DHP, 8, kPrescale, kSliced>(p, blocks, stream);
+    case 4: return launch_mma<DHP, 4, kPrescale, kSliced>(p, blocks, stream);
+    case 2: return launch_mma<DHP, 2, kPrescale, kSliced>(p, blocks, stream);
+    default: return launch_mma<DHP, 1, kPrescale, kSliced>(p, blocks, stream);
   }
 }
 
-// K9 or K10 in bf16: the head width padded to DHP and the widest copy that
-// every pointer and stride allows.
+// K9 or K10 in bf16: the head width padded to DHP (or cut in 128-column
+// slices above 128) and the widest copy that every pointer and stride
+// allows.
 template <bool kPrescale>
 int launch_bf16_mma(const Params& p, long long blocks, cudaStream_t stream) {
   unsigned long long bits = 0;
@@ -588,6 +781,9 @@ int launch_bf16_mma(const Params& p, long long blocks, cudaStream_t stream) {
   }
   const int vec = attn_mma::vec_for(bits);
   cudaStream_t s = stream;
+  if (p.slices > 1) {
+    return launch_mma_vec<kSlice, kPrescale, true>(p, vec, blocks, s);
+  }
   if (p.dh <= 16) return launch_mma_vec<16, kPrescale>(p, vec, blocks, s);
   if (p.dh <= 32) return launch_mma_vec<32, kPrescale>(p, vec, blocks, s);
   if (p.dh <= 64) return launch_mma_vec<64, kPrescale>(p, vec, blocks, s);
@@ -599,7 +795,7 @@ int run(bool prescale, int dtype, long long outer0, int outer1, int heads,
         const void* k, const void* v, void* out, void* stream) {
   const long long blocks = outer0 * outer1 * heads;
   if (outer0 < 1 || outer1 < 1 || heads < 1 || n < 1 || n > kMaxRow ||
-      dh < 1 || dh > kMaxHeadDim || blocks > 0x7fffffffLL ||
+      dh < 1 || blocks > 0x7fffffffLL ||
       (dtype != 0 && dtype != 1) || !q || !k || !v || !out) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -619,7 +815,8 @@ int run(bool prescale, int dtype, long long outer0, int outer1, int heads,
   p.heads = heads;
   p.n = n;
   p.dh = dh;
-  p.dh4 = (dh + 3) / 4 * 4;
+  p.slices = (dh + kSlice - 1) / kSlice;
+  p.dh4 = p.slices > 1 ? kSlice : (dh + 3) / 4 * 4;
   p.npad = (n + kKeyTile - 1) / kKeyTile * kKeyTile;
   p.scale = scale;
   cudaStream_t s0 = static_cast<cudaStream_t>(stream);
@@ -639,7 +836,7 @@ extern "C" {
 // K10 on `stream`. dtype: 0 float32, 1 bfloat16 (q, k, v and out share
 // it). q, k, v, out: (outer0, outer1, heads, n, dh) with the element strides
 // sX0, sX1, sXh, sXn (the last dimension contiguous); the scores are scaled
-// by `scale` in fp32. n <= 512, dh <= 128. Returns the cudaError_t of the
+// by `scale` in fp32. n <= 512, any dh. Returns the cudaError_t of the
 // launch (0 on success).
 int row_mha_fwd(int dtype, long long outer0, int outer1, int heads, int n,
                 int dh, float scale, long long sq0, long long sq1,

@@ -26,40 +26,45 @@
 // dstate 16, bf16 I/O): it reads u, dt, z, g and writes du, ddt, dz, eight
 // (b,l,d) bf16 tensors of 38.5 MB per direction (about 0.55 GB with B, C,
 // dB, dC: 0.16 ms), and does about 20 fp32 operations for each of
-// 2 x 308 M state updates (0.18 ms). So operations bound it, and the three
-// exponentials per state update (forward pass, segment recompute, reverse
-// step) go to the special-function units on top.
+// 2 x 308 M state updates (0.18 ms). So operations bound it; the
+// exponentials go to the special function units (16 results a clock an
+// SM) on top: 0.32 ms for the 1.75 a state update that the design below
+// takes.
 //
-// Design (right and simple first): one thread per (row, channel) and one
-// grid slice per direction, as in the forward kernel; each block loops
-// over a fixed set of rows. Per row:
-//   pass 1 walks forward, keeps the state in fp32 registers, stores it to
-//          shared memory every kSeg steps (checkpoints), and computes the
-//          gate's backward dz from y_t on the way;
-//   pass 2 walks the segments backwards: it recomputes the kSeg states of
-//          a segment from its checkpoint into registers, then runs the
-//          adjoint walk over them. h_{t-1} is never rebuilt as
-//          (h_t - dt u B) / a_t, which blows up where a_t underflows.
-// dB and dC are sums over channels: each step reduces its 32 values (dB
-// and dC for 16 states) across the warp with one transposing butterfly
-// (31 shuffles, lane l ends with value l), the warps' results go to shared
-// memory, and the block writes one fp32 partial per (channel block, row,
-// step, state). dA, dD and dbias are sums over rows: each thread keeps them
-// in registers over its block's rows and writes one fp32 partial per row
-// group. The wrapper sums the partials with torch.sum, so the result does
-// not depend on the order in which blocks run (no atomics).
+// Design: scan_lanes.cuh's units. A block of 128 threads takes 128
+// channels of one direction (grid z) and a fixed set of rows (grid x), and
+// walks each row's channels as 4 units of 32 channels, 4 lanes a channel (4
+// states a lane). Each unit's u, dt, z and g (seqlen x 32) and its row's B
+// and C are staged in shared memory by cp.async while the block walks the
+// unit before it, widened to fp32 once (softplus and the gate computed once
+// a (step, channel)), and walked by `adjoint_walk` from a zero state and a
+// zero adjoint: forward once with its pieces' starts in shared memory;
+// then each 4-step piece, last first, recomputed forward from its start
+// with its states and decays in registers, and the adjoint over it. h_{t-1} is never rebuilt as
+// (h_t - dt u B) / a_t, which blows up where a_t underflows. du, ddt and
+// dz leave through a shared tile as 16-byte stores. dB and dC are sums
+// over channels: per step the unit's 32 channels are summed by a warp
+// butterfly and the 4 warps in shared memory, the 4 units of a row added
+// in shared memory by the thread that owns the element, and the block
+// writes one fp32 partial per (channel block, row, step, state). dA, dD
+// and dbias are sums over rows: kept in shared memory per (unit, thread)
+// over the block's rows and written as one fp32 partial per row group. The
+// wrapper sums the partials with torch.sum, so the result does not depend
+// on the order in which blocks run (no atomics).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "scan_lanes.cuh"
+
 namespace {
 
-constexpr int kMaxSeqlen = 64;
-constexpr int kMaxDstate = 16;
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kSeg = 4;  // steps between state checkpoints
+using namespace scan_lanes;
+
+constexpr int kMaxSeqlen = kMaxSteps;
+constexpr int kUnits = 4;                          // units a channel block
+constexpr int kBlockChannels = kUnits * kChannels;  // 128
 
 struct Direction {
   const void* u;      // (batch, seqlen, dim)
@@ -81,269 +86,191 @@ struct Direction {
   float* dbias;       // (groups, dim) partials
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+// Both directions, read by the grid's z index (an array in the parameter
+// space, not a struct copied by a runtime select).
+struct Directions {
+  Direction d[2];
+};
 
+// Shared memory past the units' tiles: a row's dB/dC sums over its units
+// [S][32], and each thread's dA [kUnits][kThreads] (float4), dD and dbias
+// [kUnits][32] over the block's rows.
 template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+size_t smem_bytes(int S) {
+  return Layout<T>::bytes(S) + sizeof(float) * S * 32 +
+         sizeof(float4) * kUnits * kThreads +
+         2 * sizeof(float) * kUnits * kChannels;
 }
 
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-// softplus as torch computes it (threshold 20), and its derivative.
-__device__ __forceinline__ float softplus(float x) {
-  return x > 20.f ? x : log1pf(expf(x));
-}
-__device__ __forceinline__ float softplus_grad(float x) {
-  return x > 20.f ? 1.f : sigmoid(x);
-}
-
-// One stage of the transposing butterfly: lanes that differ in bit kOff
-// swap halves of their first 2*kOff values and add.
-template <int kOff>
-__device__ __forceinline__ void butterfly_stage(float (&v)[32], int lane) {
-  const bool upper = lane & kOff;
-#pragma unroll
-  for (int i = 0; i < kOff; ++i) {
-    const float send = upper ? v[i] : v[i + kOff];
-    const float keep = upper ? v[i + kOff] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, kOff);
-  }
-}
-
-// After this, v[0] on lane l is the sum of v[l] over the warp's 32 lanes.
-__device__ __forceinline__ void warp_transpose_sum(float (&v)[32], int lane) {
-  butterfly_stage<16>(v, lane);
-  butterfly_stage<8>(v, lane);
-  butterfly_stage<4>(v, lane);
-  butterfly_stage<2>(v, lane);
-  butterfly_stage<1>(v, lane);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    short_bidir_bwd_kernel(Direction fwd, Direction bwd, int batch,
-                           int seqlen, int dim, int dstate) {
-  extern __shared__ float smem[];
-  float* sB = smem;                              // [t][16], fp32, zero-padded
-  float* sC = sB + seqlen * kMaxDstate;          // [t][16]
-  float* red = sC + seqlen * kMaxDstate;         // [warp][t][32]
-  float* ck = red + kWarps * seqlen * 32;        // [segment-1][16][thread]
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads, 4)
+    short_bidir_bwd_lanes_kernel(Directions dirs, int batch, int seqlen,
+                                 int dim, int dstate) {
+  extern __shared__ float4 smem4[];
+  const int S = (seqlen + kPiece - 1) / kPiece * kPiece;
+  const Tiles<T> w(smem4, S);
+  float* racc = reinterpret_cast<float*>(
+      reinterpret_cast<char*>(smem4) + Layout<T>::bytes(S));
+  float4* sA = reinterpret_cast<float4*>(racc + S * 32);
+  float* sD = reinterpret_cast<float*>(sA + kUnits * kThreads);
+  float* sbias = sD + kUnits * kChannels;
 
   const bool reverse = blockIdx.z == 1;
-  const Direction p = reverse ? bwd : fwd;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int ch = blockIdx.y * kThreads + tid;
-  // Threads past the last channel load zeros (their state and cotangents
-  // stay 0) and store nothing, but take part in the shuffles.
-  const bool active = ch < dim;
-  const int nseg = (seqlen + kSeg - 1) / kSeg;
-
-  float A[kMaxDstate];
-  float dA[kMaxDstate];
-#pragma unroll
-  for (int k = 0; k < kMaxDstate; ++k) {
-    A[k] = active && k < dstate ? p.A[ch * dstate + k] : 0.f;
-    dA[k] = 0.f;
-  }
-  const float bias = active && p.bias ? p.bias[ch] : 0.f;
-  const float D = active && p.D ? p.D[ch] : 0.f;
-  float dD = 0.f;
-  float dbias = 0.f;
-
-  const T* u = static_cast<const T*>(p.u);
+  const Direction& p = dirs.d[blockIdx.z];
+  const T* up = static_cast<const T*>(p.u);
   const T* dtp = static_cast<const T*>(p.dt);
-  const T* z = static_cast<const T*>(p.z);
+  const T* zp = static_cast<const T*>(p.z);
   const T* gp = static_cast<const T*>(p.g);
-  T* du = static_cast<T*>(p.du);
-  T* ddtp = static_cast<T*>(p.ddt);
-  T* dz = static_cast<T*>(p.dz);
+  const T* Bp = static_cast<const T*>(p.B);
+  const T* Cp = static_cast<const T*>(p.C);
+  const int cb = blockIdx.y * kBlockChannels;
 
-  for (int64_t row = blockIdx.x; row < batch; row += gridDim.x) {
-    __syncthreads();  // the previous row is done with sB, sC and red
-    const int64_t bc_off = row * seqlen * dstate;
-    const T* Bp = static_cast<const T*>(p.B) + bc_off;
-    const T* Cp = static_cast<const T*>(p.C) + bc_off;
-    for (int i = tid; i < seqlen * kMaxDstate; i += kThreads) {
-      const int t = i / kMaxDstate;
-      const int k = i % kMaxDstate;
-      sB[i] = k < dstate ? to_float(Bp[t * dstate + k]) : 0.f;
-      sC[i] = k < dstate ? to_float(Cp[t * dstate + k]) : 0.f;
+  Lane L;
+  L.lane = threadIdx.x & 31;
+  L.warp = threadIdx.x >> 5;
+  L.cw = L.warp * (32 / kLanes) + L.lane / kLanes;
+  L.quarter = L.lane % kLanes;
+  const int q4 = L.quarter * kStates;
+#pragma unroll
+  for (int s = 0; s < kUnits; ++s) {
+    sA[s * kThreads + threadIdx.x] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (L.quarter == 0) {
+      sD[s * kChannels + L.cw] = 0.f;
+      sbias[s * kChannels + L.cw] = 0.f;
     }
-    __syncthreads();
-    const int64_t base = row * seqlen * dim + ch;
+  }
 
-    // pass 1: forward states, checkpoints and the gate's backward
-    float h[kMaxDstate];
+  // the block's units: rows blockIdx.x, + gridDim.x, ..., 4 units a row
+  const int rows = (batch - static_cast<int>(blockIdx.x) +
+                    static_cast<int>(gridDim.x) - 1) / gridDim.x;
+  const int nunits = rows * kUnits;
+  auto unit = [&](int n) {
+    UnitPlace q;
+    q.row = blockIdx.x + static_cast<int64_t>(n / kUnits) * gridDim.x;
+    q.i0 = 0;
+    q.nsteps = seqlen;
+    q.ch0 = cb + (n % kUnits) * kChannels;
+    q.valid = max(0, min(kChannels, dim - q.ch0));
+    q.group = 0;
+    q.seqlen = seqlen;
+    q.dim = dim;
+    q.dstate = dstate;
+    q.ngroups = 1;
+    q.reverse = reverse;
+    return q;
+  };
+
+  if (nunits > 0) {
+    stage<T, kVec, false>(w.raw, S, unit(0), up, dtp, zp, gp, Bp, Cp);
+    cp_async_commit();
+  }
+  for (int n = 0; n < nunits; ++n) {
+    const UnitPlace q = unit(n);
+    const int s = n % kUnits;
+    // the lane's A and D, loaded while the tiles arrive
+    const bool active = L.cw < q.valid;
+    const int ch = q.ch0 + L.cw;
 #pragma unroll
-    for (int k = 0; k < kMaxDstate; ++k) h[k] = 0.f;
-    for (int i = 0; i < seqlen; ++i) {
-      if (i > 0 && i % kSeg == 0) {
-        float* c = ck + (i / kSeg - 1) * kMaxDstate * kThreads + tid;
-#pragma unroll
-        for (int k = 0; k < kMaxDstate; ++k) c[k * kThreads] = h[k];
-      }
-      const int t = reverse ? seqlen - 1 - i : i;
-      const int64_t off = base + static_cast<int64_t>(t) * dim;
-      const float uv = active ? to_float(u[off]) : 0.f;
-      const float dt = softplus((active ? to_float(dtp[off]) : 0.f) + bias);
-      const float dtu = dt * uv;
-      const float* Bt = sB + t * kMaxDstate;
-      const float* Ct = sC + t * kMaxDstate;
-      float y = D * uv;
-#pragma unroll
-      for (int k = 0; k < kMaxDstate; ++k) {
-        h[k] = expf(dt * A[k]) * h[k] + dtu * Bt[k];
-        y += Ct[k] * h[k];
-      }
-      if (z && active) {
-        const float zv = to_float(z[off]);
-        const float s = sigmoid(zv);
-        const float g = to_float(gp[off]);
-        dz[off] = from_float<T>(g * y * (s + zv * s * (1.f - s)));
-      }
+    for (int k = 0; k < kStates; ++k) {
+      L.A2[k] = active && q4 + k < dstate
+                    ? p.A[ch * dstate + q4 + k] * kLog2e : 0.f;
+      L.dA[k] = 0.f;
+    }
+    L.D = active && p.D ? p.D[ch] : 0.f;
+    L.dD = 0.f;
+    L.dbias = 0.f;
+    cp_async_wait_all();
+    __syncthreads();  // this unit's tiles are in; the last unit is out
+    prep<T, false>(w, w.raw, q, q.valid > 0 && p.bias ?
+                   p.bias + q.ch0 : nullptr, zp != nullptr, true);
+    __syncthreads();  // the raw tiles are read: the next unit's copy
+    if (n + 1 < nunits) {
+      stage<T, kVec, false>(w.raw, S, unit(n + 1), up, dtp, zp, gp, Bp, Cp);
+      cp_async_commit();
     }
 
-    // pass 2: segments last to first, each recomputed from its checkpoint
-    float dh[kMaxDstate];
-#pragma unroll
-    for (int k = 0; k < kMaxDstate; ++k) dh[k] = 0.f;
-    for (int s = nseg - 1; s >= 0; --s) {
-      float hp[kMaxDstate];  // the state before the segment
-      const float* c = ck + (s > 0 ? s - 1 : 0) * kMaxDstate * kThreads + tid;
-#pragma unroll
-      for (int k = 0; k < kMaxDstate; ++k) {
-        hp[k] = s > 0 ? c[k * kThreads] : 0.f;
-        h[k] = hp[k];
-      }
-      float hs[kSeg][kMaxDstate];
-      float us[kSeg];
-      float dts[kSeg];
-      float dsp[kSeg];
-#pragma unroll
-      for (int j = 0; j < kSeg; ++j) {
-        const int i = s * kSeg + j;
-        us[j] = dts[j] = dsp[j] = 0.f;
-        if (i < seqlen) {
-          const int t = reverse ? seqlen - 1 - i : i;
-          const int64_t off = base + static_cast<int64_t>(t) * dim;
-          const float uv = active ? to_float(u[off]) : 0.f;
-          const float x = (active ? to_float(dtp[off]) : 0.f) + bias;
-          const float dt = softplus(x);
-          us[j] = uv;
-          dts[j] = dt;
-          dsp[j] = softplus_grad(x);
-          const float dtu = dt * uv;
-          const float* Bt = sB + t * kMaxDstate;
-#pragma unroll
-          for (int k = 0; k < kMaxDstate; ++k) {
-            h[k] = expf(dt * A[k]) * h[k] + dtu * Bt[k];
-          }
-        }
-#pragma unroll
-        for (int k = 0; k < kMaxDstate; ++k) hs[j][k] = h[k];
-      }
-#pragma unroll
-      for (int j = kSeg - 1; j >= 0; --j) {
-        const int i = s * kSeg + j;
-        if (i >= seqlen) continue;  // the same for every thread
-        const int t = reverse ? seqlen - 1 - i : i;
-        const int64_t off = base + static_cast<int64_t>(t) * dim;
-        const float g = active ? to_float(gp[off]) : 0.f;
-        float gy = g;
-        if (z) {
-          const float zv = active ? to_float(z[off]) : 0.f;
-          gy = g * zv * sigmoid(zv);
-        }
-        const float uv = us[j];
-        const float dt = dts[j];
-        const float dtu = dt * uv;
-        const float* Bt = sB + t * kMaxDstate;
-        const float* Ct = sC + t * kMaxDstate;
-        float v[32];  // dB for the 16 states, then dC
-        float ddt = 0.f;
-        float dhB = 0.f;
-#pragma unroll
-        for (int k = 0; k < kMaxDstate; ++k) {
-          const float a = expf(dt * A[k]);
-          const float h_prev = j > 0 ? hs[j - 1][k] : hp[k];
-          dh[k] += Ct[k] * gy;
-          v[k] = dh[k] * dtu;
-          v[kMaxDstate + k] = gy * hs[j][k];
-          const float el = dh[k] * h_prev * a;
-          dA[k] += el * dt;
-          ddt += el * A[k];
-          dhB += dh[k] * Bt[k];
-          dh[k] *= a;
-        }
-        ddt = (ddt + dhB * uv) * dsp[j];
-        dD += gy * uv;
-        dbias += ddt;
-        if (active) {
-          du[off] = from_float<T>(dhB * dt + gy * D);
-          ddtp[off] = from_float<T>(ddt);
-        }
-        warp_transpose_sum(v, lane);
-        red[(warp * seqlen + t) * 32 + lane] = v[0];
-      }
+    float h[kStates] = {0.f, 0.f, 0.f, 0.f};
+    float dh[kStates] = {0.f, 0.f, 0.f, 0.f};
+    adjoint_walk<T>(w, seqlen, L, h, dh);
+    float4& a = sA[s * kThreads + threadIdx.x];
+    a = make_float4(a.x + L.dA[0], a.y + L.dA[1], a.z + L.dA[2],
+                    a.w + L.dA[3]);
+    if (L.quarter == 0) {
+      sD[s * kChannels + L.cw] += L.dD;
+      sbias[s * kChannels + L.cw] += L.dbias;
     }
     __syncthreads();
 
-    // this row's dB and dC over the block's channels
-    const int64_t part = (static_cast<int64_t>(blockIdx.y) * batch + row) *
+    store_outputs<T, kVec>(w, q, static_cast<T*>(p.du),
+                           static_cast<T*>(p.ddt), static_cast<T*>(p.dz));
+    // this row's dB and dC over the block's channels, each element summed
+    // by the thread that owns it
+    const int64_t part = (static_cast<int64_t>(blockIdx.y) * batch + q.row) *
                          seqlen * dstate;
-    for (int i = tid; i < seqlen * dstate; i += kThreads) {
-      const int t = i / dstate;
-      const int k = i % dstate;
-      float sb = 0.f;
-      float sc = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        sb += red[(w * seqlen + t) * 32 + k];
-        sc += red[(w * seqlen + t) * 32 + kMaxDstate + k];
+    for (int e = threadIdx.x; e < seqlen * 32; e += kThreads) {
+      const float v = (s ? racc[e] : 0.f) + warp_total(w.red, S, e);
+      racc[e] = v;
+      const int k = e % kMaxDstate;
+      if (s == kUnits - 1 && k < dstate) {
+        ((e % 32) < kMaxDstate ? p.dB : p.dC)[part + q.time(e / 32) *
+                                                         dstate + k] = v;
       }
-      p.dB[part + i] = sb;
-      p.dC[part + i] = sc;
     }
   }
 
-  if (active) {
+  // dA, dD and dbias of the block's rows (the thread's own slots)
+  for (int s = 0; s < kUnits; ++s) {
+    const int ch = cb + s * kChannels + L.cw;
+    if (ch >= dim) continue;
     const int64_t prow = static_cast<int64_t>(blockIdx.x) * dim + ch;
-    for (int k = 0; k < dstate; ++k) p.dA[prow * dstate + k] = dA[k];
-    p.dD[prow] = dD;
-    p.dbias[prow] = dbias;
+    const float4 a = sA[s * kThreads + threadIdx.x];
+#pragma unroll
+    for (int k = 0; k < kStates; ++k) {
+      if (q4 + k < dstate) p.dA[prow * dstate + q4 + k] = at(a, k);
+    }
+    if (L.quarter == 0) {
+      p.dD[prow] = sD[s * kChannels + L.cw];
+      p.dbias[prow] = sbias[s * kChannels + L.cw];
+    }
   }
+}
+
+// 16-byte copies need every channel tensor's rows and B/C steps on
+// 16-byte boundaries.
+bool vec_ok(const Direction& d, int dim, int dstate, int esize) {
+  const void* ptrs[] = {d.u, d.dt, d.z, d.B, d.C, d.g, d.du, d.ddt, d.dz};
+  for (const void* q : ptrs) {
+    if (reinterpret_cast<uintptr_t>(q) % 16) return false;
+  }
+  return (dim * esize) % 16 == 0 && (dstate * esize) % 16 == 0;
+}
+
+template <typename T, bool kVec>
+int launch_vec(const Direction& f, const Direction& b, long long batch,
+               int seqlen, int dim, int dstate, int groups, cudaStream_t s) {
+  const int S = (seqlen + kPiece - 1) / kPiece * kPiece;
+  const size_t smem = smem_bytes<T>(S);
+  cudaError_t err = cudaFuncSetAttribute(
+      short_bidir_bwd_lanes_kernel<T, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(groups),
+                  static_cast<unsigned>((dim + kBlockChannels - 1) /
+                                        kBlockChannels),
+                  2);
+  short_bidir_bwd_lanes_kernel<T, kVec><<<grid, kThreads, smem, s>>>(
+      Directions{{f, b}}, static_cast<int>(batch), seqlen, dim, dstate);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const Direction& f, const Direction& b, long long batch,
            int seqlen, int dim, int dstate, int groups, cudaStream_t s) {
-  const int nseg = (seqlen + kSeg - 1) / kSeg;
-  const size_t smem =
-      sizeof(float) * (2 * seqlen * kMaxDstate + kWarps * seqlen * 32 +
-                       (nseg - 1) * kMaxDstate * kThreads);
-  cudaError_t err = cudaFuncSetAttribute(
-      short_bidir_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(groups),
-                  static_cast<unsigned>((dim + kThreads - 1) / kThreads), 2);
-  short_bidir_bwd_kernel<T><<<grid, kThreads, smem, s>>>(
-      f, b, static_cast<int>(batch), seqlen, dim, dstate);
-  return static_cast<int>(cudaGetLastError());
+  const int esize = sizeof(T);
+  if (vec_ok(f, dim, dstate, esize) && vec_ok(b, dim, dstate, esize)) {
+    return launch_vec<T, true>(f, b, batch, seqlen, dim, dstate, groups, s);
+  }
+  return launch_vec<T, false>(f, b, batch, seqlen, dim, dstate, groups, s);
 }
 
 }  // namespace
@@ -353,8 +280,8 @@ extern "C" {
 // Launches both directions on `stream`. dtype: 0 float32, 1 bfloat16 (u,
 // dt, z, B, C, g, du, ddt and dz share it; A, D, bias and every partial are
 // float32). `groups` row groups (1 <= groups <= batch) each write one
-// partial of dA, dD and dbias. Returns the cudaError_t of the launch (0 on
-// success).
+// partial of dA, dD and dbias; dB and dC have one partial per 128
+// channels. Returns the cudaError_t of the launch (0 on success).
 int short_bidir_bwd(int dtype, long long batch, int seqlen, int dim,
                     int dstate, int groups,
                     const void* uf, const void* dtf, const void* zf,
@@ -369,18 +296,21 @@ int short_bidir_bwd(int dtype, long long batch, int seqlen, int dim,
                     void* dCb, void* dDb, void* dbiasb, void* stream) {
   if (batch < 1 || batch > 0x7fffffffLL || seqlen < 1 ||
       seqlen > kMaxSeqlen || dim < 1 || dstate < 1 || dstate > kMaxDstate ||
-      groups < 1 || groups > batch || (dtype != 0 && dtype != 1)) {
+      groups < 1 || groups > batch ||
+      (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Direction f{uf, dtf, zf, Bf, Cf, static_cast<const float*>(Af),
                     static_cast<const float*>(Df),
-                    static_cast<const float*>(biasf), gf, duf, ddtf, dzf,
+                    static_cast<const float*>(biasf), gf, duf, ddtf,
+                    zf ? dzf : nullptr,
                     static_cast<float*>(dAf), static_cast<float*>(dBf),
                     static_cast<float*>(dCf), static_cast<float*>(dDf),
                     static_cast<float*>(dbiasf)};
   const Direction b{ub, dtb, zb, Bb, Cb, static_cast<const float*>(Ab),
                     static_cast<const float*>(Db),
-                    static_cast<const float*>(biasb), gb, dub, ddtb, dzb,
+                    static_cast<const float*>(biasb), gb, dub, ddtb,
+                    zb ? dzb : nullptr,
                     static_cast<float*>(dAb), static_cast<float*>(dBb),
                     static_cast<float*>(dCb), static_cast<float*>(dDb),
                     static_cast<float*>(dbiasb)};

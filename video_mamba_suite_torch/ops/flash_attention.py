@@ -31,7 +31,14 @@ after the shared di kernel), fp32 on the SIMT kernels
 full fp32, which TF32 tensor cores would not hold to the fp32
 tolerances. Both read q, k and v through strides: any (B, L, H, dh) view
 whose last dimension is contiguous, so ``FusedMHA`` hands them the
-projection's own (B, L, 3D) output without a copy. The wrappers
+projection's own (B, L, 3D) output without a copy. They take the head
+widths that jax's ``flash_attention`` computes (``takes_head_width``): up
+to 128, zero-filled in shared memory to the kernels' 64 or 128 columns,
+and multiples of 128, in 128-column slices whose score products are
+summed (each block then writes one slice of each output). A width that is
+no multiple of 8 is given to the kernels as one contiguous copy
+zero-padded to the next multiple of 8 (zero columns change neither the
+scores nor the kept columns of the outputs). The wrappers
 ``flash_mha_fwd`` and ``flash_mha_bwd`` launch them on CUDA tensors and
 raise on anything they do not take; ``flash_mha_ref`` and
 ``flash_mha_bwd_ref`` are the plain versions. ``flash_mha`` is the autograd
@@ -51,12 +58,18 @@ from ._build import entry, launch, ptr
 SOURCE = "flash_mha"              # csrc/flash_mha.cu, both entries
 FWD_KERNEL = "flash_mha_fwd"
 BWD_KERNEL = "flash_mha_bwd"
-HEAD_DIMS = (64, 128)            # the head widths the kernels take
+COLUMN_SLICE = 128                # head widths above this run in slices
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD_ARGTYPES = ([ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float]
                  + [ctypes.c_longlong] * 9 + [ctypes.c_void_p] * 5)
 _BWD_ARGTYPES = _FWD_ARGTYPES + [ctypes.c_void_p] * 5
+
+
+def takes_head_width(dh: int) -> bool:
+    """The head widths K11 takes, those jax's Pallas ``flash_attention``
+    computes: any up to 128, and multiples of 128 above that."""
+    return dh > 0 and (dh <= COLUMN_SLICE or dh % COLUMN_SLICE == 0)
 
 
 def _heads(t: torch.Tensor) -> torch.Tensor:
@@ -110,7 +123,8 @@ def flash_mha_bwd_ref(q, k, v, out, lse, dout, causal: bool = False):
 
 
 def _check(q, k, v, name: str):
-    """Raise unless K11 takes these (B, L, H, dh) q, k and v."""
+    """Raise unless K11 takes these (B, L, H, dh) q, k and v (their
+    layout is checked by ``_check_layout``)."""
     if q.dim() != 4:
         raise ValueError(f"{name}: q must be (B, L, H, dh), got "
                          f"{tuple(q.shape)}")
@@ -126,20 +140,37 @@ def _check(q, k, v, name: str):
         if t.shape != q.shape:
             raise ValueError(f"{name}: {label} has shape {tuple(t.shape)}, "
                              f"q {tuple(q.shape)}")
-        # the kernels read 4 elements at a time
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}")
+    B, L, H, dh = q.shape
+    if not takes_head_width(dh):
+        raise ValueError(f"{name}: head width {dh} is not taken (at most "
+                         f"{COLUMN_SLICE}, or a multiple of {COLUMN_SLICE}, "
+                         "as jax's flash_attention)")
+    if H > 65535 or B > 65535:
+        raise ValueError(f"{name}: at most 65535 heads and batch rows")
+
+
+def _check_layout(name: str, **tensors):
+    """Raise unless the kernels can read each (B, L, H, dh) tensor: they
+    read 4 elements at a time."""
+    for label, t in tensors.items():
         if (t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:3])
                 or t.data_ptr() % 16):
             raise ValueError(f"{name}: {label} needs a contiguous last "
                              "dimension, strides in multiples of 4 "
                              "elements and a 16-byte aligned start")
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}")
-    B, L, H, dh = q.shape
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"{name}: head width {dh} is not one of "
-                         f"{HEAD_DIMS}")
-    if H > 65535 or B > 65535:
-        raise ValueError(f"{name}: at most 65535 heads and batch rows")
+
+
+def _pad_width(*ts):
+    """(B, L, H, dh) tensors as the kernels take them: as they are when dh
+    is a multiple of 8, else one contiguous copy each, zero-padded to the
+    next multiple of 8."""
+    dh = ts[0].shape[-1]
+    if dh % 8 == 0:
+        return ts
+    return tuple(torch.nn.functional.pad(t, (0, -dh % 8)).contiguous()
+                 for t in ts)
 
 
 def _strides(*ts):
@@ -149,21 +180,27 @@ def _strides(*ts):
 def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K11's forward on CUDA (B, L, H, dh) q, k, v of one dtype
-    (float32 or bfloat16), dh 64 or 128, any strides with the last
-    dimension contiguous: returns (out (B, L, H·dh) in q's dtype, lse
-    (B, H, L) fp32), as ``flash_mha_ref``. bfloat16 runs on the tensor
+    (float32 or bfloat16), dh as ``takes_head_width``, any strides with
+    the last dimension contiguous: returns (out (B, L, H·dh) in q's dtype,
+    lse (B, H, L) fp32), as ``flash_mha_ref``. bfloat16 runs on the tensor
     cores (``flash_mha_fwd_mma_kernel``), float32 on the SIMT kernel
     (``flash_mha_fwd_kernel``) to keep full fp32 products. Raises on
     anything else."""
     _check(q, k, v, FWD_KERNEL)
     B, L, H, dh = q.shape
-    out = torch.empty(B, L, H * dh, dtype=q.dtype, device=q.device)
+    scale = 1.0 / math.sqrt(dh)
+    q, k, v = _pad_width(q, k, v)
+    _check_layout(FWD_KERNEL, q=q, k=k, v=v)
+    dp = q.shape[-1]
+    out = torch.empty(B, L, H * dp, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
     if q.numel():
         lib = entry(SOURCE, FWD_KERNEL, _FWD_ARGTYPES)
-        launch(FWD_KERNEL, lib, q.device, _DTYPE_CODES[q.dtype], B, L, H, dh,
-               int(causal), 1.0 / math.sqrt(dh), *_strides(q, k, v),
+        launch(FWD_KERNEL, lib, q.device, _DTYPE_CODES[q.dtype], B, L, H, dp,
+               int(causal), scale, *_strides(q, k, v),
                *(ptr(t) for t in (q, k, v, out, lse)))
+    if dp != dh:
+        out = out.view(B, L, H, dp)[..., :dh].reshape(B, L, H * dh)
     return out, lse
 
 
@@ -195,14 +232,21 @@ def flash_mha_bwd(q, k, v, out, lse, dout, causal: bool = False):
         if label != "lse" and t.data_ptr() % 16:   # read 16 bytes a lane
             raise ValueError(f"{BWD_KERNEL}: {label} needs a 16-byte "
                              "aligned start")
-    dq, dk, dv = (torch.empty(B, L, H, dh, dtype=q.dtype, device=q.device)
+    scale = 1.0 / math.sqrt(dh)
+    q, k, v, out, dout = _pad_width(
+        q, k, v, *(t.view(B, L, H, dh) for t in (out, dout)))
+    _check_layout(BWD_KERNEL, q=q, k=k, v=v)
+    dp = q.shape[-1]
+    dq, dk, dv = (torch.empty(B, L, H, dp, dtype=q.dtype, device=q.device)
                   for _ in range(3))
     if q.numel():
         di = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
         lib = entry(SOURCE, BWD_KERNEL, _BWD_ARGTYPES)
-        launch(BWD_KERNEL, lib, q.device, _DTYPE_CODES[q.dtype], B, L, H, dh,
-               int(causal), 1.0 / math.sqrt(dh), *_strides(q, k, v),
+        launch(BWD_KERNEL, lib, q.device, _DTYPE_CODES[q.dtype], B, L, H, dp,
+               int(causal), scale, *_strides(q, k, v),
                *(ptr(t) for t in (q, k, v, out, lse, dout, di, dq, dk, dv)))
+    if dp != dh:
+        dq, dk, dv = (t[..., :dh].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 

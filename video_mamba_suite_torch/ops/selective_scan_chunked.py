@@ -31,13 +31,13 @@ from ._build import launch, library, ptr
 KERNEL = "chunked_scan_fwd"
 BWD_KERNEL = "chunked_scan_bwd"
 MAX_DSTATE = 16      # largest state size the kernels take
-# walk steps between K3's checkpoints for K4 (a multiple of K4's 4-step
-# pieces, at most 64): 16 keeps K4's recompute at 2.5 forward steps per
-# step and the checkpoints at the size of one fp32 (batch, seqlen, dim)
-# tensor
+# walk steps between K3's checkpoints for K4 (a multiple of 4, at most
+# 64): 16 is two of K4's 8-step pieces, so its main pass takes 1.5 forward
+# steps per step, and keeps the checkpoints at the size of one fp32
+# (batch, seqlen, dim) tensor
 CHECKPOINT_STEPS = 16
-BWD_CHUNKS_PER_BLOCK = 4  # K4: chunks per block (one dA/dD/dbias partial)
-BWD_TILE = 32        # K4: channels per warp (one dB/dC partial)
+BWD_CHUNKS_PER_BLOCK = 8  # K4: chunks per block (one dA/dD/dbias partial)
+BWD_TILE = 32        # K4: channels per block (one dB/dC partial)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

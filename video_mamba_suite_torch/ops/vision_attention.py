@@ -18,7 +18,10 @@ the tensor cores (bf16 ``mma.sync`` tiles with fp32 sums,
 ``csrc/attention_mma.cuh``), K9 in ``vision_mha_mma_kernel`` and K10 in
 ``row_mha_mma_kernel``; fp32 (K9 and K10) runs the SIMT kernel
 ``row_mha_kernel``, because the TPU kernels' fp32 products are full fp32,
-which TF32 tensor cores would not hold to the fp32 tolerances. Both read
+which TF32 tensor cores would not hold to the fp32 tolerances. Both take
+any head width, as the JAX functions do: up to 128 zero-filled in shared
+memory, above that in 128-column slices whose score products are summed
+(each block then writes one slice of the output). Both read
 q, k and v through strides: any view whose
 last dimension is contiguous, so ``FusedMHA`` hands K10 the projection's
 own (B, S, T, 3D) output and takes the output in (B, S, T, D) without a
@@ -44,7 +47,6 @@ SOURCE = "row_mha_fwd"
 ROW_KERNEL = "row_mha_fwd"          # K10
 VISION_KERNEL = "vision_mha_fwd"    # K9
 MAX_ROW_TOKENS = 512
-MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
               ctypes.c_int, ctypes.c_int, ctypes.c_float]
@@ -125,8 +127,8 @@ def _launch(name: str, q, k, v, out, scale: float) -> None:
     if n > MAX_ROW_TOKENS:
         raise ValueError(f"{name}: N={n} exceeds the whole-row limit "
                          f"{MAX_ROW_TOKENS}")
-    if not 1 <= dh <= MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head width {dh} outside 1..{MAX_HEAD_DIM}")
+    if dh < 1:
+        raise ValueError(f"{name}: head width {dh} is empty")
     if q.numel() == 0:
         return
     strides = [s for t in (q, k, v, out) for s in t.stride()[:4]]
@@ -138,7 +140,7 @@ def _launch(name: str, q, k, v, out, scale: float) -> None:
 def vision_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    sm_scale: Optional[float] = None) -> torch.Tensor:
     """Launch K9 on CUDA tensors (I, H, N, dh), float32 or bfloat16, N <=
-    512, dh <= 128, any strides with the last dimension contiguous; the
+    512, any dh, any strides with the last dimension contiguous; the
     output keeps q's layout. bfloat16 runs on the tensor cores
     (``vision_mha_mma_kernel``), float32 on the SIMT kernel
     (``row_mha_kernel``) to keep full fp32 products. Raises on anything
@@ -157,7 +159,7 @@ def vision_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def row_mha_fwd(qkv5: torch.Tensor,
                 sm_scale: Optional[float] = None) -> torch.Tensor:
     """Launch K10 on a CUDA (B, T, 3H, N, dh) qkv, float32 or bfloat16,
-    N <= 512, dh <= 128, any strides with the last dimension contiguous:
+    N <= 512, any dh, any strides with the last dimension contiguous:
     returns (B, T, H, N, dh), laid out in memory as qkv5 is. bfloat16 runs
     on the tensor cores (``row_mha_mma_kernel``), float32 on the SIMT
     kernel (``row_mha_kernel``) to keep full fp32 products. Raises on
