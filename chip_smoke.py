@@ -135,6 +135,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12          # outside the tensor cores
 BF16_TC_FLOP_PER_S = 989e12
 TF32_TC_FLOP_PER_S = 495e12
+# special function unit results (exp2, log2, reciprocal): 16 a clock an SM,
+# 132 SMs, at the 1980 MHz boost clock
+SFU_PER_S = 16 * 132 * 1.98e9
 
 BATCH = 8                        # clips per main-path request
 FORWARDS = 10                    # timed main-path batches (requests)
@@ -145,10 +148,17 @@ K2_SOURCE = "video_mamba_suite_torch/csrc/short_bidir_bwd.cu"
 K2_REPLACES = "video_mamba_suite_tpu/ops/selective_scan_pallas.py:1292"
 # K1 against its plain version: (label, (batch, seqlen, dim, dstate), I/O
 # dtype, with D and z). tests/test_torch_kernels_cuda.py runs the same cases.
+# The last four reach the edges of K1's 128-channel tile: 64 fp32 steps
+# (the largest shared tile), one step, 200 bf16 channels (16-byte copies;
+# the second tile holds 72), and 8 states (16-byte B/C rows of 32 bytes).
 K1_CASES = [
     ("main", (1568, 16, 768, 16), "bfloat16", True),    # TimeMamba-B
     ("ragged", (37, 11, 200, 13), "float32", True),     # no tile fits
     ("longest-no-Dz", (5, 64, 33, 4), "float32", False),
+    ("l64-fp32", (7, 64, 256, 16), "float32", True),
+    ("one-step", (9, 1, 96, 16), "bfloat16", True),
+    ("ragged-vec-bf16", (6, 16, 200, 16), "bfloat16", True),
+    ("n8-vec", (5, 16, 128, 8), "float32", True),   # 16-byte B/C rows
 ]
 # fp32 as the JAX kernel tests; bf16 output one to two bf16 ulps apart
 # (both round an fp32 result; sums differ in order)
@@ -184,6 +194,19 @@ K3_CASES = [
      {"reverse": True, "h0": True}),
     ("grouped-h0", (5, 100, 64, 16), "float32",
      {"groups": 2, "h0": True, "no_dz": True}),
+    # the edges of the split walk: 45 channels (no multiple of 8 or of the
+    # 32-channel tile: element copies); 1001 steps (no multiple of the
+    # 16-step unit) split into 8 segments of 128 steps, the last 105, with
+    # checkpoints inside each; batch 1 anti-causal from an initial state in
+    # bf16 (8 segments); one step
+    ("d45-bf16", (2, 300, 45, 16), "bfloat16", {}),
+    ("l1001-split-h0", (3, 1001, 96, 16), "float32", {"h0": True}),
+    ("vivim-b1-reverse-h0-bf16", (1, 3152, 384, 16), "bfloat16",
+     {"reverse": True, "h0": True}),
+    ("one-step-h0", (4, 1, 64, 16), "float32", {"h0": True}),
+    # 16-byte copies of 8-state B/C rows in groups of 64 channels
+    ("n8-vec-grouped-reverse", (2, 200, 128, 8), "float32",
+     {"groups": 2, "reverse": True}),
 ]
 # each output within atol · (its largest magnitude) + rtol · |value|: a long
 # scan's outputs reach tens, and a value near 0 carries the rounding of
@@ -438,13 +461,18 @@ K11_CASES = [
 ]
 # The kernels each entry must run, by I/O dtype (the C entries pick them):
 # for attention, bf16 on the tensor cores, fp32 on the SIMT kernels (K11's
-# backward starts with the di kernel in both); K2 and K4 the lane-split
-# walks (K4: the local pass, the combine and the main pass) in both types.
+# backward starts with the di kernel in both); K1 its staged tile kernel,
+# K3 its split lane walk, K2 and K4 the lane-split walks (K4: the local
+# pass, the combine and the main pass) in both types.
 # Checked by name from the profiler at every case. K9 and K10 share a
 # source, so each is checked against both entries' kernels.
 ROUTES = {
+    ("K1", "bfloat16"): ("short_bidir_fwd_tile_kernel",),
+    ("K1", "float32"): ("short_bidir_fwd_tile_kernel",),
     ("K2", "bfloat16"): ("short_bidir_bwd_lanes_kernel",),
     ("K2", "float32"): ("short_bidir_bwd_lanes_kernel",),
+    ("K3", "bfloat16"): ("chunked_scan_fwd_lanes",),
+    ("K3", "float32"): ("chunked_scan_fwd_lanes",),
     ("K4", "bfloat16"): ("chunked_scan_bwd_local_lanes",
                          "chunked_scan_bwd_combine",
                          "chunked_scan_bwd_main_lanes"),
@@ -463,7 +491,8 @@ ROUTES = {
     ("K11 bwd", "float32"): ("flash_mha_bwd_di", "flash_mha_bwd_dkdv_kernel",
                              "flash_mha_bwd_dq_kernel"),
 }
-ROUTE_FAMILIES = (("K2",), ("K4",), ("K9", "K10"), ("K11",), ("K11 bwd",))
+ROUTE_FAMILIES = (("K1",), ("K2",), ("K3",), ("K4",), ("K9", "K10"),
+                  ("K11",), ("K11 bwd",))
 # largest |kernel - plain| over each output's largest magnitude (at least
 # 1), the forward (out, lse) and the backward (dq, dk, dv), on an H100
 # 80GB HBM3 (PERF.md): fp32 sums in another order and an online max, read
@@ -665,26 +694,36 @@ def k1_check(label, shape, dtype, has_dz):
 def k1_bound_ms(args, out):
     """Least time for the work and what sets it: each input read once and
     each output written once over HBM, against 6 fp32 operations per state
-    update and direction."""
+    update and direction. Also logs a third reading, outside the bound: one
+    exponential per state update over the special function units' rate."""
     nbytes = sum(t.numel() * t.element_size() for t in args.values())
     nbytes += sum(t.numel() * t.element_size() for t in out)
     batch, seqlen, dim = args["uf"].shape
-    ops = 2 * 6.0 * batch * seqlen * dim * args["Bf"].shape[-1]
+    updates = 2.0 * batch * seqlen * dim * args["Bf"].shape[-1]
+    ops = 6.0 * updates
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    log(f"[k1] bound: {nbytes / 1e6:.1f} MB over 3.35 TB/s = "
+        f"{1e3 * t_bytes:.4f} ms; {ops / 1e9:.2f} GFLOP over 67 TFLOP/s = "
+        f"{1e3 * t_ops:.4f} ms; {updates / 1e6:.1f} M exponentials over "
+        f"{SFU_PER_S / 1e12:.2f} T/s = {1e3 * updates / SFU_PER_S:.4f} ms")
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
         "operations"
 
 
 def check_k1():
-    """Every case of ``K1_CASES``; the main-path case is also timed."""
+    """Every case of ``K1_CASES`` with the kernel the profiler saw run
+    (``ROUTES``) and its device time; the main-path case is also timed."""
     from video_mamba_suite_torch.ops import (
         selective_scan_bidir,
         selective_scan_bidir_ref,
     )
 
+    log_resources("short_bidir_fwd", "k1")
     result = {}
     for case in K1_CASES:
         args, got, err, _ = k1_check(*case)
+        check_scan_route("K1", case[0], case[2],
+                         lambda: selective_scan_bidir(**args), "k1")
         if case[0] == "main":
             result["max_abs_err"] = err
             result["ms"] = cuda_time_ms(
@@ -931,35 +970,43 @@ def k3_check(label, shape, dtype, opts):
 def k3_bound_ms(args, outs):
     """Least time for the work and what sets it: each input read once and
     each output written once over HBM, against 6 fp32 operations per state
-    update (the exponential counted as one)."""
+    update (the exponential counted as one). Also logs a third reading,
+    outside the bound: one exponential per state update over the special
+    function units' rate."""
     import torch
 
     tensors = [t for t in (*args.values(), *outs)
                if isinstance(t, torch.Tensor)]
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     batch, seqlen, dim = args["u"].shape
-    ops = 6.0 * batch * seqlen * dim * args["A"].shape[1]
+    updates = 1.0 * batch * seqlen * dim * args["A"].shape[1]
+    ops = 6.0 * updates
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
     log(f"[k3] bound: {nbytes / 1e6:.1f} MB over 3.35 TB/s = "
         f"{1e3 * t_bytes:.4f} ms; {ops / 1e9:.3f} GFLOP over 67 TFLOP/s = "
-        f"{1e3 * t_ops:.4f} ms")
+        f"{1e3 * t_ops:.4f} ms; {updates / 1e6:.1f} M exponentials over "
+        f"{SFU_PER_S / 1e12:.2f} T/s = {1e3 * updates / SFU_PER_S:.4f} ms")
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
         "operations"
 
 
 def check_k3():
-    """Every case of ``K3_CASES``, each with the kernel's time, the plain
-    version's (two calls: it loops over the steps) and the bound. Returns
-    the main-path case's (the first) numbers."""
+    """Every case of ``K3_CASES``, each with the kernel the profiler saw run
+    (``ROUTES``) and its device time, the kernel's time with and without
+    checkpoints, the plain version's (two calls: it loops over the steps)
+    and the bound. Returns the main-path case's (the first) numbers."""
     from video_mamba_suite_torch.ops import (
         CHECKPOINT_STEPS,
         chunked_scan_fwd,
         selective_scan_ref,
     )
 
+    log_resources("chunked_scan_fwd", "k3")
     result = {}
     for case in K3_CASES:
         args, got, err = k3_check(*case)
+        check_scan_route("K3", case[0], case[2],
+                         lambda: chunked_scan_fwd(**args), "k3")
         ms = cuda_time_ms(lambda: chunked_scan_fwd(**args), iters=20)
         plain_ms = cuda_time_ms(lambda: selective_scan_ref(**args), iters=1,
                                 warmup=1)
@@ -1442,8 +1489,10 @@ def check_route(kernel, label, dtype, names):
 
 
 # kernels whose registers and spills the build phase reports one by one:
-# the tensor-core attention kernels and the lane-split scan backwards
-RESOURCE_KERNELS = ("_mma_kernel", "_lanes", "chunked_scan_bwd_combine")
+# the tensor-core attention kernels, K1's staged tile kernel and the
+# lane-split scans (K3, K2, K4)
+RESOURCE_KERNELS = ("_mma_kernel", "_tile_kernel", "_lanes",
+                    "chunked_scan_bwd_combine")
 
 
 def kernel_label(mangled):

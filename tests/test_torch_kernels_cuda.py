@@ -649,11 +649,23 @@ def test_k11_matches_plain_version(cuda_device, label, shape, causal, dtype,
 def test_each_dtype_runs_its_routed_kernels(cuda_device, kernel, dtype):
     """One call of each entry at a small shape (attention in the projection
     layout) runs exactly the kernels ``chip_smoke.ROUTES`` gives its dtype:
-    bf16 attention on the tensor cores, fp32 on the SIMT kernels, K2 and
-    K4 their lane-split walks, nothing else of the entry's source."""
+    bf16 attention on the tensor cores, fp32 on the SIMT kernels, K1 its
+    staged tile kernel, K3 its split lane walk (here 1000 steps in
+    segments, with checkpoints), K2 and K4 their lane-split walks, nothing
+    else of the entry's source."""
     from video_mamba_suite_torch.ops import flash_mha_bwd, flash_mha_fwd
 
-    if kernel == "K2":
+    if kernel == "K1":
+        args = chip_smoke.k1_inputs((4, 16, 256, 16), dtype, 3)
+
+        def call():
+            return selective_scan_bidir(**args)
+    elif kernel == "K3":
+        args = chip_smoke.k3_inputs((2, 1000, 64, 16), dtype, 3)
+
+        def call():
+            return chunked_scan_fwd(**args, checkpoint_steps=16)
+    elif kernel == "K2":
         args, cot = chip_smoke.k2_inputs((4, 16, 64, 16), dtype, 3)
 
         def call():

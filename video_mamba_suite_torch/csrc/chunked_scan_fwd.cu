@@ -29,39 +29,67 @@
 //   bytes: u, dt, z in and y out, 4 x 38.7 MB, plus 3.2 MB of B and C,
 //          about 158 MB, so about 47 us;
 //   fp32:  about 6 operations (one an exponential) for each of 155 M state
-//          updates, 0.93 GFLOP, about 14 us.
-// So the bound is the bytes.
+//          updates, 0.93 GFLOP, about 14 us;
+//   exp:   155 M exponentials a walk on the special function units (16
+//          results a clock an SM), about 42 us a walk.
+// So the bound is the bytes, with the exponentials close behind.
 //
 // Design. The recurrence is sequential in time, and at the main shape there
 // are only 8 x 384 = 3072 independent (row, channel) recurrences (384 at
-// batch 1), too few to fill 132 SMs one thread each. So a block takes
-// `tile` channels of one row and splits the walk into nseg = 512 / tile
-// segments, one thread per (segment, channel) with its 16 states in
-// registers:
-//   pass 1: every thread scans its segment from a zero state and leaves the
-//           end state and the segment's sum of dt in shared memory;
-//   combine: one thread per (channel, state) chains the segments in walk
-//           order, H <- exp(A * sum dt) * H + end state (the decay of a
-//           segment is exactly exp(A * sum dt)), starting from the initial
-//           state, and leaves each segment's incoming state;
-//   pass 2: every thread scans its segment again from its incoming state
-//           and writes y; the thread of the last segment writes the last
-//           state.
-// That is twice the exponentials of one walk, for 512 threads per block.
-// Threads of a warp own neighbouring channels (tile >= 32 bytes of one
-// time step), so the loads of u, dt, z and the stores of y fill whole
-// 32-byte sectors. The wrapper-side C entry picks the widest tile that
-// still gives two blocks per SM. Nothing is padded: segments past the
-// sequence end are empty, and empty segments are identities.
+// batch 1), too few to fill 132 SMs. So a grid that leaves half the card
+// idle splits the walk in time into G segments (G = 4, 8 or 16: the most
+// that keep within 1.25 waves of resident blocks, each at least
+// kMinSegment steps; 2 would walk the whole length twice), one block each,
+// and the G blocks
+// of one (row, 32 channels) form a thread block cluster (above 8 blocks,
+// a non-portable size):
+//   pass 1:  every block but the last walks its segment from a zero state
+//            and leaves the end state and the segment's sum of dt in its
+//            shared memory;
+//   combine: after a cluster barrier each block chains the segments before
+//            it in walk order from the initial state, reading their end
+//            states from the other blocks' shared memory (distributed
+//            shared memory), H <- exp(A * sum dt) * H + end state (the
+//            decay of a segment is exactly exp(A * sum dt));
+//   pass 2:  every block walks its segment again from that state, writing
+//            y and the checkpoints; the last block writes the last state.
+// A grid that fills the card alone takes G = 1: one walk, no pass 1.
+// A block is scan_lanes.cuh's unit shape: 128 threads, 32 channels of one
+// group, a channel's 16 states split over 4 lanes (4 a lane). It walks its
+// segment kUnit steps at a time, pipelined over three units with one
+// block barrier a unit: unit n + 2's u, dt, z (kUnit x 32) and B, C
+// (kUnit x 16) arrive in shared memory by 16-byte cp.async (element copies
+// where a pointer, stride or width does not allow them), each thread's
+// copies at offsets computed once a segment; unit n + 1 is prepared:
+// softplus(dt + bias), dt u, D u and the gate once a (step, channel) into
+// fp32 working tiles, B and C widened once; unit n is walked: B and C read
+// as float4 broadcasts, the decays exp2 of dt A log2(e) on the special
+// function unit, each step's partial y kept in registers and summed over
+// the 4 lanes after the unit (12 shuffles, off the dependent chain); y
+// leaves through a shared tile as 16-byte stores after the next barrier,
+// the checkpoints as float4 stores. Rows past the segment's end are exact
+// identities (dt = 0), so every unit walks its kUnit rows with no branch
+// a step. Nothing is padded in device memory.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "scan_fwd.cuh"
+#include "scan_lanes.cuh"
+
 namespace {
 
-constexpr int kMaxDstate = 16;
-constexpr int kThreads = 512;
+namespace cg = cooperative_groups;
+using namespace scan_lanes;
+
+constexpr int kUnit = 16;          // walk steps a staged unit
+constexpr int kMaxSegments = 16;   // blocks a cluster (above 8: non-portable)
+constexpr int kMinSegment = 64;    // fewest walk steps a segment of a split
+static_assert(kUnit % kLanes == 0, "the lanes split a unit's sums evenly");
 
 struct Params {
   const void* u;      // (batch, seqlen, dim)
@@ -77,170 +105,526 @@ struct Params {
   float* last;        // (batch, dim, dstate) or null
   float* states;      // (batch, nchunks, dim, dstate) checkpoints or null
   int seqlen, dim, dstate, ngroups;
-  int chunk;   // walk steps between checkpoints
+  int chunk;     // walk steps between checkpoints
   int nchunks;
-  int tile;    // channels per block
-  int ntiles;  // blocks per row
-  int seglen;  // steps per segment
+  int width;     // channels a group
+  int tiles;     // 32-channel tiles a group
+  int nseg;      // segments (blocks of a cluster) a (row, tile): G
+  int seglen;    // walk steps a segment (a multiple of kUnit)
   int reverse, softplus;
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
+// Shared memory of one block (each offset a multiple of 16 bytes), every
+// buffer twice (unit n uses buffer n % 2): raw buffers of the I/O type T
+// (u, dt, z [kUnit][32], then B, C [kUnit][16]), fp32 working tiles, the
+// output tile; then the segment's carry.
 template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+struct FwdTiles {
+  static constexpr int kTile = kUnit * kChannels;
+  static constexpr int kRaw = 3 * kTile + 2 * kUnit * kMaxDstate;
+  // one buffer of each: raw, (dt, dt u), (D u, gate), B and C, output
+  static constexpr size_t kSet = sizeof(T) * kRaw +
+                                 2 * sizeof(float2) * kTile +
+                                 2 * sizeof(float) * kUnit * kMaxDstate +
+                                 sizeof(T) * kTile;
 
-// softplus as torch computes it (threshold 20), as in short_bidir_fwd.cu.
-__device__ __forceinline__ float softplus(float x) {
-  return x > 20.f ? x : log1pf(expf(x));
-}
+  char* base;
+  float4* carry;   // pass 1's end state, a lane's 4 states [kThreads]
+  float* dtsum;    // pass 1's sum of dt [32]
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    chunked_scan_fwd_kernel(Params p) {
-  // [segment][state][channel]: end states after pass 1, incoming states
-  // after the combine; [segment][channel]: the sum of dt over the segment
-  __shared__ float s_state[kThreads * kMaxDstate];
-  __shared__ float s_dtsum[kThreads];
-
-  const int64_t row = blockIdx.x / p.ntiles;
-  const int ch0 = (blockIdx.x % p.ntiles) * p.tile;
-  const int c = threadIdx.x % p.tile;
-  const int seg = threadIdx.x / p.tile;
-  const int ch = ch0 + c;
-  const bool active = ch < p.dim;
-  const int i0 = seg * p.seglen;
-  const int i1 = min(i0 + p.seglen, p.seqlen);
-
-  float A[kMaxDstate];
-#pragma unroll
-  for (int k = 0; k < kMaxDstate; ++k) {
-    A[k] = (active && k < p.dstate) ? p.A[ch * p.dstate + k] : 0.f;
+  static constexpr size_t bytes() {
+    return 2 * kSet + sizeof(float4) * kThreads + sizeof(float) * kChannels;
   }
-  const float bias = (active && p.bias) ? p.bias[ch] : 0.f;
-  const int group = active ? ch / (p.dim / p.ngroups) : 0;
+  __device__ explicit FwdTiles(void* smem) : base(static_cast<char*>(smem)) {
+    carry = reinterpret_cast<float4*>(base + 2 * kSet);
+    dtsum = reinterpret_cast<float*>(carry + kThreads);
+  }
+  __device__ T* raw(int n) const {
+    return reinterpret_cast<T*>(base + (n & 1) * kSet);
+  }
+  __device__ float2* dd(int n) const {          // (dt, dt u)
+    return reinterpret_cast<float2*>(raw(n) + kRaw);
+  }
+  __device__ float2* gd(int n) const {          // (D u, gate)
+    return dd(n) + kTile;
+  }
+  __device__ float* B(int n) const {            // B [kUnit][16], then C
+    return reinterpret_cast<float*>(gd(n) + kTile);
+  }
+  __device__ T* out(int n) const {              // y [kUnit][32]
+    return reinterpret_cast<T*>(B(n) + 2 * kUnit * kMaxDstate);
+  }
+};
 
+// A thread's 16-byte copies of every unit (kVec): row r, column c and the
+// bytes n of a channel tile (n < 16 at the group's ragged edge), and row
+// rs, first state ks of a B or C tile. Rows at or past kUnit: no copy.
+struct Copies {
+  int r, c, n, rs, ks;
+};
+
+template <typename T>
+__device__ __forceinline__ Copies copies(int valid, int dstate) {
+  constexpr int kPer = 16 / sizeof(T);
+  constexpr int kRowCopies = kChannels / kPer;
+  const int per_row = max(1, dstate / kPer);   // vec: a multiple of kPer
+  Copies cp;
+  cp.r = threadIdx.x / kRowCopies;
+  cp.c = (threadIdx.x % kRowCopies) * kPer;
+  cp.n = max(0, min(kPer, valid - cp.c)) * static_cast<int>(sizeof(T));
+  cp.rs = threadIdx.x / per_row;
+  cp.ks = (threadIdx.x % per_row) * kPer;
+  return cp;
+}
+
+// The element offsets of a thread's 16-byte copies in a segment's unit 0
+// (kVec): its channel-tile row (also where its output row goes) and its
+// B/C row, and their stride from one unit to the next (the anti-causal
+// walk moves back in time). Computed once a segment, so a unit's copies
+// cost a multiply-add each.
+struct Cursor {
+  int64_t co, bo, cstep, bstep;
+};
+
+__device__ __forceinline__ Cursor cursor(const Params& p, const UnitPlace& q,
+                                         const Copies& cp, int seg0) {
+  const int64_t rows = q.row * p.seqlen;
+  const int tc = seg0 + cp.r, tb = seg0 + cp.rs;
+  Cursor c;
+  c.co = (rows + (p.reverse ? p.seqlen - 1 - tc : tc)) * p.dim + q.ch0 + cp.c;
+  c.bo = ((rows + (p.reverse ? p.seqlen - 1 - tb : tb)) * p.ngroups +
+          q.group) * p.dstate + cp.ks;
+  const int64_t units = p.reverse ? -kUnit : kUnit;
+  c.cstep = units * p.dim;
+  c.bstep = units * p.ngroups * p.dstate;
+  return c;
+}
+
+// Stage unit n (walk steps q.i0 .. q.i0 + q.nsteps - 1) into `raw` (kOut:
+// pass 2, which also needs z and C): with kVec each thread's copies of
+// `cp` at `cur`, else element copies (scan_lanes.cuh's).
+template <typename T, bool kVec, bool kOut>
+__device__ __forceinline__ void stage_unit(T* raw, int n, const UnitPlace& q,
+                                           const Params& p, const Copies& cp,
+                                           const Cursor& cur) {
+  constexpr int tile = FwdTiles<T>::kTile;
   const T* u = static_cast<const T*>(p.u);
-  const T* dtp = static_cast<const T*>(p.dt);
-  const int64_t base = row * p.seqlen * p.dim + ch;
-  const int64_t bc_step = static_cast<int64_t>(p.ngroups) * p.dstate;
-  const T* Bp = static_cast<const T*>(p.B) + row * p.seqlen * bc_step +
-                group * p.dstate;
-  const T* Cp = static_cast<const T*>(p.C) + row * p.seqlen * bc_step +
-                group * p.dstate;
+  const T* dt = static_cast<const T*>(p.dt);
+  const T* z = static_cast<const T*>(p.z);
+  const T* B = static_cast<const T*>(p.B);
+  const T* C = static_cast<const T*>(p.C);
+  if constexpr (kVec) {
+    if (cp.r < kUnit) {
+      const int nb = cp.r < q.nsteps ? cp.n : 0;
+      const int64_t o = nb ? cur.co + n * cur.cstep : 0;
+      T* d = raw + cp.r * kChannels + cp.c;
+      cp_async16(d, u + o, nb);
+      cp_async16(d + tile, dt + o, nb);
+      if (kOut && z) cp_async16(d + 2 * tile, z + o, nb);
+    }
+    if (cp.rs < kUnit) {
+      const int nb = cp.rs < q.nsteps ? 16 : 0;
+      const int64_t o = nb ? cur.bo + n * cur.bstep : 0;
+      T* d = raw + 3 * tile + cp.rs * kMaxDstate + cp.ks;
+      cp_async16(d, B + o, nb);
+      if (kOut) cp_async16(d + kUnit * kMaxDstate, C + o, nb);
+    }
+  } else {
+    stage_channels<T, false>(raw, kUnit, q, u);
+    stage_channels<T, false>(raw + tile, kUnit, q, dt);
+    if (kOut) stage_channels<T, false>(raw + 2 * tile, kUnit, q, z);
+    stage_states<T, false>(raw + 3 * tile, kUnit, q, B);
+    if (kOut) {
+      stage_states<T, false>(raw + 3 * tile + kUnit * kMaxDstate, kUnit, q,
+                             C);
+    }
+  }
+}
 
-  // pass 1: the segment's end state from a zero state, and its sum of dt
-  float h[kMaxDstate];
+// Unit n's output tile to device memory: with kVec each thread's 16-byte
+// row of `cp` at `cur` (vec: the group's width is a multiple of the copy),
+// else element stores.
+template <typename T, bool kVec>
+__device__ __forceinline__ void store_unit(T* out, const T* tile, int n,
+                                           const UnitPlace& q,
+                                           const Copies& cp,
+                                           const Cursor& cur) {
+  if constexpr (kVec) {
+    if (cp.r < q.nsteps && cp.n) {
+      *reinterpret_cast<uint4*>(out + cur.co + n * cur.cstep) =
+          *reinterpret_cast<const uint4*>(tile + cp.r * kChannels + cp.c);
+    }
+  } else {
+    store_channels<T, false>(out, tile, kUnit, q);
+  }
+}
+
+// The fp32 working tiles of unit n from its staged tiles, each (step,
+// channel) once; `bias` and `D` are those of the thread's channel (its
+// column threadIdx.x % 32 in every row; 0 past the group's width). Rows at
+// or past the unit's steps and channels past the group's width get dt = 0
+// and dt u = 0: exact identities of the walk. B and C are zero past
+// dstate.
+template <typename T, bool kOut>
+__device__ __forceinline__ void prep_unit(const FwdTiles<T>& w, int n,
+                                          const UnitPlace& q, const Params& p,
+                                          float bias, float D) {
+  constexpr int tile = FwdTiles<T>::kTile;
+  const T* raw = w.raw(n);
+  float2* dd = w.dd(n);
+  float2* gd = w.gd(n);
+  float* bc = w.B(n);
+  const bool cv = static_cast<int>(threadIdx.x % kChannels) < q.valid;
 #pragma unroll
-  for (int k = 0; k < kMaxDstate; ++k) h[k] = 0.f;
-  float dtsum = 0.f;
-  if (active) {
-    for (int i = i0; i < i1; ++i) {
-      const int t = p.reverse ? p.seqlen - 1 - i : i;
-      const int64_t off = base + static_cast<int64_t>(t) * p.dim;
-      float dt = to_float(dtp[off]) + bias;
-      if (p.softplus) dt = softplus(dt);
-      const float dtu = dt * to_float(u[off]);
-      const T* Bt = Bp + t * bc_step;
+  for (int e = threadIdx.x; e < tile; e += kThreads) {
+    const bool on = cv && e / kChannels < q.nsteps;
+    const float x = to_float(raw[tile + e]) + bias;
+    const float dt = on ? (p.softplus ? scan_fwd::softplus(x) : x) : 0.f;
+    const float uv = to_float(raw[e]);
+    dd[e] = make_float2(dt, dt * uv);
+    if constexpr (kOut) {
+      gd[e] = make_float2(
+          D * uv, p.z ? scan_fwd::silu(to_float(raw[2 * tile + e])) : 1.f);
+    }
+  }
+  for (int e = threadIdx.x; e < (kOut ? 2 : 1) * kUnit * kMaxDstate;
+       e += kThreads) {   // B, then C (pass 2)
+    bc[e] = e % kMaxDstate < q.dstate ? to_float(raw[3 * tile + e]) : 0.f;
+  }
+}
+
+// What one lane walks: its channel's 4 states of A as A2 = A log2(e), and
+// where its checkpoints go.
+struct FwdLane {
+  int cw, quarter, q4;   // cw: the channel in the tile (0..31)
+  bool active;           // the channel lies inside the group
+  int ch;                // the channel (clamped into the group)
+  float A2[kStates];
+};
+
+// Store the lane's states below dstate at `dst`: `left` = dstate - the
+// lane's first state (nothing where it is <= 0), its 4 as one float4 where
+// dstate is a multiple of 4 (`vec`: dst then 16-byte aligned). (A count
+// clamped to [0, 4] with max/min and tested for 4 compiled to a branch
+// that sent lanes with no state to the float4 store.)
+__device__ __forceinline__ void store_state(float* dst,
+                                            const float (&h)[kStates],
+                                            int left, bool vec) {
+  if (left >= kStates) {
+    if (vec) {
+      *reinterpret_cast<float4*>(dst) = make_float4(h[0], h[1], h[2], h[3]);
+    } else {
 #pragma unroll
-      for (int k = 0; k < kMaxDstate; ++k) {
-        if (k < p.dstate) {
-          h[k] = expf(dt * A[k]) * h[k] + dtu * to_float(Bt[k]);
+      for (int k = 0; k < kStates; ++k) dst[k] = h[k];
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kStates - 1; ++k) {
+      if (k < left) dst[k] = h[k];
+    }
+  }
+}
+
+// Walk one prepared unit (buffer n): every row (rows past its steps are
+// identities). Pass 1 (!kOut) adds the segment's sum of dt. Pass 2 keeps
+// each step's partial y (the lane's 4 states) in registers, then sums them
+// over the channel's 4 lanes in 2 transposing stages (off the walk's
+// dependent chain), lane q ending with steps q kUnit/4 .. (q + 1) kUnit/4
+// - 1, whose outputs it writes to the output tile; with kCk it stores the
+// state before each step whose bit is set in `ckmask` to `ck` (then the
+// next checkpoint, `ck_stride` further).
+template <typename T, bool kOut, bool kCk>
+__device__ __forceinline__ void walk_unit(const FwdTiles<T>& w, int n,
+                                          const FwdLane& L, float (&h)[kStates],
+                                          float& dtsum, uint32_t ckmask,
+                                          float*& ck, int64_t ck_stride,
+                                          int left, bool vec) {
+  const float2* dd = w.dd(n);
+  const float* Bt = w.B(n) + L.q4;
+  const float* Ct = Bt + kUnit * kMaxDstate;
+  float y[kUnit];
+#pragma unroll
+  for (int i = 0; i < kUnit; ++i) {
+    if constexpr (kCk) {
+      if ((ckmask >> i) & 1u) {
+        store_state(ck, h, left, vec);
+        ck += ck_stride;
+      }
+    }
+    const float2 d = dd[i * kChannels + L.cw];
+    const float4 b = ld4(Bt + i * kMaxDstate);
+    if constexpr (kOut) {
+      const float4 c = ld4(Ct + i * kMaxDstate);
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < kStates; ++k) {
+        h[k] = fmaf(exp2_sfu(d.x * L.A2[k]), h[k], d.y * at(b, k));
+        acc = fmaf(at(c, k), h[k], acc);
+      }
+      y[i] = acc;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kStates; ++k) {
+        h[k] = fmaf(exp2_sfu(d.x * L.A2[k]), h[k], d.y * at(b, k));
+      }
+      dtsum += d.x;
+    }
+  }
+  if constexpr (kOut) {
+    // lane bits 0-1 are the quarter
+    butterfly_stage<2, kUnit / 2>(y, L.quarter);
+    butterfly_stage<1, kUnit / 4>(y, L.quarter);
+    const float2* gd = w.gd(n);
+    T* out = w.out(n);
+#pragma unroll
+    for (int j = 0; j < kUnit / 4; ++j) {
+      const int e = (L.quarter * (kUnit / 4) + j) * kChannels + L.cw;
+      const float2 g = gd[e];
+      out[e] = from_float<T>((y[j] + g.x) * g.y);
+    }
+  }
+}
+
+// Walk the segment of walk steps [seg0, seg1) from the state h (in and
+// out), kUnit steps at a time, pipelined over three units with one block
+// barrier a unit: while the block walks unit n it prepares unit n + 1
+// (staged the unit before) and its copies of unit n + 2 are in flight;
+// unit n's outputs leave after the next barrier. Pass 1 (!kOut) leaves h
+// as the end state and adds to dtsum; pass 2 writes y and, with kCk, the
+// checkpoints.
+template <typename T, bool kVec, bool kOut, bool kCk>
+__device__ void walk_segment(const Params& p, const FwdTiles<T>& w,
+                             const UnitPlace& q, const FwdLane& L,
+                             const Copies& cp, int seg0, int seg1,
+                             float (&h)[kStates], float& dtsum) {
+  const int left = p.dstate - L.q4;
+  const bool vec = p.dstate % kStates == 0;
+  const int64_t ck_stride = static_cast<int64_t>(p.dim) * p.dstate;
+  const int nunits = (seg1 - seg0 + kUnit - 1) / kUnit;
+  const Cursor cur = cursor(p, q, cp, seg0);
+  const int c = threadIdx.x % kChannels;
+  const bool cv = c < q.valid;
+  const float bias = cv && p.bias ? p.bias[q.ch0 + c] : 0.f;
+  const float D = cv && p.D ? p.D[q.ch0 + c] : 0.f;
+  auto unit = [&](int n) {
+    UnitPlace u = q;
+    u.i0 = seg0 + n * kUnit;
+    u.nsteps = min(kUnit, seg1 - u.i0);
+    return u;
+  };
+  // the next checkpoint (walk step ck_next) and where the lane stores it
+  int ck_next = 0;
+  float* ck = nullptr;
+  if constexpr (kCk) {
+    const int first = (seg0 + p.chunk - 1) / p.chunk;
+    ck_next = first * p.chunk;
+    ck = p.states + ((q.row * p.nchunks + first) * p.dim + L.ch) * p.dstate +
+         L.q4;
+  }
+  stage_unit<T, kVec, kOut>(w.raw(0), 0, unit(0), p, cp, cur);
+  cp_async_commit();
+  if (nunits > 1) stage_unit<T, kVec, kOut>(w.raw(1), 1, unit(1), p, cp, cur);
+  cp_async_commit();
+  scan_fwd::cp_async_wait<1>();
+  __syncthreads();  // unit 0's tiles are in
+  prep_unit<T, kOut>(w, 0, unit(0), p, bias, D);
+  for (int n = 0; n < nunits; ++n) {
+    cp_async_wait_all();
+    // unit n is prepared and unit n + 1 staged; unit n - 1's walk is done,
+    // so its output tile is complete and its raw and working buffers are
+    // free
+    __syncthreads();
+    if (kOut && n > 0) {
+      store_unit<T, kVec>(static_cast<T*>(p.out), w.out(n - 1), n - 1,
+                          unit(n - 1), cp, cur);
+    }
+    if (n + 2 < nunits) {
+      stage_unit<T, kVec, kOut>(w.raw(n), n + 2, unit(n + 2), p, cp, cur);
+    }
+    cp_async_commit();
+    if (n + 1 < nunits) prep_unit<T, kOut>(w, n + 1, unit(n + 1), p, bias, D);
+    uint32_t ckmask = 0;
+    if constexpr (kCk) {
+      const int i0 = seg0 + n * kUnit;
+      const int i1 = min(i0 + kUnit, seg1);
+      for (; ck_next < i1; ck_next += p.chunk) ckmask |= 1u << (ck_next - i0);
+      if (!L.active) ckmask = 0;
+    }
+    walk_unit<T, kOut, kCk>(w, n, L, h, dtsum, ckmask, ck, ck_stride, left,
+                            vec);
+  }
+  __syncthreads();  // the last output tile is complete; every buffer free
+  if (kOut) {
+    store_unit<T, kVec>(static_cast<T*>(p.out), w.out(nunits - 1),
+                        nunits - 1, unit(nunits - 1), cp, cur);
+  }
+}
+
+template <typename T, bool kVec, bool kCk>
+__global__ void __launch_bounds__(kThreads, 5)
+    chunked_scan_fwd_lanes(Params p) {
+  extern __shared__ float4 smem4[];
+  const FwdTiles<T> w(smem4);
+
+  // block -> (row, group, tile, segment); the nseg blocks of a (row, tile)
+  // are consecutive, one cluster
+  const int seg = static_cast<int>(blockIdx.x % p.nseg);
+  int64_t rest = blockIdx.x / p.nseg;
+  const int tile = static_cast<int>(rest % p.tiles);
+  rest /= p.tiles;
+  UnitPlace q;
+  q.group = static_cast<int>(rest % p.ngroups);
+  q.row = rest / p.ngroups;
+  q.ch0 = q.group * p.width + tile * kChannels;
+  q.valid = min(kChannels, p.width - tile * kChannels);
+  q.seqlen = p.seqlen;
+  q.dim = p.dim;
+  q.dstate = p.dstate;
+  q.ngroups = p.ngroups;
+  q.reverse = p.reverse;
+  const Copies cp = copies<T>(q.valid, p.dstate);
+
+  FwdLane L;
+  const int lane = threadIdx.x & 31;
+  L.cw = (threadIdx.x >> 5) * (32 / kLanes) + lane / kLanes;
+  L.quarter = lane % kLanes;
+  L.q4 = L.quarter * kStates;
+  L.active = L.cw < q.valid;
+  L.ch = q.ch0 + min(L.cw, q.valid - 1);
+  float h[kStates];
+#pragma unroll
+  for (int k = 0; k < kStates; ++k) {
+    const int n = L.q4 + k;
+    const bool on = L.active && n < p.dstate;
+    L.A2[k] = on ? p.A[L.ch * p.dstate + n] * kLog2e : 0.f;
+    h[k] = on && p.h0 ? p.h0[(q.row * p.dim + L.ch) * p.dstate + n] : 0.f;
+  }
+
+  const int seg0 = seg * p.seglen;
+  const int seg1 = min(p.seqlen, seg0 + p.seglen);
+  if (p.nseg > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    float e[kStates] = {0.f, 0.f, 0.f, 0.f};
+    float dtsum = 0.f;
+    if (seg + 1 < p.nseg) {
+      walk_segment<T, kVec, false, false>(p, w, q, L, cp, seg0, seg1, e,
+                                          dtsum);
+    }
+    w.carry[threadIdx.x] = make_float4(e[0], e[1], e[2], e[3]);
+    if (L.quarter == 0) w.dtsum[L.cw] = dtsum;
+    cluster.sync();  // every segment's end state is in its block
+    // the state entering this segment: the initial state carried through
+    // the segments before it
+#pragma unroll
+    for (int s = 0; s < kMaxSegments - 1; ++s) {
+      if (s < seg) {
+        const float4 E = *cluster.map_shared_rank(w.carry + threadIdx.x, s);
+        const float S = *cluster.map_shared_rank(w.dtsum + L.cw, s);
+#pragma unroll
+        for (int k = 0; k < kStates; ++k) {
+          h[k] = fmaf(exp2_sfu(S * L.A2[k]), h[k], at(E, k));
         }
       }
-      dtsum += dt;
     }
+    cluster.sync();  // no block leaves while another reads its carry
   }
-#pragma unroll
-  for (int k = 0; k < kMaxDstate; ++k) {
-    s_state[(seg * kMaxDstate + k) * p.tile + c] = h[k];
-  }
-  s_dtsum[seg * p.tile + c] = dtsum;
-  __syncthreads();
 
-  // combine: one thread per (channel, state) chains the segments
-  const int nseg = kThreads / p.tile;
-  if (threadIdx.x < p.tile * p.dstate) {
-    const int cc = threadIdx.x % p.tile;
-    const int k = threadIdx.x / p.tile;
-    const int ch2 = ch0 + cc;
-    if (ch2 < p.dim) {
-      const float a = p.A[ch2 * p.dstate + k];
-      float H = p.h0 ? p.h0[(row * p.dim + ch2) * p.dstate + k] : 0.f;
-      for (int s = 0; s < nseg; ++s) {
-        const int idx = (s * kMaxDstate + k) * p.tile + cc;
-        const float end = s_state[idx];
-        s_state[idx] = H;
-        H = expf(a * s_dtsum[s * p.tile + cc]) * H + end;
-      }
-    }
+  float unused = 0.f;
+  walk_segment<T, kVec, true, kCk>(p, w, q, L, cp, seg0, seg1, h, unused);
+  if (seg + 1 == p.nseg && p.last && L.active) {
+    store_state(p.last + (q.row * p.dim + L.ch) * p.dstate + L.q4, h,
+                p.dstate - L.q4, p.dstate % kStates == 0);
   }
-  __syncthreads();
+}
 
-  // pass 2: the segment again from its incoming state, writing y
-  if (!active || i0 >= p.seqlen) return;
-#pragma unroll
-  for (int k = 0; k < kMaxDstate; ++k) {
-    h[k] = s_state[(seg * kMaxDstate + k) * p.tile + c];
+// 16-byte copies need every channel tensor's rows and tiles and every B/C
+// step on 16-byte boundaries.
+bool vec_ok(const Params& p, int esize) {
+  const void* ptrs[] = {p.u, p.dt, p.z, p.B, p.C, p.out};
+  for (const void* q : ptrs) {
+    if (reinterpret_cast<uintptr_t>(q) % 16) return false;
   }
-  const float D = p.D ? p.D[ch] : 0.f;
-  const T* z = static_cast<const T*>(p.z);
-  T* out = static_cast<T*>(p.out);
-  // the next checkpoint at or after i0: walk step ck_step, index ck
-  int ck = p.states ? (i0 + p.chunk - 1) / p.chunk : p.nchunks;
-  int ck_step = ck * p.chunk;
-  for (int i = i0; i < i1; ++i) {
-    if (i == ck_step && ck < p.nchunks) {
-      float* st = p.states +
-                  ((row * p.nchunks + ck) * p.dim + ch) * p.dstate;
-#pragma unroll
-      for (int k = 0; k < kMaxDstate; ++k) {
-        if (k < p.dstate) st[k] = h[k];
+  return (static_cast<int64_t>(p.dim) * esize) % 16 == 0 &&
+         (static_cast<int64_t>(p.width) * esize) % 16 == 0 &&
+         (p.dstate * esize) % 16 == 0;
+}
+
+// Pick the segments a (row, tile) (see the note at the top) and launch,
+// the nseg blocks of a (row, tile) as one cluster.
+template <typename T, bool kVec, bool kCk>
+int launch_kernel(Params p, long long batch, cudaStream_t s) {
+  auto kernel = chunked_scan_fwd_lanes<T, kVec, kCk>;
+  constexpr int smem = static_cast<int>(FwdTiles<T>::bytes());
+  static_assert(smem <= 48 * 1024, "no opt-in to more shared memory");
+  // blocks an SM: one figure for every card the sm_90a build runs on, so
+  // it is asked once (the query costs more host time than the launch)
+  static std::atomic<int> cached_per_sm{0};
+  int device = 0, sms = 0, per_sm = cached_per_sm.load();
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err == cudaSuccess && per_sm == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
+    cached_per_sm.store(per_sm);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long units = batch * p.ngroups * static_cast<long long>(p.tiles);
+  const long long resident = static_cast<long long>(sms) * per_sm;
+  // split only a grid that leaves half the card idle, into the most
+  // segments (4 or more: 2 walk the whole length twice) that keep it
+  // within 1.25 waves of resident blocks
+  int g = 1;
+  if (2 * units < resident) {
+    for (int c = kMaxSegments; c >= 4; c /= 2) {
+      if (4 * units * c <= 5 * resident && p.seqlen >= c * kMinSegment) {
+        g = c;
+        break;
       }
-      ++ck;
-      ck_step += p.chunk;
-    }
-    const int t = p.reverse ? p.seqlen - 1 - i : i;
-    const int64_t off = base + static_cast<int64_t>(t) * p.dim;
-    const float uv = to_float(u[off]);
-    float dt = to_float(dtp[off]) + bias;
-    if (p.softplus) dt = softplus(dt);
-    const float dtu = dt * uv;
-    const T* Bt = Bp + t * bc_step;
-    const T* Ct = Cp + t * bc_step;
-    float y = 0.f;
-#pragma unroll
-    for (int k = 0; k < kMaxDstate; ++k) {
-      if (k < p.dstate) {
-        h[k] = expf(dt * A[k]) * h[k] + dtu * to_float(Bt[k]);
-        y += to_float(Ct[k]) * h[k];
-      }
-    }
-    if (p.D) y += D * uv;
-    if (z) {
-      const float zv = to_float(z[off]);
-      y *= zv / (1.f + expf(-zv));
-    }
-    out[off] = from_float<T>(y);
-  }
-  if (i1 == p.seqlen && p.last) {
-    float* last = p.last + (row * p.dim + ch) * p.dstate;
-#pragma unroll
-    for (int k = 0; k < kMaxDstate; ++k) {
-      if (k < p.dstate) last[k] = h[k];
     }
   }
+  const int per_seg = (p.seqlen + g - 1) / g;
+  p.seglen = (per_seg + kUnit - 1) / kUnit * kUnit;
+  p.nseg = (p.seqlen + p.seglen - 1) / p.seglen;  // no empty segment
+  if (units * p.nseg > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static std::atomic<bool> non_portable{false};
+  if (p.nseg > 8 && !non_portable.load()) {   // above the portable size
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    non_portable.store(true);
+  }
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(units * p.nseg));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.nseg;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.nseg > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const Params& p, long long batch, cudaStream_t s) {
+  const bool vec = vec_ok(p, sizeof(T));
+  if (p.states) {
+    return vec ? launch_kernel<T, true, true>(p, batch, s)
+               : launch_kernel<T, false, true>(p, batch, s);
+  }
+  return vec ? launch_kernel<T, true, false>(p, batch, s)
+             : launch_kernel<T, false, false>(p, batch, s);
 }
 
 }  // namespace
@@ -264,28 +648,6 @@ int chunked_scan_fwd(int dtype, long long batch, int seqlen, int dim,
       (dtype != 0 && dtype != 1) || (states && chunk < 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  // the widest tile (32 channels, 16 segments) that still gives two blocks
-  // per SM; no narrower than one 32-byte sector of a time step
-  const int min_tile = dtype == 0 ? 8 : 16;
-  int tile = 32;
-  while (tile > min_tile &&
-         batch * ((dim + tile - 1) / tile) < 2LL * sms) {
-    tile /= 2;
-  }
-  const int ntiles = (dim + tile - 1) / tile;
-  const int nseg = kThreads / tile;
-  if (batch * ntiles > 0x7fffffffLL) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-
   Params p;
   p.u = u;
   p.dt = dt;
@@ -305,20 +667,15 @@ int chunked_scan_fwd(int dtype, long long batch, int seqlen, int dim,
   p.dim = dim;
   p.dstate = dstate;
   p.ngroups = ngroups;
-  p.tile = tile;
-  p.ntiles = ntiles;
-  p.seglen = (seqlen + nseg - 1) / nseg;
+  p.width = dim / ngroups;
+  p.tiles = (p.width + kChannels - 1) / kChannels;
+  p.nseg = 1;
+  p.seglen = seqlen;
   p.reverse = reverse;
   p.softplus = softplus;
-
-  const dim3 grid(static_cast<unsigned>(batch * ntiles));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    chunked_scan_fwd_kernel<float><<<grid, kThreads, 0, s>>>(p);
-  } else {
-    chunked_scan_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(p);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0) return launch<float>(p, batch, s);
+  return launch<__nv_bfloat16>(p, batch, s);
 }
 
 const char* chunked_scan_fwd_error_string(int code) {

@@ -109,8 +109,8 @@ __device__ __forceinline__ float group_sum(float x) {
 
 // One stage of the transposing butterfly: lanes that differ in bit kMask
 // swap halves of their first 2 kHalf values and add.
-template <int kMask, int kHalf>
-__device__ __forceinline__ void butterfly_stage(float (&v)[8], int lane) {
+template <int kMask, int kHalf, int N>
+__device__ __forceinline__ void butterfly_stage(float (&v)[N], int lane) {
   const bool upper = lane & kMask;
 #pragma unroll
   for (int i = 0; i < kHalf; ++i) {
