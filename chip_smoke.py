@@ -14,13 +14,16 @@ Phases, each of which fails the run:
      checkpoints, ``K4_CASES``, ``K5_CASES``, ``K6_CASES``, ``K10_CASES``,
      ``K9_CASES``, ``K11_CASES`` (forward and backward), ``K7_CASES`` with
      K7's checkpoints, ``K8_CASES``, which tests/test_torch_kernels_cuda.py
-     runs too; for K2, K4, K9, K10 and K11 (forward and backward) also
-     the kernels the profiler saw run, ``ROUTES``: K2 and K4 their
-     lane-split walks, K4's three (local, combine, main) each with its
-     device time, and the K2 and K4 phases print those kernels' registers
-     and spills; attention bf16 on the tensor cores, fp32 on the SIMT
-     kernels, at head widths up to 384), and time kernel, plain version and the
-     roofline bound (K3 and K7 also with their checkpoint output; K5, K6,
+     runs too; for K1-K4, K7-K11 (forward and backward) also the kernels
+     the profiler saw run (K7's and K8's in a fresh process,
+     ``chip_smoke.py --routes``), ``ROUTES``: K1 its tile kernel, K3 and K7
+     their split lane walks, K2 and K4 their lane-split walks, K4's and
+     K8's three (local, combine, main) each with its device time, and the
+     scan phases print those kernels' registers and spills; attention bf16
+     on the tensor cores, fp32 on the SIMT kernels, at head widths up to
+     384), and time kernel, plain version and the roofline bound (K1, K3,
+     K7 and K8 also their special-function results over the units' rate;
+     K3 and K7 also with their checkpoint output; K5, K6,
      K10, K9 and K11 also with their device time from the profiler; K10,
      K9 and K11 also SDPA on the same q, k, v; for K11 SDPA's forward, its
      forward + backward, and its backward alone).
@@ -463,7 +466,8 @@ K11_CASES = [
 # for attention, bf16 on the tensor cores, fp32 on the SIMT kernels (K11's
 # backward starts with the di kernel in both); K1 its staged tile kernel,
 # K3 its split lane walk, K2 and K4 the lane-split walks (K4: the local
-# pass, the combine and the main pass) in both types.
+# pass, the combine and the main pass) in both types, K7 its split lane
+# walk and K8 its three (local, combine, main) in both types.
 # Checked by name from the profiler at every case. K9 and K10 share a
 # source, so each is checked against both entries' kernels.
 ROUTES = {
@@ -479,6 +483,14 @@ ROUTES = {
     ("K4", "float32"): ("chunked_scan_bwd_local_lanes",
                         "chunked_scan_bwd_combine",
                         "chunked_scan_bwd_main_lanes"),
+    ("K7", "bfloat16"): ("complex_scan_fwd_lanes",),
+    ("K7", "float32"): ("complex_scan_fwd_lanes",),
+    ("K8", "bfloat16"): ("complex_scan_bwd_local_lanes",
+                         "complex_scan_bwd_combine",
+                         "complex_scan_bwd_main_lanes"),
+    ("K8", "float32"): ("complex_scan_bwd_local_lanes",
+                        "complex_scan_bwd_combine",
+                        "complex_scan_bwd_main_lanes"),
     ("K9", "bfloat16"): ("vision_mha_mma_kernel",),
     ("K9", "float32"): ("row_mha_kernel",),
     ("K10", "bfloat16"): ("row_mha_mma_kernel",),
@@ -491,8 +503,15 @@ ROUTES = {
     ("K11 bwd", "float32"): ("flash_mha_bwd_di", "flash_mha_bwd_dkdv_kernel",
                              "flash_mha_bwd_dq_kernel"),
 }
-ROUTE_FAMILIES = (("K1",), ("K2",), ("K3",), ("K4",), ("K9", "K10"),
-                  ("K11",), ("K11 bwd",))
+ROUTE_FAMILIES = (("K1",), ("K2",), ("K3",), ("K4",), ("K7",), ("K8",),
+                  ("K9", "K10"), ("K11",), ("K11 bwd",))
+# profiler sessions a route check may take before it fails: on an H100's
+# machine, past this script's K4 phase (at the parent commit too), most
+# padded sessions recorded no device activity for calls that ran (a
+# quarter to a half recorded them, whatever the padding, up to 1 s), so a
+# session that misses a kernel of the route is repeated (and K7's and
+# K8's checks run in a fresh process: ``check_k7_k8_routes``)
+ROUTE_SESSIONS = 40
 # largest |kernel - plain| over each output's largest magnitude (at least
 # 1), the forward (out, lse) and the backward (dq, dk, dv), on an H100
 # 80GB HBM3 (PERF.md): fp32 sums in another order and an online max, read
@@ -513,7 +532,24 @@ K8_REPLACES = "video_mamba_suite_tpu/ops/selective_scan_pallas.py:1798"
 # (``scan_mtok_s``: 8 x 2048 x 1024, 16 states) with complex A in fp32 and
 # bf16; then the anti-causal walk with an initial state and two groups of
 # B/C, a ragged case (37 steps, groups of 20 channels, 5 states, bf16), and
-# one step. tests/test_torch_kernels_cuda.py runs the same cases.
+# one step. Then the split's edges (``SPLIT_CASES``): one row of the
+# microbench (16 segments of 128 steps), reverse, with h0; 1001 steps at 96
+# channels (8 segments of 128, the last 105, checkpoints inside each); 45
+# channels in bf16 (element copies); 8 states in groups of 64 channels,
+# reverse (16-byte B/C rows); 13 states, ragged, reverse, with h0 (lanes
+# that hold no state); one step with h0. tests/test_torch_kernels_cuda.py
+# runs the same cases.
+SPLIT_CASES = [
+    ("b1-reverse-h0", (1, 2048, 1024, 16), "float32",
+     {"reverse": True, "h0": True}),
+    ("l1001-h0", (3, 1001, 96, 16), "float32", {"h0": True}),
+    ("d45-bf16", (2, 300, 45, 16), "bfloat16", {}),
+    ("n8-grouped-reverse", (2, 200, 128, 8), "float32",
+     {"groups": 2, "reverse": True}),
+    ("n13-ragged-reverse-h0", (3, 150, 40, 13), "float32",
+     {"reverse": True, "h0": True}),
+    ("one-step-h0", (4, 1, 64, 16), "float32", {"h0": True}),
+]
 K7_CASES = [
     ("scan-bench", (8, 2048, 1024, 16), "float32", {}),
     ("scan-bench-bf16", (8, 2048, 1024, 16), "bfloat16", {}),
@@ -522,7 +558,7 @@ K7_CASES = [
     ("ragged", (3, 37, 40, 5), "bfloat16",
      {"h0": True, "groups": 2, "no_dz": True}),
     ("one-step", (2, 1, 8, 4), "float32", {"reverse": True}),
-]
+] + SPLIT_CASES
 # K8 against its plain version (eleven gradients), with cotangents of the
 # output and of both last-state channels: K7's cases, the bf16 microbench
 # at one row (the plain version's autograd keeps every step's tensors).
@@ -534,7 +570,7 @@ K8_CASES = [
     ("ragged", (3, 37, 40, 5), "bfloat16",
      {"h0": True, "groups": 2, "no_dz": True}),
     ("one-step", (2, 1, 8, 4), "float32", {"reverse": True}),
-]
+] + SPLIT_CASES
 # each output within atol · (its largest magnitude) + rtol · |value|: K3's
 # and K4's tolerances (fp32 sums and transcendentals in another order over
 # thousands of steps; bf16 outputs one to two bf16 ulps apart). Read on an
@@ -839,10 +875,16 @@ def log_resources(source, tag):
 
 
 def check_scan_route(kernel, label, dtype, fn, tag):
-    """Profile three calls of ``fn``: raise unless the kernels of
-    ``kernel``'s route at ``dtype`` ran, and log each one's device ms per
-    call."""
-    device = profile("call", fn, tag=tag, calls=3, top=0)
+    """Profile three calls of ``fn``, again (up to ``ROUTE_SESSIONS``
+    sessions) until a session records every kernel of ``kernel``'s route
+    at ``dtype``: raise unless those kernels ran, and log each one's
+    device ms per call."""
+    want = ROUTES[(kernel, dtype)]
+    for _ in range(ROUTE_SESSIONS):
+        device = profile("call", fn, tag=tag, calls=3, top=0)
+        if all(any(runs(k, n) for n in device) for k in want):
+            break
+        time.sleep(0.1)
     check_route(kernel, label, dtype,
                 route_names(fn, device, (kernel, dtype)))
     split = route_split(kernel, dtype, device)
@@ -1416,14 +1458,15 @@ def attn_kernel(label):
     return vision_mha_fwd, vision_mha_ref, "vision_mha_fwd"
 
 
-def kernel_names(fn, tries=3, want=()):
+def kernel_names(fn, tries=ROUTE_SESSIONS, want=()):
     """Names of the CUDA kernels that one call of ``fn`` launches, from the
     profiler, in a session padded on the host's clock (``padded_profile``:
     the card's timestamps stray from the host's by milliseconds, which
     left unpadded windows short or empty). A session is still repeated,
     up to ``tries`` sessions of the same call, until one records a kernel
-    and the sessions together record every kernel named in ``want``; the
-    names of all of them are returned."""
+    and the sessions together record every kernel named in
+    ``want`` (``ROUTE_SESSIONS``); the names of all of them are
+    returned."""
     import torch
     from torch.profiler import ProfilerActivity
 
@@ -1433,10 +1476,13 @@ def kernel_names(fn, tries=3, want=()):
     for _ in range(tries):
         with padded_profile([ProfilerActivity.CUDA]) as prof:
             fn()
-        names |= {e.key for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA}
+        seen = {e.key for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+        names |= seen
         if names and all(any(runs(k, n) for n in names) for k in want):
             break
+        if not seen:
+            time.sleep(0.1)
     return names
 
 
@@ -1490,9 +1536,9 @@ def check_route(kernel, label, dtype, names):
 
 # kernels whose registers and spills the build phase reports one by one:
 # the tensor-core attention kernels, K1's staged tile kernel and the
-# lane-split scans (K3, K2, K4)
+# lane-split scans (K3, K2, K4, K7, K8) with K4's and K8's combines
 RESOURCE_KERNELS = ("_mma_kernel", "_tile_kernel", "_lanes",
-                    "chunked_scan_bwd_combine")
+                    "chunked_scan_bwd_combine", "complex_scan_bwd_combine")
 
 
 def kernel_label(mangled):
@@ -1941,29 +1987,53 @@ def k7_check(label, shape, dtype, opts):
     return args, got, err
 
 
+# special-function results (exp2, sine, cosine) per complex state update:
+# K7 one decay (3) a walk; K8 one in the local pass and 1.75 in the main
+# pass (its forward walks: 16 + 12 steps a 16-step chunk)
+K7_SFU_PER_UPDATE = 3.0
+K8_SFU_PER_UPDATE = 3.0 * (1 + 1.75)
+
+
+def sfu_ms(tag, updates, per_update, what):
+    """Log the special-function results of ``updates`` complex state
+    updates at ``per_update`` each over the units' rate (``SFU_PER_S``), a
+    reading outside the bound."""
+    results = updates * per_update
+    log(f"[{tag}] special function units: {updates / 1e6:.1f} M complex "
+        f"updates x {per_update:g} results ({what}) = {results / 1e6:.1f} M "
+        f"over {SFU_PER_S / 1e12:.2f} T/s = {1e3 * results / SFU_PER_S:.4f} "
+        f"ms")
+
+
 def k7_bound_ms(args, outs):
     """Least time for the work and what sets it: each input read once and
     each output written once over HBM, against 20 fp32 operations per
-    complex state update (each transcendental counted as one)."""
+    complex state update (each transcendental counted as one). Also logs
+    a third reading, outside the bound: the special-function results of
+    one walk over the units' rate."""
     import torch
 
     tensors = [t for t in (*args.values(), *outs)
                if isinstance(t, torch.Tensor)]
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     batch, seqlen, dim = args["u"].shape
-    ops = 20.0 * batch * seqlen * dim * args["Ar"].shape[1]
+    updates = 1.0 * batch * seqlen * dim * args["Ar"].shape[1]
+    ops = 20.0 * updates
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
     log(f"  bound: {nbytes / 1e6:.1f} MB over 3.35 TB/s = "
         f"{1e3 * t_bytes:.4f} ms; {ops / 1e9:.3f} GFLOP over 67 TFLOP/s = "
         f"{1e3 * t_ops:.4f} ms")
+    sfu_ms("k7", updates, K7_SFU_PER_UPDATE, "one walk: exp2, sin, cos")
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
         "operations"
 
 
 def check_k7():
-    """Every case of ``K7_CASES`` with the kernel's time (without and with
-    checkpoints) and the bound; the plain version timed once, at the first
-    case (the scan microbench shape). Returns the first case's numbers."""
+    """Every case of ``K7_CASES`` with the kernel's registers and spills,
+    its time (without and with checkpoints) and the bound; the plain
+    version timed once, at the first case (the scan microbench shape).
+    The kernel the profiler saw run at each case and its device time come
+    from ``check_k7_k8_routes``. Returns the first case's numbers."""
     from video_mamba_suite_torch.ops import (
         complex_scan_fwd,
         complex_scan_fwd_ref,
@@ -1972,12 +2042,13 @@ def check_k7():
         CHECKPOINT_STEPS,
     )
 
+    log_resources("complex_scan_fwd", "k7")
     result = {}
     for case in K7_CASES:
         args, got, err = k7_check(*case)
-        ms = cuda_time_ms(lambda: complex_scan_fwd(**args), iters=5)
+        ms = cuda_time_ms(lambda: complex_scan_fwd(**args), iters=20)
         ck_ms = cuda_time_ms(lambda: complex_scan_fwd(
-            **args, checkpoint_steps=CHECKPOINT_STEPS), iters=5)
+            **args, checkpoint_steps=CHECKPOINT_STEPS), iters=20)
         plain_ms = float("nan")
         if not result:     # the plain version always makes checkpoints
             plain_ms = cuda_time_ms(lambda: complex_scan_fwd_ref(**args),
@@ -1992,6 +2063,45 @@ def check_k7():
                           bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=None)
     return result
+
+
+def k7_k8_routes():
+    """``check_scan_route`` at every case of ``K7_CASES`` and ``K8_CASES``
+    (the inputs of ``k7_check`` and ``k8_check``): the kernels the profiler
+    saw run and each one's device ms per call. Raises on a miss."""
+    from video_mamba_suite_torch.ops import complex_scan_bwd, complex_scan_fwd
+
+    for label, shape, dtype, opts in K7_CASES:
+        args = k7_inputs(shape, dtype, seed=sum(shape) + 7, **opts)
+        check_scan_route("K7", label, dtype,
+                         lambda: complex_scan_fwd(**args), "k7")
+    for label, shape, dtype, opts in K8_CASES:
+        args, states, cot = k8_inputs(shape, dtype, seed=sum(shape) + 8,
+                                      **opts)
+        del args["h0r"], args["h0i"]
+        check_scan_route("K8", label, dtype, lambda: complex_scan_bwd(
+            **args, statesr=states[0], statesi=states[1], **cot), "k8")
+
+
+def check_k7_k8_routes():
+    """``k7_k8_routes`` in a fresh process (``chip_smoke.py --routes``),
+    its log passed on: on an H100's machine, past this script's K4 phase
+    (at the parent commit too), most profiler sessions of the same process
+    recorded no device activity for calls that ran, whatever the padding
+    (up to 1 s), while a fresh process's sessions recorded every kernel.
+    Raises unless the child succeeded."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(here, "chip_smoke.py")
+    child = subprocess.run([sys.executable, script, "--routes"], cwd=here,
+                           capture_output=True, text=True, timeout=900)
+    for line in child.stdout.splitlines():
+        log(line)
+    if child.returncode != 0:
+        raise AssertionError(f"the K7/K8 route checks failed "
+                             f"(rc {child.returncode}):\n"
+                             f"{child.stderr[-3000:]}")
 
 
 def k8_inputs(shape, dtype, seed, **opts):
@@ -2050,39 +2160,49 @@ def k8_bound_ms(args, states, cot, grads):
     checkpoints and the cotangents) read once and each gradient written
     once over HBM, against 55 fp32 operations per complex state update
     (20 to recompute the forward, 35 for the adjoint step; each
-    transcendental counted as one)."""
+    transcendental counted as one). Also logs a third reading, outside the
+    bound: the special-function results of the three kernels' walks over
+    the units' rate."""
     import torch
 
     tensors = [t for t in (*args.values(), *states, *cot.values(), *grads)
                if isinstance(t, torch.Tensor)]
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     batch, seqlen, dim = args["u"].shape
-    ops = 55.0 * batch * seqlen * dim * args["Ar"].shape[1]
+    updates = 1.0 * batch * seqlen * dim * args["Ar"].shape[1]
+    ops = 55.0 * updates
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
     log(f"  bound: {nbytes / 1e6:.1f} MB over 3.35 TB/s = "
         f"{1e3 * t_bytes:.4f} ms; {ops / 1e9:.3f} GFLOP over 67 TFLOP/s = "
         f"{1e3 * t_ops:.4f} ms")
+    sfu_ms("k8", updates, K8_SFU_PER_UPDATE,
+           "local 1 decay, main 1.75, 3 each")
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
         "operations"
 
 
 def check_k8():
-    """Every case of ``K8_CASES`` with the kernel's time and the bound; the
-    plain version timed once, at the first case (the scan microbench
-    shape). Returns the first case's numbers."""
+    """Every case of ``K8_CASES`` with the kernels' registers and spills,
+    the time and the bound; the plain version timed once, at the first
+    case (the scan microbench shape). The kernels the profiler saw run at
+    each case (the local pass, the combine and the main pass) and their
+    device times come from ``check_k7_k8_routes``. Returns the first
+    case's numbers."""
     from video_mamba_suite_torch.ops import (
         complex_scan_bwd,
         complex_scan_bwd_ref,
     )
 
+    log_resources("complex_scan_bwd", "k8")
     result = {}
     for case in K8_CASES:
         args, states, cot, grads, err = k8_check(*case)
         kernel_args = {k: v for k, v in args.items()
                        if k not in ("h0r", "h0i")}
+
         ms = cuda_time_ms(lambda: complex_scan_bwd(
             **kernel_args, statesr=states[0], statesi=states[1], **cot),
-            iters=3, warmup=1)
+            iters=10, warmup=1)
         plain_ms = float("nan")
         if not result:
             plain_ms = cuda_time_ms(
@@ -3566,6 +3686,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--routes"]:    # check_k7_k8_routes's child
+        k7_k8_routes()
+        return 0
     from video_mamba_suite_torch.ops import _build
 
     card = card_line()
@@ -3598,6 +3721,7 @@ def main() -> int:
     k11, k11_bwd = check_k11()
     k7 = check_k7()
     k8 = check_k8()
+    check_k7_k8_routes()
     run_main_path()
     launches = run_train_step()
     launches.update(run_vivim_serving())

@@ -650,10 +650,16 @@ def test_each_dtype_runs_its_routed_kernels(cuda_device, kernel, dtype):
     """One call of each entry at a small shape (attention in the projection
     layout) runs exactly the kernels ``chip_smoke.ROUTES`` gives its dtype:
     bf16 attention on the tensor cores, fp32 on the SIMT kernels, K1 its
-    staged tile kernel, K3 its split lane walk (here 1000 steps in
-    segments, with checkpoints), K2 and K4 their lane-split walks, nothing
-    else of the entry's source."""
-    from video_mamba_suite_torch.ops import flash_mha_bwd, flash_mha_fwd
+    staged tile kernel, K3 and K7 their split lane walks (here 1000 steps
+    in segments, with checkpoints), K2 and K4 their lane-split walks, K8
+    its local, combine and main kernels, nothing else of the entry's
+    source."""
+    from video_mamba_suite_torch.ops import (
+        complex_scan_bwd,
+        complex_scan_fwd,
+        flash_mha_bwd,
+        flash_mha_fwd,
+    )
 
     if kernel == "K1":
         args = chip_smoke.k1_inputs((4, 16, 256, 16), dtype, 3)
@@ -675,6 +681,18 @@ def test_each_dtype_runs_its_routed_kernels(cuda_device, kernel, dtype):
 
         def call():
             return chunked_scan_bwd(**scan, states=states)
+    elif kernel == "K7":
+        args = chip_smoke.k7_inputs((2, 1000, 64, 16), dtype, 3, h0=True)
+
+        def call():
+            return complex_scan_fwd(**args, checkpoint_steps=16)
+    elif kernel == "K8":
+        args, states, cot = chip_smoke.k8_inputs((2, 80, 64, 16), dtype, 3)
+        del args["h0r"], args["h0i"]
+
+        def call():
+            return complex_scan_bwd(**args, statesr=states[0],
+                                    statesi=states[1], **cot)
     elif kernel in ("K9", "K10"):
         shape = (2, 2, 3, 40, 64) if kernel == "K10" else (4, 3, 40, 64)
         fwd = chip_smoke.attn_kernel(kernel)[0]

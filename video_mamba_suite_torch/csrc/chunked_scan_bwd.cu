@@ -117,39 +117,15 @@ struct Params {
   int reverse, softplus;
 };
 
-// Where a block of the walking kernels works: block (row, block of chunks,
-// group, tile); lane -> (channel, quarter of its states).
-struct Block {
-  UnitPlace q;
-  int cg, tile, c_first, c_last;
-  int ch;        // the lane's channel (clamped into the group)
-  bool active;   // the lane's channel lies inside the group
-};
-
-__device__ __forceinline__ Block place(const Params& p, Lane& L) {
-  Block b;
-  const int nwt = p.ngroups * p.tiles;
-  const int wt = blockIdx.x % nwt;
-  const int64_t rc = blockIdx.x / nwt;
-  b.cg = static_cast<int>(rc % p.ncgroups);
-  b.tile = wt % p.tiles;
-  b.q.row = rc / p.ncgroups;
-  b.q.group = wt / p.tiles;
-  b.q.ch0 = b.q.group * p.width + b.tile * kChannels;
-  b.q.valid = min(kChannels, p.width - b.tile * kChannels);
-  b.q.seqlen = p.seqlen;
-  b.q.dim = p.dim;
-  b.q.dstate = p.dstate;
-  b.q.ngroups = p.ngroups;
-  b.q.reverse = p.reverse;
-  b.c_first = b.cg * kChunksPerBlock;
-  b.c_last = min(p.nchunks, b.c_first + kChunksPerBlock);
+// Where a block of the walking kernels works (scan_lanes.cuh's
+// `chunk_block`) and what its lane walks: lane -> (channel, quarter of its
+// states).
+__device__ __forceinline__ ChunkBlock place(const Params& p, Lane& L) {
   L.lane = threadIdx.x & 31;
   L.warp = threadIdx.x >> 5;
   L.cw = L.warp * (32 / kLanes) + L.lane / kLanes;
   L.quarter = L.lane % kLanes;
-  b.active = L.cw < b.q.valid;
-  b.ch = b.q.ch0 + min(L.cw, b.q.valid - 1);
+  const ChunkBlock b = chunk_block<kChunksPerBlock>(p, L.cw);
 #pragma unroll
   for (int k = 0; k < kStates; ++k) {
     const int n = L.quarter * kStates + k;
@@ -163,12 +139,6 @@ __device__ __forceinline__ Block place(const Params& p, Lane& L) {
   return b;
 }
 
-__device__ __forceinline__ void set_chunk(UnitPlace& q, const Params& p,
-                                          int c) {
-  q.i0 = c * p.chunk;
-  q.nsteps = min(p.chunk, p.seqlen - q.i0);
-}
-
 // Pass "local": each chunk's outgoing adjoint from a zero incoming one,
 // and its sum of dt.
 template <typename T, bool kVec>
@@ -177,7 +147,7 @@ __global__ void __launch_bounds__(kThreads, 4)
   extern __shared__ float4 smem4[];
   const Tiles<T> w(smem4, p.S);
   Lane L;
-  Block b = place(p, L);
+  ChunkBlock b = place(p, L);
   if (b.c_first >= b.c_last) return;  // the whole block
   const T* dtp = static_cast<const T*>(p.dt);
   const T* zp = static_cast<const T*>(p.z);
@@ -276,7 +246,7 @@ __global__ void __launch_bounds__(kThreads, 5)
   extern __shared__ float4 smem4[];
   const Tiles<T> w(smem4, p.S);
   Lane L;
-  Block b = place(p, L);
+  ChunkBlock b = place(p, L);
   if (b.c_first >= b.c_last) return;  // the whole block
   const T* up = static_cast<const T*>(p.u);
   const T* dtp = static_cast<const T*>(p.dt);
@@ -343,18 +313,6 @@ __global__ void __launch_bounds__(kThreads, 5)
   }
 }
 
-// 16-byte copies need every channel tensor's rows and tiles and every B/C
-// step on 16-byte boundaries.
-bool vec_ok(const Params& p, int esize) {
-  const void* ptrs[] = {p.u, p.dt, p.z, p.B, p.C, p.g, p.du, p.ddt, p.dz};
-  for (const void* q : ptrs) {
-    if (reinterpret_cast<uintptr_t>(q) % 16) return false;
-  }
-  return (static_cast<int64_t>(p.dim) * esize) % 16 == 0 &&
-         (static_cast<int64_t>(p.width) * esize) % 16 == 0 &&
-         (p.dstate * esize) % 16 == 0;
-}
-
 template <typename T, bool kVec>
 int launch_walks(const Params& p, long long batch, cudaStream_t s) {
   const long long walk_blocks =
@@ -388,8 +346,10 @@ int launch_walks(const Params& p, long long batch, cudaStream_t s) {
 
 template <typename T>
 int launch(const Params& p, long long batch, cudaStream_t s) {
-  return vec_ok(p, sizeof(T)) ? launch_walks<T, true>(p, batch, s)
-                              : launch_walks<T, false>(p, batch, s);
+  const bool vec = vec_ok({p.u, p.dt, p.z, p.B, p.C, p.g, p.du, p.ddt, p.dz},
+                          p.dim, p.width, p.dstate, sizeof(T));
+  return vec ? launch_walks<T, true>(p, batch, s)
+             : launch_walks<T, false>(p, batch, s);
 }
 
 }  // namespace

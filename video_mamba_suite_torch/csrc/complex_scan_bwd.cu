@@ -5,18 +5,18 @@
 // `_complex_core_bwd` (the VJP of `_complex_core`). It is the adjoint of
 // complex_scan_fwd.cu (K7), computed from K7's checkpoints: the two-channel
 // state before every `chunk`-th step of the walk. Per (row, channel), with
-// a_t = mag (cos + i sin), mag = exp(dt_t Ar), ang = dt_t Ai, the cotangent
-// g_t of the output and (glastr, glasti) of the last state, walking the
-// steps backwards:
+// a_t = car + i cai = exp(dt_t Ar) (cos(dt_t Ai) + i sin(dt_t Ai)), the
+// cotangent g_t of the output and (glastr, glasti) of the last state,
+// walking the steps backwards:
 //
 //     dz_t  = g_t * y_t * (s + silu * (1 - s))     (s = sigmoid(z_t))
 //     gy_t  = g_t * silu(z_t)
 //     dhr  += 2 C_t gy_t                           (y reads the real channel)
 //     dcar  = dhr hr_{t-1} + dhi hi_{t-1},  dcai = dhi hr_{t-1} - dhr hi_{t-1}
-//     dmag  = dcar cos + dcai sin,          dang = dcai Re(a) - dcar Im(a)
-//     dAr  += dmag mag dt_t,                dAi += dang dt_t
+//     dmag  = dcar car + dcai cai,          dang = dcai car - dcar cai
+//     dAr  += dmag dt_t,                    dAi += dang dt_t
 //     dC_t  = sum_d 2 gy_t hr_t,            dB_t = sum_d dhr dt_t u_t
-//     ddt_t = (sum_n dmag mag Ar + dang Ai + u_t sum_n dhr B_t)
+//     ddt_t = (sum_n dmag Ar + dang Ai + u_t sum_n dhr B_t)
 //             * sigmoid(dt_t + bias)        (with softplus)
 //     du_t  = dt_t sum_n dhr B_t + gy_t D,  dD = sum gy_t u_t, dbias = sum ddt
 //     (dhr, dhi) <- conj(a_t) (dhr, dhi)    (dh_{t-1} = conj(a_t) dh_t)
@@ -24,38 +24,69 @@
 // and (dh0r, dh0i) is the adjoint left after the first step. dB and dC go
 // to the group d / (dim / G) of their channel.
 //
-// What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 outside the
-// tensor cores), at the scan microbench shape (batch 8, L 2048, dim 1024,
-// dstate 16, fp32 I/O, a checkpoint every 16 steps): it reads u, dt, z and
-// g and writes du, ddt and dz, seven tensors of 67 MB, and reads 2 x 67 MB
-// of checkpoints: about 610 MB, 182 us. The arithmetic (the forward
-// recompute, about 20 operations per complex state update, and the adjoint
-// step, about 35) is some 14.8 GFLOP, 220 us, counting each transcendental
-// as one operation. So the operations bound it.
+// What bounds it on an H100 SXM (3.35 TB/s; 67 TFLOP/s fp32 outside the
+// tensor cores; the special function unit 16 results a clock an SM), at the
+// scan microbench shape (batch 8, L 2048, dim 1024, dstate 16, fp32 I/O, a
+// checkpoint every 16 steps): it reads u, dt, z and g and writes du, ddt
+// and dz, seven tensors of 67 MB, and reads 2 x 67 MB of checkpoints: about
+// 610 MB, 182 us. Its 268 M complex state updates take some 55 fp32
+// operations each (14.8 GFLOP, 220 us) and, as designed below, 8.25
+// special-function results each (3 a decay; the local pass one decay a
+// update, the main pass 1.75), 2.2 G results, 0.53 ms. So the special
+// function unit sets the floor.
 //
-// Design (simple and right first): one thread per (row, channel), a warp
-// on 32 channels of one group (lanes past the group's width load zeros and
-// store nothing). Each thread walks the chunks from the last: it recomputes
-// the chunk's states forward from its checkpoint into an array in its local
-// memory (h_{t-1} is never rebuilt by dividing by a_t, which fails where
-// a_t underflows), then runs the adjoint step above backwards over them.
-// Reductions without atomics, so the result does not depend on the order in
-// which blocks run: dB and dC are summed over the warp's 32 channels with a
-// transposing butterfly (16 shuffles for 16 values, as in
-// chunked_scan_bwd.cu) and written as one fp32 partial per 32-channel tile;
-// dAr, dAi, dD and dbias are written per row. The wrapper adds the partials
-// with torch.sum.
+// Design: K4's (chunked_scan_bwd.cu) on two real channels. The walk is
+// split in time at the checkpoints; three kernels, in order on the stream:
+//   local:   each chunk walked backwards from a zero adjoint; leaves the
+//            adjoint that leaves the chunk at its first step (E) and the
+//            chunk's sum of dt. The adjoint needs dt, z, g and C, not the
+//            states;
+//   combine: one thread per (row, channel, state) chains the chunks from
+//            the walk's end, M <- conj(a_chunk) M + E, starting from
+//            (glastr, glasti); a_chunk = exp(A sum dt) exactly (the a_t of
+//            a channel commute), its rotation by the accurate sincosf. It
+//            leaves each chunk's exact incoming adjoint; after the first
+//            chunk M is (dh0r, dh0i). The chain is serial, so it loads
+//            kCombineBatch chunks' values at once;
+//   main:    each chunk walked again from its checkpoint with that adjoint:
+//            forward once with its 4-step pieces' starts in shared memory,
+//            then each piece again with its states and decays in registers
+//            for the adjoint step (scan_lanes.cuh's `adjoint_walk` scheme),
+//            so no state array sits in local memory and no decay of a step
+//            is computed twice in one walk; h_{t-1} is never rebuilt by
+//            dividing by a_t, which fails where a_t underflows.
+// The local and main passes run scan_lanes.cuh's units: one block of 128
+// threads takes 32 channels of one group and row, 4 lanes a channel (4
+// complex states a lane), and walks kChunksPerBlock chunks one after the
+// other, each chunk's u, dt, z, g, B and C staged in shared memory by
+// cp.async while the block walks the chunk before it, and prepared once a
+// (step, channel): softplus and its derivative, g silu(z) and the gate's
+// factor for dz. Reductions without atomics, so the result does not depend
+// on the order in which blocks run: dB and dC are summed over the unit's
+// 32 channels after the unit and written as one fp32 partial per
+// 32-channel tile; dAr, dAi, dD and dbias are summed in each lane's
+// registers over the block's chunks and written as one fp32 partial per
+// (row, block of chunks). The wrapper adds the partials with torch.sum.
+// Channels past the group's width load zeros and store nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "complex_scan.cuh"
+#include "scan_lanes.cuh"
+
 namespace {
 
-constexpr int kMaxDstate = 16;
+using namespace scan_lanes;
+using complex_scan::span_decay;
+using complex_scan::step_decay;
+
+constexpr int kChunksPerBlock = 8;  // chunks a block of the walking kernels
 constexpr int kMaxChunk = 16;
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxPieces = kMaxChunk / kPiece;
+constexpr int kCombineThreads = 256;
+constexpr int kCombineBatch = 8;   // chunks the combine loads at once
 
 struct Params {
   const void* u;         // (batch, seqlen, dim)
@@ -75,238 +106,442 @@ struct Params {
   void* du;              // (batch, seqlen, dim)
   void* ddt;             // (batch, seqlen, dim)
   void* dz;              // (batch, seqlen, dim) or null (with z)
-  float* dAr;            // (batch, dim, dstate) partials
+  float* dAr;            // (batch * ncgroups, dim, dstate) partials
   float* dAi;
   float* dB;             // (tiles, batch, seqlen, ngroups, dstate) partials
   float* dC;
-  float* dD;             // (batch, dim) partials or null
-  float* dbias;          // (batch, dim) partials or null
+  float* dD;             // (batch * ncgroups, dim) partials or null
+  float* dbias;          // (batch * ncgroups, dim) partials or null
   float* dh0r;           // (batch, dim, dstate)
   float* dh0i;
-  long long batch;
+  float* carryr;         // (batch, nchunks, dim, dstate): E, then M
+  float* carryi;
+  float* dtsum;          // (batch, nchunks, dim)
+  int64_t batch;
   int seqlen, dim, dstate, ngroups;
-  int chunk, nchunks;
-  int width;  // channels per group
-  int tiles;  // 32-channel tiles per group
+  int chunk;     // walk steps per chunk (between checkpoints)
+  int S;         // chunk rounded up to kPiece: the rows of a unit's tiles
+  int nchunks;   // ceil(seqlen / chunk)
+  int width;     // channels per group
+  int tiles;     // 32-channel tiles per group
+  int ncgroups;  // blocks of kChunksPerBlock chunks per row
   int reverse, softplus;
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+// What one lane walks: its channel's 4 complex states of A as Ar log2(e)
+// and Ai, D, and the running sums the walk adds to.
+struct CLane {
+  int lane, warp, cw, quarter;   // cw: the channel in the unit (0..31)
+  float Ar2[kStates];
+  float Ai[kStates];
+  float D;
+  float dAr[kStates];
+  float dAi[kStates];
+  float dD, dbias;
+};
 
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-// softplus as torch computes it (threshold 20), and its derivative.
-__device__ __forceinline__ float softplus(float x) {
-  return x > 20.f ? x : log1pf(expf(x));
-}
-__device__ __forceinline__ float softplus_grad(float x) {
-  return x > 20.f ? 1.f : sigmoid(x);
-}
-
-// One stage of the transposing butterfly: lanes that differ in bit kOff
-// swap halves of their first 2*kOff values and add.
-template <int kOff>
-__device__ __forceinline__ void butterfly_stage(float (&v)[kMaxDstate],
-                                                int lane) {
-  const bool upper = lane & kOff;
+// Where a block of the walking kernels works (scan_lanes.cuh's
+// `chunk_block`) and what its lane walks: lane -> (channel, quarter of its
+// states).
+__device__ __forceinline__ ChunkBlock place(const Params& p, CLane& L) {
+  L.lane = threadIdx.x & 31;
+  L.warp = threadIdx.x >> 5;
+  L.cw = L.warp * (32 / kLanes) + L.lane / kLanes;
+  L.quarter = L.lane % kLanes;
+  const ChunkBlock b = chunk_block<kChunksPerBlock>(p, L.cw);
 #pragma unroll
-  for (int i = 0; i < kOff; ++i) {
-    const float send = upper ? v[i] : v[i + kOff];
-    const float keep = upper ? v[i + kOff] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, kOff);
+  for (int k = 0; k < kStates; ++k) {
+    const int n = L.quarter * kStates + k;
+    const bool on = b.active && n < p.dstate;
+    L.Ar2[k] = on ? p.Ar[b.ch * p.dstate + n] * kLog2e : 0.f;
+    L.Ai[k] = on ? p.Ai[b.ch * p.dstate + n] : 0.f;
+    L.dAr[k] = 0.f;
+    L.dAi[k] = 0.f;
   }
+  L.D = b.active && p.D ? p.D[b.ch] : 0.f;
+  L.dD = 0.f;
+  L.dbias = 0.f;
+  return b;
 }
 
-// The sum over the warp's 32 lanes of v[lane % 16] (v is clobbered).
-__device__ __forceinline__ float warp_transpose_sum(float (&v)[kMaxDstate],
-                                                    int lane) {
-  butterfly_stage<8>(v, lane);
-  butterfly_stage<4>(v, lane);
-  butterfly_stage<2>(v, lane);
-  butterfly_stage<1>(v, lane);
-  return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 16);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) complex_scan_bwd_kernel(Params p) {
-  const int lane = threadIdx.x & 31;
-  const long long w =
-      static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
-  if (w >= p.batch * p.ngroups * p.tiles) return;  // whole warps
-  const int tile = static_cast<int>(w % p.tiles);
-  const int group = static_cast<int>((w / p.tiles) % p.ngroups);
-  const long long row = w / (static_cast<long long>(p.tiles) * p.ngroups);
-  const int cw = tile * 32 + lane;
-  const bool active = cw < p.width;
-  const int ch = group * p.width + min(cw, p.width - 1);
-
-  float Ar[kMaxDstate], Ai[kMaxDstate], dhr[kMaxDstate], dhi[kMaxDstate];
-  float dAr[kMaxDstate], dAi[kMaxDstate];
-  const long long sidx = (row * p.dim + ch) * p.dstate;
-#pragma unroll
-  for (int k = 0; k < kMaxDstate; ++k) {
-    const bool on = k < p.dstate;
-    Ar[k] = on ? p.Ar[ch * p.dstate + k] : 0.f;
-    Ai[k] = on ? p.Ai[ch * p.dstate + k] : 0.f;
-    dhr[k] = (on && active && p.glastr) ? p.glastr[sidx + k] : 0.f;
-    dhi[k] = (on && active && p.glasti) ? p.glasti[sidx + k] : 0.f;
-    dAr[k] = 0.f;
-    dAi[k] = 0.f;
-  }
-  const float bias = p.bias ? p.bias[ch] : 0.f;
-  const float D = p.D ? p.D[ch] : 0.f;
-  float dD = 0.f, dbias = 0.f;
-
-  const T* u = static_cast<const T*>(p.u);
+// Pass "local": each chunk's outgoing adjoint from a zero incoming one,
+// and its sum of dt. It holds little state: six blocks an SM (80
+// registers a thread, no spill).
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads, 6)
+    complex_scan_bwd_local_lanes(Params p) {
+  extern __shared__ float4 smem4[];
+  const Tiles<T> w(smem4, p.S);
+  CLane L;
+  ChunkBlock b = place(p, L);
+  if (b.c_first >= b.c_last) return;  // the whole block
   const T* dtp = static_cast<const T*>(p.dt);
-  const T* z = static_cast<const T*>(p.z);
+  const T* zp = static_cast<const T*>(p.z);
   const T* gp = static_cast<const T*>(p.g);
-  const long long base = row * p.seqlen * p.dim + ch;
-  const long long bc_step = static_cast<long long>(p.ngroups) * p.dstate;
-  const T* Bp = static_cast<const T*>(p.B) + row * p.seqlen * bc_step +
-                group * p.dstate;
-  const T* Cp = static_cast<const T*>(p.C) + row * p.seqlen * bc_step +
-                group * p.dstate;
+  const T* Cp = static_cast<const T*>(p.C);
+  const float* bias = p.bias ? p.bias + b.q.ch0 : nullptr;
+  const int q4 = L.quarter * kStates;
 
-  // the chunk's states: [0] its checkpoint, [s + 1] after its step s
-  float tr[kMaxChunk + 1][kMaxDstate], ti[kMaxChunk + 1][kMaxDstate];
-
-  for (int c = p.nchunks - 1; c >= 0; --c) {
-    const int i_lo = c * p.chunk;
-    const int i_hi = min(i_lo + p.chunk, p.seqlen);
-    const long long soff = ((row * p.nchunks + c) * p.dim + ch) * p.dstate;
-#pragma unroll
-    for (int k = 0; k < kMaxDstate; ++k) {
-      tr[0][k] = k < p.dstate ? p.statesr[soff + k] : 0.f;
-      ti[0][k] = k < p.dstate ? p.statesi[soff + k] : 0.f;
+  UnitPlace next = b.q;
+  set_chunk(next, p, b.c_first);
+  stage<T, kVec, true>(w.raw, p.S, next, nullptr, dtp, zp, gp, nullptr, Cp);
+  cp_async_commit();
+  for (int c = b.c_first; c < b.c_last; ++c) {
+    set_chunk(b.q, p, c);
+    cp_async_wait_all();
+    __syncthreads();  // this chunk's tiles are in; the last walk is done
+    prep<T, true>(w, w.raw, b.q, bias, zp != nullptr, p.softplus);
+    __syncthreads();  // the raw tiles are read: the next chunk's copy
+    if (c + 1 < b.c_last) {
+      set_chunk(next, p, c + 1);
+      stage<T, kVec, true>(w.raw, p.S, next, nullptr, dtp, zp, gp, nullptr,
+                           Cp);
+      cp_async_commit();
     }
-    for (int i = i_lo; i < i_hi; ++i) {  // the forward again
-      const int s = i - i_lo;
-      const int t = p.reverse ? p.seqlen - 1 - i : i;
-      const long long off = base + static_cast<long long>(t) * p.dim;
-      float dt = to_float(dtp[off]) + bias;
-      if (p.softplus) dt = softplus(dt);
-      const float dtu = dt * (active ? to_float(u[off]) : 0.f);
-      const T* Bt = Bp + t * bc_step;
+
+    // every row of the tile, last first (rows past the chunk are
+    // identities), kPiece at a time with no branch
+    float dr[kStates] = {0.f, 0.f, 0.f, 0.f};
+    float di[kStates] = {0.f, 0.f, 0.f, 0.f};
+    float dtsum = 0.f;
+    for (int i0 = p.S - kPiece; i0 >= 0; i0 -= kPiece) {
 #pragma unroll
-      for (int k = 0; k < kMaxDstate; ++k) {
-        if (k < p.dstate) {
-          const float mag = expf(dt * Ar[k]);
-          float sn, cs;
-          sincosf(dt * Ai[k], &sn, &cs);
-          const float car = mag * cs;
-          const float cai = mag * sn;
-          tr[s + 1][k] = car * tr[s][k] - cai * ti[s][k] +
-                         dtu * to_float(Bt[k]);
-          ti[s + 1][k] = cai * tr[s][k] + car * ti[s][k];
+      for (int j = kPiece - 1; j >= 0; --j) {
+        const int i = i0 + j;
+        const float gy2 = 2.f * w.gy[i * kChannels + L.cw];
+        const float dt = w.dt[i * kChannels + L.cw];
+        const float4 cv = ld4(w.C + i * kMaxDstate + q4);
+#pragma unroll
+        for (int k = 0; k < kStates; ++k) {
+          float car, cai;
+          step_decay(dt, L.Ar2[k], L.Ai[k], car, cai);
+          const float r = fmaf(at(cv, k), gy2, dr[k]);
+          dr[k] = fmaf(car, r, cai * di[k]);
+          di[k] = fmaf(car, di[k], -cai * r);
         }
+        dtsum += dt;
       }
     }
-    for (int i = i_hi - 1; i >= i_lo; --i) {  // the adjoint
-      const int s = i - i_lo;
-      const int t = p.reverse ? p.seqlen - 1 - i : i;
-      const long long off = base + static_cast<long long>(t) * p.dim;
-      const float uv = active ? to_float(u[off]) : 0.f;
-      const float gv = active ? to_float(gp[off]) : 0.f;
-      const float dt_pre = to_float(dtp[off]) + bias;
-      const float dt = p.softplus ? softplus(dt_pre) : dt_pre;
+    if (b.active) {
+      const int64_t cidx = (b.q.row * p.nchunks + c) * p.dim + b.ch;
+#pragma unroll
+      for (int k = 0; k < kStates; ++k) {
+        if (q4 + k < p.dstate) {
+          p.carryr[cidx * p.dstate + q4 + k] = dr[k];
+          p.carryi[cidx * p.dstate + q4 + k] = di[k];
+        }
+      }
+      if (L.quarter == 0) p.dtsum[cidx] = dtsum;
+    }
+  }
+}
+
+// Pass "combine": each chunk's exact incoming adjoint, and dh0.
+__global__ void __launch_bounds__(kCombineThreads)
+    complex_scan_bwd_combine(Params p, int64_t total) {
+  const int64_t idx =
+      static_cast<int64_t>(blockIdx.x) * kCombineThreads + threadIdx.x;
+  if (idx >= total) return;
+  const int k = static_cast<int>(idx % p.dstate);
+  const int ch = static_cast<int>((idx / p.dstate) % p.dim);
+  const int64_t row = idx / (static_cast<int64_t>(p.dim) * p.dstate);
+  const float ar2 = p.Ar[ch * p.dstate + k] * kLog2e;
+  const float ai = p.Ai[ch * p.dstate + k];
+  float mr = p.glastr ? p.glastr[idx] : 0.f;
+  float mi = p.glasti ? p.glasti[idx] : 0.f;
+  // the chain is serial, so each batch's loads are issued together: one
+  // memory latency per kCombineBatch chunks, not one per chunk
+  for (int c0 = p.nchunks - 1; c0 >= 0; c0 -= kCombineBatch) {
+    float er[kCombineBatch], ei[kCombineBatch], s[kCombineBatch];
+#pragma unroll
+    for (int j = 0; j < kCombineBatch; ++j) {
+      const int64_t cidx = (row * p.nchunks + max(c0 - j, 0)) * p.dim + ch;
+      const bool on = c0 - j >= 0;
+      er[j] = on ? p.carryr[cidx * p.dstate + k] : 0.f;
+      ei[j] = on ? p.carryi[cidx * p.dstate + k] : 0.f;
+      s[j] = on ? p.dtsum[cidx] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kCombineBatch; ++j) {
+      if (c0 - j >= 0) {
+        const int64_t cidx = (row * p.nchunks + c0 - j) * p.dim + ch;
+        p.carryr[cidx * p.dstate + k] = mr;
+        p.carryi[cidx * p.dstate + k] = mi;
+        float car, cai;
+        span_decay(s[j], ar2, ai, car, cai);
+        const float nr = fmaf(car, mr, fmaf(cai, mi, er[j]));
+        mi = fmaf(car, mi, fmaf(-cai, mr, ei[j]));
+        mr = nr;
+      }
+    }
+  }
+  p.dh0r[idx] = mr;
+  p.dh0i[idx] = mi;
+}
+
+// Where the lane keeps the start of piece pc of its walk (real part, then
+// imaginary): 2 (kMaxPieces - 1) float4 a thread after the block's tiles,
+// laid out thread-fastest (no bank conflict).
+__device__ __forceinline__ float4* piece_start(float4* starts, int pc,
+                                               int part) {
+  return starts + (2 * pc + part) * kThreads + threadIdx.x;
+}
+
+// The adjoint walk of one chunk for the lane's 4 complex states, from the
+// state (hr, hi) before the chunk's first step and the adjoint (dr, di)
+// that enters after its last (both in and out: the adjoint leaves as the
+// one before the first step). The chunk is walked forward once from h, its
+// piece starts kept in shared memory (`piece_start`) except the last
+// piece's; then its pieces of kPiece steps, last first: each is walked
+// forward from its start with h_t and a_t kept in registers, and the
+// adjoint step (see the note at the top) runs over them. So a chunk of S
+// steps takes S + (S - kPiece) forward steps (1.75 a step at S 16) and
+// each step's decay once in each of them.
+template <typename T>
+__device__ __forceinline__ void adjoint_walk(const Tiles<T>& w,
+                                             float4* starts, int nsteps,
+                                             CLane& L, float (&hr)[kStates],
+                                             float (&hi)[kStates],
+                                             float (&dr)[kStates],
+                                             float (&di)[kStates]) {
+  const int cw = L.cw;
+  const int q4 = L.quarter * kStates;
+  const int npieces = (nsteps + kPiece - 1) / kPiece;
+  const int slot = reduction_slot(L.lane);
+
+  // forward through every piece but the last, keeping the piece starts
+  for (int pc = 0; pc + 1 < npieces; ++pc) {
+    *piece_start(starts, pc, 0) = make_float4(hr[0], hr[1], hr[2], hr[3]);
+    *piece_start(starts, pc, 1) = make_float4(hi[0], hi[1], hi[2], hi[3]);
+#pragma unroll
+    for (int j = 0; j < kPiece; ++j) {
+      const int i = pc * kPiece + j;
+      const float dt = w.dt[i * kChannels + cw];
+      const float dtu = dt * w.u[i * kChannels + cw];
+      const float4 b = ld4(w.B + i * kMaxDstate + q4);
+#pragma unroll
+      for (int k = 0; k < kStates; ++k) {
+        float car, cai;
+        step_decay(dt, L.Ar2[k], L.Ai[k], car, cai);
+        const float nr = fmaf(car, hr[k], fmaf(-cai, hi[k], dtu * at(b, k)));
+        hi[k] = fmaf(cai, hr[k], car * hi[k]);
+        hr[k] = nr;
+      }
+    }
+  }
+
+  for (int pc = npieces - 1; pc >= 0; --pc) {
+    float pr[kStates], pi[kStates];   // the state before the piece
+    if (pc + 1 < npieces) {
+      const float4 sr = *piece_start(starts, pc, 0);
+      const float4 si = *piece_start(starts, pc, 1);
+#pragma unroll
+      for (int k = 0; k < kStates; ++k) {
+        pr[k] = at(sr, k);
+        pi[k] = at(si, k);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kStates; ++k) {
+        pr[k] = hr[k];
+        pi[k] = hi[k];
+      }
+    }
+    float hsr[kPiece][kStates], hsi[kPiece][kStates];
+    float asr[kPiece][kStates], asi[kPiece][kStates];
+#pragma unroll
+    for (int j = 0; j < kPiece; ++j) {
+      const int i = pc * kPiece + j;   // rows up to S exist: identities
+      const float dt = w.dt[i * kChannels + cw];
+      const float dtu = dt * w.u[i * kChannels + cw];
+      const float4 b = ld4(w.B + i * kMaxDstate + q4);
+#pragma unroll
+      for (int k = 0; k < kStates; ++k) {
+        step_decay(dt, L.Ar2[k], L.Ai[k], asr[j][k], asi[j][k]);
+        const float xr = j ? hsr[j - 1][k] : pr[k];
+        const float xi = j ? hsi[j - 1][k] : pi[k];
+        hsr[j][k] = fmaf(asr[j][k], xr, fmaf(-asi[j][k], xi, dtu * at(b, k)));
+        hsi[j][k] = fmaf(asi[j][k], xr, asr[j][k] * xi);
+      }
+    }
+
+#pragma unroll
+    for (int j = kPiece - 1; j >= 0; --j) {
+      const int i = pc * kPiece + j;   // rows up to S exist: identities
+      const int e = i * kChannels + cw;
+      const float uv = w.u[e];
+      const float dt = w.dt[e];
+      const float gy = w.gy[e];
+      const float gy2 = 2.f * gy;
       const float dtu = dt * uv;
-      const T* Bt = Bp + t * bc_step;
-      const T* Ct = Cp + t * bc_step;
-      float gy = gv;
-      float dzv = 0.f;
-      if (z) {
-        float y = 0.f;
+      const float4 b = ld4(w.B + i * kMaxDstate + q4);
+      const float4 c = ld4(w.C + i * kMaxDstate + q4);
+      // the 4 lanes of a channel hold its sums alike and store alike
+      float y = 0.f;
 #pragma unroll
-        for (int k = 0; k < kMaxDstate; ++k) {
-          if (k < p.dstate) y += to_float(Ct[k]) * tr[s + 1][k];
-        }
-        y = 2.f * y + (p.D ? D * uv : 0.f);
-        const float zv = to_float(z[off]);
-        const float sg = sigmoid(zv);
-        const float silu = zv * sg;
-        dzv = gv * y * (sg + silu * (1.f - sg));
-        gy = gv * silu;
-      }
-      float dB[kMaxDstate], dC[kMaxDstate];
-      float dh_b = 0.f, ddt = 0.f;
+      for (int k = 0; k < kStates; ++k) y = fmaf(at(c, k), hsr[j][k], y);
+      y = fmaf(2.f, group_sum(y), L.D * uv);
+      w.dz[e] = from_float<T>(w.dzf[e] * y);   // 0 without z
+      float v[8];
+      float s_ar = 0.f;   // sum_n dmag Ar log2(e)
+      float s_ai = 0.f;   // sum_n dang Ai
+      float s_hb = 0.f;   // sum_n dhr B
 #pragma unroll
-      for (int k = 0; k < kMaxDstate; ++k) {
-        dB[k] = 0.f;
-        dC[k] = 0.f;
-        if (k < p.dstate) {
-          const float mag = expf(dt * Ar[k]);
-          float sn, cs;
-          sincosf(dt * Ai[k], &sn, &cs);
-          const float car = mag * cs;
-          const float cai = mag * sn;
-          const float Bk = to_float(Bt[k]);
-          dhr[k] += 2.f * to_float(Ct[k]) * gy;
-          const float hrp = tr[s][k];
-          const float hip = ti[s][k];
-          const float dcar = dhr[k] * hrp + dhi[k] * hip;
-          const float dcai = dhi[k] * hrp - dhr[k] * hip;
-          const float dmm = (dcar * cs + dcai * sn) * mag;
-          const float dang = dcai * car - dcar * cai;
-          dAr[k] += dmm * dt;
-          dAi[k] += dang * dt;
-          dC[k] = 2.f * gy * tr[s + 1][k];
-          dB[k] = dhr[k] * dtu;
-          dh_b += dhr[k] * Bk;
-          ddt += dmm * Ar[k] + dang * Ai[k];
-          const float nr = car * dhr[k] + cai * dhi[k];
-          dhi[k] = car * dhi[k] - cai * dhr[k];
-          dhr[k] = nr;
-        }
+      for (int k = 0; k < kStates; ++k) {
+        dr[k] = fmaf(at(c, k), gy2, dr[k]);
+        v[k] = dr[k] * dtu;
+        v[kStates + k] = gy2 * hsr[j][k];
+        const float xr = j ? hsr[j - 1][k] : pr[k];
+        const float xi = j ? hsi[j - 1][k] : pi[k];
+        const float dcar = fmaf(dr[k], xr, di[k] * xi);
+        const float dcai = fmaf(di[k], xr, -dr[k] * xi);
+        const float dmag = fmaf(dcar, asr[j][k], dcai * asi[j][k]);
+        const float dang = fmaf(dcai, asr[j][k], -dcar * asi[j][k]);
+        L.dAr[k] = fmaf(dmag, dt, L.dAr[k]);
+        L.dAi[k] = fmaf(dang, dt, L.dAi[k]);
+        s_ar = fmaf(dmag, L.Ar2[k], s_ar);
+        s_ai = fmaf(dang, L.Ai[k], s_ai);
+        s_hb = fmaf(dr[k], at(b, k), s_hb);
+        const float nr = fmaf(asr[j][k], dr[k], asi[j][k] * di[k]);
+        di[k] = fmaf(asr[j][k], di[k], -asi[j][k] * dr[k]);
+        dr[k] = nr;
       }
-      ddt += dh_b * uv;
-      if (p.softplus) ddt *= softplus_grad(dt_pre);
-      dbias += ddt;
-      dD += gy * uv;
-      if (active) {
-        static_cast<T*>(p.du)[off] = from_float<T>(dh_b * dt + gy * D);
-        static_cast<T*>(p.ddt)[off] = from_float<T>(ddt);
-        if (z) static_cast<T*>(p.dz)[off] = from_float<T>(dzv);
-      }
-      const float sb = warp_transpose_sum(dB, lane);
-      const float sc = warp_transpose_sum(dC, lane);
-      if (lane < p.dstate) {
-        const long long poff =
-            ((tile * p.batch + row) * p.seqlen + t) * bc_step +
-            group * p.dstate + lane;
-        p.dB[poff] = sb;
-        p.dC[poff] = sc;
-      }
+      const float s_a = group_sum(fmaf(s_ar, kLn2, s_ai));
+      s_hb = group_sum(s_hb);
+      const float ddt = fmaf(s_hb, uv, s_a) * w.sg[e];
+      L.dD = fmaf(gy, uv, L.dD);
+      L.dbias += ddt;
+      w.du[e] = from_float<T>(fmaf(s_hb, dt, gy * L.D));
+      w.ddt[e] = from_float<T>(ddt);
+      w.red[(L.warp * w.S + i) * 32 + slot] = channel_sum(v, L.lane);
     }
   }
-  if (!active) return;
+}
+
+// Pass "main": the adjoint walk with the exact incoming adjoint. Three
+// blocks an SM: the piece's states and decays (64 floats) and the adjoint
+// take 168 registers a thread with no spill; at four blocks (128
+// registers) the walk spilled and ran slower on an H100, and so did two
+// blocks an SM.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads, 3)
+    complex_scan_bwd_main_lanes(Params p) {
+  extern __shared__ float4 smem4[];
+  const Tiles<T> w(smem4, p.S);
+  float4* starts = smem4 + Layout<T>::bytes(p.S) / sizeof(float4);
+  CLane L;
+  ChunkBlock b = place(p, L);
+  if (b.c_first >= b.c_last) return;  // the whole block
+  const T* up = static_cast<const T*>(p.u);
+  const T* dtp = static_cast<const T*>(p.dt);
+  const T* zp = static_cast<const T*>(p.z);
+  const T* gp = static_cast<const T*>(p.g);
+  const T* Bp = static_cast<const T*>(p.B);
+  const T* Cp = static_cast<const T*>(p.C);
+  const float* bias = p.bias ? p.bias + b.q.ch0 : nullptr;
+  const int q4 = L.quarter * kStates;
+  // this tile's dB and dC partials of the row start at part_row * ngroups
+  const int64_t part_row = (b.tile * p.batch + b.q.row) * p.seqlen;
+
+  UnitPlace next = b.q;
+  set_chunk(next, p, b.c_first);
+  stage<T, kVec, false>(w.raw, p.S, next, up, dtp, zp, gp, Bp, Cp);
+  cp_async_commit();
+  for (int c = b.c_first; c < b.c_last; ++c) {
+    set_chunk(b.q, p, c);
+    // the chunk's checkpoint and incoming adjoint, loaded while the tiles
+    // are prepared
+    const int64_t cidx = ((b.q.row * p.nchunks + c) * p.dim + b.ch) *
+                         p.dstate + q4;
+    float hr[kStates], hi[kStates], dr[kStates], di[kStates];
 #pragma unroll
-  for (int k = 0; k < kMaxDstate; ++k) {
-    if (k < p.dstate) {
-      p.dh0r[sidx + k] = dhr[k];
-      p.dh0i[sidx + k] = dhi[k];
-      p.dAr[sidx + k] = dAr[k];
-      p.dAi[sidx + k] = dAi[k];
+    for (int k = 0; k < kStates; ++k) {
+      const bool on = b.active && q4 + k < p.dstate;
+      hr[k] = on ? p.statesr[cidx + k] : 0.f;
+      hi[k] = on ? p.statesi[cidx + k] : 0.f;
+      dr[k] = on ? p.carryr[cidx + k] : 0.f;
+      di[k] = on ? p.carryi[cidx + k] : 0.f;
+    }
+    cp_async_wait_all();
+    __syncthreads();  // this chunk's tiles are in; the last unit is out
+    prep<T, false>(w, w.raw, b.q, bias, zp != nullptr, p.softplus);
+    __syncthreads();  // the raw tiles are read: the next chunk's copy
+    if (c + 1 < b.c_last) {
+      set_chunk(next, p, c + 1);
+      stage<T, kVec, false>(w.raw, p.S, next, up, dtp, zp, gp, Bp, Cp);
+      cp_async_commit();
+    }
+
+    adjoint_walk<T>(w, starts, b.q.nsteps, L, hr, hi, dr, di);
+    __syncthreads();
+
+    store_outputs<T, kVec>(w, b.q, static_cast<T*>(p.du),
+                           static_cast<T*>(p.ddt), static_cast<T*>(p.dz));
+    for (int e = threadIdx.x; e < b.q.nsteps * 32; e += kThreads) {
+      const int n = e % kMaxDstate;
+      if (n >= p.dstate) continue;
+      const int64_t o =
+          ((part_row + b.q.time(e / 32)) * p.ngroups + b.q.group) *
+              p.dstate + n;
+      ((e % 32) < kMaxDstate ? p.dB : p.dC)[o] = warp_total(w.red, p.S, e);
     }
   }
-  if (p.dD) p.dD[row * p.dim + ch] = dD;
-  if (p.dbias) p.dbias[row * p.dim + ch] = dbias;
+
+  if (b.active) {
+    const int64_t prow = (b.q.row * p.ncgroups + b.cg) * p.dim + b.ch;
+#pragma unroll
+    for (int k = 0; k < kStates; ++k) {
+      if (q4 + k < p.dstate) {
+        p.dAr[prow * p.dstate + q4 + k] = L.dAr[k];
+        p.dAi[prow * p.dstate + q4 + k] = L.dAi[k];
+      }
+    }
+    if (L.quarter == 0) {
+      if (p.dD) p.dD[prow] = L.dD;
+      if (p.dbias) p.dbias[prow] = L.dbias;
+    }
+  }
+}
+
+template <typename T, bool kVec>
+int launch_walks(const Params& p, long long batch, cudaStream_t s) {
+  const long long walk_blocks =
+      batch * p.ncgroups * static_cast<long long>(p.ngroups) * p.tiles;
+  const int64_t total = static_cast<int64_t>(batch) * p.dim * p.dstate;
+  const long long combine_blocks =
+      (total + kCombineThreads - 1) / kCombineThreads;
+  if (walk_blocks > 0x7fffffffLL || combine_blocks > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int local_smem = static_cast<int>(Layout<T>::bytes(p.S));
+  const int main_smem = local_smem + static_cast<int>(
+      sizeof(float4) * 2 * (kMaxPieces - 1) * kThreads);
+  cudaError_t err = cudaFuncSetAttribute(
+      complex_scan_bwd_local_lanes<T, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, local_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(complex_scan_bwd_main_lanes<T, kVec>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             main_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(walk_blocks));
+  complex_scan_bwd_local_lanes<T, kVec><<<grid, kThreads, local_smem, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  complex_scan_bwd_combine<<<static_cast<unsigned>(combine_blocks),
+                             kCombineThreads, 0, s>>>(p, total);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  complex_scan_bwd_main_lanes<T, kVec><<<grid, kThreads, main_smem, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const Params& p, long long batch, cudaStream_t s) {
+  const bool vec = vec_ok({p.u, p.dt, p.z, p.B, p.C, p.g, p.du, p.ddt, p.dz},
+                          p.dim, p.width, p.dstate, sizeof(T));
+  return vec ? launch_walks<T, true>(p, batch, s)
+             : launch_walks<T, false>(p, batch, s);
 }
 
 }  // namespace
@@ -318,7 +553,11 @@ extern "C" {
 // (batch, seqlen, ngroups, dstate) with dim divisible by ngroups; the
 // checkpoints are K7's with the same `chunk` (1 to 16). z (with dz), D
 // (with dD), bias (with dbias) and glastr/glasti (both or neither) may be
-// null. Returns the cudaError_t of the launch (0 on success).
+// null. Partials: dAr, dAi (batch * ceil(nchunks / 8), dim, dstate), dD
+// and dbias (batch * ceil(nchunks / 8), dim), dB and dC
+// (ceil(dim / ngroups / 32), batch, seqlen, ngroups, dstate). Scratch:
+// carryr, carryi (batch, nchunks, dim, dstate), dtsum (batch, nchunks,
+// dim). Returns the cudaError_t of the launches (0 on success).
 int complex_scan_bwd(int dtype, long long batch, int seqlen, int dim,
                      int dstate, int ngroups, int reverse, int softplus,
                      int chunk, const void* u, const void* dt, const void* z,
@@ -328,20 +567,15 @@ int complex_scan_bwd(int dtype, long long batch, int seqlen, int dim,
                      const void* glastr, const void* glasti, void* du,
                      void* ddt, void* dz, void* dAr, void* dAi, void* dB,
                      void* dC, void* dD, void* dbias, void* dh0r, void* dh0i,
-                     void* stream) {
+                     void* carryr, void* carryi, void* dtsum, void* stream) {
   if (batch < 1 || seqlen < 1 || dim < 1 || dstate < 1 ||
       dstate > kMaxDstate || ngroups < 1 || dim % ngroups != 0 ||
       (dtype != 0 && dtype != 1) || chunk < 1 || chunk > kMaxChunk ||
       (!glastr) != (!glasti) || (!z) != (!dz) || (!D) != (!dD) ||
-      (!bias) != (!dbias) || !statesr || !statesi || !g) {
+      (!bias) != (!dbias) || !statesr || !statesi || !g || !carryr ||
+      !carryi || !dtsum) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int width = dim / ngroups;
-  const int tiles = (width + 31) / 32;
-  const long long warps = batch * ngroups * tiles;
-  const long long blocks = (warps + kWarps - 1) / kWarps;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-
   Params p;
   p.u = u;
   p.dt = dt;
@@ -368,26 +602,25 @@ int complex_scan_bwd(int dtype, long long batch, int seqlen, int dim,
   p.dbias = static_cast<float*>(dbias);
   p.dh0r = static_cast<float*>(dh0r);
   p.dh0i = static_cast<float*>(dh0i);
+  p.carryr = static_cast<float*>(carryr);
+  p.carryi = static_cast<float*>(carryi);
+  p.dtsum = static_cast<float*>(dtsum);
   p.batch = batch;
   p.seqlen = seqlen;
   p.dim = dim;
   p.dstate = dstate;
   p.ngroups = ngroups;
   p.chunk = chunk;
+  p.S = (chunk + kPiece - 1) / kPiece * kPiece;
   p.nchunks = (seqlen + chunk - 1) / chunk;
-  p.width = width;
-  p.tiles = tiles;
+  p.width = dim / ngroups;
+  p.tiles = (p.width + kChannels - 1) / kChannels;
+  p.ncgroups = (p.nchunks + kChunksPerBlock - 1) / kChunksPerBlock;
   p.reverse = reverse;
   p.softplus = softplus;
-
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(blocks));
-  if (dtype == 0) {
-    complex_scan_bwd_kernel<float><<<grid, kThreads, 0, s>>>(p);
-  } else {
-    complex_scan_bwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(p);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0) return launch<float>(p, batch, s);
+  return launch<__nv_bfloat16>(p, batch, s);
 }
 
 const char* complex_scan_bwd_error_string(int code) {

@@ -21,34 +21,61 @@
 // Checkpoints (the `want_states` outputs of `_complex_fwd_impl`, for the
 // backward, kernel K8 in complex_scan_bwd.cu): when `statesr` is not null,
 // the state before walk step j * chunk goes to states{r,i}[row, j] for
-// j = 0 .. ceil(L / chunk) - 1, fp32 (batch, nchunks, dim, dstate). The
-// wrapper asks for them only when a backward will follow.
+// j = 0 .. ceil(L / chunk) - 1, fp32 (batch, nchunks, dim, dstate),
+// whatever the segmentation below. The wrapper asks for them only when a
+// backward will follow.
 //
-// What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 outside the
-// tensor cores), at the scan microbench shape (batch 8, L 2048, dim 1024,
-// dstate 16, fp32 I/O): u, dt, z in and y out move 4 x 67 MB plus 2.1 MB of
-// B and C, 270 MB, 81 us; each of the 268 M complex state updates takes an
-// exponential, a sine, a cosine and some 17 multiplications and additions,
-// 20 operations counting each transcendental as one, 5.4 GFLOP, 80 us. So
-// the two bounds about meet (and a transcendental costs the fp32 units
-// more than one operation).
+// What bounds it on an H100 SXM (3.35 TB/s; 67 TFLOP/s fp32 outside the
+// tensor cores; the special function unit 16 results a clock an SM), at the
+// scan microbench shape (batch 8, L 2048, dim 1024, dstate 16, fp32 I/O):
+// u, dt, z in and y out move 4 x 67 MB plus 2.1 MB of B and C, 270 MB,
+// 81 us; each of the 268 M complex state updates takes some 17 fp32
+// operations and three special-function results (an exp2, a sine and a
+// cosine: complex_scan.cuh), 805 M results a walk, about 0.19 ms. So the
+// special function unit, not the bytes, sets the floor.
 //
-// Design (simple and right first): one thread per (row, channel) walks the
-// whole sequence with its 16 complex states in 32 registers, reading u, dt
-// and z coalesced across the channels of a warp and B and C as broadcasts.
-// The walk is not split in time (K3's segments): at the microbench shape
-// that leaves 8192 threads, about 2 warps an SM, so the chain of dependent
-// steps and not the bytes sets the time. Splitting the walk is the next
-// step for this kernel.
+// Design: K3's (chunked_scan_fwd.cu) on two real channels. A block is
+// scan_lanes.cuh's unit shape, 128 threads on 32 channels of one group, a
+// channel's 16 complex states split over 4 lanes (4 a lane: hr, hi,
+// Ar log2(e), Ai), walking 16-step units staged by cp.async and prepared
+// once a (step, channel) through scan_fwd.cuh's pipeline (`run_segment`);
+// each step's partial y is kept in registers and summed over the 4 lanes
+// after the unit; y leaves by 16-byte stores, the checkpoints as float4.
+// A grid that leaves half the card idle splits the walk in time by K3's
+// rule (`launch_split`: 4, 8 or 16 segments within 1.25 waves of resident
+// blocks), the blocks of one (row, 32 channels) a thread block cluster:
+//   pass 1:  every block but the last walks its segment from zero and
+//            leaves the end state and the segment's sum of dt in its
+//            shared memory;
+//   combine: after a cluster barrier each block chains the segments before
+//            it from the initial state through distributed shared memory,
+//            H <- exp(A sum dt) H + end state: the a_t of a channel
+//            commute, so a segment's decay is exactly exp(A sum dt), whose
+//            rotation (hundreds of radians) takes the accurate sincosf;
+//   pass 2:  every block walks its segment again from that state, writing
+//            y and the checkpoints; the last block writes the last state.
+// At the microbench shape (256 units of 32 channels, 4 resident blocks an
+// SM at 128 registers) the rule does not split: two blocks an SM walk the
+// whole length (4 segments, two walks of 3/4 of the steps, ran much
+// slower on an H100), each lane's 12 special-function results a step
+// independent of its states' chain.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "complex_scan.cuh"
+#include "scan_fwd.cuh"
+#include "scan_lanes.cuh"
+
 namespace {
 
-constexpr int kMaxDstate = 16;
-constexpr int kThreads = 128;
+namespace cg = cooperative_groups;
+using namespace scan_lanes;
+using namespace scan_fwd;
+using complex_scan::span_decay;
+using complex_scan::step_decay;
 
 struct Params {
   const void* u;      // (batch, seqlen, dim)
@@ -67,114 +94,272 @@ struct Params {
   float* lasti;
   float* statesr;     // (batch, nchunks, dim, dstate) or null
   float* statesi;
-  long long batch;
-  int seqlen, dim, dstate, ngroups, chunk, nchunks, reverse, softplus;
+  int seqlen, dim, dstate, ngroups;
+  int chunk;     // walk steps between checkpoints
+  int nchunks;
+  int width;     // channels a group
+  int tiles;     // 32-channel tiles a group
+  int nseg;      // segments (blocks of a cluster) a (row, tile)
+  int seglen;    // walk steps a segment (a multiple of kUnit)
+  int reverse, softplus;
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// What one lane walks: its channel's 4 states of A as Ar log2(e) and Ai,
+// and where its checkpoints go.
+struct CLane {
+  int cw, quarter, q4;   // cw: the channel in the tile (0..31)
+  bool active;           // the channel lies inside the group
+  int ch;                // the channel (clamped into the group)
+  float Ar2[kStates];
+  float Ai[kStates];
+};
+
+// The rows of one prepared unit (buffer n), every one (rows past its
+// steps are identities): pass 2 (kOut) keeps each step's partial
+// sum_n C hr (the lane's 4 states) in y, pass 1 adds each step's dt to
+// dtsum; with kInner it stores the state before each row whose bit is set
+// in `ckmask` to `ckr`, `cki` (then the next checkpoint, `ck_stride`
+// further). A store inside the rows splits the unrolled walk at that row,
+// which keeps the compiler from computing a row's decays during the row
+// before (the walk with checkpoints every 16 steps ran markedly slower on
+// an H100 that way), so only checkpoints off a unit's first row take it.
+template <bool kOut, bool kInner>
+__device__ __forceinline__ void walk_rows(const float2* dd, const float* Bt,
+                                          const CLane& L,
+                                          float (&hr)[kStates],
+                                          float (&hi)[kStates],
+                                          float (&y)[kUnit], float& dtsum,
+                                          uint32_t ckmask, float*& ckr,
+                                          float*& cki, int64_t ck_stride,
+                                          int left, bool vec) {
+  const float* Ct = Bt + kUnit * kMaxDstate;
+#pragma unroll
+  for (int i = 0; i < kUnit; ++i) {
+    if constexpr (kInner) {
+      if ((ckmask >> i) & 1u) {
+        store_state(ckr, hr, left, vec);
+        store_state(cki, hi, left, vec);
+        ckr += ck_stride;
+        cki += ck_stride;
+      }
+    }
+    const float2 d = dd[i * kChannels + L.cw];
+    const float4 b = ld4(Bt + i * kMaxDstate);
+    float4 c = make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (kOut) c = ld4(Ct + i * kMaxDstate);
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < kStates; ++k) {
+      float car, cai;
+      step_decay(d.x, L.Ar2[k], L.Ai[k], car, cai);
+      const float nr = fmaf(car, hr[k], fmaf(-cai, hi[k], d.y * at(b, k)));
+      hi[k] = fmaf(cai, hr[k], car * hi[k]);
+      hr[k] = nr;
+      if constexpr (kOut) acc = fmaf(at(c, k), nr, acc);
+    }
+    if constexpr (kOut) {
+      y[i] = acc;
+    } else {
+      dtsum += d.x;
+    }
+  }
+}
+
+// Walk one prepared unit (buffer n). Pass 1 (!kOut) adds the segment's
+// sum of dt. Pass 2 sums each step's partial y over the channel's 4 lanes
+// after the rows in 2 transposing stages, lane q ending with steps
+// q kUnit/4 .. (q + 1) kUnit/4 - 1, whose outputs it writes to the output
+// tile; with kCk it stores the state before each step whose bit is set in
+// `ckmask` (the unit's first before its rows).
+template <typename T, bool kOut, bool kCk>
+__device__ __forceinline__ void walk_unit(const FwdTiles<T, 2>& w, int n,
+                                          const CLane& L,
+                                          float (&hr)[kStates],
+                                          float (&hi)[kStates], float& dtsum,
+                                          uint32_t ckmask, float*& ckr,
+                                          float*& cki, int64_t ck_stride,
+                                          int left, bool vec) {
+  const float2* dd = w.dd(n);
+  const float* Bt = w.B(n) + L.q4;
+  float y[kUnit];
+  if constexpr (kCk) {
+    if (ckmask & 1u) {
+      store_state(ckr, hr, left, vec);
+      store_state(cki, hi, left, vec);
+      ckr += ck_stride;
+      cki += ck_stride;
+    }
+    ckmask &= ~1u;
+  }
+  if (kCk && ckmask) {
+    walk_rows<kOut, true>(dd, Bt, L, hr, hi, y, dtsum, ckmask, ckr, cki,
+                          ck_stride, left, vec);
+  } else {
+    walk_rows<kOut, false>(dd, Bt, L, hr, hi, y, dtsum, ckmask, ckr, cki,
+                           ck_stride, left, vec);
+  }
+  if constexpr (kOut) {
+    // lane bits 0-1 are the quarter
+    butterfly_stage<2, kUnit / 2>(y, L.quarter);
+    butterfly_stage<1, kUnit / 4>(y, L.quarter);
+    const float2* gd = w.gd(n);
+    T* out = w.out(n);
+#pragma unroll
+    for (int j = 0; j < kUnit / 4; ++j) {
+      const int e = (L.quarter * (kUnit / 4) + j) * kChannels + L.cw;
+      const float2 g = gd[e];
+      out[e] = from_float<T>(fmaf(2.f, y[j], g.x) * g.y);
+    }
+  }
+}
+
+// Walk the segment of walk steps [seg0, seg1) from the state (hr, hi) (in
+// and out) through scan_fwd.cuh's pipeline. Pass 1 (!kOut) leaves the end
+// state and adds to dtsum; pass 2 writes y and, with kCk, the checkpoints.
+template <typename T, bool kVec, bool kOut, bool kCk>
+__device__ void walk_segment(const Params& p, const FwdTiles<T, 2>& w,
+                             const UnitPlace& q, const CLane& L,
+                             const Copies& cp, int seg0, int seg1,
+                             float (&hr)[kStates], float (&hi)[kStates],
+                             float& dtsum) {
+  const int left = p.dstate - L.q4;
+  const bool vec = p.dstate % kStates == 0;
+  const int64_t ck_stride = static_cast<int64_t>(p.dim) * p.dstate;
+  // the next checkpoint (walk step ck_next) and where the lane stores it
+  int ck_next = 0;
+  float* ckr = nullptr;
+  float* cki = nullptr;
+  if constexpr (kCk) {
+    const int first = (seg0 + p.chunk - 1) / p.chunk;
+    ck_next = first * p.chunk;
+    const int64_t off =
+        ((q.row * p.nchunks + first) * p.dim + L.ch) * p.dstate + L.q4;
+    ckr = p.statesr + off;
+    cki = p.statesi + off;
+  }
+  run_segment<T, kVec, kOut>(p, w, q, cp, seg0, seg1,
+                             [&](int n, int i0, int i1) {
+    uint32_t ckmask = 0;
+    if constexpr (kCk) {
+      ckmask = checkpoint_mask(ck_next, p.chunk, i0, i1);
+      if (!L.active) ckmask = 0;
+    }
+    walk_unit<T, kOut, kCk>(w, n, L, hr, hi, dtsum, ckmask, ckr, cki,
+                            ck_stride, left, vec);
+  });
+}
+
+template <typename T, bool kVec, bool kCk>
+__global__ void __launch_bounds__(kThreads, 4)
+    complex_scan_fwd_lanes(Params p) {
+  extern __shared__ float4 smem4[];
+  const FwdTiles<T, 2> w(smem4);
+
+  // block -> (row, group, tile, segment); the nseg blocks of a (row, tile)
+  // are consecutive, one cluster
+  const int seg = static_cast<int>(blockIdx.x % p.nseg);
+  int64_t rest = blockIdx.x / p.nseg;
+  const int tile = static_cast<int>(rest % p.tiles);
+  rest /= p.tiles;
+  UnitPlace q;
+  q.group = static_cast<int>(rest % p.ngroups);
+  q.row = rest / p.ngroups;
+  q.ch0 = q.group * p.width + tile * kChannels;
+  q.valid = min(kChannels, p.width - tile * kChannels);
+  q.seqlen = p.seqlen;
+  q.dim = p.dim;
+  q.dstate = p.dstate;
+  q.ngroups = p.ngroups;
+  q.reverse = p.reverse;
+  const Copies cp = copies<T>(q.valid, p.dstate);
+
+  CLane L;
+  const int lane = threadIdx.x & 31;
+  L.cw = (threadIdx.x >> 5) * (32 / kLanes) + lane / kLanes;
+  L.quarter = lane % kLanes;
+  L.q4 = L.quarter * kStates;
+  L.active = L.cw < q.valid;
+  L.ch = q.ch0 + min(L.cw, q.valid - 1);
+  const int64_t sidx = (q.row * p.dim + L.ch) * p.dstate + L.q4;
+  float hr[kStates], hi[kStates];
+#pragma unroll
+  for (int k = 0; k < kStates; ++k) {
+    const int n = L.q4 + k;
+    const bool on = L.active && n < p.dstate;
+    L.Ar2[k] = on ? p.Ar[L.ch * p.dstate + n] * kLog2e : 0.f;
+    L.Ai[k] = on ? p.Ai[L.ch * p.dstate + n] : 0.f;
+    hr[k] = on && p.h0r ? p.h0r[sidx + k] : 0.f;
+    hi[k] = on && p.h0i ? p.h0i[sidx + k] : 0.f;
+  }
+
+  const int seg0 = seg * p.seglen;
+  const int seg1 = min(p.seqlen, seg0 + p.seglen);
+  if (p.nseg > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    float er[kStates] = {0.f, 0.f, 0.f, 0.f};
+    float ei[kStates] = {0.f, 0.f, 0.f, 0.f};
+    float dtsum = 0.f;
+    if (seg + 1 < p.nseg) {
+      walk_segment<T, kVec, false, false>(p, w, q, L, cp, seg0, seg1, er, ei,
+                                          dtsum);
+    }
+    w.carry[threadIdx.x] = make_float4(er[0], er[1], er[2], er[3]);
+    w.carry[kThreads + threadIdx.x] = make_float4(ei[0], ei[1], ei[2], ei[3]);
+    if (L.quarter == 0) w.dtsum[L.cw] = dtsum;
+    cluster.sync();  // every segment's end state is in its block
+    // the state entering this segment: the initial state carried through
+    // the segments before it (not unrolled: each step takes sincosf)
+#pragma unroll 1
+    for (int s = 0; s < seg; ++s) {
+      const float4 Er = *cluster.map_shared_rank(w.carry + threadIdx.x, s);
+      const float4 Ei =
+          *cluster.map_shared_rank(w.carry + kThreads + threadIdx.x, s);
+      const float S = *cluster.map_shared_rank(w.dtsum + L.cw, s);
+#pragma unroll
+      for (int k = 0; k < kStates; ++k) {
+        float car, cai;
+        span_decay(S, L.Ar2[k], L.Ai[k], car, cai);
+        const float nr = fmaf(car, hr[k], fmaf(-cai, hi[k], at(Er, k)));
+        hi[k] = fmaf(cai, hr[k], fmaf(car, hi[k], at(Ei, k)));
+        hr[k] = nr;
+      }
+    }
+    cluster.sync();  // no block leaves while another reads its carry
+  }
+
+  float unused = 0.f;
+  walk_segment<T, kVec, true, kCk>(p, w, q, L, cp, seg0, seg1, hr, hi,
+                                   unused);
+  if (seg + 1 == p.nseg && L.active) {
+    const int left = p.dstate - L.q4;
+    const bool vec = p.dstate % kStates == 0;
+    store_state(p.lastr + sidx, hr, left, vec);
+    store_state(p.lasti + sidx, hi, left, vec);
+  }
+}
+
+// Pick the segments a (row, tile) (`launch_split`, K3's rule) and launch,
+// the nseg blocks of a (row, tile) as one cluster.
+template <typename T, bool kVec, bool kCk>
+int launch_kernel(const Params& p, long long batch, cudaStream_t s) {
+  constexpr int smem = static_cast<int>(FwdTiles<T, 2>::bytes());
+  static_assert(smem <= 48 * 1024, "no opt-in to more shared memory");
+  static LaunchCache cache;
+  const long long units = batch * p.ngroups * static_cast<long long>(p.tiles);
+  return launch_split(complex_scan_fwd_lanes<T, kVec, kCk>, p, units, smem,
+                      cache, s);
 }
 
 template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// softplus as torch computes it (threshold 20), as in chunked_scan_fwd.cu.
-__device__ __forceinline__ float softplus(float x) {
-  return x > 20.f ? x : log1pf(expf(x));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) complex_scan_fwd_kernel(Params p) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (idx >= p.batch * p.dim) return;
-  const long long row = idx / p.dim;
-  const int ch = static_cast<int>(idx % p.dim);
-  const int group = ch / (p.dim / p.ngroups);
-
-  float Ar[kMaxDstate], Ai[kMaxDstate], hr[kMaxDstate], hi[kMaxDstate];
-  const long long sidx = (row * p.dim + ch) * p.dstate;
-#pragma unroll
-  for (int k = 0; k < kMaxDstate; ++k) {
-    const bool on = k < p.dstate;
-    Ar[k] = on ? p.Ar[ch * p.dstate + k] : 0.f;
-    Ai[k] = on ? p.Ai[ch * p.dstate + k] : 0.f;
-    hr[k] = (on && p.h0r) ? p.h0r[sidx + k] : 0.f;
-    hi[k] = (on && p.h0i) ? p.h0i[sidx + k] : 0.f;
+int launch(const Params& p, long long batch, cudaStream_t s) {
+  const bool vec = vec_ok({p.u, p.dt, p.z, p.B, p.C, p.out}, p.dim, p.width,
+                          p.dstate, sizeof(T));
+  if (p.statesr) {
+    return vec ? launch_kernel<T, true, true>(p, batch, s)
+               : launch_kernel<T, false, true>(p, batch, s);
   }
-  const float bias = p.bias ? p.bias[ch] : 0.f;
-  const float D = p.D ? p.D[ch] : 0.f;
-
-  const T* u = static_cast<const T*>(p.u);
-  const T* dtp = static_cast<const T*>(p.dt);
-  const T* z = static_cast<const T*>(p.z);
-  T* out = static_cast<T*>(p.out);
-  const long long base = row * p.seqlen * p.dim + ch;
-  const long long bc_step = static_cast<long long>(p.ngroups) * p.dstate;
-  const T* Bp = static_cast<const T*>(p.B) + row * p.seqlen * bc_step +
-                group * p.dstate;
-  const T* Cp = static_cast<const T*>(p.C) + row * p.seqlen * bc_step +
-                group * p.dstate;
-
-  for (int i = 0; i < p.seqlen; ++i) {
-    if (p.statesr && i % p.chunk == 0) {
-      const long long off =
-          ((row * p.nchunks + i / p.chunk) * p.dim + ch) * p.dstate;
-#pragma unroll
-      for (int k = 0; k < kMaxDstate; ++k) {
-        if (k < p.dstate) {
-          p.statesr[off + k] = hr[k];
-          p.statesi[off + k] = hi[k];
-        }
-      }
-    }
-    const int t = p.reverse ? p.seqlen - 1 - i : i;
-    const long long off = base + static_cast<long long>(t) * p.dim;
-    const float uv = to_float(u[off]);
-    float dt = to_float(dtp[off]) + bias;
-    if (p.softplus) dt = softplus(dt);
-    const float dtu = dt * uv;
-    const T* Bt = Bp + t * bc_step;
-    const T* Ct = Cp + t * bc_step;
-    float y = 0.f;
-#pragma unroll
-    for (int k = 0; k < kMaxDstate; ++k) {
-      if (k < p.dstate) {
-        const float mag = expf(dt * Ar[k]);
-        float sn, cs;
-        sincosf(dt * Ai[k], &sn, &cs);
-        const float car = mag * cs;
-        const float cai = mag * sn;
-        const float hr_new = car * hr[k] - cai * hi[k] + dtu * to_float(Bt[k]);
-        hi[k] = cai * hr[k] + car * hi[k];
-        hr[k] = hr_new;
-        y += to_float(Ct[k]) * hr[k];
-      }
-    }
-    y *= 2.f;
-    if (p.D) y += D * uv;
-    if (z) {
-      const float zv = to_float(z[off]);
-      y *= zv / (1.f + expf(-zv));
-    }
-    out[off] = from_float<T>(y);
-  }
-#pragma unroll
-  for (int k = 0; k < kMaxDstate; ++k) {
-    if (k < p.dstate) {
-      p.lastr[sidx + k] = hr[k];
-      p.lasti[sidx + k] = hi[k];
-    }
-  }
+  return vec ? launch_kernel<T, true, false>(p, batch, s)
+             : launch_kernel<T, false, false>(p, batch, s);
 }
 
 }  // namespace
@@ -203,10 +388,6 @@ int complex_scan_fwd(int dtype, long long batch, int seqlen, int dim,
       !lasti) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long threads = batch * dim;
-  const long long blocks = (threads + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-
   Params p;
   p.u = u;
   p.dt = dt;
@@ -224,24 +405,21 @@ int complex_scan_fwd(int dtype, long long batch, int seqlen, int dim,
   p.lasti = static_cast<float*>(lasti);
   p.statesr = static_cast<float*>(statesr);
   p.statesi = static_cast<float*>(statesi);
-  p.batch = batch;
+  p.chunk = statesr ? chunk : 1;
+  p.nchunks = statesr ? (seqlen + chunk - 1) / chunk : 0;
   p.seqlen = seqlen;
   p.dim = dim;
   p.dstate = dstate;
   p.ngroups = ngroups;
-  p.chunk = statesr ? chunk : 1;
-  p.nchunks = statesr ? (seqlen + chunk - 1) / chunk : 0;
+  p.width = dim / ngroups;
+  p.tiles = (p.width + kChannels - 1) / kChannels;
+  p.nseg = 1;
+  p.seglen = seqlen;
   p.reverse = reverse;
   p.softplus = softplus;
-
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(blocks));
-  if (dtype == 0) {
-    complex_scan_fwd_kernel<float><<<grid, kThreads, 0, s>>>(p);
-  } else {
-    complex_scan_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(p);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0) return launch<float>(p, batch, s);
+  return launch<__nv_bfloat16>(p, batch, s);
 }
 
 const char* complex_scan_fwd_error_string(int code) {

@@ -47,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 namespace scan_lanes {
 
 constexpr int kMaxDstate = 16;
@@ -523,6 +525,62 @@ __device__ __forceinline__ float warp_total(const float* red, int S, int e) {
 #pragma unroll
   for (int wi = 0; wi < kWarps; ++wi) s += red[wi * S * 32 + e];
   return s;
+}
+
+// Whether 16-byte copies may stage and store a launch's tensors: every
+// pointer (null ones too) on a 16-byte boundary, and every channel
+// tensor's rows (dim), tiles (a group's width) and every B/C step (dstate)
+// a multiple of 16 bytes (K3, K4, K7, K8).
+inline bool vec_ok(std::initializer_list<const void*> ptrs, int dim,
+                   int width, int dstate, int esize) {
+  for (const void* q : ptrs) {
+    if (reinterpret_cast<uintptr_t>(q) % 16) return false;
+  }
+  return (static_cast<int64_t>(dim) * esize) % 16 == 0 &&
+         (static_cast<int64_t>(width) * esize) % 16 == 0 &&
+         (dstate * esize) % 16 == 0;
+}
+
+// Where a block of a chunked adjoint's walking kernels works (K4's and K8's
+// local and main passes): block (row, block of kChunks chunks, group,
+// tile), and the channel of the lane whose channel in the unit is cw. The
+// kernels' parameter structs (P) share the field names used here.
+struct ChunkBlock {
+  UnitPlace q;
+  int cg, tile, c_first, c_last;
+  int ch;        // the lane's channel (clamped into the group)
+  bool active;   // the lane's channel lies inside the group
+};
+
+template <int kChunks, typename P>
+__device__ __forceinline__ ChunkBlock chunk_block(const P& p, int cw) {
+  ChunkBlock b;
+  const int nwt = p.ngroups * p.tiles;
+  const int wt = blockIdx.x % nwt;
+  const int64_t rc = blockIdx.x / nwt;
+  b.cg = static_cast<int>(rc % p.ncgroups);
+  b.tile = wt % p.tiles;
+  b.q.row = rc / p.ncgroups;
+  b.q.group = wt / p.tiles;
+  b.q.ch0 = b.q.group * p.width + b.tile * kChannels;
+  b.q.valid = min(kChannels, p.width - b.tile * kChannels);
+  b.q.seqlen = p.seqlen;
+  b.q.dim = p.dim;
+  b.q.dstate = p.dstate;
+  b.q.ngroups = p.ngroups;
+  b.q.reverse = p.reverse;
+  b.c_first = b.cg * kChunks;
+  b.c_last = min(p.nchunks, b.c_first + kChunks);
+  b.active = cw < b.q.valid;
+  b.ch = b.q.ch0 + min(cw, b.q.valid - 1);
+  return b;
+}
+
+// Chunk c's walk steps: p.chunk from c p.chunk, the last one ragged.
+template <typename P>
+__device__ __forceinline__ void set_chunk(UnitPlace& q, const P& p, int c) {
+  q.i0 = c * p.chunk;
+  q.nsteps = min(p.chunk, p.seqlen - q.i0);
 }
 
 }  // namespace scan_lanes

@@ -16,8 +16,14 @@ state h0r + i·h0i and the last state lastr + i·lasti. ``reverse`` walks
 t = L-1 .. 0 (the JAX package composes it from flips; the kernels walk
 backwards, which is the same function).
 
-``csrc/complex_scan_fwd.cu`` holds K7, ``csrc/complex_scan_bwd.cu`` K8.
-``complex_scan_fwd`` and ``complex_scan_bwd`` launch them on CUDA tensors
+``csrc/complex_scan_fwd.cu`` holds K7 (``complex_scan_fwd_lanes``: 4
+lanes a channel, the walk split in time into segments combined in a
+thread block cluster where the grid would leave half the card idle),
+``csrc/complex_scan_bwd.cu`` K8 (three kernels on the stream:
+``complex_scan_bwd_local_lanes``, ``complex_scan_bwd_combine``,
+``complex_scan_bwd_main_lanes``, walking the chunks between K7's
+checkpoints in parallel). ``complex_scan_fwd`` and ``complex_scan_bwd``
+launch them on CUDA tensors
 and raise on anything they do not take; ``complex_scan_fwd_ref`` and
 ``complex_scan_bwd_ref`` are the plain versions. ``ComplexChunkedScan`` is
 the autograd Function on the real leaves (u, delta, Ar, Ai, B, C, D, z,
@@ -36,10 +42,11 @@ from ._build import launch, library, ptr
 
 KERNEL = "complex_scan_fwd"
 BWD_KERNEL = "complex_scan_bwd"
-MAX_DSTATE = 16      # 16 complex states: 32 fp32 registers a thread
-# walk steps between K7's checkpoints, which K8 recomputes each segment
-# from (K8 keeps a segment's states in its thread's local memory)
+MAX_DSTATE = 16      # 16 complex states: 4 lanes of 4 a channel
+# walk steps between K7's checkpoints: K8's chunks, each walked from its
+# checkpoint (its states and decays in registers 4 steps at a time)
 CHECKPOINT_STEPS = 16
+CHUNKS_PER_BLOCK = 8  # K8's chunks a block: its partials per row
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -280,21 +287,28 @@ def complex_scan_bwd(u, delta, Ar, Ai, B, C, D=None, z=None, delta_bias=None,
         return (du, ddelta, *zero[:4], zero[4], dz, zero[5], *dh0)
     width = dim // ngroups
     tiles = -(-width // 32)
-    dAr = torch.empty(batch, dim, dstate, **f32)
+    nchunks = -(-seqlen // checkpoint_steps)
+    # partials: dAr, dAi, dD and dbias per (row, block of chunks), dB and
+    # dC per 32-channel tile; scratch: each chunk's adjoint and sum of dt
+    parts = batch * -(-nchunks // CHUNKS_PER_BLOCK)
+    dAr = torch.empty(parts, dim, dstate, **f32)
     dAi = torch.empty_like(dAr)
     dB = torch.empty(tiles, batch, seqlen, ngroups, dstate, **f32)
     dC = torch.empty_like(dB)
-    dD = None if D is None else torch.empty(batch, dim, **f32)
-    dbias = None if delta_bias is None else torch.empty(batch, dim, **f32)
+    dD = None if D is None else torch.empty(parts, dim, **f32)
+    dbias = None if delta_bias is None else torch.empty(parts, dim, **f32)
     dh0r = torch.empty(batch, dim, dstate, **f32)
     dh0i = torch.empty_like(dh0r)
-    launch(BWD_KERNEL, library(BWD_KERNEL, 9, 25), u.device,
+    carryr = torch.empty(batch, nchunks, dim, dstate, **f32)
+    carryi = torch.empty_like(carryr)
+    dtsum = torch.empty(batch, nchunks, dim, **f32)
+    launch(BWD_KERNEL, library(BWD_KERNEL, 9, 28), u.device,
            _DTYPE_CODES[u.dtype], batch, seqlen, dim, dstate, ngroups,
            int(reverse), int(delta_softplus), checkpoint_steps,
            *(ptr(t) for t in (u, delta, z, B, C, Ar, Ai, D, delta_bias,
                               statesr, statesi, g, glastr, glasti, du,
                               ddelta, dz, dAr, dAi, dB, dC, dD, dbias, dh0r,
-                              dh0i)))
+                              dh0i, carryr, carryi, dtsum)))
     return (du, ddelta, dAr.sum(0), dAi.sum(0),
             dB.sum(0).reshape(B.shape).to(B.dtype),
             dC.sum(0).reshape(C.shape).to(C.dtype),
