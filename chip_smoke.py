@@ -8,25 +8,25 @@ Phases, each of which fails the run:
      process per source, and print each one's registers, spills and shared
      memory, and a line per tensor-core attention kernel and lane-split
      scan kernel (``RESOURCE_KERNELS``: registers, spill bytes).
-  3. kernels: hold each kernel against its plain PyTorch version on the
-     card, at the shape the main path gives it and at the other cases of
-     its table (``K1_CASES``, ``K2_CASES``, ``K3_CASES`` with K3's
-     checkpoints, ``K4_CASES``, ``K5_CASES``, ``K6_CASES``, ``K10_CASES``,
-     ``K9_CASES``, ``K11_CASES`` (forward and backward), ``K7_CASES`` with
-     K7's checkpoints, ``K8_CASES``, which tests/test_torch_kernels_cuda.py
-     runs too; for K1-K4, K7-K11 (forward and backward) also the kernels
-     the profiler saw run (K7's and K8's in a fresh process,
-     ``chip_smoke.py --routes``), ``ROUTES``: K1 its tile kernel, K3 and K7
-     their split lane walks, K2 and K4 their lane-split walks, K4's and
-     K8's three (local, combine, main) each with its device time, and the
-     scan phases print those kernels' registers and spills; attention bf16
-     on the tensor cores, fp32 on the SIMT kernels, at head widths up to
-     384), and time kernel, plain version and the roofline bound (K1, K3,
-     K7 and K8 also their special-function results over the units' rate;
-     K3 and K7 also with their checkpoint output; K5, K6,
-     K10, K9 and K11 also with their device time from the profiler; K10,
-     K9 and K11 also SDPA on the same q, k, v; for K11 SDPA's forward, its
-     forward + backward, and its backward alone).
+  3. kernels: hold each kernel against its plain PyTorch version on the card,
+     at the shape the main path gives it and at the other cases of its table
+     (``K1_CASES``, ``K2_CASES``, ``K3_CASES`` with K3's checkpoints,
+     ``K4_CASES``, ``K5_CASES``, ``K6_CASES``, ``K10_CASES``, ``K9_CASES``,
+     ``K11_CASES`` (forward and backward), ``K7_CASES`` with K7's
+     checkpoints, ``K8_CASES``, which tests/test_torch_kernels_cuda.py runs
+     too; for every kernel (forward and backward) also the kernels the
+     profiler saw run (K5's and K6's, then K7's and K8's, each pair in a
+     fresh process, ``chip_smoke.py --routes K5 K6``), ``ROUTES``: K1 its
+     tile kernel, K3 and K7 their split lane walks, K2, K4, K5 and K6 their
+     lane walks, K4's and K8's three (local, combine, main) each with its
+     device time, and the scan phases print those kernels' registers and
+     spills; attention bf16 on the tensor cores, fp32 on the SIMT kernels, at
+     head widths up to 384), and time kernel, plain version and the roofline
+     bound (K1, K3, K7 and K8 also their special-function results over the
+     units' rate; K3 and K7 also with their checkpoint output; K5, K6, K10,
+     K9 and K11 also with their device time from the profiler; K10, K9 and
+     K11 also SDPA on the same q, k, v; for K11 SDPA's forward, its forward +
+     backward, and its backward alone).
   4. inference: TimeMamba-B (batch 8, 16 frames, 224², bf16, random
      weights from a seed) through ``build_timemamba_b``; launch counts are
      zeroed just before and read just after (K1: 12 per forward). Then a
@@ -266,13 +266,16 @@ K5_SOURCE = "video_mamba_suite_torch/csrc/short_scan_fwd.cu"
 K5_REPLACES = "video_mamba_suite_tpu/ops/selective_scan_pallas.py:927"
 # K5 against its plain version: K3's options without h0 (K5 takes none).
 # The first is the Mamba-130M prefill at a 16-token prompt (one launch per
-# layer); adapter: the TimeMamba-B video-adapter shape the TPU kernel was
-# written for; ragged: 13 steps, 200 channels and 13 states; then the
-# limit of 64 steps, one step, reverse, grouped B/C (two groups of 48
-# channels, so a block's last warp is half idle), no D and no z, batch 1.
-# tests/test_torch_kernels_cuda.py runs the same cases.
+# layer; ``check_k5`` returns its numbers as the main path's), the second
+# the short anticipation call's scan (16 windows of 64 tokens, d_inner
+# 2048, fp32; one launch per layer); adapter: the TimeMamba-B video-adapter
+# shape the TPU kernel was written for; ragged: 13 steps, 200 channels and
+# 13 states; then the limit of 64 steps, one step, reverse, grouped B/C
+# (two groups of 48 channels, so a 32-channel tile is half idle), no D and
+# no z, batch 1. tests/test_torch_kernels_cuda.py runs the same cases.
 K5_CASES = [
     ("lm", (8, 16, 1536, 16), "bfloat16", {}),
+    ("anticipation", (16, 64, 2048, 16), "float32", {}),
     ("lm-fp32", (8, 16, 1536, 16), "float32", {}),
     ("adapter", (1568, 16, 768, 16), "bfloat16", {}),
     ("ragged", (3, 13, 200, 13), "float32", {}),
@@ -311,8 +314,9 @@ K6_REPLACES = "video_mamba_suite_tpu/ops/selective_scan_pallas.py:958"
 # short-memory anticipation train step's scan (28 + 32 + 4 = 64 tokens,
 # d_inner 2048, batch 16; one launch per layer per step) in fp32 and bf16;
 # ragged: 13 steps, 200 channels and 13 states; then one step, reverse,
-# grouped B/C (two groups of 48 channels), no D and no z, and TimeMamba-B's
-# adapter shape, at which K2 and K5 were timed.
+# grouped B/C (two groups of 48 channels), no D and no z, TimeMamba-B's
+# adapter shape, at which K2 and K5 were timed, and one window of the
+# anticipation shape (64 blocks: a grid far below the card).
 # tests/test_torch_kernels_cuda.py runs the same cases.
 K6_CASES = [
     ("anticipation", (16, 64, 2048, 16), "float32", {}),
@@ -323,6 +327,7 @@ K6_CASES = [
     ("grouped", (4, 32, 96, 16), "float32", {"groups": 2}),
     ("no-Dz", (4, 24, 256, 16), "bfloat16", {"no_dz": True}),
     ("adapter", (1568, 16, 768, 16), "bfloat16", {}),
+    ("batch1", (1, 64, 2048, 16), "float32", {}),
 ]
 # each gradient within atol · (its largest magnitude) + rtol · |value|:
 # fp32 as K5 (sums of dA over the rows and steps, and of dB and dC over up
@@ -466,10 +471,10 @@ K11_CASES = [
 # for attention, bf16 on the tensor cores, fp32 on the SIMT kernels (K11's
 # backward starts with the di kernel in both); K1 its staged tile kernel,
 # K3 its split lane walk, K2 and K4 the lane-split walks (K4: the local
-# pass, the combine and the main pass) in both types, K7 its split lane
-# walk and K8 its three (local, combine, main) in both types.
-# Checked by name from the profiler at every case. K9 and K10 share a
-# source, so each is checked against both entries' kernels.
+# pass, the combine and the main pass) in both types, K5 and K6 their lane
+# walks, K7 its split lane walk and K8 its three (local, combine, main) in
+# both types. Checked by name from the profiler at every case. K9 and K10
+# share a source, so each is checked against both entries' kernels.
 ROUTES = {
     ("K1", "bfloat16"): ("short_bidir_fwd_tile_kernel",),
     ("K1", "float32"): ("short_bidir_fwd_tile_kernel",),
@@ -483,6 +488,10 @@ ROUTES = {
     ("K4", "float32"): ("chunked_scan_bwd_local_lanes",
                         "chunked_scan_bwd_combine",
                         "chunked_scan_bwd_main_lanes"),
+    ("K5", "bfloat16"): ("short_scan_fwd_lanes",),
+    ("K5", "float32"): ("short_scan_fwd_lanes",),
+    ("K6", "bfloat16"): ("short_scan_bwd_lanes",),
+    ("K6", "float32"): ("short_scan_bwd_lanes",),
     ("K7", "bfloat16"): ("complex_scan_fwd_lanes",),
     ("K7", "float32"): ("complex_scan_fwd_lanes",),
     ("K8", "bfloat16"): ("complex_scan_bwd_local_lanes",
@@ -503,14 +512,14 @@ ROUTES = {
     ("K11 bwd", "float32"): ("flash_mha_bwd_di", "flash_mha_bwd_dkdv_kernel",
                              "flash_mha_bwd_dq_kernel"),
 }
-ROUTE_FAMILIES = (("K1",), ("K2",), ("K3",), ("K4",), ("K7",), ("K8",),
-                  ("K9", "K10"), ("K11",), ("K11 bwd",))
+ROUTE_FAMILIES = (("K1",), ("K2",), ("K3",), ("K4",), ("K5",), ("K6",),
+                  ("K7",), ("K8",), ("K9", "K10"), ("K11",), ("K11 bwd",))
 # profiler sessions a route check may take before it fails: on an H100's
 # machine, past this script's K4 phase (at the parent commit too), most
 # padded sessions recorded no device activity for calls that ran (a
 # quarter to a half recorded them, whatever the padding, up to 1 s), so a
-# session that misses a kernel of the route is repeated (and K7's and
-# K8's checks run in a fresh process: ``check_k7_k8_routes``)
+# session that misses a kernel of the route is repeated (and K5's, K6's,
+# K7's and K8's checks run in a fresh process: ``check_fresh_routes``)
 ROUTE_SESSIONS = 40
 # largest |kernel - plain| over each output's largest magnitude (at least
 # 1), the forward (out, lse) and the backward (dq, dk, dv), on an H100
@@ -1271,21 +1280,31 @@ def k5_bound_ms(args, outs):
         "operations"
 
 
+def source_ms(device, source):
+    """The device ms per call of the kernels of ``source`` (a C entry's
+    name, which every kernel of the source carries: the first forms' and
+    the redesigns' alike, so that a parent tree is timed the same way) in
+    a profile's per-kernel times."""
+    return sum(ms for key, ms in device.items() if source in key)
+
+
 def check_k5():
     """Every case of ``K5_CASES``, each with the kernel's time (back to
     back between CUDA events, and its device time alone from the
-    profiler), the plain version's and the bound. Returns the main-path
-    case's (the first) numbers."""
+    profiler), the plain version's and the bound; the kernel's registers
+    and spills. The kernel the profiler saw run at each case comes from
+    ``check_fresh_routes``. Returns the main-path case's (the first)
+    numbers."""
     from video_mamba_suite_torch.ops import short_scan_fwd, short_scan_fwd_ref
 
+    log_resources("short_scan_fwd", "k5")
     result = {}
     for case in K5_CASES:
         args, got, err = k5_check(*case)
         ms = cuda_time_ms(lambda: short_scan_fwd(**args), iters=100)
         device = profile("call", lambda: short_scan_fwd(**args), tag="k5",
                          calls=20, top=0)
-        device_ms = sum(ms for key, ms in device.items()
-                        if "short_scan_fwd_kernel" in key)
+        device_ms = source_ms(device, "short_scan_fwd")
         plain_ms = cuda_time_ms(lambda: short_scan_fwd_ref(**args), iters=3,
                                 warmup=1)
         bound_ms, bound_by = k5_bound_ms(args, got)
@@ -1294,7 +1313,8 @@ def check_k5():
             f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
         if not result:
             result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=None)
     return result
 
 
@@ -1391,17 +1411,19 @@ def check_k6():
     """Every case of ``K6_CASES``, each with the kernel's time (back to
     back between CUDA events, and its device time alone from the
     profiler), the plain version's (an eager loop and its autograd) and
-    the bound. Returns the main-path case's (the first) numbers."""
+    the bound; the kernel's registers and spills. The kernel the profiler
+    saw run at each case comes from ``check_fresh_routes``. Returns the
+    main-path case's (the first) numbers."""
     from video_mamba_suite_torch.ops import short_scan_bwd, short_scan_bwd_ref
 
+    log_resources("short_scan_bwd", "k6")
     result = {}
     for case in K6_CASES:
         args, got, err = k6_check(*case)
         ms = cuda_time_ms(lambda: short_scan_bwd(**args), iters=50)
         device = profile("call", lambda: short_scan_bwd(**args), tag="k6",
                          calls=20, top=0)
-        device_ms = sum(ms for key, ms in device.items()
-                        if "short_scan_bwd_kernel" in key)
+        device_ms = source_ms(device, "short_scan_bwd")
         plain_ms = cuda_time_ms(lambda: short_scan_bwd_ref(**args), iters=2,
                                 warmup=1)
         bound_ms, bound_by = k6_bound_ms(args, got)
@@ -1411,7 +1433,8 @@ def check_k6():
             f"ms ({bound_by})")
         if not result:
             result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=None)
     return result
 
 
@@ -2033,7 +2056,7 @@ def check_k7():
     its time (without and with checkpoints) and the bound; the plain
     version timed once, at the first case (the scan microbench shape).
     The kernel the profiler saw run at each case and its device time come
-    from ``check_k7_k8_routes``. Returns the first case's numbers."""
+    from ``check_fresh_routes``. Returns the first case's numbers."""
     from video_mamba_suite_torch.ops import (
         complex_scan_fwd,
         complex_scan_fwd_ref,
@@ -2065,41 +2088,65 @@ def check_k7():
     return result
 
 
-def k7_k8_routes():
-    """``check_scan_route`` at every case of ``K7_CASES`` and ``K8_CASES``
-    (the inputs of ``k7_check`` and ``k8_check``): the kernels the profiler
-    saw run and each one's device ms per call. Raises on a miss."""
-    from video_mamba_suite_torch.ops import complex_scan_bwd, complex_scan_fwd
+def fresh_routes(kernels):
+    """``check_scan_route`` at every case of ``kernels``' tables (``K5``:
+    ``K5_CASES``, ``K6``, ``K7``, ``K8`` likewise, with the inputs of
+    ``k5_check``, ``k6_check``, ``k7_check`` and ``k8_check``): the kernels
+    the profiler saw run and each one's device ms per call. Raises on a
+    miss."""
+    from video_mamba_suite_torch.ops import (
+        complex_scan_bwd,
+        complex_scan_fwd,
+        short_scan_bwd,
+        short_scan_fwd,
+    )
 
-    for label, shape, dtype, opts in K7_CASES:
+    def k5(shape, dtype, opts):
+        args = k5_inputs(shape, dtype, seed=sum(shape) + 3, **opts)
+        return lambda: short_scan_fwd(**args)
+
+    def k6(shape, dtype, opts):
+        args = k6_inputs(shape, dtype, seed=sum(shape) + 17, **opts)
+        return lambda: short_scan_bwd(**args)
+
+    def k7(shape, dtype, opts):
         args = k7_inputs(shape, dtype, seed=sum(shape) + 7, **opts)
-        check_scan_route("K7", label, dtype,
-                         lambda: complex_scan_fwd(**args), "k7")
-    for label, shape, dtype, opts in K8_CASES:
+        return lambda: complex_scan_fwd(**args)
+
+    def k8(shape, dtype, opts):
         args, states, cot = k8_inputs(shape, dtype, seed=sum(shape) + 8,
                                       **opts)
         del args["h0r"], args["h0i"]
-        check_scan_route("K8", label, dtype, lambda: complex_scan_bwd(
-            **args, statesr=states[0], statesi=states[1], **cot), "k8")
+        return lambda: complex_scan_bwd(**args, statesr=states[0],
+                                        statesi=states[1], **cot)
+
+    tables = {"K5": (K5_CASES, k5), "K6": (K6_CASES, k6),
+              "K7": (K7_CASES, k7), "K8": (K8_CASES, k8)}
+    for kernel in kernels:
+        cases, call = tables[kernel]
+        for label, shape, dtype, opts in cases:
+            check_scan_route(kernel, label, dtype, call(shape, dtype, opts),
+                             kernel.lower())
 
 
-def check_k7_k8_routes():
-    """``k7_k8_routes`` in a fresh process (``chip_smoke.py --routes``),
-    its log passed on: on an H100's machine, past this script's K4 phase
-    (at the parent commit too), most profiler sessions of the same process
-    recorded no device activity for calls that ran, whatever the padding
-    (up to 1 s), while a fresh process's sessions recorded every kernel.
-    Raises unless the child succeeded."""
+def check_fresh_routes(*kernels):
+    """``fresh_routes(kernels)`` in a fresh process (``chip_smoke.py
+    --routes K5 K6``, say), its log passed on: on an H100's machine, past
+    this script's K4 phase (at the parent commit too), most profiler
+    sessions of the same process recorded no device activity for calls
+    that ran, whatever the padding (up to 1 s), while a fresh process's
+    sessions recorded every kernel. Raises unless the child succeeded."""
     import os
 
     here = os.path.dirname(os.path.abspath(__file__))
     script = os.path.join(here, "chip_smoke.py")
-    child = subprocess.run([sys.executable, script, "--routes"], cwd=here,
-                           capture_output=True, text=True, timeout=900)
+    child = subprocess.run([sys.executable, script, "--routes", *kernels],
+                           cwd=here, capture_output=True, text=True,
+                           timeout=900)
     for line in child.stdout.splitlines():
         log(line)
     if child.returncode != 0:
-        raise AssertionError(f"the K7/K8 route checks failed "
+        raise AssertionError(f"the {'/'.join(kernels)} route checks failed "
                              f"(rc {child.returncode}):\n"
                              f"{child.stderr[-3000:]}")
 
@@ -2186,7 +2233,7 @@ def check_k8():
     the time and the bound; the plain version timed once, at the first
     case (the scan microbench shape). The kernels the profiler saw run at
     each case (the local pass, the combine and the main pass) and their
-    device times come from ``check_k7_k8_routes``. Returns the first
+    device times come from ``check_fresh_routes``. Returns the first
     case's numbers."""
     from video_mamba_suite_torch.ops import (
         complex_scan_bwd,
@@ -3686,8 +3733,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if sys.argv[1:] == ["--routes"]:    # check_k7_k8_routes's child
-        k7_k8_routes()
+    if sys.argv[1:2] == ["--routes"]:    # check_fresh_routes's child
+        fresh_routes(sys.argv[2:])
         return 0
     from video_mamba_suite_torch.ops import _build
 
@@ -3721,7 +3768,8 @@ def main() -> int:
     k11, k11_bwd = check_k11()
     k7 = check_k7()
     k8 = check_k8()
-    check_k7_k8_routes()
+    check_fresh_routes("K5", "K6")
+    check_fresh_routes("K7", "K8")
     run_main_path()
     launches = run_train_step()
     launches.update(run_vivim_serving())

@@ -51,17 +51,19 @@ def test_key_changes_with_a_new_header_source_and_flags(csrc_copy,
     assert _build._target("short_scan_fwd").parent == _build.BUILD_DIR
 
 
-@pytest.mark.parametrize("entry", ["K1", "K2", "K3", "K4", "K7", "K8",
-                                   "K9", "K10", "K11", "K11 bwd"])
+@pytest.mark.parametrize("entry", ["K1", "K2", "K3", "K4", "K5", "K6",
+                                   "K7", "K8", "K9", "K10", "K11",
+                                   "K11 bwd"])
 def test_routes_name_kernels_of_their_sources(entry):
     """Each kernel ``ROUTES`` names for an entry is a ``__global__``
     function of the entry's source, so a renamed kernel fails here rather
     than on the card; for attention, bf16 names only tensor-core kernels
     (``*_mma_kernel``; K11's backward also the di kernel both types share)
-    and fp32 none; K1, K2, K3, K4, K7 and K8 name the same kernels for
-    both types."""
+    and fp32 none; the scans (K1-K8) name the same kernels for both
+    types."""
     source = {"K1": chip_smoke.K1_SOURCE, "K2": chip_smoke.K2_SOURCE,
               "K3": chip_smoke.K3_SOURCE, "K4": chip_smoke.K4_SOURCE,
+              "K5": chip_smoke.K5_SOURCE, "K6": chip_smoke.K6_SOURCE,
               "K7": chip_smoke.K7_SOURCE, "K8": chip_smoke.K8_SOURCE,
               "K9": chip_smoke.K9_SOURCE, "K10": chip_smoke.K10_SOURCE,
               "K11": chip_smoke.K11_SOURCE,

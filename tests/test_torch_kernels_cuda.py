@@ -476,8 +476,8 @@ def test_k10_matches_plain_version(cuda_device, label, shape, dtype, layout):
     kernel the profiler sees run: bf16 on the tensor cores, fp32 SIMT."""
     args, _, _ = chip_smoke.attn_check("K10", label, shape, dtype, layout)
     fwd = chip_smoke.attn_kernel("K10")[0]
-    chip_smoke.check_route("K10", label, dtype,
-                           chip_smoke.kernel_names(lambda: fwd(*args)))
+    chip_smoke.check_route("K10", label, dtype, chip_smoke.kernel_names(
+        lambda: fwd(*args), want=chip_smoke.ROUTES[("K10", dtype)]))
 
 
 @pytest.mark.cuda
@@ -488,8 +488,8 @@ def test_k9_matches_plain_version(cuda_device, label, shape, dtype, layout):
     the profiler sees run: bf16 on the tensor cores, fp32 SIMT."""
     args, _, _ = chip_smoke.attn_check("K9", label, shape, dtype, layout)
     fwd = chip_smoke.attn_kernel("K9")[0]
-    chip_smoke.check_route("K9", label, dtype,
-                           chip_smoke.kernel_names(lambda: fwd(*args)))
+    chip_smoke.check_route("K9", label, dtype, chip_smoke.kernel_names(
+        lambda: fwd(*args), want=chip_smoke.ROUTES[("K9", dtype)]))
 
 
 @pytest.mark.cuda
@@ -610,7 +610,8 @@ def test_fused_mha_vmem_launches_k9_on_card(cuda_device, dtype):
     card = copy.deepcopy(cpu).to("cuda")
     x = torch.randn(3, 40, 128, generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
-        names = chip_smoke.kernel_names(lambda: card(x.cuda()))
+        names = chip_smoke.kernel_names(
+            lambda: card(x.cuda()), want=chip_smoke.ROUTES[("K9", dtype)])
         before = dict(LAUNCHES)      # the profiler may repeat its call
         got = card(x.cuda())
         torch.cuda.synchronize()
@@ -637,9 +638,11 @@ def test_k11_matches_plain_version(cuda_device, label, shape, causal, dtype,
     (q, k, v, dout), (out, lse), _, _ = chip_smoke.k11_check(
         label, shape, causal, dtype, layout)
     chip_smoke.check_route("K11", label, dtype, chip_smoke.kernel_names(
-        lambda: flash_mha_fwd(q, k, v, causal)))
+        lambda: flash_mha_fwd(q, k, v, causal),
+        want=chip_smoke.ROUTES[("K11", dtype)]))
     chip_smoke.check_route("K11 bwd", label, dtype, chip_smoke.kernel_names(
-        lambda: flash_mha_bwd(q, k, v, out, lse, dout, causal)))
+        lambda: flash_mha_bwd(q, k, v, out, lse, dout, causal),
+        want=chip_smoke.ROUTES[("K11 bwd", dtype)]))
 
 
 @pytest.mark.cuda
@@ -651,9 +654,9 @@ def test_each_dtype_runs_its_routed_kernels(cuda_device, kernel, dtype):
     layout) runs exactly the kernels ``chip_smoke.ROUTES`` gives its dtype:
     bf16 attention on the tensor cores, fp32 on the SIMT kernels, K1 its
     staged tile kernel, K3 and K7 their split lane walks (here 1000 steps
-    in segments, with checkpoints), K2 and K4 their lane-split walks, K8
-    its local, combine and main kernels, nothing else of the entry's
-    source."""
+    in segments, with checkpoints), K2 and K4 their lane-split walks, K5
+    and K6 their lane walks (here 40 steps: three units), K8 its local,
+    combine and main kernels, nothing else of the entry's source."""
     from video_mamba_suite_torch.ops import (
         complex_scan_bwd,
         complex_scan_fwd,
@@ -681,6 +684,16 @@ def test_each_dtype_runs_its_routed_kernels(cuda_device, kernel, dtype):
 
         def call():
             return chunked_scan_bwd(**scan, states=states)
+    elif kernel == "K5":
+        args = chip_smoke.k5_inputs((2, 40, 64, 16), dtype, 3)
+
+        def call():
+            return short_scan_fwd(**args)
+    elif kernel == "K6":
+        args = chip_smoke.k6_inputs((2, 40, 64, 16), dtype, 3)
+
+        def call():
+            return short_scan_bwd(**args)
     elif kernel == "K7":
         args = chip_smoke.k7_inputs((2, 1000, 64, 16), dtype, 3, h0=True)
 
@@ -710,8 +723,8 @@ def test_each_dtype_runs_its_routed_kernels(cuda_device, kernel, dtype):
             if kernel == "K11":
                 return flash_mha_fwd(q, k, v, True)
             return flash_mha_bwd(q, k, v, out, lse, dout, True)
-    chip_smoke.check_route(kernel, "route", dtype,
-                           chip_smoke.kernel_names(call))
+    chip_smoke.check_route(kernel, "route", dtype, chip_smoke.kernel_names(
+        call, want=chip_smoke.ROUTES[(kernel, dtype)]))
 
 
 @pytest.mark.cuda

@@ -109,75 +109,6 @@ struct Params {
   int reverse, softplus;
 };
 
-// What one lane walks: its channel's 4 states of A as A2 = A log2(e), and
-// where its checkpoints go.
-struct FwdLane {
-  int cw, quarter, q4;   // cw: the channel in the tile (0..31)
-  bool active;           // the channel lies inside the group
-  int ch;                // the channel (clamped into the group)
-  float A2[kStates];
-};
-
-// Walk one prepared unit (buffer n): every row (rows past its steps are
-// identities). Pass 1 (!kOut) adds the segment's sum of dt. Pass 2 keeps
-// each step's partial y (the lane's 4 states) in registers, then sums them
-// over the channel's 4 lanes in 2 transposing stages (off the walk's
-// dependent chain), lane q ending with steps q kUnit/4 .. (q + 1) kUnit/4
-// - 1, whose outputs it writes to the output tile; with kCk it stores the
-// state before each step whose bit is set in `ckmask` to `ck` (then the
-// next checkpoint, `ck_stride` further).
-template <typename T, bool kOut, bool kCk>
-__device__ __forceinline__ void walk_unit(const FwdTiles<T>& w, int n,
-                                          const FwdLane& L, float (&h)[kStates],
-                                          float& dtsum, uint32_t ckmask,
-                                          float*& ck, int64_t ck_stride,
-                                          int left, bool vec) {
-  const float2* dd = w.dd(n);
-  const float* Bt = w.B(n) + L.q4;
-  const float* Ct = Bt + kUnit * kMaxDstate;
-  float y[kUnit];
-#pragma unroll
-  for (int i = 0; i < kUnit; ++i) {
-    if constexpr (kCk) {
-      if ((ckmask >> i) & 1u) {
-        store_state(ck, h, left, vec);
-        ck += ck_stride;
-      }
-    }
-    const float2 d = dd[i * kChannels + L.cw];
-    const float4 b = ld4(Bt + i * kMaxDstate);
-    if constexpr (kOut) {
-      const float4 c = ld4(Ct + i * kMaxDstate);
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < kStates; ++k) {
-        h[k] = fmaf(exp2_sfu(d.x * L.A2[k]), h[k], d.y * at(b, k));
-        acc = fmaf(at(c, k), h[k], acc);
-      }
-      y[i] = acc;
-    } else {
-#pragma unroll
-      for (int k = 0; k < kStates; ++k) {
-        h[k] = fmaf(exp2_sfu(d.x * L.A2[k]), h[k], d.y * at(b, k));
-      }
-      dtsum += d.x;
-    }
-  }
-  if constexpr (kOut) {
-    // lane bits 0-1 are the quarter
-    butterfly_stage<2, kUnit / 2>(y, L.quarter);
-    butterfly_stage<1, kUnit / 4>(y, L.quarter);
-    const float2* gd = w.gd(n);
-    T* out = w.out(n);
-#pragma unroll
-    for (int j = 0; j < kUnit / 4; ++j) {
-      const int e = (L.quarter * (kUnit / 4) + j) * kChannels + L.cw;
-      const float2 g = gd[e];
-      out[e] = from_float<T>((y[j] + g.x) * g.y);
-    }
-  }
-}
-
 // Walk the segment of walk steps [seg0, seg1) from the state h (in and
 // out) through scan_fwd.cuh's pipeline. Pass 1 (!kOut) leaves h as the end
 // state and adds to dtsum; pass 2 writes y and, with kCk, the checkpoints.
@@ -219,35 +150,15 @@ __global__ void __launch_bounds__(kThreads, 5)
   // block -> (row, group, tile, segment); the nseg blocks of a (row, tile)
   // are consecutive, one cluster
   const int seg = static_cast<int>(blockIdx.x % p.nseg);
-  int64_t rest = blockIdx.x / p.nseg;
-  const int tile = static_cast<int>(rest % p.tiles);
-  rest /= p.tiles;
-  UnitPlace q;
-  q.group = static_cast<int>(rest % p.ngroups);
-  q.row = rest / p.ngroups;
-  q.ch0 = q.group * p.width + tile * kChannels;
-  q.valid = min(kChannels, p.width - tile * kChannels);
-  q.seqlen = p.seqlen;
-  q.dim = p.dim;
-  q.dstate = p.dstate;
-  q.ngroups = p.ngroups;
-  q.reverse = p.reverse;
+  const UnitPlace q = unit_place(p, blockIdx.x / p.nseg);
   const Copies cp = copies<T>(q.valid, p.dstate);
-
-  FwdLane L;
-  const int lane = threadIdx.x & 31;
-  L.cw = (threadIdx.x >> 5) * (32 / kLanes) + lane / kLanes;
-  L.quarter = lane % kLanes;
-  L.q4 = L.quarter * kStates;
-  L.active = L.cw < q.valid;
-  L.ch = q.ch0 + min(L.cw, q.valid - 1);
+  const FwdLane L = fwd_lane(p, q);
   float h[kStates];
 #pragma unroll
   for (int k = 0; k < kStates; ++k) {
     const int n = L.q4 + k;
-    const bool on = L.active && n < p.dstate;
-    L.A2[k] = on ? p.A[L.ch * p.dstate + n] * kLog2e : 0.f;
-    h[k] = on && p.h0 ? p.h0[(q.row * p.dim + L.ch) * p.dstate + n] : 0.f;
+    h[k] = L.active && n < p.dstate && p.h0
+               ? p.h0[(q.row * p.dim + L.ch) * p.dstate + n] : 0.f;
   }
 
   const int seg0 = seg * p.seglen;

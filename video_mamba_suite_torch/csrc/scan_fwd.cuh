@@ -1,7 +1,9 @@
 // Forward-only helpers of the selective-scan walks on Hopper (sm_90a):
 // softplus, SiLU and the cp.async wait, shared by K1 (short_bidir_fwd.cu),
-// K3 (chunked_scan_fwd.cu) and K7 (complex_scan_fwd.cu); and the segmented
-// walk that K3 and K7 share (`run_segment`, `launch_split`, below).
+// K3 (chunked_scan_fwd.cu), K5 (short_scan_fwd.cu) and K7
+// (complex_scan_fwd.cu); and the segmented walk that K3 and K7 share
+// (`run_segment`, `launch_split`, below), which K5 runs as one segment
+// from a zero state with K3's unit walk (`walk_unit`).
 //
 // The walks take one exponential a state update on the special function
 // unit (`scan_lanes::exp2_sfu` on A log2(e), scaled once a thread) and
@@ -56,21 +58,21 @@ __device__ __forceinline__ float silu(float z) {
 }
 
 // ---------------------------------------------------------------------------
-// The segmented walk of K3 and K7. A block is scan_lanes.cuh's unit shape:
-// 128 threads, 32 channels of one group, a channel's states split over 4
-// lanes. It walks a segment of the sequence kUnit steps at a time,
-// pipelined over three units with one block barrier a unit: unit n + 2's
-// u, dt, z (kUnit x 32) and B, C (kUnit x 16) arrive in shared memory by
-// 16-byte cp.async (element copies where a pointer, stride or width does
-// not allow them), each thread's copies at offsets computed once a
-// segment; unit n + 1 is prepared: softplus(dt + bias), dt u, D u and the
-// gate once a (step, channel) into fp32 working tiles, B and C widened
-// once; unit n is walked by the caller's `walk`; unit n's output tile
-// leaves as 16-byte stores after the next barrier. Rows past the
-// segment's end are exact identities (dt = 0), so every unit walks its
-// kUnit rows with no branch a step. Nothing is padded in device memory.
-// A launch splits the walk into segments, one block each, the blocks of
-// one (row, 32 channels) a thread block cluster (`launch_split`).
+// The segmented walk of K3 and K7 (and K5's single segment). A block is
+// scan_lanes.cuh's unit shape: 128 threads, 32 channels of one group, a
+// channel's states split over 4 lanes. It walks a segment of the sequence
+// kUnit steps at a time, pipelined over three units with one block barrier a
+// unit: unit n + 2's u, dt, z (kUnit x 32) and B, C (kUnit x 16) arrive in
+// shared memory by 16-byte cp.async (element copies where a pointer, stride
+// or width does not allow them), each thread's copies at offsets computed
+// once a segment; unit n + 1 is prepared: softplus(dt + bias), dt u, D u and
+// the gate once a (step, channel) into fp32 working tiles, B and C widened
+// once; unit n is walked by the caller's `walk`; unit n's output tile leaves
+// as 16-byte stores after the next barrier. Rows past the segment's end are
+// exact identities (dt = 0), so every unit walks its kUnit rows with no
+// branch a step. Nothing is padded in device memory. A launch splits the
+// walk into segments, one block each, the blocks of one (row, 32 channels) a
+// thread block cluster (`launch_split`).
 //
 // The kernels' parameter structs (P) share the field names used here: u,
 // dt, z, B, C (the staged inputs), D, bias, out, seqlen, dim, dstate,
@@ -293,6 +295,115 @@ __device__ __forceinline__ uint32_t checkpoint_mask(int& next, int chunk,
   uint32_t mask = 0;
   for (; next < i1; next += chunk) mask |= 1u << (next - i0);
   return mask;
+}
+
+// What one lane walks: its channel's 4 states of A as A2 = A log2(e), and
+// where its checkpoints go.
+struct FwdLane {
+  int cw, quarter, q4;   // cw: the channel in the tile (0..31)
+  bool active;           // the channel lies inside the group
+  int ch;                // the channel (clamped into the group)
+  float A2[kStates];
+};
+
+// The place of unit `idx` of a launch whose units are (row, group,
+// 32-channel tile), the tiles of a row's group consecutive: its row and
+// channels (the walk's steps, i0 and nsteps, are set unit by unit).
+template <typename P>
+__device__ __forceinline__ UnitPlace unit_place(const P& p, int64_t idx) {
+  UnitPlace q;
+  const int tile = static_cast<int>(idx % p.tiles);
+  idx /= p.tiles;
+  q.group = static_cast<int>(idx % p.ngroups);
+  q.row = idx / p.ngroups;
+  q.ch0 = q.group * p.width + tile * kChannels;
+  q.valid = min(kChannels, p.width - tile * kChannels);
+  q.seqlen = p.seqlen;
+  q.dim = p.dim;
+  q.dstate = p.dstate;
+  q.ngroups = p.ngroups;
+  q.reverse = p.reverse;
+  return q;
+}
+
+// The thread's lane in unit q: its channel, its quarter of the states and
+// their A2 = A log2(e) (0 past the group's width and past dstate).
+template <typename P>
+__device__ __forceinline__ FwdLane fwd_lane(const P& p, const UnitPlace& q) {
+  FwdLane L;
+  const int lane = threadIdx.x & 31;
+  L.cw = (threadIdx.x >> 5) * (32 / kLanes) + lane / kLanes;
+  L.quarter = lane % kLanes;
+  L.q4 = L.quarter * kStates;
+  L.active = L.cw < q.valid;
+  L.ch = q.ch0 + min(L.cw, q.valid - 1);
+#pragma unroll
+  for (int k = 0; k < kStates; ++k) {
+    const int n = L.q4 + k;
+    L.A2[k] = L.active && n < p.dstate ? p.A[L.ch * p.dstate + n] * kLog2e
+                                       : 0.f;
+  }
+  return L;
+}
+
+// Walk one prepared unit (buffer n): every row (rows past its steps are
+// identities). Pass 1 (!kOut) adds the segment's sum of dt. Pass 2 keeps
+// each step's partial y (the lane's 4 states) in registers, then sums them
+// over the channel's 4 lanes in 2 transposing stages (off the walk's
+// dependent chain), lane q ending with steps q kUnit/4 .. (q + 1) kUnit/4
+// - 1, whose outputs it writes to the output tile; with kCk it stores the
+// state before each step whose bit is set in `ckmask` to `ck` (then the
+// next checkpoint, `ck_stride` further).
+template <typename T, bool kOut, bool kCk>
+__device__ __forceinline__ void walk_unit(const FwdTiles<T>& w, int n,
+                                          const FwdLane& L, float (&h)[kStates],
+                                          float& dtsum, uint32_t ckmask,
+                                          float*& ck, int64_t ck_stride,
+                                          int left, bool vec) {
+  const float2* dd = w.dd(n);
+  const float* Bt = w.B(n) + L.q4;
+  const float* Ct = Bt + kUnit * kMaxDstate;
+  float y[kUnit];
+#pragma unroll
+  for (int i = 0; i < kUnit; ++i) {
+    if constexpr (kCk) {
+      if ((ckmask >> i) & 1u) {
+        store_state(ck, h, left, vec);
+        ck += ck_stride;
+      }
+    }
+    const float2 d = dd[i * kChannels + L.cw];
+    const float4 b = ld4(Bt + i * kMaxDstate);
+    if constexpr (kOut) {
+      const float4 c = ld4(Ct + i * kMaxDstate);
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < kStates; ++k) {
+        h[k] = fmaf(exp2_sfu(d.x * L.A2[k]), h[k], d.y * at(b, k));
+        acc = fmaf(at(c, k), h[k], acc);
+      }
+      y[i] = acc;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kStates; ++k) {
+        h[k] = fmaf(exp2_sfu(d.x * L.A2[k]), h[k], d.y * at(b, k));
+      }
+      dtsum += d.x;
+    }
+  }
+  if constexpr (kOut) {
+    // lane bits 0-1 are the quarter
+    butterfly_stage<2, kUnit / 2>(y, L.quarter);
+    butterfly_stage<1, kUnit / 4>(y, L.quarter);
+    const float2* gd = w.gd(n);
+    T* out = w.out(n);
+#pragma unroll
+    for (int j = 0; j < kUnit / 4; ++j) {
+      const int e = (L.quarter * (kUnit / 4) + j) * kChannels + L.cw;
+      const float2 g = gd[e];
+      out[e] = from_float<T>((y[j] + g.x) * g.y);
+    }
+  }
 }
 
 // Walk the segment of walk steps [seg0, seg1), kUnit steps at a time,

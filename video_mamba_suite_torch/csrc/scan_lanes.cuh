@@ -1,5 +1,7 @@
-// Lane-split selective-scan adjoint, shared by K2 (short_bidir_bwd.cu) and
-// K4 (chunked_scan_bwd.cu) on Hopper (sm_90a).
+// Lane-split selective-scan adjoint, shared by K2 (short_bidir_bwd.cu), K4
+// (chunked_scan_bwd.cu) and K6 (short_scan_bwd.cu) on Hopper (sm_90a); K6
+// also walks its units forward alone first (`prep_forward`,
+// `forward_piece`) to find each unit's start state.
 //
 // A "unit" is a tile of S walk steps (S a multiple of kPiece, at most 64)
 // by kChannels = 32 channels of one row, worked by one block of kThreads =
@@ -348,6 +350,32 @@ __device__ __forceinline__ void prep(const Tiles<T>& w, const T* raw,
   }
 }
 
+// The working tiles of the forward pass of an adjoint that carries its
+// unit starts (K6), from a unit staged with u, dt and B only (`stage` with
+// null z, g and C): dt, u and B as `prep` computes them, so the forward
+// pass and the adjoint's recompute walk the same values.
+template <typename T>
+__device__ __forceinline__ void prep_forward(const Tiles<T>& w, const T* raw,
+                                             const UnitPlace& q,
+                                             const float* bias,
+                                             bool softplus_dt) {
+  const int S = w.S;
+  const int c = threadIdx.x % kChannels;
+  const float bc = bias && c < q.valid ? bias[c] : 0.f;
+  for (int e = threadIdx.x; e < S * kChannels; e += kThreads) {
+    const bool on = e / kChannels < q.nsteps && c < q.valid;
+    const float x = to_float(raw[S * kChannels + e]) + bc;
+    w.dt[e] = on ? (softplus_dt ? softplus_and_grad(x).x : x) : 0.f;
+    w.u[e] = on ? to_float(raw[e]) : 0.f;
+  }
+  const T* rb = raw + 4 * S * kChannels;
+  for (int e = threadIdx.x; e < S * kMaxDstate; e += kThreads) {
+    const int k = e % kMaxDstate;
+    w.B[e] = e / kMaxDstate < q.nsteps && k < q.dstate ? to_float(rb[e])
+                                                       : 0.f;
+  }
+}
+
 // What one lane walks: its channel's 4 states of A, as A2 = A log2(e), D,
 // and the running sums the walk adds to.
 struct Lane {
@@ -363,6 +391,26 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 }
 __device__ __forceinline__ float at(const float4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// The lane's 4 states h walked forward over piece pc (its kPiece rows) of
+// a prepared tile: h_t = exp2(dt_t A') h_{t-1} + dt_t u_t B_t.
+template <typename T>
+__device__ __forceinline__ void forward_piece(const Tiles<T>& w, int pc,
+                                              const Lane& L,
+                                              float (&h)[kStates]) {
+  const int q4 = L.quarter * kStates;
+#pragma unroll
+  for (int j = 0; j < kPiece; ++j) {
+    const int i = pc * kPiece + j;
+    const float dt = w.dt[i * kChannels + L.cw];
+    const float dtu = dt * w.u[i * kChannels + L.cw];
+    const float4 b = ld4(w.B + i * kMaxDstate + q4);
+#pragma unroll
+    for (int k = 0; k < kStates; ++k) {
+      h[k] = exp2_sfu(dt * L.A2[k]) * h[k] + dtu * at(b, k);
+    }
+  }
 }
 
 // The adjoint walk of one unit for the lane's 4 states, from the state h
@@ -401,17 +449,7 @@ __device__ __forceinline__ void adjoint_walk(const Tiles<T>& w, int nsteps,
   // forward through every piece but the last, keeping the piece starts
   for (int pc = 0; pc + 1 < npieces; ++pc) {
     *w.piece_start(pc, L.warp, L.lane) = make_float4(h[0], h[1], h[2], h[3]);
-#pragma unroll
-    for (int j = 0; j < kPiece; ++j) {
-      const int i = pc * kPiece + j;
-      const float dt = w.dt[i * kChannels + cw];
-      const float dtu = dt * w.u[i * kChannels + cw];
-      const float4 b = ld4(w.B + i * kMaxDstate + q4);
-#pragma unroll
-      for (int k = 0; k < kStates; ++k) {
-        h[k] = exp2_sfu(dt * L.A2[k]) * h[k] + dtu * at(b, k);
-      }
-    }
+    forward_piece(w, pc, L, h);
   }
 
   for (int pc = npieces - 1; pc >= 0; --pc) {

@@ -30,47 +30,63 @@
 // tensor cores), at the short-memory anticipation train step's shape
 // (batch 16, seqlen 64, dim 2048, dstate 16, fp32): it reads u, dt, z, g
 // and writes du, ddt, dz, seven (b, l, d) fp32 tensors of 8.4 MB (59 MB,
-// 0.018 ms), and does about 20 fp32 operations for each of 2 x 33.5 M state
-// updates (forward pass and adjoint walk; 1.3 GFLOP, 0.020 ms). So it is
-// about as much operations as bytes, and the three exponentials per state
-// update (forward pass, segment recompute, adjoint step) go to the
-// special-function units on top. At the TimeMamba-B adapter shape (batch
-// 1568, seqlen 16, dim 768, bf16) the bytes are 0.27 GB (0.08 ms) and the
-// operations 12.3 GFLOP (0.18 ms).
+// 0.018 ms), and does about 20 fp32 operations for each of 33.5 M state
+// updates (0.67 GFLOP, 0.010 ms). So the bytes bound it; the walk's
+// exponentials go to the special function units on top (16 results a clock
+// an SM: 2.5 a state update below, 84 M, 0.020 ms). At TimeMamba-B's
+// adapter shape (batch 1568, seqlen 16, dim 768, bf16) the bytes are 0.27
+// GB (0.08 ms) and the operations 6.2 GFLOP (0.09 ms), so there the
+// operations bound it.
 //
-// Design (right and simple first; K2's walk for one direction, K5's thread
-// layout): one thread per (row, channel) with its 16 fp32 states in
-// registers; a block takes up to 128 channels of one group (grid.y: group
-// and channel tile) and loops over a fixed set of rows (grid.x: row
-// group). Per row it stages the group's B and C for every step in shared
-// memory, then
-//   pass 1 walks forward, keeps the state in registers, stores it to
-//          shared memory every kSeg steps (checkpoints), and computes the
-//          gate's backward dz from y_t on the way;
-//   pass 2 walks the segments backwards: it recomputes the kSeg states of
-//          a segment from its checkpoint into registers, then runs the
-//          adjoint walk over them. h_prev is never rebuilt as
-//          (h_t - dt u B) / a_t, which blows up where a_t underflows.
-// `reverse` maps walk step i to time L-1-i, so nothing is flipped. dB and
-// dC are sums over channels: each step reduces its 32 values (dB and dC for
-// 16 states) across the warp with one transposing butterfly (31 shuffles;
-// lane l ends with value l), the warps' results go to shared memory, and
-// the block writes one fp32 partial per (channel tile, row, step, group,
-// state). dA, dD and dbias are sums over rows: each thread keeps them in
-// registers over its block's rows and writes one fp32 partial per row
-// group. The wrapper sums the partials with torch.sum, so the result does
-// not depend on the order in which blocks run (no atomics).
+// What the walk needs at that shape: a thread a (row, channel), holding
+// its 16 states, would keep every thread's states every 4 of the 64 steps
+// in shared memory (120 KB for 128 threads), so one block of 4 warps an
+// SM, and would load u, dt, z and g inside its walks. So:
+//
+// Design: scan_lanes.cuh's units, as K2 and K4. A block of 128 threads
+// takes 32 channels of one group (grid y: group and 32-channel tile) and a
+// fixed set of rows (grid x: row group), a channel's 16 states over 4 lanes
+// (4 a lane). A row's <= 64 steps are walked as units of at most kUnitSteps
+// = 16 steps (shared memory 42 KB at fp32; 128 registers a thread, so 4
+// blocks, 16 warps, an SM; at the anticipation shape 16 x 64 = 1024
+// blocks):
+//   forward: units 0 .. N-2, each staged (u, dt and B only), prepared and
+//            walked forward (`forward_piece`); the state at each unit's
+//            start is kept, one float4 a lane a unit in a 6 KB shared tile
+//            (kept in registers instead, 12 more a thread at the
+//            128-register bound of 4 blocks an SM, the kernel ran slower
+//            on an H100);
+//   adjoint: units N-1 .. 0, each staged again (its second read of u and
+//            dt comes from L2), prepared (softplus and the gate once a
+//            (step, channel)) and walked by `adjoint_walk` from its start
+//            state, with dh carried from the unit after it: K4's main pass
+//            with its checkpoints and carries computed inside the block.
+// Every unit's copies are issued by 16-byte cp.async as soon as the unit
+// before has read its staged tiles, so they overlap that unit's walk.
+// Decays are exp2 on the special function unit (`exp2_sfu`): 2.5 a state
+// update at 64 steps (the forward pass 0.75, `adjoint_walk` 1.75). du, ddt
+// and dz leave through a shared tile as 16-byte stores. `reverse` maps
+// walk step i to time L-1-i, so nothing is flipped. Reductions without
+// atomics, so the result does not depend on the order in which blocks run:
+// dB and dC are summed over the unit's 32 channels (a warp butterfly, then
+// the 4 warps in shared memory) and written as one fp32 partial per
+// (32-channel tile, row, step, group, state); dA, dD and dbias are summed
+// in each lane's registers over the block's rows and written as one fp32
+// partial per row group. The wrapper sums the partials with torch.sum.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "scan_lanes.cuh"
+
 namespace {
 
-constexpr int kMaxSeqlen = 64;
-constexpr int kMaxDstate = 16;
-constexpr int kMaxThreads = 128;
-constexpr int kSeg = 4;  // steps between state checkpoints
+using namespace scan_lanes;
+
+constexpr int kUnitSteps = 16;                      // walk steps a unit
+constexpr int kMaxUnits = kMaxSteps / kUnitSteps;   // units a row
+static_assert(kUnitSteps % kPiece == 0, "a unit is whole pieces");
 
 struct Params {
   const void* u;      // (batch, seqlen, dim)
@@ -90,282 +106,187 @@ struct Params {
   float* dC;          // (tiles, batch, seqlen, ngroups, dstate) partials
   float* dD;          // (row groups, dim) partials, null without D
   float* dbias;       // (row groups, dim) partials, null without bias
-  long long batch;
-  int seqlen, dim, dstate, ngroups;
-  int group_dim;      // channels per group, dim / ngroups
-  int tiles;          // blocks per group
+  int batch, seqlen, dim, dstate, ngroups;
+  int width;          // channels a group
+  int tiles;          // 32-channel tiles a group
+  int S;              // rows of a unit's tiles: the unit rounded to kPiece
+  int nunits;         // units a row, ceil(seqlen / kUnitSteps)
   int reverse, softplus;
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
+// Shared memory of a block: the units' tiles (scan_lanes.cuh's Layout),
+// then the starts of units 1 .. N-1, [unit - 1][thread] float4 (unit 0
+// starts at zero).
 template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+size_t smem_bytes(int S) {
+  return Layout<T>::bytes(S) + sizeof(float4) * (kMaxUnits - 1) * kThreads;
 }
 
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-// softplus as torch computes it (threshold 20), and its derivative.
-__device__ __forceinline__ float softplus(float x) {
-  return x > 20.f ? x : log1pf(expf(x));
-}
-__device__ __forceinline__ float softplus_grad(float x) {
-  return x > 20.f ? 1.f : sigmoid(x);
-}
-
-// One stage of the transposing butterfly: lanes that differ in bit kOff
-// swap halves of their first 2*kOff values and add.
-template <int kOff>
-__device__ __forceinline__ void butterfly_stage(float (&v)[32], int lane) {
-  const bool upper = lane & kOff;
-#pragma unroll
-  for (int i = 0; i < kOff; ++i) {
-    const float send = upper ? v[i] : v[i + kOff];
-    const float keep = upper ? v[i + kOff] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, kOff);
-  }
-}
-
-// After this, v[0] on lane l is the sum of v[l] over the warp's 32 lanes.
-__device__ __forceinline__ void warp_transpose_sum(float (&v)[32], int lane) {
-  butterfly_stage<16>(v, lane);
-  butterfly_stage<8>(v, lane);
-  butterfly_stage<4>(v, lane);
-  butterfly_stage<2>(v, lane);
-  butterfly_stage<1>(v, lane);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-    short_scan_bwd_kernel(Params p) {
-  const int seqlen = p.seqlen;
-  const int dim = p.dim;
-  const int dstate = p.dstate;
-  const int nthreads = blockDim.x;
-  const int nwarps = nthreads / 32;
-  extern __shared__ float smem[];
-  float* sB = smem;                              // [t][16], fp32, zero-padded
-  float* sC = sB + seqlen * kMaxDstate;          // [t][16]
-  float* red = sC + seqlen * kMaxDstate;         // [warp][t][32]
-  float* ck = red + nwarps * seqlen * 32;        // [segment-1][16][thread]
-
-  const int group = blockIdx.y / p.tiles;
+// The unit of the block's walk s, and whether the walk is the forward
+// pass. A block walks, for each of its rows (blockIdx.x, + gridDim.x, ...),
+// the forward pass over units 0 .. N-2, then the adjoint over units N-1 ..
+// 0: 2N - 1 walks a row. Built from the parameters at each call, so that
+// nothing of it stays live in registers across a walk.
+__device__ __forceinline__ UnitPlace walk_place(const Params& p, int s,
+                                                bool& forward) {
+  const int per_row = 2 * p.nunits - 1;
+  const int j = s % per_row;
+  forward = j < p.nunits - 1;
   const int tile = blockIdx.y % p.tiles;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int c = tile * nthreads + tid;
-  // Threads past the group's last channel load zeros (their state and
-  // cotangents stay 0) and store nothing, but take part in the shuffles.
-  const bool active = c < p.group_dim;
-  const int ch = group * p.group_dim + (active ? c : 0);
-  const int nseg = (seqlen + kSeg - 1) / kSeg;
+  UnitPlace q;
+  q.row = blockIdx.x + static_cast<int64_t>(s / per_row) * gridDim.x;
+  q.i0 = (forward ? j : per_row - 1 - j) * kUnitSteps;
+  q.nsteps = min(kUnitSteps, p.seqlen - q.i0);
+  q.group = blockIdx.y / p.tiles;
+  q.ch0 = q.group * p.width + tile * kChannels;
+  q.valid = min(kChannels, p.width - tile * kChannels);
+  q.seqlen = p.seqlen;
+  q.dim = p.dim;
+  q.dstate = p.dstate;
+  q.ngroups = p.ngroups;
+  q.reverse = p.reverse;
+  return q;
+}
 
-  float A[kMaxDstate];
-  float dA[kMaxDstate];
+// Stage walk s's tiles: u, dt and B for the forward pass, everything for
+// the adjoint.
+template <typename T, bool kVec>
+__device__ __forceinline__ void stage_walk(const Params& p, T* raw, int s) {
+  bool forward;
+  const UnitPlace q = walk_place(p, s, forward);
+  const T* none = nullptr;
+  stage<T, kVec, false>(raw, p.S, q, static_cast<const T*>(p.u),
+                        static_cast<const T*>(p.dt),
+                        forward ? none : static_cast<const T*>(p.z),
+                        forward ? none : static_cast<const T*>(p.g),
+                        static_cast<const T*>(p.B),
+                        forward ? none : static_cast<const T*>(p.C));
+  cp_async_commit();
+}
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads, 4)
+    short_scan_bwd_lanes(Params p) {
+  extern __shared__ float4 smem4[];
+  const Tiles<T> w(smem4, p.S);
+  float4* starts = reinterpret_cast<float4*>(
+      reinterpret_cast<char*>(smem4) + Layout<T>::bytes(p.S)) + threadIdx.x;
+
+  Lane L;
+  L.lane = threadIdx.x & 31;
+  L.warp = threadIdx.x >> 5;
+  L.cw = L.warp * (32 / kLanes) + L.lane / kLanes;
+  L.quarter = L.lane % kLanes;
+  {
+    bool forward;
+    const UnitPlace q = walk_place(p, 0, forward);
+    const bool active = L.cw < q.valid;
+    const int ch = q.ch0 + min(L.cw, q.valid - 1);
 #pragma unroll
-  for (int k = 0; k < kMaxDstate; ++k) {
-    A[k] = active && k < dstate ? p.A[ch * dstate + k] : 0.f;
-    dA[k] = 0.f;
+    for (int k = 0; k < kStates; ++k) {
+      const int n = L.quarter * kStates + k;
+      L.A2[k] = active && n < p.dstate ? p.A[ch * p.dstate + n] * kLog2e
+                                       : 0.f;
+      L.dA[k] = 0.f;
+    }
+    L.D = active && p.D ? p.D[ch] : 0.f;
+    L.dD = 0.f;
+    L.dbias = 0.f;
   }
-  const float bias = active && p.bias ? p.bias[ch] : 0.f;
-  const float D = active && p.D ? p.D[ch] : 0.f;
-  float dD = 0.f;
-  float dbias = 0.f;
 
-  const T* u = static_cast<const T*>(p.u);
-  const T* dtp = static_cast<const T*>(p.dt);
-  const T* z = static_cast<const T*>(p.z);
-  const T* gp = static_cast<const T*>(p.g);
-  T* du = static_cast<T*>(p.du);
-  T* ddtp = static_cast<T*>(p.ddt);
-  T* dz = static_cast<T*>(p.dz);
-  const int64_t bc_step = static_cast<int64_t>(p.ngroups) * dstate;
-
-  for (int64_t row = blockIdx.x; row < p.batch; row += gridDim.x) {
-    __syncthreads();  // the previous row is done with sB, sC and red
-    const int64_t bc_off = row * seqlen * bc_step + group * dstate;
-    const T* Bp = static_cast<const T*>(p.B) + bc_off;
-    const T* Cp = static_cast<const T*>(p.C) + bc_off;
-    for (int i = tid; i < seqlen * kMaxDstate; i += nthreads) {
-      const int t = i / kMaxDstate;
-      const int k = i % kMaxDstate;
-      sB[i] = k < dstate ? to_float(Bp[t * bc_step + k]) : 0.f;
-      sC[i] = k < dstate ? to_float(Cp[t * bc_step + k]) : 0.f;
+  const int rows = (p.batch - static_cast<int>(blockIdx.x) +
+                    static_cast<int>(gridDim.x) - 1) / gridDim.x;
+  const int nwalks = rows * (2 * p.nunits - 1);
+  float h[kStates], dh[kStates];
+  if (nwalks > 0) stage_walk<T, kVec>(p, w.raw, 0);
+  for (int s = 0; s < nwalks; ++s) {
+    bool forward;
+    const UnitPlace q = walk_place(p, s, forward);
+    const int unit = q.i0 / kUnitSteps;
+    const float* bias = p.bias ? p.bias + q.ch0 : nullptr;
+    cp_async_wait_all();
+    __syncthreads();  // this unit's tiles are in; the last walk is done
+    if (forward) {
+      prep_forward<T>(w, w.raw, q, bias, p.softplus);
+    } else {
+      prep<T, false>(w, w.raw, q, bias, p.z != nullptr, p.softplus);
     }
-    __syncthreads();
-    const int64_t base = row * seqlen * dim + ch;
+    __syncthreads();  // the raw tiles are read: the next unit's copy
+    if (s + 1 < nwalks) stage_walk<T, kVec>(p, w.raw, s + 1);
 
-    // pass 1: forward states, checkpoints and the gate's backward
-    float h[kMaxDstate];
+    if (forward) {
+      if (unit == 0) {
 #pragma unroll
-    for (int k = 0; k < kMaxDstate; ++k) h[k] = 0.f;
-    for (int i = 0; i < seqlen; ++i) {
-      if (i > 0 && i % kSeg == 0) {
-        float* cp = ck + (i / kSeg - 1) * kMaxDstate * nthreads + tid;
-#pragma unroll
-        for (int k = 0; k < kMaxDstate; ++k) cp[k * nthreads] = h[k];
+        for (int k = 0; k < kStates; ++k) h[k] = 0.f;
       }
-      const int t = p.reverse ? seqlen - 1 - i : i;
-      const int64_t off = base + static_cast<int64_t>(t) * dim;
-      const float uv = active ? to_float(u[off]) : 0.f;
-      const float x = (active ? to_float(dtp[off]) : 0.f) + bias;
-      const float dt = p.softplus ? softplus(x) : x;
-      const float dtu = dt * uv;
-      const float* Bt = sB + t * kMaxDstate;
-      const float* Ct = sC + t * kMaxDstate;
-      float y = D * uv;
-#pragma unroll
-      for (int k = 0; k < kMaxDstate; ++k) {
-        h[k] = expf(dt * A[k]) * h[k] + dtu * Bt[k];
-        y += Ct[k] * h[k];
-      }
-      if (z && active) {
-        const float zv = to_float(z[off]);
-        const float s = sigmoid(zv);
-        const float g = to_float(gp[off]);
-        dz[off] = from_float<T>(g * y * (s + zv * s * (1.f - s)));
-      }
+      for (int pc = 0; pc < p.S / kPiece; ++pc) forward_piece(w, pc, L, h);
+      starts[unit * kThreads] = make_float4(h[0], h[1], h[2], h[3]);
+      continue;
     }
-
-    // pass 2: segments last to first, each recomputed from its checkpoint
-    float dh[kMaxDstate];
+    if (unit == p.nunits - 1) {   // the row's adjoint starts at its end
 #pragma unroll
-    for (int k = 0; k < kMaxDstate; ++k) dh[k] = 0.f;
-    for (int s = nseg - 1; s >= 0; --s) {
-      float hp[kMaxDstate];  // the state before the segment
-      const float* cp = ck + (s > 0 ? s - 1 : 0) * kMaxDstate * nthreads + tid;
-#pragma unroll
-      for (int k = 0; k < kMaxDstate; ++k) {
-        hp[k] = s > 0 ? cp[k * nthreads] : 0.f;
-        h[k] = hp[k];
-      }
-      float hs[kSeg][kMaxDstate];
-      float us[kSeg];
-      float dts[kSeg];
-      float dsp[kSeg];
-#pragma unroll
-      for (int j = 0; j < kSeg; ++j) {
-        const int i = s * kSeg + j;
-        us[j] = dts[j] = dsp[j] = 0.f;
-        if (i < seqlen) {
-          const int t = p.reverse ? seqlen - 1 - i : i;
-          const int64_t off = base + static_cast<int64_t>(t) * dim;
-          const float uv = active ? to_float(u[off]) : 0.f;
-          const float x = (active ? to_float(dtp[off]) : 0.f) + bias;
-          const float dt = p.softplus ? softplus(x) : x;
-          us[j] = uv;
-          dts[j] = dt;
-          dsp[j] = p.softplus ? softplus_grad(x) : 1.f;
-          const float dtu = dt * uv;
-          const float* Bt = sB + t * kMaxDstate;
-#pragma unroll
-          for (int k = 0; k < kMaxDstate; ++k) {
-            h[k] = expf(dt * A[k]) * h[k] + dtu * Bt[k];
-          }
-        }
-#pragma unroll
-        for (int k = 0; k < kMaxDstate; ++k) hs[j][k] = h[k];
-      }
-#pragma unroll
-      for (int j = kSeg - 1; j >= 0; --j) {
-        const int i = s * kSeg + j;
-        if (i >= seqlen) continue;  // the same for every thread
-        const int t = p.reverse ? seqlen - 1 - i : i;
-        const int64_t off = base + static_cast<int64_t>(t) * dim;
-        const float g = active ? to_float(gp[off]) : 0.f;
-        float gy = g;
-        if (z) {
-          const float zv = active ? to_float(z[off]) : 0.f;
-          gy = g * zv * sigmoid(zv);
-        }
-        const float uv = us[j];
-        const float dt = dts[j];
-        const float dtu = dt * uv;
-        const float* Bt = sB + t * kMaxDstate;
-        const float* Ct = sC + t * kMaxDstate;
-        float v[32];  // dB for the 16 states, then dC
-        float ddt = 0.f;
-        float dhB = 0.f;
-#pragma unroll
-        for (int k = 0; k < kMaxDstate; ++k) {
-          const float a = expf(dt * A[k]);
-          const float h_prev = j > 0 ? hs[j - 1][k] : hp[k];
-          dh[k] += Ct[k] * gy;
-          v[k] = dh[k] * dtu;
-          v[kMaxDstate + k] = gy * hs[j][k];
-          const float el = dh[k] * h_prev * a;
-          dA[k] += el * dt;
-          ddt += el * A[k];
-          dhB += dh[k] * Bt[k];
-          dh[k] *= a;
-        }
-        ddt = (ddt + dhB * uv) * dsp[j];
-        dD += gy * uv;
-        dbias += ddt;
-        if (active) {
-          du[off] = from_float<T>(dhB * dt + gy * D);
-          ddtp[off] = from_float<T>(ddt);
-        }
-        warp_transpose_sum(v, lane);
-        red[(warp * seqlen + t) * 32 + lane] = v[0];
-      }
+      for (int k = 0; k < kStates; ++k) dh[k] = 0.f;
     }
-    __syncthreads();
+    const float4 h0 = unit ? starts[(unit - 1) * kThreads]
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    h[0] = h0.x;
+    h[1] = h0.y;
+    h[2] = h0.z;
+    h[3] = h0.w;
+    adjoint_walk<T>(w, q.nsteps, L, h, dh);
+    __syncthreads();  // the output and reduction tiles are complete
 
-    // this row's dB and dC over the block's channels
-    const int64_t part =
-        (static_cast<int64_t>(tile) * p.batch + row) * seqlen * bc_step +
-        group * dstate;
-    for (int i = tid; i < seqlen * dstate; i += nthreads) {
-      const int t = i / dstate;
-      const int k = i % dstate;
-      float sb = 0.f;
-      float sc = 0.f;
-      for (int w = 0; w < nwarps; ++w) {
-        sb += red[(w * seqlen + t) * 32 + k];
-        sc += red[(w * seqlen + t) * 32 + kMaxDstate + k];
-      }
-      p.dB[part + t * bc_step + k] = sb;
-      p.dC[part + t * bc_step + k] = sc;
+    store_outputs<T, kVec>(w, q, static_cast<T*>(p.du),
+                           static_cast<T*>(p.ddt), static_cast<T*>(p.dz));
+    // this unit's dB and dC over the tile's channels
+    const int64_t part_row =
+        (static_cast<int64_t>(blockIdx.y % p.tiles) * p.batch + q.row) *
+        p.seqlen;
+    for (int e = threadIdx.x; e < q.nsteps * 32; e += kThreads) {
+      const int n = e % kMaxDstate;
+      if (n >= p.dstate) continue;
+      const int64_t off =
+          ((part_row + q.time(e / 32)) * p.ngroups + q.group) * p.dstate + n;
+      ((e % 32) < kMaxDstate ? p.dB : p.dC)[off] = warp_total(w.red, p.S, e);
     }
   }
 
-  if (active) {
-    const int64_t prow = static_cast<int64_t>(blockIdx.x) * dim + ch;
-    for (int k = 0; k < dstate; ++k) p.dA[prow * dstate + k] = dA[k];
-    if (p.dD) p.dD[prow] = dD;
-    if (p.dbias) p.dbias[prow] = dbias;
+  bool forward;
+  const UnitPlace q = walk_place(p, 0, forward);
+  if (L.cw < q.valid) {
+    const int64_t prow =
+        static_cast<int64_t>(blockIdx.x) * p.dim + q.ch0 + L.cw;
+    const int q4 = L.quarter * kStates;
+#pragma unroll
+    for (int k = 0; k < kStates; ++k) {
+      if (q4 + k < p.dstate) p.dA[prow * p.dstate + q4 + k] = L.dA[k];
+    }
+    if (L.quarter == 0) {
+      if (p.dD) p.dD[prow] = L.dD;
+      if (p.dbias) p.dbias[prow] = L.dbias;
+    }
   }
 }
 
-template <typename T>
-int launch(const Params& p, int row_groups, int threads, cudaStream_t s) {
-  const int nseg = (p.seqlen + kSeg - 1) / kSeg;
-  const size_t smem =
-      sizeof(float) * (2 * p.seqlen * kMaxDstate +
-                       (threads / 32) * p.seqlen * 32 +
-                       (nseg - 1) * kMaxDstate * threads);
+template <typename T, bool kVec>
+int launch_vec(const Params& p, int row_groups, cudaStream_t s) {
+  const int smem = static_cast<int>(smem_bytes<T>(p.S));
   cudaError_t err = cudaFuncSetAttribute(
-      short_scan_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      short_scan_bwd_lanes<T, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(row_groups),
                   static_cast<unsigned>(p.ngroups * p.tiles));
-  short_scan_bwd_kernel<T><<<grid, threads, smem, s>>>(p);
+  short_scan_bwd_lanes<T, kVec><<<grid, kThreads, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const Params& p, int row_groups, cudaStream_t s) {
+  const bool vec = vec_ok({p.u, p.dt, p.z, p.B, p.C, p.g, p.du, p.ddt, p.dz},
+                          p.dim, p.width, p.dstate, sizeof(T));
+  return vec ? launch_vec<T, true>(p, row_groups, s)
+             : launch_vec<T, false>(p, row_groups, s);
 }
 
 }  // namespace
@@ -377,10 +298,10 @@ extern "C" {
 // float32). B and C are (batch, seqlen, ngroups, dstate) with dim divisible
 // by ngroups. z and dz, D and dD, bias and dbias are null together.
 // `row_groups` (1 <= row_groups <= batch) row groups each write one partial
-// of dA, dD and dbias; every channel tile of a group writes one partial of
-// dB and dC, (tiles, batch, seqlen, ngroups, dstate), where tiles is
-// ceil(dim / ngroups / min(128, dim / ngroups rounded up to 32)). Returns
-// the cudaError_t of the launch (0 on success).
+// of dA, dD and dbias; every 32-channel tile of a group writes one partial
+// of dB and dC, (tiles, batch, seqlen, ngroups, dstate), where tiles is
+// ceil(dim / ngroups / 32). Returns the cudaError_t of the launch (0 on
+// success).
 int short_scan_bwd(int dtype, long long batch, int seqlen, int dim,
                    int dstate, int ngroups, int row_groups, int reverse,
                    int softplus, const void* u, const void* dt,
@@ -389,23 +310,13 @@ int short_scan_bwd(int dtype, long long batch, int seqlen, int dim,
                    const void* g, void* du, void* ddt, void* dz, void* dA,
                    void* dB, void* dC, void* dD, void* dbias, void* stream) {
   if (batch < 1 || batch > 0x7fffffffLL || seqlen < 1 ||
-      seqlen > kMaxSeqlen || dim < 1 || dstate < 1 ||
+      seqlen > kMaxSteps || dim < 1 || dstate < 1 ||
       dstate > kMaxDstate || ngroups < 1 || dim % ngroups != 0 ||
       row_groups < 1 || row_groups > batch || (dtype != 0 && dtype != 1) ||
       !u || !dt || !B || !C || !A || !g || !du || !ddt || !dA || !dB ||
       !dC || (!z != !dz) || (!D != !dD) || (!bias != !dbias)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // a block's channels lie in one group: as many threads as the group has
-  // channels, rounded up to a warp, at most kMaxThreads
-  const int group_dim = dim / ngroups;
-  const int rounded = (group_dim + 31) / 32 * 32;
-  const int threads = rounded < kMaxThreads ? rounded : kMaxThreads;
-  const int tiles = (group_dim + threads - 1) / threads;
-  if (static_cast<long long>(ngroups) * tiles > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-
   Params p;
   p.u = u;
   p.dt = dt;
@@ -424,19 +335,23 @@ int short_scan_bwd(int dtype, long long batch, int seqlen, int dim,
   p.dC = static_cast<float*>(dC);
   p.dD = static_cast<float*>(dD);
   p.dbias = static_cast<float*>(dbias);
-  p.batch = batch;
+  p.batch = static_cast<int>(batch);
   p.seqlen = seqlen;
   p.dim = dim;
   p.dstate = dstate;
   p.ngroups = ngroups;
-  p.group_dim = group_dim;
-  p.tiles = tiles;
+  p.width = dim / ngroups;
+  p.tiles = (p.width + kChannels - 1) / kChannels;
+  p.nunits = (seqlen + kUnitSteps - 1) / kUnitSteps;
+  p.S = p.nunits > 1 ? kUnitSteps : (seqlen + kPiece - 1) / kPiece * kPiece;
   p.reverse = reverse;
   p.softplus = softplus;
-
+  if (static_cast<long long>(ngroups) * p.tiles > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(p, row_groups, threads, s);
-  return launch<__nv_bfloat16>(p, row_groups, threads, s);
+  if (dtype == 0) return launch<float>(p, row_groups, s);
+  return launch<__nv_bfloat16>(p, row_groups, s);
 }
 
 const char* short_scan_bwd_error_string(int code) {

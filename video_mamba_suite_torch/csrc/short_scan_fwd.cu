@@ -22,32 +22,50 @@
 //   Mamba LM prefill (batch 8, seqlen 16, dim 1536, dstate 16, bf16):
 //     u, dt, z in and y out, 4 x 0.39 MB, the fp32 last state 0.79 MB, A
 //     0.1 MB: about 2.5 MB, so about 0.75 us; 3.1 M state updates at about
-//     6 operations, 0.3 us. The launch itself (a few us) bounds it.
+//     6 operations, 0.3 us. The launch and the walk's latency bound it:
+//     16 dependent steps.
+//   short anticipation call (batch 16, seqlen 64, dim 2048, dstate 16,
+//     fp32): 4 x 8.4 MB of u, dt, z and y, 2.1 MB of last state: about 36
+//     MB, 0.011 ms; 33.5 M state updates, 0.20 GFLOP, 0.003 ms. The bytes
+//     bound it.
 //   video-adapter shape (batch 1568, seqlen 16, dim 768, dstate 16, bf16):
 //     4 x 38.5 MB of u, dt, z and y, 77 MB of last state, 1.6 MB of B and
 //     C: about 233 MB, about 70 us; 308 M state updates, 1.85 GFLOP, about
-//     28 us. So the bound is the bytes.
+//     28 us. The bytes bound it.
 //
-// Design (simple and right first): one thread per (row, channel) with its
-// dstate states in fp32 registers; a block takes `blockDim.x` (32 to 128)
-// channels of one row, all inside one group, and first stages that group's
-// B and C for every step of the row in shared memory as fp32 (at most
-// 64 x 16 x 2 floats, 8 KB), so each step reads them from there. The walk
-// runs over the true seqlen, forward or backward (`reverse` maps step i to
-// L-1-i), so nothing is padded and no step is masked. Threads of a warp own
-// neighbouring channels, so the loads of u, dt, z and the stores of y are
-// coalesced along d; the y-reduction over the states is inside the thread.
-// Each thread writes its last state as dstate contiguous floats.
+// What the walk needs at those shapes: a thread a (row, channel) would
+// give the LM prefill 96 blocks of 128 threads (384 warps on 132 SMs),
+// each thread walking 16 states a step in series. So:
+//
+// Design: K3's (chunked_scan_fwd.cu) on scan_fwd.cuh's pieces, with one
+// segment from a zero state, never split, and no checkpoints. A block of
+// 128 threads takes one (row, group, 32-channel tile), a channel's 16
+// states over 4 lanes (4 a lane): at the LM prefill 8 x 48 = 384 blocks
+// (1536 warps), at the anticipation shape 1024. It walks the row 16 steps
+// at a time (`run_segment`), pipelined over three units with one block
+// barrier a unit: a unit's u, dt, z (16 x 32) and B, C (16 x 16) arrive in
+// shared memory by 16-byte cp.async (element copies where a pointer,
+// stride or width does not allow them); softplus(dt + bias), dt u, D u and
+// the gate are computed once a (step, channel) into fp32 working tiles,
+// with exp2 and the reciprocal on the special function unit; the walk
+// (`walk_unit`) takes one exp2 a state update, keeps each step's partial y
+// in registers and sums it over the 4 lanes after the unit; y leaves
+// through a shared tile as 16-byte stores, the last state as float4 stores
+// (`store_state`). Rows past the walk's end are exact identities (dt =
+// 0), so every unit walks its 16 rows with no branch a step. Nothing is
+// padded in device memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "scan_fwd.cuh"
+#include "scan_lanes.cuh"
+
 namespace {
 
-constexpr int kMaxSeqlen = 64;
-constexpr int kMaxDstate = 16;
-constexpr int kMaxThreads = 128;
+using namespace scan_lanes;
+using namespace scan_fwd;
 
 struct Params {
   const void* u;      // (batch, seqlen, dim)
@@ -61,99 +79,49 @@ struct Params {
   void* out;          // (batch, seqlen, dim)
   float* last;        // (batch, dim, dstate)
   int seqlen, dim, dstate, ngroups;
-  int group_dim;      // channels per group, dim / ngroups
-  int tiles;          // blocks per group
+  int width;     // channels a group
+  int tiles;     // 32-channel tiles a group
   int reverse, softplus;
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads, 5)
+    short_scan_fwd_lanes(Params p) {
+  extern __shared__ float4 smem4[];
+  const FwdTiles<T> w(smem4);
+  const UnitPlace q = unit_place(p, blockIdx.x);
+  const Copies cp = copies<T>(q.valid, p.dstate);
+  const FwdLane L = fwd_lane(p, q);
+  const int left = p.dstate - L.q4;
+  const bool vec = p.dstate % kStates == 0;
+  float h[kStates] = {0.f, 0.f, 0.f, 0.f};
+  float unused = 0.f;
+  float* no_ck = nullptr;
+  run_segment<T, kVec, true>(p, w, q, cp, 0, p.seqlen,
+                             [&](int n, int, int) {
+    walk_unit<T, true, false>(w, n, L, h, unused, 0u, no_ck, 0, left, vec);
+  });
+  if (L.active) {
+    store_state(p.last + (q.row * p.dim + L.ch) * p.dstate + L.q4, h, left,
+                vec);
+  }
+}
+
+template <typename T, bool kVec>
+int launch_vec(const Params& p, long long units, cudaStream_t s) {
+  constexpr int smem = static_cast<int>(FwdTiles<T>::bytes());
+  static_assert(smem <= 48 * 1024, "no opt-in to more shared memory");
+  short_scan_fwd_lanes<T, kVec><<<static_cast<unsigned>(units), kThreads,
+                                  smem, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// softplus as torch computes it (threshold 20), as in short_bidir_fwd.cu.
-__device__ __forceinline__ float softplus(float x) {
-  return x > 20.f ? x : log1pf(expf(x));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-    short_scan_fwd_kernel(Params p) {
-  // blockIdx.x: row; blockIdx.y: group * tiles + tile within the group
-  const int64_t row = blockIdx.x;
-  const int group = blockIdx.y / p.tiles;
-  const int c = (blockIdx.y % p.tiles) * blockDim.x + threadIdx.x;
-  const int ch = group * p.group_dim + c;
-
-  __shared__ float sB[kMaxSeqlen * kMaxDstate];
-  __shared__ float sC[kMaxSeqlen * kMaxDstate];
-  const int64_t bc_step = static_cast<int64_t>(p.ngroups) * p.dstate;
-  const int64_t bc_off = row * p.seqlen * bc_step + group * p.dstate;
-  const T* Bp = static_cast<const T*>(p.B) + bc_off;
-  const T* Cp = static_cast<const T*>(p.C) + bc_off;
-  for (int i = threadIdx.x; i < p.seqlen * p.dstate; i += blockDim.x) {
-    const int64_t src = (i / p.dstate) * bc_step + i % p.dstate;
-    sB[i] = to_float(Bp[src]);
-    sC[i] = to_float(Cp[src]);
-  }
-  __syncthreads();
-  if (c >= p.group_dim) return;
-
-  float A[kMaxDstate];
-  float h[kMaxDstate];
-#pragma unroll
-  for (int k = 0; k < kMaxDstate; ++k) {
-    A[k] = k < p.dstate ? p.A[ch * p.dstate + k] : 0.f;
-    h[k] = 0.f;
-  }
-  const float bias = p.bias ? p.bias[ch] : 0.f;
-  const float D = p.D ? p.D[ch] : 0.f;
-
-  const T* u = static_cast<const T*>(p.u);
-  const T* dtp = static_cast<const T*>(p.dt);
-  const T* z = static_cast<const T*>(p.z);
-  T* out = static_cast<T*>(p.out);
-  const int64_t base = row * p.seqlen * p.dim + ch;
-  for (int i = 0; i < p.seqlen; ++i) {
-    const int t = p.reverse ? p.seqlen - 1 - i : i;
-    const int64_t off = base + static_cast<int64_t>(t) * p.dim;
-    const float uv = to_float(u[off]);
-    float dt = to_float(dtp[off]) + bias;
-    if (p.softplus) dt = softplus(dt);
-    const float dtu = dt * uv;
-    const float* Bt = sB + t * p.dstate;
-    const float* Ct = sC + t * p.dstate;
-    float y = 0.f;
-#pragma unroll
-    for (int k = 0; k < kMaxDstate; ++k) {
-      if (k < p.dstate) {
-        h[k] = expf(dt * A[k]) * h[k] + dtu * Bt[k];
-        y += Ct[k] * h[k];
-      }
-    }
-    if (p.D) y += D * uv;
-    if (z) {
-      const float zv = to_float(z[off]);
-      y *= zv / (1.f + expf(-zv));
-    }
-    out[off] = from_float<T>(y);
-  }
-  float* last = p.last + (row * p.dim + ch) * p.dstate;
-#pragma unroll
-  for (int k = 0; k < kMaxDstate; ++k) {
-    if (k < p.dstate) last[k] = h[k];
-  }
+int launch(const Params& p, long long units, cudaStream_t s) {
+  const bool vec = vec_ok({p.u, p.dt, p.z, p.B, p.C, p.out}, p.dim, p.width,
+                          p.dstate, sizeof(T));
+  return vec ? launch_vec<T, true>(p, units, s)
+             : launch_vec<T, false>(p, units, s);
 }
 
 }  // namespace
@@ -171,21 +139,11 @@ int short_scan_fwd(int dtype, long long batch, int seqlen, int dim,
                    const void* D, const void* bias, void* out, void* last,
                    void* stream) {
   if (batch < 1 || batch > 0x7fffffffLL || seqlen < 1 ||
-      seqlen > kMaxSeqlen || dim < 1 || dstate < 1 ||
+      seqlen > kMaxSteps || dim < 1 || dstate < 1 ||
       dstate > kMaxDstate || ngroups < 1 || dim % ngroups != 0 ||
       (dtype != 0 && dtype != 1) || !last) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // a block's channels lie in one group: as many threads as the group has
-  // channels, rounded up to a warp, at most kMaxThreads
-  const int group_dim = dim / ngroups;
-  const int rounded = (group_dim + 31) / 32 * 32;
-  const int threads = rounded < kMaxThreads ? rounded : kMaxThreads;
-  const int tiles = (group_dim + threads - 1) / threads;
-  if (static_cast<long long>(ngroups) * tiles > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-
   Params p;
   p.u = u;
   p.dt = dt;
@@ -201,20 +159,15 @@ int short_scan_fwd(int dtype, long long batch, int seqlen, int dim,
   p.dim = dim;
   p.dstate = dstate;
   p.ngroups = ngroups;
-  p.group_dim = group_dim;
-  p.tiles = tiles;
+  p.width = dim / ngroups;
+  p.tiles = (p.width + kChannels - 1) / kChannels;
   p.reverse = reverse;
   p.softplus = softplus;
-
-  const dim3 grid(static_cast<unsigned>(batch),
-                  static_cast<unsigned>(ngroups * tiles));
+  const long long units = batch * ngroups * static_cast<long long>(p.tiles);
+  if (units > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    short_scan_fwd_kernel<float><<<grid, threads, 0, s>>>(p);
-  } else {
-    short_scan_fwd_kernel<__nv_bfloat16><<<grid, threads, 0, s>>>(p);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0) return launch<float>(p, units, s);
+  return launch<__nv_bfloat16>(p, units, s);
 }
 
 const char* short_scan_fwd_error_string(int code) {

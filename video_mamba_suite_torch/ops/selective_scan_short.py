@@ -33,7 +33,7 @@ KERNEL = "short_scan_fwd"
 BWD_KERNEL = "short_scan_bwd"
 SHORT_SEQ_MAX = 64   # longest sequence (rounded up to 8) of the short scans
 BWD_ROW_GROUPS = 256  # most row groups (partials of dA, dD, dbias) of K6
-BWD_MAX_THREADS = 128  # most channels per K6 block (one dB/dC partial)
+BWD_TILE = 32         # channels of a K6 block (one dB/dC partial)
 
 
 def use_short_scan(seqlen: int,
@@ -145,9 +145,7 @@ def short_scan_bwd(u, delta, A, B, C, D=None, z=None, delta_bias=None,
         "short_scan_bwd", u, delta, A, B, C, D, z, delta_bias, initial_state,
         g=(g, tuple(u.shape), u.dtype))
     groups = max(1, min(batch, BWD_ROW_GROUPS))
-    group_dim = dim // ngroups
-    threads = min(-(-group_dim // 32) * 32, BWD_MAX_THREADS)
-    tiles = -(-group_dim // threads)
+    tiles = -(-(dim // ngroups) // BWD_TILE)
     f32 = dict(dtype=torch.float32, device=u.device)
     # the kernel writes every element of its outputs and partials
     alloc = torch.empty if u.numel() else torch.zeros
