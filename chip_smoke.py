@@ -115,6 +115,20 @@ Phases, each of which fails the run:
      and backward through autograd with cotangents on the output and the
      complex last state: exactly one K7 and one K8 per call (one K7 alone
      without a backward); the card against the plain version on 2 rows.
+ 16. ActionMamba (temporal action localization): ``build_tal_trainer``
+     at the THUMOS-14 preset's widths (``configs.TAL_THUMOS``: batch 2 x
+     2304 steps x 3200 features, 20 classes, a DBM pyramid of width 512
+     and 6 levels, drop-path 0.1; fp32; synthetic features staged on the
+     card once): 2 warm-ups, then 10 timed ``TalTrainer.train_step``
+     calls with exactly 14 K3 (writing checkpoints) and 14 K4 a step and
+     no other scan kernel; ms/step, peak memory and a profile window.
+     ``predict_video`` over 4 synthetic videos (14 K3 a video, no
+     checkpoints), ms/video, and ``evaluate``'s mAP (no target). The
+     ActivityNet preset (``configs.TAL_ANET``: batch 16 x 192 steps)
+     with exactly 8 K3, 8 K4, 3 K1 and 3 K2 a step. Then full-width fp32
+     ActionMamba (THUMOS), card against CPU: every level's logits and
+     offsets and one step's gradients. Their scan launches add to the
+     kernels line's counts.
 Prints a ``{"kernels": [...]}`` line (K1-K11) and, last, ``{"ok": true,
 ...}``.
 """
@@ -150,18 +164,22 @@ K1_REPLACES = "video_mamba_suite_tpu/ops/selective_scan_pallas.py:1244"
 K2_SOURCE = "video_mamba_suite_torch/csrc/short_bidir_bwd.cu"
 K2_REPLACES = "video_mamba_suite_tpu/ops/selective_scan_pallas.py:1292"
 # K1 against its plain version: (label, (batch, seqlen, dim, dstate), I/O
-# dtype, with D and z). tests/test_torch_kernels_cuda.py runs the same cases.
+# dtype, with D and z, with A, D and bias one tensor in both directions).
+# tests/test_torch_kernels_cuda.py runs the same cases.
 # The last four reach the edges of K1's 128-channel tile: 64 fp32 steps
 # (the largest shared tile), one step, 200 bf16 channels (16-byte copies;
 # the second tile holds 72), and 8 states (16-byte B/C rows of 32 bytes).
 K1_CASES = [
-    ("main", (1568, 16, 768, 16), "bfloat16", True),    # TimeMamba-B
-    ("ragged", (37, 11, 200, 13), "float32", True),     # no tile fits
-    ("longest-no-Dz", (5, 64, 33, 4), "float32", False),
-    ("l64-fp32", (7, 64, 256, 16), "float32", True),
-    ("one-step", (9, 1, 96, 16), "bfloat16", True),
-    ("ragged-vec-bf16", (6, 16, 200, 16), "bfloat16", True),
-    ("n8-vec", (5, 16, 128, 8), "float32", True),   # 16-byte B/C rows
+    ("main", (1568, 16, 768, 16), "bfloat16", True, False),  # TimeMamba-B
+    ("ragged", (37, 11, 200, 13), "float32", True, False),  # no tile fits
+    ("longest-no-Dz", (5, 64, 33, 4), "float32", False, False),
+    ("l64-fp32", (7, 64, 256, 16), "float32", True, False),
+    ("one-step", (9, 1, 96, 16), "bfloat16", True, False),
+    ("ragged-vec-bf16", (6, 16, 200, 16), "bfloat16", True, False),
+    ("n8-vec", (5, 16, 128, 8), "float32", True, False),  # 16-byte B/C rows
+    # ActionMamba's ActivityNet level of 12 steps (no multiple of 8), the
+    # DBM mixer's shared parameters in both directions
+    ("tal-anet-l12", (16, 12, 512, 16), "float32", True, True),
 ]
 # fp32 as the JAX kernel tests; bf16 output one to two bf16 ulps apart
 # (both round an fp32 result; sums differ in order)
@@ -174,8 +192,8 @@ K1_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 2e-2)}
 # (du, ddt, dz, dB, dC) one to two bf16 ulps apart, the fp32 sums (dA, dD,
 # dbias) in another order.
 K2_CASES = K1_CASES + [
-    ("one-step-ragged", (9, 1, 130, 16), "float32", True),
-    ("l63-n7", (3, 63, 64, 7), "bfloat16", True),
+    ("one-step-ragged", (9, 1, 130, 16), "float32", True, False),
+    ("l63-n7", (3, 63, 64, 7), "bfloat16", True, False),
 ]
 K2_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 2e-2)}
 K3_SOURCE = "video_mamba_suite_torch/csrc/chunked_scan_fwd.cu"
@@ -210,6 +228,8 @@ K3_CASES = [
     # 16-byte copies of 8-state B/C rows in groups of 64 channels
     ("n8-vec-grouped-reverse", (2, 200, 128, 8), "float32",
      {"groups": 2, "reverse": True}),
+    # ActionMamba's THUMOS-14 stem: the DBM mixer's anti-causal direction
+    ("tal-thumos-reverse", (2, 2304, 512, 16), "float32", {"reverse": True}),
 ]
 # each output within atol · (its largest magnitude) + rtol · |value|: a long
 # scan's outputs reach tens, and a value near 0 carries the rounding of
@@ -242,6 +262,7 @@ K4_CASES = [
     ("l37-d100-n5-reverse-h0", (2, 37, 100, 5), "float32",
      {"reverse": True, "h0": True}),
     ("grouped4-bf16", (4, 64, 384, 16), "bfloat16", {"groups": 4}),
+    ("tal-thumos-reverse", (2, 2304, 512, 16), "float32", {"reverse": True}),
 ]
 # each gradient within atol · (its largest magnitude) + rtol · |value|, as
 # K2: fp32 sums (dA over 3152 steps and the rows, dB and dC over the
@@ -622,6 +643,27 @@ VISION_DEPTH = 12                # video-tower blocks (one K1, one K10 each)
 # (the text embeddings) on an H100 80GB HBM3 (PERF.md), held at about ten
 # times that
 CARD_CPU_CLIP_REL_TOL = 1.5e-5
+TAL_STEPS = 10                   # timed ActionMamba train steps
+TAL_EVAL_VIDEOS = 4              # synthetic THUMOS videos of the eval phase
+TAL_MAX_GT = 32                  # ground-truth slots of a collated batch
+# scan launches a train step (forward with checkpoints, backward): the
+# THUMOS pyramid's seven DBM mixers at 2304, 2304, 2304, 1152, 576, 288
+# and 144 steps, two directions each; ActivityNet's at 192 (three), 96 (a
+# scan per direction) and 48, 24, 12 (one fused scan each)
+TAL_THUMOS_LAUNCHES = {"chunked_scan_fwd": 14, "chunked_scan_bwd": 14}
+TAL_ANET_LAUNCHES = {"chunked_scan_fwd": 8, "chunked_scan_bwd": 8,
+                     "short_bidir_fwd": 3, "short_bidir_bwd": 3}
+# ActionMamba at THUMOS-14's full width and depth, fp32, TF32 off, one
+# video padded from 2000 to 2304 steps, the drop-path scales set to 1 so
+# the mixers count: the card against the CPU, each level's logits and
+# offsets by the largest difference over the largest CPU magnitude of
+# their kind: read 1.6e-6 and 4.2e-6 on an H100 80GB HBM3 (PERF.md), held
+# at about ten times that; each parameter's gradient over its largest CPU
+# value: read 1.9e-4 (the first level's neck norm weight, a sum over
+# 2304 steps through cuDNN's convolutions and the heads), held at about
+# ten times that
+CARD_CPU_TAL_REL_TOL = 4e-5
+CARD_CPU_TAL_GRAD_REL_TOL = 2e-3
 
 
 def log(*a):
@@ -666,9 +708,10 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
 # K1: fused bidirectional short scan
 
 
-def k1_inputs(shape, dtype, seed, has_dz=True, device="cuda"):
+def k1_inputs(shape, dtype, seed, has_dz=True, device="cuda", shared=False):
     """Seeded inputs of K1 at (batch, seqlen, dim, dstate); ``dtype`` names
-    the I/O dtype (A, D and bias are fp32)."""
+    the I/O dtype (A, D and bias are fp32). ``shared``: Ab, Db and biasb
+    are the tensors Af, Df and biasf, as the DBM mixer passes them."""
     import torch
 
     batch, seqlen, dim, dstate = shape
@@ -691,13 +734,16 @@ def k1_inputs(shape, dtype, seed, has_dz=True, device="cuda"):
         io["A" + s] = -0.5 * unif(dim, dstate)
         io["D" + s] = normal(dim)
         io["bias" + s] = 0.5 * unif(dim)
+    if shared:
+        for k in ("A", "D", "bias"):
+            io[k + "b"] = io[k + "f"]
     if not has_dz:
         for k in ("Df", "Db", "zf", "zb"):
             del io[k]
     return io
 
 
-def k1_check(label, shape, dtype, has_dz):
+def k1_check(label, shape, dtype, has_dz, shared=False):
     """Launch K1 once on the card at one of ``K1_CASES`` and hold it against
     its plain version. Returns (inputs, outputs, max_abs_err, max_rel_err);
     raises AssertionError on a miss."""
@@ -708,7 +754,8 @@ def k1_check(label, shape, dtype, has_dz):
         selective_scan_bidir_ref,
     )
 
-    args = k1_inputs(shape, dtype, seed=sum(shape), has_dz=has_dz)
+    args = k1_inputs(shape, dtype, seed=sum(shape), has_dz=has_dz,
+                     shared=shared)
     n0 = LAUNCHES["short_bidir_fwd"]
     got = selective_scan_bidir(**args)
     torch.cuda.synchronize()
@@ -727,7 +774,8 @@ def k1_check(label, shape, dtype, has_dz):
               for d, w in zip(diff, want))
     ok = all(torch.allclose(g.float(), w.float(), atol=atol, rtol=rtol)
              for g, w in zip(got, want))
-    log(f"[k1] {label} {shape} {dtype}{'' if has_dz else ' no D/z'}: "
+    log(f"[k1] {label} {shape} {dtype}{'' if has_dz else ' no D/z'}"
+        f"{' shared A/D/bias' if shared else ''}: "
         f"max_abs_err {err:.3e} max_rel_err {rel:.3e} (tol atol {atol} "
         f"rtol {rtol}) {'ok' if ok else 'MISMATCH'}")
     if not ok:
@@ -741,7 +789,8 @@ def k1_bound_ms(args, out):
     each output written once over HBM, against 6 fp32 operations per state
     update and direction. Also logs a third reading, outside the bound: one
     exponential per state update over the special function units' rate."""
-    nbytes = sum(t.numel() * t.element_size() for t in args.values())
+    unique = {id(t): t for t in args.values()}.values()   # shared A, D, bias
+    nbytes = sum(t.numel() * t.element_size() for t in unique)
     nbytes += sum(t.numel() * t.element_size() for t in out)
     batch, seqlen, dim = args["uf"].shape
     updates = 2.0 * batch * seqlen * dim * args["Bf"].shape[-1]
@@ -769,16 +818,17 @@ def check_k1():
         args, got, err, _ = k1_check(*case)
         check_scan_route("K1", case[0], case[2],
                          lambda: selective_scan_bidir(**args), "k1")
-        if case[0] == "main":
-            result["max_abs_err"] = err
-            result["ms"] = cuda_time_ms(
-                lambda: selective_scan_bidir(**args), iters=50)
-            result["plain_ms"] = cuda_time_ms(
+        if case[0] == "main" or case[4]:     # and the DBM mixer's case
+            timed = dict(max_abs_err=err, ms=cuda_time_ms(
+                lambda: selective_scan_bidir(**args), iters=50))
+            timed["plain_ms"] = cuda_time_ms(
                 lambda: selective_scan_bidir_ref(**args), iters=5, warmup=1)
-            result["bound_ms"], result["bound_by"] = k1_bound_ms(args, got)
-            log(f"[k1] main: kernel {result['ms']:.4f} ms, plain "
-                f"{result['plain_ms']:.4f} ms, bound "
-                f"{result['bound_ms']:.4f} ms ({result['bound_by']})")
+            timed["bound_ms"], timed["bound_by"] = k1_bound_ms(args, got)
+            log(f"[k1] {case[0]}: kernel {timed['ms']:.4f} ms, plain "
+                f"{timed['plain_ms']:.4f} ms, bound "
+                f"{timed['bound_ms']:.4f} ms ({timed['bound_by']})")
+            if case[0] == "main":
+                result = timed
     return result
 
 
@@ -786,11 +836,11 @@ def check_k1():
 # K2: its adjoint
 
 
-def k2_inputs(shape, dtype, seed, has_dz=True, device="cuda"):
+def k2_inputs(shape, dtype, seed, has_dz=True, device="cuda", shared=False):
     """K1's inputs at one of ``K2_CASES`` and the two cotangents."""
     import torch
 
-    args = k1_inputs(shape, dtype, seed, has_dz, device)
+    args = k1_inputs(shape, dtype, seed, has_dz, device, shared)
     g = torch.Generator(device=device).manual_seed(seed + 1)
     batch, seqlen, dim, _ = shape
     cot = {k: torch.randn(batch, seqlen, dim, device=device,
@@ -799,10 +849,12 @@ def k2_inputs(shape, dtype, seed, has_dz=True, device="cuda"):
     return args, cot
 
 
-def k2_check(label, shape, dtype, has_dz):
+def k2_check(label, shape, dtype, has_dz, shared=False):
     """Launch K2 once on the card at one of ``K2_CASES`` and hold its 16
-    gradients against the plain version's. Returns (inputs, cotangents,
-    gradients, max_abs_err); raises AssertionError on a miss."""
+    gradients against the plain version's; with ``shared`` also the
+    gradients autograd sums into the shared A, D and bias
+    (``k2_shared_check``). Returns (inputs, cotangents, gradients,
+    max_abs_err); raises AssertionError on a miss."""
     import torch
     from video_mamba_suite_torch.ops import (
         LAUNCHES,
@@ -810,7 +862,8 @@ def k2_check(label, shape, dtype, has_dz):
         selective_scan_bidir_bwd_ref,
     )
 
-    args, cot = k2_inputs(shape, dtype, seed=sum(shape) + 7, has_dz=has_dz)
+    args, cot = k2_inputs(shape, dtype, seed=sum(shape) + 7, has_dz=has_dz,
+                          shared=shared)
     n0 = LAUNCHES["short_bidir_bwd"]
     got = selective_scan_bidir_bwd(**args, **cot)
     torch.cuda.synchronize()
@@ -850,7 +903,66 @@ def k2_check(label, shape, dtype, has_dz):
     if not ok:
         raise AssertionError(f"K2 disagrees with its plain version at "
                              f"{label} {shape}")
+    if shared:
+        k2_shared_check(label, args, cot, got, dtype)
     return args, cot, got, abs_err
+
+
+def k2_shared_check(label, args, cot, got, dtype):
+    """With A, D and bias one tensor in both directions (the DBM mixer's
+    shared parameters): K2's two slots of each must not share storage, and
+    a backward through K1/K2's autograd ``Function`` must sum both
+    directions' gradients into each shared tensor (and give u and dt of
+    each direction theirs) as the plain version's autograd does, within
+    ``K2_TOL`` of each gradient's largest magnitude."""
+    import torch
+    from video_mamba_suite_torch.ops import (
+        selective_scan_bidir,
+        selective_scan_bidir_ref,
+    )
+
+    for i, name in ((2, "A"), (5, "D"), (7, "bias")):
+        f, b = got[i], got[8 + i]
+        if f is not None and f.data_ptr() == b.data_ptr():
+            raise AssertionError(f"K2 at {label}: d{name}f and d{name}b "
+                                 "share storage")
+
+    def grads(fn):
+        leaves = {k: v.detach().clone().requires_grad_()
+                  for k, v in args.items()
+                  if not (k[-1] == "b" and k[:-1] in ("A", "D", "bias"))}
+        call = dict(leaves)
+        for k in ("A", "D", "bias"):
+            if k + "f" in leaves:
+                call[k + "b"] = leaves[k + "f"]
+        outs = fn(**call)
+        torch.autograd.backward(outs, (cot["gf"], cot["gb"]))
+        return {k: v.grad for k, v in leaves.items()}
+
+    have = grads(selective_scan_bidir)
+    want = grads(selective_scan_bidir_ref)
+    atol, rtol = K2_TOL[dtype]
+    worst, ok = 0.0, True
+    for k, w in want.items():
+        h = have[k]
+        if h is None or w is None:
+            raise AssertionError(f"K2 at {label} (shared): {k} got no "
+                                 "gradient")
+        d = (h.float() - w.float()).abs()
+        scale = w.float().abs().max().item()
+        bad = d > atol * scale + rtol * w.float().abs()
+        if bad.any() or not torch.isfinite(h).all():
+            ok = False
+            log(f"[k2] {label} shared: {k} misses at {int(bad.sum())} of "
+                f"{h.numel()} (max abs err {d.max().item():.3e}, scale "
+                f"{scale:.3e})")
+        worst = max(worst, d.max().item() / max(scale, 1e-30))
+    log(f"[k2] {label} shared A/D/bias through autograd: largest error "
+        f"over scale {worst:.3e} over {len(want)} gradients "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"K2's autograd disagrees with the plain "
+                             f"version at {label} with shared parameters")
 
 
 def k2_bound_ms(args, cot, grads):
@@ -858,8 +970,8 @@ def k2_bound_ms(args, cot, grads):
     read once and each gradient written once over HBM, against 20 fp32
     operations per state update and direction (the forward state, the
     gate's y, and the adjoint step's dh, dA, ddt, dB, dC and du terms)."""
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (*args.values(), *cot.values()))
+    unique = {id(t): t for t in (*args.values(), *cot.values())}.values()
+    nbytes = sum(t.numel() * t.element_size() for t in unique)
     nbytes += sum(t.numel() * t.element_size() for t in grads
                   if t is not None)
     batch, seqlen, dim = args["uf"].shape
@@ -917,18 +1029,19 @@ def check_k2():
         check_scan_route("K2", case[0], case[2],
                          lambda: selective_scan_bidir_bwd(**args, **cot),
                          "k2")
-        if case[0] == "main":
-            result["max_abs_err"] = err
-            result["ms"] = cuda_time_ms(
-                lambda: selective_scan_bidir_bwd(**args, **cot), iters=20)
-            result["plain_ms"] = cuda_time_ms(
+        if case[0] == "main" or case[4]:     # and the DBM mixer's case
+            timed = dict(max_abs_err=err, ms=cuda_time_ms(
+                lambda: selective_scan_bidir_bwd(**args, **cot), iters=20))
+            timed["plain_ms"] = cuda_time_ms(
                 lambda: selective_scan_bidir_bwd_ref(**args, **cot),
                 iters=3, warmup=1)
-            result["bound_ms"], result["bound_by"] = k2_bound_ms(
+            timed["bound_ms"], timed["bound_by"] = k2_bound_ms(
                 args, cot, got)
-            log(f"[k2] main: kernel {result['ms']:.4f} ms, plain "
-                f"{result['plain_ms']:.4f} ms, bound "
-                f"{result['bound_ms']:.4f} ms ({result['bound_by']})")
+            log(f"[k2] {case[0]}: kernel {timed['ms']:.4f} ms, plain "
+                f"{timed['plain_ms']:.4f} ms, bound "
+                f"{timed['bound_ms']:.4f} ms ({timed['bound_by']})")
+            if case[0] == "main":
+                result = timed
     return result
 
 
@@ -3727,6 +3840,255 @@ def run_complex_scan():
     return launches
 
 
+def profile_seen(what, fn, tag, tries=4):
+    """``profile`` repeated, up to ``tries`` sessions, until a session
+    records device time (late in this script a session can record
+    none)."""
+    for _ in range(tries):
+        device = profile(what, fn, tag=tag)
+        if device:
+            return device
+    return {}
+
+
+def tal_batch(config, batch, seed):
+    """``batch`` synthetic videos at the configuration's widths (its
+    feature width, classes and training length), collated and staged on
+    the card once: (items, [feats, mask, segments, labels, valid])."""
+    import torch
+    from video_mamba_suite_torch.tasks.tal import (
+        collate_tal,
+        make_synthetic_tal,
+    )
+
+    d = config["dataset"]
+    items = make_synthetic_tal(batch, d["num_classes"], d["input_dim"],
+                               d["max_seq_len"], seed=seed)
+    arrays = collate_tal(items, d["max_seq_len"], TAL_MAX_GT)
+    return items, [torch.as_tensor(a).cuda() for a in arrays]
+
+
+def run_tal_train(label, config, want):
+    """ActionMamba's train step at a preset's full widths
+    (``build_tal_trainer``: AdamW, warmup-cosine, clip 1.0, EMA 0.999,
+    drop-path 0.1 from the trainer's generator on the card; fp32, the
+    convolutions and matmuls at PyTorch's defaults) on synthetic features
+    staged on the card once: 2 warm-ups (every parameter a finite
+    gradient), then ``TAL_STEPS`` timed steps, each ending with its loss
+    dict read, with exactly ``want`` scan launches a step (K3 with
+    checkpoints), no other scan kernel and no plain version. Returns the
+    trainer and the timed steps' launches."""
+    import torch
+    from video_mamba_suite_torch import build_tal_trainer
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+
+    t0 = time.perf_counter()
+    trainer = build_tal_trainer(config, seed=0)
+    model = trainer.model
+    batch = config["loader"]["batch_size"]
+    _, arrays = tal_batch(config, batch, seed=16)
+    log(f"[tal-train] {label}: built and staged in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M "
+        f"parameters, levels {model.level_lengths(arrays[0].shape[1])}")
+    losses = [trainer.train_step(*arrays)]                   # warm-up
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not torch.isfinite(p.grad).all()]
+    if bad:
+        raise AssertionError(f"{label}: no or non-finite gradient at {bad}")
+    first = [p.detach().clone() for p in model.parameters()]
+    losses.append(trainer.train_step(*arrays))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times = []
+    with count_plain_calls() as plain, count_checkpoint_writes() as ck:
+        for _ in range(TAL_STEPS):
+            t0 = time.perf_counter()
+            losses.append(trainer.train_step(*arrays))
+            times.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want_all = {k: v * TAL_STEPS for k, v in want.items()}
+    writes = ck["chunked_scan_fwd with checkpoints"]
+    if launches != want_all or sum(plain.values()) or \
+            writes != want_all["chunked_scan_fwd"]:
+        raise AssertionError(f"{label} train steps launched {launches} "
+                             f"(want {want_all}), plain-version calls "
+                             f"{dict(plain)}, checkpoint writes {writes}")
+    moved = sum(not torch.equal(a, p.detach())
+                for a, p in zip(first, model.parameters()))
+    if not all(math.isfinite(v) for step in losses for v in step.values()) \
+            or moved < len(first) // 2:
+        raise AssertionError(f"{label}: losses {losses}, {moved} of "
+                             f"{len(first)} parameters moved")
+    times.sort()
+    median = statistics.median(times)
+    log(f"[tal-train] {label}: {TAL_STEPS} steps of {batch} videos x "
+        f"{arrays[0].shape[1]} steps x {arrays[0].shape[2]} features, fp32, "
+        f"on {card_line()}: median {1e3 * median:.2f} ms/step (min "
+        f"{1e3 * times[0]:.2f}, max {1e3 * times[-1]:.2f}), "
+        f"{batch / median:.1f} videos/s; peak memory {peak / 2**30:.2f} "
+        f"GiB; launches {launches}, checkpoint writes {writes}, "
+        f"plain-version calls {dict(plain)}; {moved} of {len(first)} "
+        f"parameters moved")
+    log(f"[tal-train] {label} final_loss by step (the normaliser moving "
+        f"from 100): "
+        + " ".join(f"{step['final_loss']:.5f}" for step in losses))
+    profile_seen("step", lambda: trainer.train_step(*arrays),
+                 tag=f"profile-tal-train-{label}")
+    return trainer, launches
+
+
+def run_tal_eval(trainer, config):
+    """THUMOS eval: ``predict_video`` (the EMA weights; 14 K3 a video,
+    without checkpoints, then the decode on the card, soft-NMS and voting
+    on the host) over ``TAL_EVAL_VIDEOS`` synthetic videos of the
+    preset's length, ms per video; then ``evaluate``'s mAP over them (a
+    number with no target: random weights, synthetic data)."""
+    import numpy as np
+    import torch
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+    from video_mamba_suite_torch.tasks.tal import make_synthetic_tal
+
+    d = config["dataset"]
+    items = make_synthetic_tal(TAL_EVAL_VIDEOS, d["num_classes"],
+                               d["input_dim"], d["max_seq_len"], seed=17)
+    trainer.predict_video(items[0])                          # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    times, kept = [], []
+    with count_plain_calls() as plain, count_checkpoint_writes() as ck:
+        for item in items:
+            t0 = time.perf_counter()
+            out = trainer.predict_video(item)
+            times.append(time.perf_counter() - t0)
+            kept.append(len(out["segments"]))
+            if not (np.isfinite(out["segments"]).all()
+                    and np.isfinite(out["scores"]).all()):
+                raise AssertionError(f"predict_video gave values that are "
+                                     f"not finite: {out}")
+    launches = dict(LAUNCHES)
+    want = {"chunked_scan_fwd": 14 * len(items)}
+    writes = ck["chunked_scan_fwd with checkpoints"]
+    if launches != want or writes or sum(plain.values()):
+        raise AssertionError(f"predict_video launched {launches} (want "
+                             f"{want}), checkpoint writes {writes}, "
+                             f"plain-version calls {dict(plain)}")
+    t0 = time.perf_counter()
+    mAP, avg = trainer.evaluate(items)
+    eval_s = time.perf_counter() - t0
+    if not np.isfinite(mAP).all():
+        raise AssertionError(f"evaluate's mAP is not finite: {mAP}")
+    times.sort()
+    log(f"[tal-eval] THUMOS predict_video, {len(items)} synthetic videos "
+        f"of {d['max_seq_len']} steps on {card_line()}: median "
+        f"{1e3 * statistics.median(times):.2f} ms/video (min "
+        f"{1e3 * times[0]:.2f}, max {1e3 * times[-1]:.2f}), detections "
+        f"kept {kept}; launches {launches}; evaluate over them "
+        f"{1e3 * eval_s:.1f} ms, mAP at tIoU 0.3-0.7 "
+        f"{' '.join(f'{v:.4f}' for v in mAP)}, average {avg:.4f} "
+        f"(synthetic data, random weights: no target)")
+    model = trainer.inference_model()
+    feats = torch.as_tensor(items[0]["feats"].T[None]).cuda()
+    mask = torch.ones(feats.shape[:2], device="cuda")
+    with torch.inference_mode():
+        profile_seen("video forward", lambda: model(feats, mask),
+                     tag="profile-tal-eval")
+
+
+def card_against_cpu_tal():
+    """ActionMamba at THUMOS-14's full width and depth (``TAL_THUMOS``),
+    fp32 with TF32 off: the card through the kernels against the CPU
+    through the plain versions, one synthetic video of 2000 steps padded to
+    2304, the drop-path scales set to 1 (the mixers count; eval mode, no
+    drop). The logits and offsets of every level; then one step's
+    gradient at every parameter (label assignment, focal and DIoU losses,
+    backward)."""
+    import torch
+    from video_mamba_suite_torch.configs import TAL_THUMOS
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+    from video_mamba_suite_torch.tasks.tal import (
+        ActionMambaDetector,
+        collate_tal,
+        label_points,
+        make_synthetic_tal,
+        tal_losses,
+    )
+
+    set_tf32(False)
+    t0 = time.perf_counter()
+    d, m = TAL_THUMOS["dataset"], TAL_THUMOS["model"]
+    cpu = ActionMambaDetector(
+        d["input_dim"], d["num_classes"], max_seq_len=d["max_seq_len"],
+        embd_dim=m["embd_dim"], backbone_arch=tuple(m["backbone_arch"]),
+        regression_range=m["regression_range"], device="cpu", seed=1)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if name.endswith("drop_path.scale"):
+                p.fill_(1.0)
+    card = copy.deepcopy(cpu).to("cuda")
+    item = make_synthetic_tal(1, d["num_classes"], d["input_dim"], 2000,
+                              seed=18)[0]
+    feats, mask, segs, labels, valid = (
+        torch.as_tensor(a) for a in collate_tal([item], d["max_seq_len"],
+                                                TAL_MAX_GT))
+    points = torch.cat([torch.from_numpy(p) for p in cpu.make_points()(
+        cpu.level_lengths(d["max_seq_len"]))])
+
+    def rel(got, want):
+        return ((got.detach().cpu() - want).abs().max()
+                / want.abs().max().clamp_min(1e-30)).item()
+
+    reset_launches()
+    with torch.inference_mode():
+        want = cpu.eval()(feats, mask)
+        got = card.eval()(feats.cuda(), mask.cuda())
+        torch.cuda.synchronize()
+    errs = {kind: max(rel(g, w) for g, w in zip(gs, ws))
+            for kind, gs, ws in zip(("logits", "offsets"), got, want)}
+    fwd_launches = dict(LAUNCHES)
+    reset_launches()
+    grads = []
+    for model, dev in ((cpu, "cpu"), (card, "cuda")):
+        gt_cls, gt_off = label_points(points.to(dev), segs.to(dev),
+                                      labels.to(dev), valid.to(dev),
+                                      d["num_classes"])
+        cls_logits, offsets, masks = model(feats.to(dev), mask.to(dev))
+        losses, _ = tal_losses(masks, cls_logits, offsets, gt_cls, gt_off,
+                               torch.tensor(100.0, device=dev),
+                               d["num_classes"])
+        losses["final_loss"].backward()
+        grads.append(dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    bwd_launches = dict(LAUNCHES)
+    grad_err, grad_name, missing = 0.0, "", []
+    for name, p in grads[1].items():
+        ref = grads[0][name].grad
+        if p.grad is None or ref is None or not torch.isfinite(p.grad).all():
+            missing.append(name)
+            continue
+        r = rel(p.grad, ref)
+        if r >= grad_err:
+            grad_err, grad_name = r, name
+    log(f"[card-vs-cpu] ActionMamba THUMOS-14 fp32, full width and depth, "
+        f"TF32 off, one video of 2000 steps in 2304: logits "
+        f"{errs['logits']:.3e}, offsets {errs['offsets']:.3e} (tol "
+        f"{CARD_CPU_TAL_REL_TOL}); gradients {grad_err:.3e} ({grad_name}; "
+        f"tol {CARD_CPU_TAL_GRAD_REL_TOL}); launches forward "
+        f"{fwd_launches}, step {bwd_launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if fwd_launches != {"chunked_scan_fwd": 14} or \
+            bwd_launches != TAL_THUMOS_LAUNCHES:
+        raise AssertionError(f"the card's ActionMamba launched "
+                             f"{fwd_launches} and {bwd_launches}")
+    if missing or not grad_err <= CARD_CPU_TAL_GRAD_REL_TOL or \
+            not all(e <= CARD_CPU_TAL_REL_TOL for e in errs.values()):
+        raise AssertionError(f"card and CPU ActionMamba disagree: {errs}, "
+                             f"gradients {grad_err} at {grad_name} (no or "
+                             f"non-finite gradient: {missing})")
+
+
 def main() -> int:
     import torch
 
@@ -3789,6 +4151,17 @@ def main() -> int:
     # no model sets flash="vmem": K9's launches are its entry point's
     launches.update(run_vmem_module())
     launches.update(run_complex_scan())
+    # ActionMamba: THUMOS-14 and ActivityNet train steps, the THUMOS eval;
+    # their scan launches add to the other paths'
+    from video_mamba_suite_torch.configs import TAL_ANET, TAL_THUMOS
+
+    thumos, tal = run_tal_train("thumos", TAL_THUMOS, TAL_THUMOS_LAUNCHES)
+    run_tal_eval(thumos, TAL_THUMOS)
+    del thumos
+    _, anet = run_tal_train("anet", TAL_ANET, TAL_ANET_LAUNCHES)
+    for name, count in list(tal.items()) + list(anet.items()):
+        launches[name] += count
+    card_against_cpu_tal()
 
     kernels = [dict(
         name=name, route="cuda", source=source, replaces=replaces,

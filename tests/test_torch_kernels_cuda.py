@@ -16,6 +16,7 @@ import torch
 
 import chip_smoke
 from video_mamba_suite_torch.models import (
+    MambaDBM,
     MambaLMHeadModel,
     MambaScanNorm,
     MambaVim,
@@ -48,11 +49,13 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("label,shape,dtype,has_dz", chip_smoke.K1_CASES,
+@pytest.mark.parametrize("label,shape,dtype,has_dz,shared",
+                         chip_smoke.K1_CASES,
                          ids=[case[0] for case in chip_smoke.K1_CASES])
-def test_k1_matches_plain_version(cuda_device, label, shape, dtype, has_dz):
+def test_k1_matches_plain_version(cuda_device, label, shape, dtype, has_dz,
+                                   shared):
     """The cases and tolerances of chip_smoke.py's K1 phase."""
-    chip_smoke.k1_check(label, shape, dtype, has_dz)
+    chip_smoke.k1_check(label, shape, dtype, has_dz, shared)
 
 
 @pytest.mark.cuda
@@ -74,11 +77,13 @@ def test_k1_rejects_what_it_does_not_take(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("label,shape,dtype,has_dz", chip_smoke.K2_CASES,
+@pytest.mark.parametrize("label,shape,dtype,has_dz,shared",
+                         chip_smoke.K2_CASES,
                          ids=[case[0] for case in chip_smoke.K2_CASES])
-def test_k2_matches_plain_version(cuda_device, label, shape, dtype, has_dz):
+def test_k2_matches_plain_version(cuda_device, label, shape, dtype, has_dz,
+                                   shared):
     """The cases and tolerances of chip_smoke.py's K2 phase."""
-    chip_smoke.k2_check(label, shape, dtype, has_dz)
+    chip_smoke.k2_check(label, shape, dtype, has_dz, shared)
 
 
 @pytest.mark.cuda
@@ -436,6 +441,56 @@ def test_small_lstr_mamba_grads_on_card_match_cpu(cuda_device):
         assert torch.isfinite(got).all() and got.abs().sum() > 0, name
         err = (got - w).abs().max() / w.abs().max()
         assert err < 1e-4, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seqlen,routes", [
+    (40, (("K1", "short_bidir_fwd"), ("K2", "short_bidir_bwd"))),
+    (100, (("K3", "chunked_scan_fwd"), ("K4", "chunked_scan_bwd")))],
+    ids=["fused-l40", "two-l100"])
+def test_dbm_mixer_on_card_matches_cpu(cuda_device, seqlen, routes):
+    """MambaDBM (expand 1, a ragged mask) on the card against the CPU's
+    plain versions: the output and every parameter's gradient, the shared
+    scan parameters taking both directions' sums. At 40 steps one K1 and
+    one K2 (the shared parameters passed to both directions), at 100 two
+    K3 and two K4; the profiler sees the routed kernels."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = MambaDBM(d_model=64, d_state=16, expand=1, device="cpu",
+                   generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to("cuda")
+    g = torch.Generator().manual_seed(seqlen)
+    x = torch.randn(3, seqlen, 64, generator=g)
+    cot = torch.randn(3, seqlen, 64, generator=g)
+    mask = torch.ones(3, seqlen)
+    mask[1, seqlen - 9:] = 0.0
+
+    def step(model, dev):
+        out = model(x.to(dev), mask.to(dev))
+        (out * cot.to(dev)).sum().backward()
+        return out
+
+    before = dict(LAUNCHES)
+    got = step(card, "cuda")
+    torch.cuda.synchronize()
+    calls = 1 if seqlen <= 64 else 2
+    assert _grown(before) == {name: calls for _, name in routes}
+    want = step(cpu, "cpu")
+    err = (got.detach().cpu() - want).abs().max() / want.abs().max()
+    assert err < 1e-5, err
+    ref = dict(cpu.named_parameters())
+    for name, p in card.named_parameters():
+        assert p.grad is not None, name
+        gp, w = p.grad.cpu(), ref[name].grad
+        assert torch.isfinite(gp).all() and gp.abs().sum() > 0, name
+        err = (gp - w).abs().max() / w.abs().max()
+        assert err < 1e-4, (name, err)
+    want_kernels = [k for kernel, _ in routes
+                    for k in chip_smoke.ROUTES[(kernel, "float32")]]
+    names = chip_smoke.kernel_names(lambda: step(card, "cuda"),
+                                    want=want_kernels)
+    for kernel, _ in routes:
+        chip_smoke.check_route(kernel, f"MambaDBM at {seqlen}", "float32",
+                               names)
 
 
 @pytest.mark.cuda

@@ -35,6 +35,7 @@ from video_mamba_suite_torch.configs import MAMBA_130M
 from video_mamba_suite_torch.models import (
     GenerationConfig,
     MambaCausal,
+    MambaDBM,
     MambaLMHeadModel,
     MixerModel,
     causal_mixer_from_jax,
@@ -218,8 +219,17 @@ def test_block_matches_jax():
 
 
 def test_make_block_refuses_the_unported_dbm_mixer():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
-        make_block(16, mixer="dbm", device="cpu")
+    """make_block("dbm") builds a Block around a MambaDBM (expand 1 here,
+    as the task suites build it); an unknown mixer and the LM's MoE
+    interleave are refused."""
+    block = make_block(16, mixer="dbm", device="cpu", expand=1)
+    assert isinstance(block.mixer, MambaDBM)
+    assert block.mixer.in_proj.weight.shape == (64, 16)
+    assert block.mixer.out_proj.weight.shape == (16, 32)
+    hidden, residual = block(torch.randn(2, 9, 16))
+    assert hidden.shape == residual.shape == (2, 9, 16)
+    with pytest.raises(ValueError, match="unknown mixer"):
+        make_block(16, mixer="dbm2", device="cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
         MixerModel(16, 1, 8, moe_every=1, generator=torch.Generator())
 

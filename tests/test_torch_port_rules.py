@@ -34,13 +34,16 @@ def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default build succeeds")
     from video_mamba_suite_torch import (
+        ActionMambaDetector,
+        MambaDBM,
         MambaVim,
         TimeMamba,
         build_mamba_lm,
+        build_tal_trainer,
         build_timemamba_b,
         from_pretrained,
     )
-    from video_mamba_suite_torch.configs import MAMBA_130M
+    from video_mamba_suite_torch.configs import MAMBA_130M, TAL_THUMOS
     from video_mamba_suite_torch.models import MambaCausal
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -55,6 +58,15 @@ def test_entry_points_default_to_cuda():
         TimeMamba(img_size=32, embed_dim=32, depth=1, num_heads=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MambaVim(d_model=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MambaDBM(d_model=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ActionMambaDetector(input_dim=8, num_classes=2, embd_dim=16,
+                            backbone_arch=(1, 1, 1),
+                            regression_range=((0, 4), (4, 100)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_tal_trainer(TAL_THUMOS, embd_dim=16, backbone_arch=(1, 1, 1),
+                          regression_range=((0, 4), (4, 100)))
 
 
 def test_vivim_entry_points_default_to_cuda():
@@ -220,3 +232,33 @@ def test_clip_mir_cpu_build_has_the_preset_widths():
     for a, b in zip(outs[0], outs[1]):
         assert torch.allclose(a, b, atol=1e-5)
     assert outs[0][0].shape == (1, 512) and outs[0][1].shape == (2, 512)
+
+
+@pytest.mark.parametrize("name", ["TAL_THUMOS", "TAL_ANET"])
+def test_tal_cpu_build_has_the_preset_widths(name):
+    """build_tal_trainer(config, device="cpu") keeps the preset's widths
+    and recipe (the JAX presets tal_thumos and tal_anet): 3200-d features
+    into a DBM pyramid of width 512 and 6 levels, AdamW with weight decay
+    0.05 after a warmup of 5 epochs, drop-path 0.1."""
+    from video_mamba_suite_torch import build_tal_trainer, configs
+    from video_mamba_suite_torch.models import MambaDBM
+
+    config = getattr(configs, name)
+    d = config["dataset"]
+    trainer = build_tal_trainer(config, device="cpu")
+    model = trainer.model
+    T = d["max_seq_len"]
+    assert (d["input_dim"], T, model.num_classes) == \
+        ((3200, 2304, 20) if name == "TAL_THUMOS" else (3200, 192, 1))
+    assert model.backbone.embd[0].weight.shape == (512, 3200, 3)
+    assert len(model.backbone.stem) == 2 and len(model.backbone.branch) == 5
+    mixer = model.backbone.branch[4].mamba
+    assert isinstance(mixer, MambaDBM)
+    assert mixer.in_proj.weight.shape == (2048, 512)
+    assert model.backbone.stem[0].drop_path.rate == 0.1
+    assert model.level_lengths(T)[-1] == T // 32
+    steps = d["train_videos"] // config["loader"]["batch_size"]
+    lr = config["opt"]["learning_rate"]
+    assert trainer.schedule(0) == 0.0
+    assert trainer.schedule(5 * steps) == pytest.approx(lr)
+    assert trainer.optimizer.param_groups[0]["weight_decay"] == 0.05

@@ -10,6 +10,7 @@ Entry points build on ``cuda`` unless the caller passes ``device="cpu"``.
 from .models import (
     CLIP,
     GenerationConfig,
+    MambaDBM,
     MambaLMHeadModel,
     MambaVim,
     TimeMamba,
@@ -26,6 +27,7 @@ from .tasks.anticipation import (
     build_anticipation_trainer,
 )
 from .tasks.egocentric import MirFinetuner, build_clip_mir
+from .tasks.tal import ActionMambaDetector, TalTrainer, build_tal_trainer
 from .tasks.recognition import (
     RecognitionTrainer,
     build_vivim_k400_trainer,
@@ -35,10 +37,11 @@ from .tasks.recognition import (
 from .train import train_step
 from .utils import make_optimizer
 
-__all__ = ["AnticipationTrainer", "CLIP", "GenerationConfig", "LSTRMamba",
-           "MambaLMHeadModel", "MambaVim", "MirFinetuner",
-           "RecognitionTrainer", "TimeMamba", "ViViM",
-           "build_anticipation_trainer", "build_clip_mir", "build_mamba_lm",
+__all__ = ["ActionMambaDetector", "AnticipationTrainer", "CLIP",
+           "GenerationConfig", "LSTRMamba", "MambaDBM", "MambaLMHeadModel",
+           "MambaVim", "MirFinetuner", "RecognitionTrainer", "TalTrainer",
+           "TimeMamba", "ViViM", "build_anticipation_trainer",
+           "build_clip_mir", "build_mamba_lm", "build_tal_trainer",
            "build_timemamba_b", "build_vivim_k400_trainer",
            "build_vivim_tiny_k400", "evaluate", "from_pretrained",
            "generate", "make_optimizer", "predict", "train_step"]

@@ -82,3 +82,52 @@ CLIP_TIMEMAMBA_B_EK100_MIR = dict(
     opt=dict(lr=1e-5, weight_decay=0.01),
     batch_size=64,
 )
+
+# Temporal action localization, ActionMamba on THUMOS-14 (the JAX package's
+# preset ``tal_thumos``, from upstream's configs/mamba_thumos_new.yaml):
+# InternVideo2 features of 3200 channels every 4 frames (16-frame windows),
+# videos cut or padded to 2304 steps, 20 classes; a DBM pyramid of width
+# 512, arch (2, 2, 5) (6 levels), identity neck; AdamW 1e-4, weight decay
+# 0.05, 45 epochs with 5 of warmup, clip 1.0, EMA 0.999; batch 2.
+# ``train_videos`` is the training split's size (THUMOS-14's validation
+# set, 200 videos), which sets the steps of an epoch.
+TAL_THUMOS = dict(
+    dataset=dict(num_classes=20, input_dim=3200, feat_stride=4,
+                 num_frames=16, trunc_thresh=0.5, crop_ratio=[0.9, 1.0],
+                 max_seq_len=2304, file_ext=".npy", train_videos=200),
+    model=dict(backbone_arch=[2, 2, 5], embd_dim=512, fpn_type="identity",
+               mixer="dbm", scale_factor=2,
+               regression_range=[[0, 4], [4, 8], [8, 16], [16, 32],
+                                 [32, 64], [64, 10000]]),
+    opt=dict(learning_rate=1e-4, epochs=45, weight_decay=0.05,
+             warmup_epochs=5, grad_clip=1.0, ema_decay=0.999),
+    loader=dict(batch_size=2),
+    train_cfg=dict(init_loss_norm=100, cls_prior_prob=0.01,
+                   center_sample="radius", center_sample_radius=1.5,
+                   droppath=0.1, label_smoothing=0.0),
+    test_cfg=dict(voting_thresh=0.7, pre_nms_topk=2000, max_seg_num=200,
+                  min_score=0.001, multiclass_nms=True, nms_sigma=0.5,
+                  iou_threshold=0.1, nms_method="soft",
+                  duration_thresh=0.05),
+)
+# ActionMamba on ActivityNet-1.3 (the preset ``tal_anet``): the same
+# features every 16 frames, videos resized to 192 steps, one class
+# (proposals, labelled by an external classifier at eval); the same
+# pyramid, so its levels are 192, 96, 48, 24, 12 and 6 steps; AdamW 1e-3,
+# 15 epochs with 5 of warmup; batch 16. The preset gives no train_cfg:
+# these are the JAX trainer's defaults. 10024 training videos.
+TAL_ANET = dict(
+    dataset=dict(num_classes=1, input_dim=3200, feat_stride=16,
+                 num_frames=16, max_seq_len=192, trunc_thresh=0.5,
+                 crop_ratio=[0.9, 1.0], train_videos=10024),
+    model=dict(backbone_arch=[2, 2, 5], embd_dim=512, fpn_type="identity",
+               mixer="dbm", scale_factor=2),
+    opt=dict(learning_rate=1e-3, epochs=15, weight_decay=0.05,
+             warmup_epochs=5, grad_clip=1.0, ema_decay=0.999),
+    loader=dict(batch_size=16),
+    train_cfg=dict(init_loss_norm=100, cls_prior_prob=0.01,
+                   center_sample="radius", center_sample_radius=1.5,
+                   droppath=0.1, label_smoothing=0.0),
+    test_cfg=dict(multiclass_nms=False, nms_sigma=0.75, max_seg_num=100,
+                  voting_thresh=0.9, ext_score_fusion=True),
+)

@@ -13,27 +13,46 @@ from .clip import (
     clip_vivim_tiny_hs4,
 )
 from .common import (
+    AffineDropPath,
     Dense,
     Embedding,
     FusedMHA,
     LayerNorm,
+    LayerNorm1D,
+    MaskedConv1D,
+    MaskMambaBlock,
     PatchifyConv,
+    max_pool_1d,
     sinusoid_positions,
 )
 from .convert import (
     causal_mixer_from_jax,
     clip_from_jax,
     clip_image_tower_from_jax,
+    dbm_mixer_from_jax,
     lstr_mamba_from_jax,
     mamba_lm_from_jax,
+    mask_mamba_block_from_jax,
+    tal_detector_from_jax,
     text_transformer_from_jax,
     timemamba_from_jax,
     vim_mixer_from_jax,
     vivim_from_jax,
 )
 from .generation import GenerationConfig, generate, sample_logits
-from .hf import from_pretrained, mamba_lm_from_state_dict
-from .mamba import Block, MambaCausal, MambaScanNorm, MambaVim, make_block
+from .hf import (
+    dbm_mixer_from_state_dict,
+    from_pretrained,
+    mamba_lm_from_state_dict,
+)
+from .mamba import (
+    Block,
+    MambaCausal,
+    MambaDBM,
+    MambaScanNorm,
+    MambaVim,
+    make_block,
+)
 from .mixer_seq import MambaLMHeadModel, MixerModel, build_mamba_lm
 from .timemamba import Mlp, SpaceTimeBlock, TimeMamba, build_timemamba_b
 from .vivim import (
@@ -45,6 +64,9 @@ from .vivim import (
 )
 
 __all__ = [
+    "AffineDropPath", "LayerNorm1D", "MambaDBM", "MaskMambaBlock",
+    "MaskedConv1D", "dbm_mixer_from_jax", "dbm_mixer_from_state_dict",
+    "mask_mamba_block_from_jax", "max_pool_1d", "tal_detector_from_jax",
     "CLIP", "ClipImageTower", "ResidualAttentionBlock", "TextTransformer",
     "clip_from_jax", "clip_image_tower_from_jax", "clip_timemamba_base",
     "clip_timemamba_frozen", "clip_timemamba_frozen_joint",

@@ -1,7 +1,8 @@
-"""Building blocks of the towers and the LM (counterparts of the JAX
-package's ``models/common.py``: ``make_dense``, ``PatchifyConv``,
-``FusedMHA``, ``W8Embed``, ``sinusoid_positions``, and flax's
-``nn.LayerNorm``).
+"""Building blocks of the towers, the LM and the task heads (counterparts
+of the JAX package's ``models/common.py``: ``make_dense``,
+``PatchifyConv``, ``FusedMHA``, ``W8Embed``, ``sinusoid_positions``, the
+masked 1-D blocks ``AffineDropPath``, ``MaskedConv1D``, ``LayerNorm1D``,
+``max_pool_1d`` and ``MaskMambaBlock``, and flax's ``nn.LayerNorm``).
 
 Every block follows the JAX package's dtype policy: parameters stay fp32
 and ``dtype`` is the compute dtype (None promotes the input with the
@@ -19,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_mha
+from ..ops.norms import layer_norm
 from ..ops.vision_attention import MAX_ROW_TOKENS, row_mha_qkv, vision_mha
 
 
@@ -37,12 +39,15 @@ def init_weight(shape, kind: str, generator: torch.Generator,
                 fan_out: Optional[int] = None) -> torch.Tensor:
     """fp32 tensor of ``shape`` drawn on the CPU by the flax/torch rule
     ``kind``: "lecun_normal" (flax's default Dense and Conv init),
-    "xavier_uniform", or "torch_linear" (torch nn.Linear's U(±1/√fan_in))."""
+    "he_fan_out" (flax variance_scaling(2, fan_out, truncated_normal), the
+    masked convs' init), "xavier_uniform", or "torch_linear" (torch
+    nn.Linear's U(±1/√fan_in))."""
     w = torch.empty(shape, dtype=torch.float32)
-    if kind == "lecun_normal":
-        # flax variance_scaling(1, fan_in, truncated_normal): the std of a
+    if kind in ("lecun_normal", "he_fan_out"):
+        # flax variance_scaling(scale, fan, truncated_normal): the std of a
         # normal truncated at ±2σ is 0.8796σ, so σ is scaled up by that
-        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+        var = 1.0 / fan_in if kind == "lecun_normal" else 2.0 / fan_out
+        std = math.sqrt(var) / 0.87962566103423978
         return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                                      generator=generator)
     if kind == "xavier_uniform":
@@ -294,3 +299,129 @@ class FusedMHA(nn.Module):
         w = torch.softmax(scores, dim=-1).to(v.dtype)
         out = (w @ v).transpose(-2, -3)                 # (..., L, H, dh)
         return self.out(out.reshape(out.shape[:-2] + (D,)))
+
+
+class AffineDropPath(nn.Module):
+    """Drop-path with a learnable per-channel ``scale`` (1, 1, dim),
+    initialised to 1e-4 (the JAX ``AffineDropPath``): drop_path(x ·
+    scale), the mask drawn from the caller's generator."""
+
+    def __init__(self, dim: int, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+        self.scale = nn.Parameter(torch.full((1, 1, dim), 1e-4))
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return drop_path(x * self.scale, self.rate, self.training, generator)
+
+
+class MaskedConv1D(nn.Module):
+    """1-D convolution over time with the mask applied before and after
+    (the JAX ``MaskedConv1D``). x (B, L, C) and mask (B, L) → (out (B,
+    L_out, features), out_mask), with out_mask = mask[:, ::stride]. The
+    input is padded (k-1)//2 steps on the left and the rest on the right,
+    as flax pads it. ``weight`` is (features, C, k), torch's layout
+    (the flax kernel (k, C, features) transposed); ``bias`` (features,) or
+    None. Initial weights: flax variance_scaling(2, fan_out,
+    truncated_normal); the bias zero."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: int = 3, stride: int = 1,
+                 use_bias: bool = True, *,
+                 generator: torch.Generator, init: str = "he_fan_out"):
+        super().__init__()
+        self.kernel_size, self.stride = kernel_size, stride
+        self.weight = nn.Parameter(init_weight(
+            (features, in_features, kernel_size), init, generator,
+            fan_in=kernel_size * in_features,
+            fan_out=kernel_size * features))
+        self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
+                     else None)
+
+    def conv(self, x: torch.Tensor) -> torch.Tensor:
+        """The convolution alone, (B, L, C) → (B, L_out, features)."""
+        span = self.kernel_size - 1
+        x = F.pad(x.transpose(1, 2), (span // 2, span - span // 2))
+        out = F.conv1d(x, self.weight.to(x.dtype),
+                       None if self.bias is None else self.bias.to(x.dtype),
+                       stride=self.stride)
+        return out.transpose(1, 2)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor):
+        out = self.conv(x * mask.to(x.dtype)[..., None])
+        out_mask = mask[:, ::self.stride] if self.stride > 1 else mask
+        return out * out_mask.to(out.dtype)[..., None], out_mask
+
+
+class LayerNorm1D(nn.Module):
+    """LayerNorm over the channels with ``norm_w`` and ``norm_b``, eps
+    1e-5, computed in fp32 and cast back to the input's dtype (the JAX
+    ``LayerNorm1D``)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.norm_w = nn.Parameter(torch.ones(dim))
+        self.norm_b = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.norm_w, self.norm_b, eps=1e-5)
+
+
+def max_pool_1d(x: torch.Tensor, mask: torch.Tensor, kernel: int = 3,
+                stride: int = 2, padding: int = 1):
+    """Max over windows of ``kernel`` steps every ``stride``, the input
+    padded with -inf by ``padding`` on each side; the mask downsampled by
+    taking every ``stride``-th step, cut to the output's length, and
+    applied (the JAX ``max_pool_1d``). x (B, L, C), mask (B, L)."""
+    out = F.max_pool1d(x.transpose(1, 2), kernel, stride,
+                       padding).transpose(1, 2)
+    out_mask = mask[:, ::stride][:, :out.shape[1]]
+    return out * out_mask.to(out.dtype)[..., None], out_mask
+
+
+class MaskMambaBlock(nn.Module):
+    """norm → Mamba mixer → mask → residual through ``AffineDropPath``,
+    then an optional max-pool (the JAX ``MaskMambaBlock``). ``mixer`` is
+    "vim" (``MambaVim``, expand 2) or "dbm" (``MambaDBM``, expand 1), with
+    conv width ``kernel_size``. At ``drop_path_rate`` 0 the block has no
+    ``AffineDropPath`` and no scale, as in the JAX tree. Runs on the
+    device it is built on; ``device="cpu"`` for the plain versions."""
+
+    def __init__(self, dim: int, mixer: str = "vim", kernel_size: int = 4,
+                 n_ds_stride: int = 1, drop_path_rate: float = 0.3, *,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        from .mamba import MambaDBM, MambaVim   # .mamba imports this module
+
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.n_ds_stride = n_ds_stride
+        self.norm = LayerNorm1D(dim)
+        if mixer == "vim":
+            self.mamba = MambaVim(dim, d_conv=kernel_size, device="cpu",
+                                  generator=generator)
+        elif mixer == "dbm":
+            self.mamba = MambaDBM(dim, d_conv=kernel_size, expand=1,
+                                  device="cpu", generator=generator)
+        else:
+            raise ValueError(f"unknown mixer {mixer!r}; expected 'vim' or "
+                             "'dbm'")
+        self.drop_path = (AffineDropPath(dim, drop_path_rate)
+                          if drop_path_rate > 0 else None)
+        self.to(device)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        """x (B, L, dim), mask (B, L) → (x, mask), both pooled with
+        ``n_ds_stride`` > 1. ``generator`` (on x's device) draws the
+        drop-path masks in training mode."""
+        h = self.mamba(self.norm(x), mask)
+        h = h * mask.to(h.dtype)[..., None]
+        if self.drop_path is not None:
+            h = self.drop_path(h, generator)
+        x = x + h
+        if self.n_ds_stride > 1:
+            x, mask = max_pool_1d(x, mask, 3, self.n_ds_stride, 1)
+        return x, mask

@@ -67,6 +67,18 @@ def causal_mixer_from_jax(params: Dict[str, Any], prefix: str = ""
     return out
 
 
+def dbm_mixer_from_jax(params: Dict[str, Any], prefix: str = ""
+                       ) -> Dict[str, torch.Tensor]:
+    """A JAX ``MambaDBM`` tree {in_proj, shared, out_proj} → the port's
+    ``MambaDBM`` state_dict (keys under ``prefix``)."""
+    params = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    _dense(params["in_proj"], prefix + "in_proj.", out)
+    _scan_params(params["shared"], prefix + "shared.", out)
+    _dense(params["out_proj"], prefix + "out_proj.", out)
+    return out
+
+
 def _causal_block(tree, prefix, out):
     """A JAX ``Block`` around a ``MambaCausal`` {norm_w, norm_b?, mixer}."""
     out[prefix + "norm_w"] = _tensor(tree["norm_w"])
@@ -284,4 +296,76 @@ def clip_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     out = {"visual." + key: value for key, value in tower.items()}
     out.update(text_transformer_from_jax(params["textual"], "textual."))
     out["logit_scale"] = _tensor(params["logit_scale"])
+    return out
+
+
+def _conv1d(tree, prefix, out):
+    """A flax ``nn.Conv`` {kernel (k, in, out), bias?} → a masked conv's
+    (out, in, k) ``weight`` and ``bias``."""
+    out[prefix + "weight"] = _tensor(
+        np.asarray(tree["kernel"]).transpose(2, 1, 0))
+    if "bias" in tree:
+        out[prefix + "bias"] = _tensor(tree["bias"])
+
+
+def _norm1d(tree, prefix, out):
+    out[prefix + "norm_w"] = _tensor(tree["norm_w"])
+    out[prefix + "norm_b"] = _tensor(tree["norm_b"])
+
+
+def mask_mamba_block_from_jax(params: Dict[str, Any], prefix: str = ""
+                              ) -> Dict[str, torch.Tensor]:
+    """A JAX ``MaskMambaBlock`` tree {LayerNorm1D_0, mamba,
+    AffineDropPath_0?} around a DBM or a ViM mixer → the port's
+    ``MaskMambaBlock`` state_dict (keys under ``prefix``)."""
+    tree = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    _norm1d(tree["LayerNorm1D_0"], prefix + "norm.", out)
+    mixer = tree["mamba"]
+    convert = dbm_mixer_from_jax if "shared" in mixer else vim_mixer_from_jax
+    out.update(convert(mixer, prefix + "mamba."))
+    if "AffineDropPath_0" in tree:
+        out[prefix + "drop_path.scale"] = _tensor(
+            tree["AffineDropPath_0"]["scale"])
+    return out
+
+
+def _conv_head(tree, prefix, out):
+    for i in range(_numbered(tree, "head")):
+        _conv1d(tree[f"head{i}"]["Conv_0"], f"{prefix}head.{i}.", out)
+    for i in range(_numbered(tree, "norm")):
+        _norm1d(tree[f"norm{i}"], f"{prefix}norm.{i}.", out)
+    _conv1d(tree["final"], prefix + "final.", out)
+
+
+def tal_detector_from_jax(params: Dict[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """A JAX ``ActionMambaDetector`` tree {backbone: {embd{i}, embd_ln{i},
+    stem{i}, branch{i}}, neck: {norm{i}} or {lateral{i}, fpn_conv{i},
+    fpn_norm{i}}, cls_head, reg_head: {head{i}, norm{i}, final},
+    scale{l}} → the port's ``ActionMambaDetector`` state_dict (of the
+    parts the tree holds)."""
+    params = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    bb = params.get("backbone", {})
+    for i in range(_numbered(bb, "embd")):
+        _conv1d(bb[f"embd{i}"]["Conv_0"], f"backbone.embd.{i}.", out)
+    for i in range(_numbered(bb, "embd_ln")):
+        _norm1d(bb[f"embd_ln{i}"], f"backbone.embd_norm.{i}.", out)
+    for stem in ("stem", "branch"):
+        for i in range(_numbered(bb, stem)):
+            out.update(mask_mamba_block_from_jax(
+                bb[f"{stem}{i}"], f"backbone.{stem}.{i}."))
+    neck = params.get("neck", {})
+    for stem in ("norm", "fpn_norm"):
+        for i in range(_numbered(neck, stem)):
+            _norm1d(neck[f"{stem}{i}"], f"neck.{stem}.{i}.", out)
+    for stem in ("lateral", "fpn_conv"):
+        for i in range(_numbered(neck, stem)):
+            _conv1d(neck[f"{stem}{i}"]["Conv_0"], f"neck.{stem}.{i}.", out)
+    for head in ("cls_head", "reg_head"):
+        if head in params:
+            _conv_head(params[head], head + ".", out)
+    for i in range(_numbered(params, "scale")):
+        out[f"scale.{i}.scale"] = _tensor(params[f"scale{i}"]["scale"])
     return out

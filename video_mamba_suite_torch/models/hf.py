@@ -1,6 +1,8 @@
 """Loading an upstream ``state-spaces/mamba-*`` checkpoint into the port's
 ``MambaLMHeadModel`` (counterpart of the JAX package's ``models/hf.py``
-``from_pretrained`` with ``models/convert.py`` ``convert_mamba_lm``).
+``from_pretrained`` with ``models/convert.py`` ``convert_mamba_lm``), and
+an upstream DBM mixer's state_dict into a ``MambaDBM``
+(``convert_dbm_mixer``).
 
 Only local files are read: a directory holding ``config.json`` and
 ``pytorch_model.bin`` (or ``model.pt`` / ``checkpoint.pt``), or a bare
@@ -88,6 +90,34 @@ def mamba_lm_from_state_dict(sd: Dict[str, torch.Tensor], n_layer: int
         out[p + "fwd.dt_bias"] = get(m + "dt_proj.bias")
         out[p + "fwd.A_log"] = get(m + "A_log")
         out[p + "fwd.D"] = get(m + "D")
+    return out
+
+
+def dbm_mixer_from_state_dict(sd: Dict[str, torch.Tensor],
+                              prefix: str = "") -> Dict[str, torch.Tensor]:
+    """An upstream DBM mixer's state_dict (the suite's ``mamba_new.Mamba``:
+    ``in_proj.weight`` (4·d_inner, d_model), one ``conv1d`` (d_inner, 1,
+    W), ``x_proj``, ``dt_proj``, ``A_log`` and ``D`` shared by both
+    directions, ``out_proj.weight`` (d_model, 2·d_inner); keys under
+    ``prefix``) → the port's ``MambaDBM`` state_dict (the JAX
+    ``convert_dbm_mixer``). Linear weights keep torch's (out, in) layout;
+    the conv taps become (W, d_inner)."""
+    def get(name):
+        return sd[prefix + name].detach().float()
+
+    out = {"in_proj.weight": get("in_proj.weight"),
+           "out_proj.weight": get("out_proj.weight"),
+           "shared.conv_w": get("conv1d.weight")[:, 0, :].t().contiguous(),
+           "shared.x_proj": get("x_proj.weight"),
+           "shared.dt_proj": get("dt_proj.weight"),
+           "shared.dt_bias": get("dt_proj.bias"),
+           "shared.A_log": get("A_log"),
+           "shared.D": get("D")}
+    if prefix + "conv1d.bias" in sd:
+        out["shared.conv_bias"] = get("conv1d.bias")
+    for name in ("in_proj", "out_proj"):
+        if f"{prefix}{name}.bias" in sd:
+            out[f"{name}.bias"] = get(f"{name}.bias")
     return out
 
 

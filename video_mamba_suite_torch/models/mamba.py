@@ -1,8 +1,8 @@
 """Mamba mixers and the pre-norm block (counterparts of the JAX
 package's ``models/mamba.py``: the bidirectional ``MambaVim`` and
-``MambaScanNorm``, the causal ``MambaCausal`` with its decode ``step`` and
-``prefill``, their ``_ScanParams`` bundles and inits, ``Block`` and
-``make_block``).
+``MambaScanNorm``, the decomposed bidirectional ``MambaDBM``, the causal
+``MambaCausal`` with its decode ``step`` and ``prefill``, their
+``_ScanParams`` bundles and inits, ``Block`` and ``make_block``).
 
 Mixers take and return (batch, seqlen, d_model). Initial values follow the
 reference scheme: dt_proj weight ~ U(±dt_rank^-1/2), dt bias =
@@ -111,7 +111,8 @@ class MambaVim(nn.Module):
     def __init__(self, d_model: int, d_state: int = 16, expand: int = 2,
                  if_devide_out: bool = False,
                  dtype: Optional[torch.dtype] = None, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 d_conv: int = D_CONV):
         super().__init__()
         device = resolve_device(device)
         if generator is None:
@@ -121,8 +122,10 @@ class MambaVim(nn.Module):
         self.if_devide_out = if_devide_out
         self.in_proj = Dense(d_model, 2 * d_inner, bias=False, dtype=dtype,
                              init="torch_linear", generator=generator)
-        self.fwd = ScanParams(d_inner, d_state, dt_rank, generator=generator)
-        self.bwd = ScanParams(d_inner, d_state, dt_rank, generator=generator)
+        self.fwd = ScanParams(d_inner, d_state, dt_rank, generator=generator,
+                              d_conv=d_conv)
+        self.bwd = ScanParams(d_inner, d_state, dt_rank, generator=generator,
+                              d_conv=d_conv)
         self.out_proj = Dense(d_inner, d_model, bias=False, dtype=dtype,
                               init="torch_linear", generator=generator)
         self.to(device)
@@ -168,6 +171,57 @@ class MambaScanNorm(MambaVim):
         out = rms_norm(self._directions(hidden_states, mask),
                        self.scan_norm_w)
         return self.out_proj(out)
+
+
+class MambaDBM(nn.Module):
+    """Decomposed bidirectional Mamba (the suite's ``mamba_new.Mamba``, the
+    JAX ``MambaDBM``): one in_proj gives two (x, z) streams, 4·d_inner
+    wide; both directions scan with ONE ``shared`` parameter bundle, the
+    first stream causally and the second anti-causally; the two outputs
+    are concatenated along the channels into out_proj (2·d_inner →
+    d_model). The task suites build it with expand 1.
+
+    The route is ``MambaVim``'s: up to 64 steps (length rounded up to 8)
+    one fused scan of both directions with the shared parameters passed
+    twice (kernel K1 on CUDA, K2 in the backward); longer sequences one
+    chunked scan per direction (K3, K4 in the backward). Autograd adds
+    both directions' gradients into the shared parameters.
+    """
+
+    def __init__(self, d_model: int, d_state: int = 16, expand: int = 2,
+                 d_conv: int = D_CONV, dtype: Optional[torch.dtype] = None,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.d_inner = int(expand * d_model)
+        dt_rank = math.ceil(d_model / 16)
+        self.in_proj = Dense(d_model, 4 * self.d_inner, bias=False,
+                             dtype=dtype, init="torch_linear",
+                             generator=generator)
+        self.shared = ScanParams(self.d_inner, d_state, dt_rank,
+                                 generator=generator, d_conv=d_conv)
+        self.out_proj = Dense(2 * self.d_inner, d_model, bias=False,
+                              dtype=dtype, init="torch_linear",
+                              generator=generator)
+        self.to(device)
+
+    def forward(self, hidden_states: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """hidden_states (batch, seqlen, d_model), mask (batch, seqlen) or
+        None → (batch, seqlen, d_model)."""
+        xz = self.in_proj(hidden_states)                  # (b, l, 4·d_inner)
+        xz_f, xz_b = xz[..., :2 * self.d_inner], xz[..., 2 * self.d_inner:]
+        if use_fused_scan(xz.shape[1]):
+            p = self.shared.param_dict()
+            A = self.shared.A()
+            out_f, out_b = mamba_inner_bidir(xz_f, xz_b, p, p, A, A,
+                                             mask=mask)
+        else:
+            out_f = self.shared(xz_f, mask=mask)
+            out_b = self.shared(xz_b, mask=mask, reverse=True)
+        return self.out_proj(torch.cat([out_f, out_b], dim=-1))
 
 
 class MambaCausal(nn.Module):
@@ -297,23 +351,20 @@ class Block(nn.Module):
         return hidden_states, residual, state
 
 
-_MIXERS = {"vim": MambaVim, "scan_norm": MambaScanNorm,
+_MIXERS = {"vim": MambaVim, "dbm": MambaDBM, "scan_norm": MambaScanNorm,
            "causal": MambaCausal}
 
 
 def make_block(d_model: int, mixer: str = "vim",
                rms_norm_block: bool = False, residual_in_fp32: bool = True,
                norm_eps: float = 1e-5, **mixer_kwargs) -> Block:
-    """A ``Block`` around a new mixer of kind ``mixer`` ("vim",
+    """A ``Block`` around a new mixer of kind ``mixer`` ("vim", "dbm",
     "scan_norm" or "causal"; the JAX ``make_block``); ``mixer_kwargs``
     go to the mixer (``d_state``, ``expand``, ``device``, ``generator``,
-    ...). The JAX package's "dbm" mixer is not ported yet."""
-    if mixer == "dbm":
-        raise NotImplementedError(
-            "the DBM mixer (MambaDBM) is not ported yet (ROADMAP item 3)")
+    ...)."""
     if mixer not in _MIXERS:
         raise ValueError(f"unknown mixer {mixer!r}; expected one of "
-                         f"{sorted(_MIXERS)} or 'dbm'")
+                         f"{sorted(_MIXERS)}")
     return Block(d_model, _MIXERS[mixer](d_model, **mixer_kwargs),
                  norm_eps=norm_eps, rms=rms_norm_block,
                  residual_in_fp32=residual_in_fp32)

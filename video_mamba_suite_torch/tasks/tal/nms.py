@@ -1,0 +1,144 @@
+"""1-D segment NMS on the host: hard and soft (linear or gaussian),
+class-aware, with segment voting (the port's own copy of the JAX package's
+``tasks/tal/nms.py``, its numpy path). It runs once a video at eval time
+on at most a few thousand segments."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+
+def _iou_1d(seg: np.ndarray, segs: np.ndarray) -> np.ndarray:
+    left = np.maximum(seg[0], segs[:, 0])
+    right = np.minimum(seg[1], segs[:, 1])
+    inter = np.clip(right - left, 0, None)
+    union = (seg[1] - seg[0]) + (segs[:, 1] - segs[:, 0]) - inter
+    return inter / np.maximum(union, 1e-8)
+
+
+def nms_1d(segs: np.ndarray, scores: np.ndarray,
+           iou_threshold: float) -> np.ndarray:
+    """Hard NMS: the kept indices by descending score."""
+    order = np.argsort(-scores, kind="stable")
+    keep = []
+    alive = np.ones(len(segs), bool)
+    for i in order:
+        if not alive[i]:
+            continue
+        keep.append(i)
+        alive[i] = False
+        rest = order[alive[order]]
+        if rest.size:
+            ious = _iou_1d(segs[i], segs[rest])
+            alive[rest[ious > iou_threshold]] = False
+    return np.array(keep, np.int64)
+
+
+def soft_nms_1d(segs: np.ndarray, scores: np.ndarray,
+                iou_threshold: float = 0.1, sigma: float = 0.5,
+                min_score: float = 0.001, method: int = 2
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Soft NMS: take the highest score, decay the scores of the segments
+    that overlap it (method 1 linear, 2 gaussian, else hard), repeat while
+    a score reaches ``min_score``. Returns (segments, scores, indices) in
+    the order taken."""
+    segs = segs.copy().astype(np.float64)
+    scores = scores.copy().astype(np.float64)
+    out_segs, out_scores, out_inds = [], [], []
+    alive = np.ones(len(segs), bool)
+    for _ in range(len(segs)):
+        live = np.where(alive)[0]
+        if live.size == 0:
+            break
+        i = live[np.argmax(scores[live])]
+        if scores[i] < min_score:
+            break
+        out_segs.append(segs[i].copy())
+        out_scores.append(scores[i])
+        out_inds.append(i)
+        alive[i] = False
+        rest = np.where(alive)[0]
+        if rest.size == 0:
+            break
+        ious = _iou_1d(segs[i], segs[rest])
+        if method == 1:
+            w = np.where(ious > iou_threshold, 1.0 - ious, 1.0)
+        elif method == 2:
+            w = np.exp(-(ious * ious) / sigma)
+        else:
+            w = np.where(ious > iou_threshold, 0.0, 1.0)
+        scores[rest] *= w
+        alive[rest[scores[rest] < min_score]] = False
+    return (np.array(out_segs).reshape(-1, 2), np.array(out_scores),
+            np.array(out_inds, np.int64))
+
+
+def seg_voting(nms_segs: np.ndarray, all_segs: np.ndarray,
+               all_scores: np.ndarray, iou_threshold: float,
+               score_offset: float = 1.5) -> np.ndarray:
+    """Each kept segment replaced by the mean of the candidates that
+    overlap it by at least ``iou_threshold``, weighted by score +
+    ``score_offset``."""
+    if len(nms_segs) == 0:
+        return nms_segs
+    offset_scores = all_scores + score_offset
+    left = np.maximum(nms_segs[:, None, 0], all_segs[None, :, 0])
+    right = np.minimum(nms_segs[:, None, 1], all_segs[None, :, 1])
+    inter = np.clip(right - left, 0, None)
+    nms_lens = nms_segs[:, 1] - nms_segs[:, 0]
+    all_lens = all_segs[:, 1] - all_segs[:, 0]
+    iou = inter / np.maximum(nms_lens[:, None] + all_lens[None, :] - inter,
+                             1e-8)
+    weights = (iou >= iou_threshold).astype(np.float64) * offset_scores[None]
+    weights /= np.maximum(weights.sum(axis=1, keepdims=True), 1e-8)
+    return weights @ all_segs
+
+
+def batched_nms(segs: np.ndarray, scores: np.ndarray, cls_idxs: np.ndarray,
+                iou_threshold: float, min_score: float, max_seg_num: int,
+                use_soft_nms: bool = True, multiclass: bool = True,
+                sigma: float = 0.5, voting_thresh: float = 0.75
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """NMS per class (or over all with ``multiclass`` off), at most
+    ``max_seg_num`` kept per class and in all, then voting when
+    ``voting_thresh`` > 0; the result by descending score."""
+    segs = np.asarray(segs, np.float64)
+    scores = np.asarray(scores, np.float64)
+    cls_idxs = np.asarray(cls_idxs)
+    if segs.shape[0] == 0:
+        return np.zeros((0, 2)), np.zeros((0,)), np.zeros((0,),
+                                                           cls_idxs.dtype)
+
+    def one_class(s, sc, ci):
+        if use_soft_nms:
+            new_segs, new_scores, inds = soft_nms_1d(
+                s, sc, iou_threshold, sigma, min_score, method=2)
+            new_cls = ci[inds]
+        else:
+            valid = sc > min_score
+            s2, sc2, ci2 = s[valid], sc[valid], ci[valid]
+            inds = nms_1d(s2, sc2, iou_threshold)
+            new_segs, new_scores, new_cls = s2[inds], sc2[inds], ci2[inds]
+        if max_seg_num > 0:
+            new_segs = new_segs[:max_seg_num]
+            new_scores = new_scores[:max_seg_num]
+            new_cls = new_cls[:max_seg_num]
+        if voting_thresh > 0 and len(new_segs):
+            new_segs = seg_voting(new_segs, s, sc, voting_thresh)
+        return new_segs, new_scores, new_cls
+
+    if multiclass:
+        parts = [one_class(segs[cls_idxs == c], scores[cls_idxs == c],
+                           cls_idxs[cls_idxs == c])
+                 for c in np.unique(cls_idxs)]
+        new_segs = np.concatenate([p[0] for p in parts], axis=0)
+        new_scores = np.concatenate([p[1] for p in parts], axis=0)
+        new_cls = np.concatenate([p[2] for p in parts], axis=0)
+    else:
+        new_segs, new_scores, new_cls = one_class(segs, scores, cls_idxs)
+    order = np.argsort(-new_scores, kind="stable")
+    if max_seg_num > 0:
+        order = order[:max_seg_num]
+    return new_segs[order], new_scores[order], new_cls[order]
