@@ -58,7 +58,7 @@ Phases, each of which fails the run:
      layer), no K3 and no plain-version call; ms/request, tok/s, the
      prefill's ms, a decode step's ms and its share of the HBM rate, peak
      memory; a prefill at prompt 1024 launches exactly 24 K3 and no K5;
-     a torch.profiler window of one request.
+     a torch.profiler window of one request of 16 new tokens.
   9. anticipation serving: LSTR-Mamba at the EK100 preset's widths
      (``configs.ANTICIPATION_EK100``: 512 + 32 frames of 1024 + 1024
      features, 4 queries, d_model 1024, 2 layers, 3807 classes; random
@@ -129,8 +129,35 @@ Phases, each of which fails the run:
      ActionMamba (THUMOS), card against CPU: every level's logits and
      offsets and one step's gradients. Their scan launches add to the
      kernels line's counts.
+ 17. EK100 MIR fine-tuning: ``build_clip_mir`` (bf16 video tower on K10,
+     fp32 text tower with TF32 matmuls, the preset's AdamW b2 0.98,
+     warmup-cosine, clip 1.0) takes ``MirFinetuner.train_step`` on 8
+     clips (16 × 224²) and 8 captions: 2 warm-ups (every parameter a
+     finite gradient), then timed steps with exactly 12 K1, 12 K10 and 12
+     K2 each and no plain version; ms/step, clips/s, peak memory, a
+     profile window.
+ 18. CLIP pretraining: ``build_clip_pretrainer`` (the Ego4D preset, 4
+     frames) on 32 clips and 32 captions a step: the same launches; then
+     ``encode``.
+ 19. EK100 classification: ``build_ek100_cls`` (ViViM-T, 3806 actions,
+     mixup / cutmix, fp32 with TF32 matmuls) on 8 clips a step: exactly
+     48 K3 with checkpoints and 48 K4; then ``evaluate`` over 16 clips x
+     2 crops with verb and noun marginals (48 K3 a batch of 8).
+ 20. int8 LM serving: ``quantize_lm_for_decode`` of Mamba-130M, then
+     ``generate`` of 8 prompts of 16 + 128 new tokens: exactly 24 K5 a
+     request; the bf16 model as the A/B (int8, bf16, int8 again); the
+     weights' bytes and each model's device ms a generated token from a
+     profile of a request of 16 new tokens.
+ 21. LM scoring: ``perplexity`` of 8 x 1024 tokens (24 K3) and
+     ``MambaHarnessLM.loglikelihood`` of 16 requests of more than 64
+     characters (24 K3 a batch of 8).
+ 22. card against CPU: one MIR step at full width and depth 2 + 2 in fp32
+     (TF32 off), the loss and every gradient; the int8 Mamba-130M's
+     logits at prompts 16 (K5) and 80 (K3), forward, prefill and 4 decode
+     steps. The new phases' launches add to the kernels line's counts.
 Prints a ``{"kernels": [...]}`` line (K1-K11) and, last, ``{"ok": true,
-...}``.
+...}``. ``chip_smoke.py --phases NAME ...`` builds the kernels and runs
+the named phases of ``PHASES`` alone (17-22), printing no result line.
 """
 
 from __future__ import annotations
@@ -664,10 +691,47 @@ TAL_ANET_LAUNCHES = {"chunked_scan_fwd": 8, "chunked_scan_bwd": 8,
 # ten times that
 CARD_CPU_TAL_REL_TOL = 4e-5
 CARD_CPU_TAL_GRAD_REL_TOL = 2e-3
+# the egocentric training paths and the rest of the LM
+MIR_TRAIN_STEPS = 5              # timed MIR fine-tuning steps
+PRETRAIN_BATCH = 32              # clips + captions a pretraining step on one
+                                 # card (the preset's 256 is the whole job's)
+PRETRAIN_STEPS = 5               # timed CLIP pretraining steps
+CLS_STEPS = 5                    # timed EK100 classification steps
+CLS_EVAL_CLIPS, CLS_EVAL_CROPS = 16, 2   # the classification evaluate
+EK100_VERBS, EK100_NOUNS = 97, 300       # marginals of the 3806 actions
+LL_BATCH, LL_LENGTH = 8, 1024    # perplexity: rows x tokens (K3)
+LL_REQUESTS = 16                 # loglikelihood requests (contexts > 64)
+CARD_CPU_MIR_DEPTH = 2           # video and text blocks of the card-vs-CPU
+                                 # MIR step at full width
+# the MIR fine-tuning step at full width, depth 2 + 2, fp32, TF32 off, card
+# against CPU: the loss relative (read 0 on an H100 80GB HBM3, PERF.md),
+# and each parameter's gradient's largest difference over its largest CPU
+# value (read 1.6e-4, the second block's fc2 bias: a sum over 6272 tokens
+# of a hinge loss's sparse gradient), held at about ten times that
+CARD_CPU_MIR_REL_TOL = 1e-5
+CARD_CPU_MIR_GRAD_REL_TOL = 2e-3
+# the int8 Mamba-130M at full width and depth, card against CPU, the
+# logits' largest difference over their largest CPU magnitude: read
+# 1.1e-2 to 1.9e-2 (PERF.md). Its activations are bf16, whose rounding
+# flips where the two sides' scans differ in the last fp32 bit, through
+# 24 layers; held at about three times the reading
+CARD_CPU_W8_REL_TOL = 5e-2
+LM_INT8_REQUESTS = 3             # timed requests of each int8 / bf16 leg
+LM_PROFILE_NEW = 16              # new tokens of a profiled LM request (the
+                                 # profiler's processing of a 128-token
+                                 # request's events takes over a minute)
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+START = time.perf_counter()
+
+
+def mark(phase):
+    """The script's wall time when ``phase`` ends."""
+    log(f"[time] {phase} done at {time.perf_counter() - START:.1f} s")
 
 
 def clip_shape():
@@ -3048,8 +3112,11 @@ def run_lm_serving():
             sum(plain.values()) or not torch.isfinite(logits).all():
         raise AssertionError(f"the prompt of {LM_LONG_PROMPT} launched "
                              f"{long_launches} (want {n_layer} K3 and no K5)")
+    short = GenerationConfig(max_length=LM_PROMPT + LM_PROFILE_NEW)
     with torch.inference_mode():
-        profile("request", request, tag="profile-lm", calls=1)
+        profile(f"request of {LM_PROFILE_NEW} new tokens",
+                lambda: generate(model, ids, short), tag="profile-lm",
+                calls=1)
     return launches
 
 
@@ -3405,10 +3472,10 @@ def card_against_cpu_anticipation():
 
 
 
-def mir_inputs(clips, captions, seed):
-    """``clips`` random clips at the MIR preset's 16 × 224² on the card, and
-    ``captions`` rows of 77 token ids drawn over the 49408-entry
-    vocabulary."""
+def mir_inputs(clips, captions, seed, frames=None):
+    """``clips`` random clips at the MIR preset's 16 × 224² (or ``frames``
+    frames) on the card, and ``captions`` rows of 77 token ids drawn over
+    the 49408-entry vocabulary."""
     import torch
     from video_mamba_suite_torch.configs import CLIP_TIMEMAMBA_B_EK100_MIR
 
@@ -3416,8 +3483,8 @@ def mir_inputs(clips, captions, seed):
     vision, text = m["vision_cfg"], m["text_cfg"]
     img = vision["img_size"]
     g = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn(clips, vision["num_frames"], img, img, 3, device="cuda",
-                    generator=g)
+    x = torch.randn(clips, frames or vision["num_frames"], img, img, 3,
+                    device="cuda", generator=g)
     ids = torch.randint(0, text["vocab_size"],
                         (captions, text["context_length"]), device="cuda",
                         generator=g)
@@ -3840,12 +3907,12 @@ def run_complex_scan():
     return launches
 
 
-def profile_seen(what, fn, tag, tries=4):
-    """``profile`` repeated, up to ``tries`` sessions, until a session
-    records device time (late in this script a session can record
-    none)."""
+def profile_seen(what, fn, tag, tries=4, calls=2):
+    """``profile`` of ``calls`` calls repeated, up to ``tries`` sessions,
+    until a session records device time (late in this script a session
+    can record none)."""
     for _ in range(tries):
-        device = profile(what, fn, tag=tag)
+        device = profile(what, fn, tag=tag, calls=calls)
         if device:
             return device
     return {}
@@ -4089,6 +4156,464 @@ def card_against_cpu_tal():
                              f"non-finite gradient: {missing})")
 
 
+# ---------------------------------------------------------------------------
+# egocentric training (CLIP fine-tuning and pretraining, EK100
+# classification) and the rest of the Mamba LM (int8 serving, scoring)
+
+
+def train_phase(tag, trainer, batch, steps, want, clips):
+    """2 warm-up steps of ``trainer.train_step(*batch)`` (every parameter a
+    finite gradient after the first), then ``steps`` timed steps, each
+    ending with its loss read, with exactly ``want`` launches a step, no
+    plain version and (for K3) every K3 writing checkpoints; ms/step,
+    clips/s, peak memory and a profile window. Returns the timed steps'
+    launches."""
+    import torch
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+
+    model = trainer.model
+    losses = [trainer.train_step(*batch)]
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not torch.isfinite(p.grad).all()]
+    if bad:
+        raise AssertionError(f"{tag}: no or non-finite gradient at {bad}")
+    losses.append(trainer.train_step(*batch))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times = []
+    with count_plain_calls() as plain, count_checkpoint_writes() as ck:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(trainer.train_step(*batch))
+            times.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want_all = {k: v * steps for k, v in want.items()}
+    writes = ck["chunked_scan_fwd with checkpoints"]
+    if launches != want_all or sum(plain.values()) or \
+            writes != want_all.get("chunked_scan_fwd", 0):
+        raise AssertionError(f"{tag} launched {launches} in {steps} steps "
+                             f"(want {want_all}), plain-version calls "
+                             f"{dict(plain)}, checkpoint writes {writes}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{tag}: non-finite loss {losses}")
+    times.sort()
+    median = statistics.median(times)
+    log(f"[{tag}] {steps} steps of {clips} clips on {card_line()}: median "
+        f"{1e3 * median:.2f} ms/step (min {1e3 * times[0]:.2f}, max "
+        f"{1e3 * times[-1]:.2f}), {clips / median:.2f} clips/s; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches}, checkpoint writes "
+        f"{writes}, plain-version calls {dict(plain)}")
+    log(f"[{tag}] loss by step: {' '.join(f'{v:.5f}' for v in losses)}")
+    profile_seen("step", lambda: trainer.train_step(*batch),
+                 tag=f"profile-{tag}")
+    return launches
+
+
+CLIP_STEP_LAUNCHES = {"short_bidir_fwd": VISION_DEPTH,
+                      "row_mha_fwd": VISION_DEPTH,
+                      "short_bidir_bwd": VISION_DEPTH}
+
+
+def run_mir_train():
+    """EK100 MIR fine-tuning, this slice's headline: ``build_clip_mir``
+    (CLIP-TimeMamba-B at the ego_ek100_mir widths, bf16 video tower with
+    its spatial attention on K10, fp32 text tower with TF32 matmuls; the
+    preset's lr 1e-5, weight decay 0.01, AdamW b2 0.98, warmup-cosine,
+    clip 1.0), ``MirFinetuner.train_step`` on 8 clips (16 × 224²) and 8
+    captions of 77 tokens: 12 K1, 12 K10 and 12 K2 a step."""
+    import torch
+    from video_mamba_suite_torch import build_clip_mir
+
+    t0 = time.perf_counter()
+    trainer = build_clip_mir(attn_flash="row", vision_dtype=torch.bfloat16,
+                             seed=0)
+    log(f"[mir-train] CLIP-TimeMamba-B (EK100 MIR) built in "
+        f"{time.perf_counter() - t0:.1f} s; learning rate "
+        f"{trainer.schedule(0):.3g} at step 0, {trainer.schedule(100):.3g} "
+        f"at 100")
+    set_tf32(True)
+    clips, ids = mir_inputs(BATCH, BATCH, seed=31)
+    return train_phase("mir-train", trainer, (clips, ids), MIR_TRAIN_STEPS,
+                       CLIP_STEP_LAUNCHES, BATCH)
+
+
+def run_clip_pretrain():
+    """CLIP pretraining at the ego_timemamba_pretrain widths
+    (``build_clip_pretrainer``: 4 frames, frozen-in-time, tanh gates, lr
+    3e-5, weight decay 0.01, b2 0.98; bf16 video tower on K10), 32 clips
+    and 32 captions a step on one card: 12 K1 (4 steps, rounded up to 8),
+    12 K10 and 12 K2 a step."""
+    import torch
+    from video_mamba_suite_torch import build_clip_pretrainer
+    from video_mamba_suite_torch.configs import EGO_TIMEMAMBA_PRETRAIN
+
+    frames = EGO_TIMEMAMBA_PRETRAIN["model"]["vision_cfg"]["num_frames"]
+    t0 = time.perf_counter()
+    trainer = build_clip_pretrainer(attn_flash="row",
+                                    vision_dtype=torch.bfloat16, seed=0)
+    log(f"[pretrain] CLIP-TimeMamba-B ({frames} frames) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    set_tf32(True)
+    clips, ids = mir_inputs(PRETRAIN_BATCH, PRETRAIN_BATCH, seed=32,
+                            frames=frames)
+    launches = train_phase("pretrain", trainer, (clips, ids),
+                           PRETRAIN_STEPS, CLIP_STEP_LAUNCHES,
+                           PRETRAIN_BATCH)
+    img, txt, scale = trainer.encode(clips[:BATCH], ids[:BATCH])
+    if img.shape != (BATCH, 512) or not (math.isfinite(scale) and scale > 0):
+        raise AssertionError(f"pretrain encode: {img.shape}, {scale}")
+    return launches
+
+
+def run_ek100_cls():
+    """EK100 action classification (``build_ek100_cls``: ViViM-T, 16 ×
+    224², 3806 actions, mixup 0.8 / cutmix 1.0, smoothing 0.1, lr 1e-4;
+    fp32 with TF32 matmuls) on 8 clips a step: 48 K3 with checkpoints and
+    48 K4 a step; then ``evaluate`` over 16 clips × 2 crops with verb and
+    noun marginals (48 K3 a batch of 8 crops, no checkpoints)."""
+    import numpy as np
+    import torch
+    from video_mamba_suite_torch import build_ek100_cls
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+    from video_mamba_suite_torch.tasks.egocentric import get_marginal_indexes
+
+    t0 = time.perf_counter()
+    trainer = build_ek100_cls(seed=0)
+    log(f"[cls] ViViM-T EK100 classifier built in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        f"{trainer.num_classes} actions, mixup {trainer.mixup_alpha}, "
+        f"cutmix {trainer.cutmix_alpha}")
+    set_tf32(True)
+    x = vivim_clips(BATCH, seed=33)
+    labels = torch.randint(trainer.num_classes, (BATCH,), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(33))
+    launches = train_phase(
+        "cls", trainer, (x, labels), CLS_STEPS,
+        {"chunked_scan_fwd": VIVIM_LAUNCHES,
+         "chunked_scan_bwd": VIVIM_LAUNCHES}, BATCH)
+
+    views = vivim_clips(CLS_EVAL_CLIPS * CLS_EVAL_CROPS, seed=34).reshape(
+        CLS_EVAL_CLIPS, CLS_EVAL_CROPS, *x.shape[1:])
+    rng = np.random.default_rng(34)
+    eval_labels = rng.integers(0, trainer.num_classes, CLS_EVAL_CLIPS)
+    to_verb = get_marginal_indexes(
+        rng.integers(0, EK100_VERBS, trainer.num_classes), EK100_VERBS)
+    to_noun = get_marginal_indexes(
+        rng.integers(0, EK100_NOUNS, trainer.num_classes), EK100_NOUNS)
+    reset_launches()
+    t0 = time.perf_counter()
+    with count_plain_calls() as plain:
+        result = trainer.evaluate(views, eval_labels, batch_size=BATCH,
+                                  action_to_verb=to_verb,
+                                  action_to_noun=to_noun)
+    seconds = time.perf_counter() - t0
+    eval_launches = dict(LAUNCHES)
+    batches = -(-CLS_EVAL_CLIPS * CLS_EVAL_CROPS // BATCH)
+    log(f"[cls] evaluate over {CLS_EVAL_CLIPS} clips x {CLS_EVAL_CROPS} "
+        f"crops in {seconds:.2f} s: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in result.items())
+        + f"; launches {eval_launches}")
+    if len(result) != 6 or not all(0 <= v <= 100 for v in result.values()) \
+            or eval_launches != {"chunked_scan_fwd": VIVIM_LAUNCHES
+                                 * batches} or sum(plain.values()):
+        raise AssertionError(f"classification evaluate: {result}, launches "
+                             f"{eval_launches}, plain versions "
+                             f"{dict(plain)}")
+    return launches
+
+
+def lm_requests(model, ids, config):
+    """A warm-up ``generate`` request, then ``LM_INT8_REQUESTS`` timed ones
+    with the launch counts zeroed just before and read just after.
+    Returns (the last output, sorted times, launches, plain calls)."""
+    import torch
+    from video_mamba_suite_torch import generate
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+
+    def request():
+        out = generate(model, ids, config)
+        torch.cuda.synchronize()
+        return out
+
+    request()
+    reset_launches()
+    times = []
+    with count_plain_calls() as plain, count_checkpoint_writes() as ck:
+        for _ in range(LM_INT8_REQUESTS):
+            t0 = time.perf_counter()
+            out = request()
+            times.append(time.perf_counter() - t0)
+    plain.update(ck)
+    return out, sorted(times), dict(LAUNCHES), dict(plain)
+
+
+def run_lm_int8():
+    """Mamba-130M int8 serving: ``quantize_lm_for_decode`` of the fp32
+    model (int8 in_proj, out_proj and embedding, the rest bf16), then
+    ``generate`` of 8 prompts of 16 x 128 new tokens: exactly 24 K5 a
+    request (the prefill), no plain version; the bf16 model of the same
+    seed as the A/B (int8, bf16, int8 again). Tokens/s, the bytes of
+    weights, and each model's device ms a generated token from a profile
+    of a request of ``LM_PROFILE_NEW`` new tokens."""
+    import torch
+    from video_mamba_suite_torch import (
+        GenerationConfig,
+        build_mamba_lm,
+        generate,
+        quantize_lm_for_decode,
+    )
+    from video_mamba_suite_torch.configs import MAMBA_130M
+
+    t0 = time.perf_counter()
+    int8 = quantize_lm_for_decode(build_mamba_lm(MAMBA_130M, seed=0))
+    bf16 = build_mamba_lm(MAMBA_130M, dtype=torch.bfloat16, seed=0)
+    sizes = {}
+    for name, model in (("int8", int8), ("bf16", bf16)):
+        tensors = list(model.parameters()) + list(model.buffers())
+        sizes[name] = sum(t.numel() * t.element_size() for t in tensors)
+    log(f"[lm-int8] Mamba-130M quantized in {time.perf_counter() - t0:.1f} "
+        f"s: weights {sizes['int8'] / 1e6:.1f} MB int8 (+ bf16 rest, fp32 "
+        f"scales) against {sizes['bf16'] / 1e6:.1f} MB bf16")
+    ids = lm_prompt(int8, LM_BATCH, LM_PROMPT, seed=9)
+    config = GenerationConfig(max_length=LM_PROMPT + LM_NEW)
+    want = {"short_scan_fwd": int8.n_layer * LM_INT8_REQUESTS}
+    results = {}
+    for name, model in (("int8", int8), ("bf16", bf16),
+                        ("int8 again", int8)):
+        out, times, launches, plain = lm_requests(model, ids, config)
+        if launches != want or sum(plain.values()) or \
+                tuple(out.shape) != (LM_BATCH, LM_PROMPT + LM_NEW) or \
+                not torch.equal(out[:, :LM_PROMPT], ids):
+            raise AssertionError(f"{name} serving launched {launches} (want "
+                                 f"{want}), plain versions {plain}")
+        median = statistics.median(times)
+        results[name] = out
+        log(f"[lm-int8] {name}: {LM_INT8_REQUESTS} requests of {LM_BATCH} x "
+            f"({LM_PROMPT} + {LM_NEW}) tokens on {card_line()}: median "
+            f"{1e3 * median:.2f} ms/request (min {1e3 * times[0]:.2f}, max "
+            f"{1e3 * times[-1]:.2f}), {LM_BATCH * LM_NEW / median:.1f} "
+            f"generated tok/s; launches {launches}")
+    with torch.inference_mode():
+        a = int8.prefill(ids)[0].float()
+        b = bf16.prefill(ids)[0].float()
+    same = (results["int8"] == results["bf16"]).float().mean().item()
+    log(f"[lm-int8] int8 against bf16: prefill logits' largest difference "
+        f"over their scale {((a - b).abs().max() / b.abs().max()).item():.3e}"
+        f"; {100 * same:.1f}% of the generated ids equal")
+    if not torch.isfinite(a).all() or \
+            not torch.equal(results["int8"], results["int8 again"]):
+        raise AssertionError("int8 serving: non-finite logits or greedy "
+                             "output that changed between requests")
+    short = GenerationConfig(max_length=LM_PROMPT + LM_PROFILE_NEW)
+    device = {}
+    for name, model in (("int8", int8), ("bf16", bf16)):
+        device[name] = sum(profile_seen(
+            f"request of {LM_PROFILE_NEW} new tokens",
+            lambda: generate(model, ids, short), tag=f"profile-lm-{name}",
+            calls=1).values())
+    log(f"[lm-int8] device time a generated token: int8 "
+        f"{device['int8'] / LM_PROFILE_NEW:.3f} ms, bf16 "
+        f"{device['bf16'] / LM_PROFILE_NEW:.3f} ms (the prefill included)")
+    return {"short_scan_fwd": 3 * want["short_scan_fwd"]}
+
+
+class CharTokenizer:
+    """A character tokenizer with the harness's encode / decode surface:
+    ids 1..29 over lower-case letters, space and '.?!' (the JAX package's
+    tests use the same)."""
+
+    alphabet = " abcdefghijklmnopqrstuvwxyz.?!"
+
+    def encode(self, s):
+        return [self.alphabet.index(c) + 1 for c in s.lower()
+                if c in self.alphabet]
+
+    def decode(self, ids):
+        return "".join(self.alphabet[i - 1] for i in ids
+                       if 1 <= i <= len(self.alphabet))
+
+
+def run_lm_loglik():
+    """Mamba-130M scoring (bf16): ``perplexity`` of 8 x 1024 tokens (one
+    forward, 24 K3), then ``MambaHarnessLM.loglikelihood`` of 16 requests
+    (contexts of 100-160 characters and continuations of 5-20 through a
+    character tokenizer) in batches of 8 (24 K3 a batch)."""
+    import numpy as np
+    import torch
+    from video_mamba_suite_torch import (
+        MambaHarnessLM,
+        build_mamba_lm,
+        perplexity,
+    )
+    from video_mamba_suite_torch.configs import MAMBA_130M
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+
+    model = build_mamba_lm(MAMBA_130M, dtype=torch.bfloat16, seed=0)
+    ids = lm_prompt(model, LL_BATCH, LL_LENGTH, seed=12)
+    perplexity(model, ids)                              # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    with count_plain_calls() as plain:
+        t0 = time.perf_counter()
+        ppl = perplexity(model, ids)
+        seconds = time.perf_counter() - t0
+    ppl_launches = dict(LAUNCHES)
+    log(f"[lm-loglik] perplexity of {LL_BATCH} x {LL_LENGTH} tokens on "
+        f"{card_line()}: {ppl:.1f} (random weights) in {1e3 * seconds:.2f} "
+        f"ms, {LL_BATCH * LL_LENGTH / seconds:.0f} scored tok/s; launches "
+        f"{ppl_launches}")
+    if not (math.isfinite(ppl) and ppl > 1) or sum(plain.values()) or \
+            ppl_launches != {"chunked_scan_fwd": model.n_layer}:
+        raise AssertionError(f"perplexity {ppl}, launches {ppl_launches}, "
+                             f"plain versions {dict(plain)}")
+    rng = np.random.default_rng(13)
+    letters = np.array(list(CharTokenizer.alphabet[:27]))
+
+    def text(lo, hi):
+        return "".join(rng.choice(letters, int(rng.integers(lo, hi))))
+
+    requests = [(text(100, 160), " " + text(5, 20))
+                for _ in range(LL_REQUESTS)]
+    lm = MambaHarnessLM(model, CharTokenizer(), batch_size=BATCH)
+    lm.loglikelihood(requests[:BATCH])                  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    with count_plain_calls() as plain:
+        t0 = time.perf_counter()
+        scores = lm.loglikelihood(requests)
+        seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    batches = -(-LL_REQUESTS // BATCH)
+    log(f"[lm-loglik] loglikelihood of {LL_REQUESTS} requests in "
+        f"{1e3 * seconds:.2f} ms ({1e3 * seconds / LL_REQUESTS:.2f} "
+        f"ms/request); first scores "
+        + ", ".join(f"({ll:.2f}, {greedy})" for ll, greedy in scores[:3])
+        + f"; launches {launches}")
+    if len(scores) != LL_REQUESTS or \
+            not all(math.isfinite(ll) and ll < 0 for ll, _ in scores) or \
+            launches != {"chunked_scan_fwd": model.n_layer * batches} or \
+            sum(plain.values()):
+        raise AssertionError(f"loglikelihood: {scores}, launches "
+                             f"{launches}, plain versions {dict(plain)}")
+    profile_seen("forward", lambda: perplexity(model, ids),
+                 tag="profile-lm-loglik")
+    return {"chunked_scan_fwd": model.n_layer * (1 + batches)}
+
+
+def card_against_cpu_mir_step():
+    """One MIR fine-tuning step at full width (CLIP-TimeMamba-B, 2 clips of
+    16 × 224² and 2 captions of 77 tokens) and depth
+    ``CARD_CPU_MIR_DEPTH`` + ``CARD_CPU_MIR_DEPTH``, fp32, TF32 off: the
+    card through K1, K10 and K2 against the CPU through the plain
+    versions; the loss and every parameter's gradient."""
+    import torch
+    from video_mamba_suite_torch import MirFinetuner, build_clip_mir
+    from video_mamba_suite_torch.configs import CLIP_TIMEMAMBA_B_EK100_MIR
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+
+    set_tf32(False)
+    m = CLIP_TIMEMAMBA_B_EK100_MIR["model"]
+    config = dict(CLIP_TIMEMAMBA_B_EK100_MIR, model=dict(
+        m, vision_cfg=dict(m["vision_cfg"], depth=CARD_CPU_MIR_DEPTH),
+        text_cfg=dict(m["text_cfg"], layers=CARD_CPU_MIR_DEPTH)))
+    cpu = build_clip_mir(config, device="cpu", seed=6, attn_flash="row",
+                         warmup_steps=0)
+    card = MirFinetuner(copy.deepcopy(cpu.model).to("cuda"),
+                        **dict(config["opt"], seed=6, warmup_steps=0))
+    clips, ids = mir_inputs(2, 2, seed=35)
+    t0 = time.perf_counter()
+    reset_launches()
+    got = card.train_step(clips, ids)
+    launches = dict(LAUNCHES)
+    want = cpu.train_step(clips.cpu(), ids.cpu())
+    if launches != {k: CARD_CPU_MIR_DEPTH for k in CLIP_STEP_LAUNCHES}:
+        raise AssertionError(f"the card's MIR step launched {launches}")
+    loss_err = abs(got - want) / abs(want)
+    worst, worst_name = 0.0, ""
+    cpu_params = dict(cpu.model.named_parameters())
+    for name, p in card.model.named_parameters():
+        w = cpu_params[name].grad
+        rel = ((p.grad.cpu() - w).abs().max()
+               / w.abs().max().clamp_min(1e-30)).item()
+        if rel >= worst:
+            worst, worst_name = rel, name
+    log(f"[card-vs-cpu] MIR step fp32, full width, depth "
+        f"{CARD_CPU_MIR_DEPTH} + {CARD_CPU_MIR_DEPTH}, TF32 off: loss "
+        f"{got:.6f} against {want:.6f} (rel {loss_err:.3e}, tol "
+        f"{CARD_CPU_MIR_REL_TOL}); largest gradient difference over the CPU "
+        f"gradient's scale {worst:.3e} ({worst_name}; tol "
+        f"{CARD_CPU_MIR_GRAD_REL_TOL}) over {len(cpu_params)} parameters in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not loss_err <= CARD_CPU_MIR_REL_TOL or \
+            not worst <= CARD_CPU_MIR_GRAD_REL_TOL:
+        raise AssertionError("card and CPU MIR steps disagree")
+
+
+def card_against_cpu_lm_int8():
+    """The int8 Mamba-130M (``quantize_lm_for_decode``, bf16 activations)
+    at full width and depth, batch 2: the card through K5 (prompt 16) and
+    K3 (prompt 80) against the CPU through the plain versions; the forward
+    logits, the prefill's and 4 decode steps' fed the same tokens."""
+    import torch
+    from video_mamba_suite_torch import build_mamba_lm, quantize_lm_for_decode
+    from video_mamba_suite_torch.configs import MAMBA_130M
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+
+    cpu = quantize_lm_for_decode(build_mamba_lm(MAMBA_130M, device="cpu",
+                                                seed=2))
+    card = copy.deepcopy(cpu).to("cuda")
+    t0 = time.perf_counter()
+
+    def rel(got, want):
+        return ((got.float().cpu() - want.float()).abs().max()
+                / want.float().abs().max()).item()
+
+    worst = {}
+    for prompt, kernel in ((LM_PROMPT, "short_scan_fwd"),
+                           (80, "chunked_scan_fwd")):
+        ids = lm_prompt(cpu, 2, prompt, seed=40 + prompt, device="cpu")
+        feed = lm_prompt(cpu, 2, 4, seed=41 + prompt, device="cpu")
+        reset_launches()
+        with torch.inference_mode():
+            got = card(ids.cuda())
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+            errs = {"logits": rel(got, cpu(ids))}
+            got, states = card.prefill(ids.cuda())
+            want, want_states = cpu.prefill(ids)
+            errs["prefill"] = rel(got, want)
+            step = 0.0
+            for t in range(feed.shape[1]):
+                got, states = card.step(feed[:, t].cuda(), states)
+                want, want_states = cpu.step(feed[:, t], want_states)
+                step = max(step, rel(got, want))
+            errs["decode"] = step
+        log(f"[card-vs-cpu] int8 Mamba-130M, depth {cpu.n_layer}, batch 2, "
+            f"prompt {prompt} ({kernel}): largest logit difference over the "
+            f"CPU logits' scale: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (tol {CARD_CPU_W8_REL_TOL}); card launches {launches}")
+        if launches != {kernel: cpu.n_layer}:
+            raise AssertionError(f"the card's int8 forward at {prompt} "
+                                 f"launched {launches}")
+        worst.update({f"{k} at {prompt}": v for k, v in errs.items()})
+    log(f"[card-vs-cpu] int8 Mamba-130M done in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not all(math.isfinite(v) and v <= CARD_CPU_W8_REL_TOL
+               for v in worst.values()):
+        raise AssertionError(f"card and CPU int8 LM disagree: {worst}")
+
+
+PHASES = {"mir-train": run_mir_train, "pretrain": run_clip_pretrain,
+          "cls": run_ek100_cls, "lm-int8": run_lm_int8,
+          "lm-loglik": run_lm_loglik,
+          "card-vs-cpu-mir": card_against_cpu_mir_step,
+          "card-vs-cpu-int8": card_against_cpu_lm_int8}
+
+
 def main() -> int:
     import torch
 
@@ -4099,6 +4624,13 @@ def main() -> int:
         fresh_routes(sys.argv[2:])
         return 0
     from video_mamba_suite_torch.ops import _build
+
+    if sys.argv[1:2] == ["--phases"]:    # a few phases alone, no result
+        log(f"[device] {card_line()}")
+        _build.build_all()
+        for name in sys.argv[2:]:
+            PHASES[name]()
+        return 0
 
     card = card_line()
     log(f"[device] {card}; torch {torch.__version__} CUDA "
@@ -4123,6 +4655,7 @@ def main() -> int:
     k2 = check_k2()
     k3 = check_k3()
     k4 = check_k4()
+    mark("K1-K4 cases")
     k5 = check_k5()
     k6 = check_k6()
     k10 = check_attention("K10", K10_CASES)
@@ -4130,16 +4663,23 @@ def main() -> int:
     k11, k11_bwd = check_k11()
     k7 = check_k7()
     k8 = check_k8()
+    mark("K5-K11 cases")
     check_fresh_routes("K5", "K6")
     check_fresh_routes("K7", "K8")
+    mark("fresh routes")
     run_main_path()
     launches = run_train_step()
+    mark("TimeMamba-B")
     launches.update(run_vivim_serving())
     launches.update(run_vivim_finetune())
+    mark("ViViM-T")
     launches.update(run_lm_serving())
+    mark("Mamba-130M")
     run_anticipation_streaming(run_anticipation_serving())
     launches["short_scan_bwd"] = run_anticipation_train()["short_scan_bwd"]
+    mark("anticipation")
     launches["row_mha_fwd"] = run_mir_serving()["row_mha_fwd"]
+    mark("MIR serving")
     card_against_cpu()
     card_against_cpu_grads()
     card_against_cpu_vivim()
@@ -4147,10 +4687,12 @@ def main() -> int:
     card_against_cpu_lm()
     card_against_cpu_anticipation()
     card_against_cpu_clip()
+    mark("card against CPU")
     launches.update(run_flash_module())
     # no model sets flash="vmem": K9's launches are its entry point's
     launches.update(run_vmem_module())
     launches.update(run_complex_scan())
+    mark("flash, vmem, complex")
     # ActionMamba: THUMOS-14 and ActivityNet train steps, the THUMOS eval;
     # their scan launches add to the other paths'
     from video_mamba_suite_torch.configs import TAL_ANET, TAL_THUMOS
@@ -4162,6 +4704,16 @@ def main() -> int:
     for name, count in list(tal.items()) + list(anet.items()):
         launches[name] += count
     card_against_cpu_tal()
+    mark("ActionMamba")
+    # the egocentric training paths and the rest of the LM; their launches
+    # add to the other paths'
+    for name in ("mir-train", "pretrain", "cls", "lm-int8", "lm-loglik"):
+        for kernel, count in PHASES[name]().items():
+            launches[kernel] += count
+        mark(name)
+    card_against_cpu_mir_step()
+    card_against_cpu_lm_int8()
+    mark("card against CPU, PR 16")
 
     kernels = [dict(
         name=name, route="cuda", source=source, replaces=replaces,

@@ -957,3 +957,160 @@ def test_small_clip_on_card_matches_cpu(cuda_device):
     for g_, w in zip(got, want):
         err = (g_.cpu() - w).abs().max() / w.abs().max()
         assert err < 1e-5, err
+
+
+def _small_clip_config():
+    return dict(embed_dim=32,
+                vision_cfg=dict(img_size=32, embed_dim=64, depth=2,
+                                num_heads=4, num_frames=4, ln_pre=True,
+                                is_tanh_gating=True, attn_flash="row"),
+                text_cfg=dict(context_length=16, vocab_size=100, width=64,
+                              heads=4, layers=2))
+
+
+def _grads_close(card_model, cpu_model, rel):
+    cpu_params = dict(cpu_model.named_parameters())
+    for name, p in card_model.named_parameters():
+        want = cpu_params[name].grad
+        err = (p.grad.cpu() - want).abs().max() / want.abs().max().clamp_min(
+            1e-30)
+        assert err < rel, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trainer", ["mir", "pretrain"])
+def test_small_clip_train_step_on_card_matches_cpu(cuda_device, trainer):
+    """One MirFinetuner / ClipPretrainer step of a small CLIP-TimeMamba on
+    the card (K1, K10 forward; K2 backward, one each a block) against the
+    CPU: the loss and every gradient (fp32, TF32 off)."""
+    from video_mamba_suite_torch.models import CLIP
+    from video_mamba_suite_torch.tasks.egocentric import (
+        ClipPretrainer,
+        MirFinetuner,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cls = MirFinetuner if trainer == "mir" else ClipPretrainer
+    cpu_model = CLIP(**_small_clip_config(), device="cpu", seed=0)
+    for blk in cpu_model.visual.blocks:
+        blk.alpha_timeattn.data.fill_(0.7)
+    card = cls(copy.deepcopy(cpu_model).to("cuda"), warmup_steps=0)
+    cpu = cls(cpu_model, warmup_steps=0)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(3, 4, 32, 32, 3, generator=g)
+    ids = torch.randint(100, (3, 16), generator=g)
+    before = dict(LAUNCHES)
+    got = card.train_step(x.cuda(), ids.cuda())
+    torch.cuda.synchronize()
+    assert _grown(before) == {"short_bidir_fwd": 2, "row_mha_fwd": 2,
+                              "short_bidir_bwd": 2}
+    want = cpu.train_step(x, ids)
+    assert abs(got - want) <= 1e-5 * abs(want)
+    _grads_close(card.model, cpu.model, 1e-4)
+
+
+@pytest.mark.cuda
+def test_small_classifier_step_on_card_matches_cpu(cuda_device):
+    """One ClsFinetuner step of a small ViViM (4 frames of 17 tokens: 68
+    steps, so K3 with checkpoints and K4, one each a direction and layer)
+    against the CPU: the loss and every gradient; then the multi-crop
+    evaluate's metrics agree."""
+    import numpy as np
+
+    from video_mamba_suite_torch.models import ViViM
+    from video_mamba_suite_torch.tasks.egocentric import ClsFinetuner
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tower = ViViM(img_size=64, patch_size=16, num_frames=4, depth=2,
+                  embed_dim=64, drop_path_rate=0.0, device="cpu", seed=0)
+    cpu = ClsFinetuner(tower, 7, dropout=0.0, warmup_steps=0)
+    card = ClsFinetuner(copy.deepcopy(tower).to("cuda"), 7, dropout=0.0,
+                        warmup_steps=0)
+    card.model.load_state_dict(cpu.model.state_dict())
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(3, 4, 64, 64, 3, generator=g)
+    labels = torch.tensor([0, 6, 3])
+    before = dict(LAUNCHES)
+    got = card.train_step(x.cuda(), labels.cuda())
+    torch.cuda.synchronize()
+    assert _grown(before) == {"chunked_scan_fwd": 4, "chunked_scan_bwd": 4}
+    want = cpu.train_step(x, labels)
+    assert abs(got - want) <= 1e-5 * abs(want)
+    _grads_close(card.model, cpu.model, 1e-4)
+    views = torch.randn(4, 2, 4, 64, 64, 3, generator=g)
+    to_verb = [np.array([0, 1, 2]), np.array([3, 4]), np.array([5, 6])]
+    kw = dict(batch_size=3, action_to_verb=to_verb)
+    assert card.evaluate(views.cuda(), np.array([0, 3, 5, 6]), **kw) == \
+        cpu.evaluate(views, np.array([0, 3, 5, 6]), **kw)
+
+
+@pytest.mark.cuda
+def test_w8_product_on_card_matches_cpu(cuda_device):
+    """The bf16 product with an fp32 result: cuBLAS on the card against
+    the CPU's widened product (both exact products, fp32 sums)."""
+    from video_mamba_suite_torch.models.common import bf16_matmul_fp32
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 5, 96, generator=g)
+    w = torch.randn(40, 96, generator=g)
+    got = bf16_matmul_fp32(x.cuda(), w.cuda())
+    want = bf16_matmul_fp32(x, w)
+    assert got.dtype == want.dtype == torch.float32
+    err = (got.cpu() - want).abs().max() / want.abs().max()
+    assert err < 1e-5, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prompt,kernel", [(16, "short_scan_fwd"),
+                                           (80, "chunked_scan_fwd")])
+def test_int8_lm_on_card_matches_cpu(cuda_device, prompt, kernel):
+    """A small LM after quantize_lm_for_decode (int8 projections and
+    table, bf16 rest) on the card against the CPU: the forward logits
+    (one K5 or K3 a layer) and generate's tokens run unchanged."""
+    from video_mamba_suite_torch.models import quantize_lm_for_decode
+    from video_mamba_suite_torch.models.generation import (
+        GenerationConfig,
+        generate,
+    )
+
+    cpu = quantize_lm_for_decode(MambaLMHeadModel(
+        64, 2, 100, device="cpu", generator=torch.Generator().manual_seed(4)))
+    card = copy.deepcopy(cpu).to("cuda")
+    ids = torch.randint(100, (2, prompt),
+                        generator=torch.Generator().manual_seed(prompt))
+    before = dict(LAUNCHES)
+    with torch.inference_mode():
+        got = card(ids.cuda())
+        torch.cuda.synchronize()
+        assert _grown(before) == {kernel: 2}
+        want = cpu(ids)
+    err = (got.cpu() - want).abs().max() / want.abs().max()
+    assert err < 5e-2, err
+    out = generate(card, ids.cuda(), GenerationConfig(max_length=prompt + 4))
+    assert torch.equal(out[:, :prompt].cpu(), ids)
+
+
+@pytest.mark.cuda
+def test_loglikelihood_on_card_matches_cpu(cuda_device):
+    """perplexity and sequence_loglikelihood of a small fp32 LM at 100
+    tokens (one K3 a layer) against the CPU."""
+    from video_mamba_suite_torch.models import (
+        perplexity,
+        sequence_loglikelihood,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = MambaLMHeadModel(64, 2, 100, device="cpu",
+                           generator=torch.Generator().manual_seed(5))
+    card = copy.deepcopy(cpu).to("cuda")
+    ids = torch.randint(100, (2, 100),
+                        generator=torch.Generator().manual_seed(6))
+    mask = (torch.arange(100) >= 60).float().expand(2, 100)
+    before = dict(LAUNCHES)
+    got = sequence_loglikelihood(card, ids.cuda(), mask.cuda())
+    torch.cuda.synchronize()
+    assert _grown(before) == {"chunked_scan_fwd": 2}
+    want = sequence_loglikelihood(cpu, ids, mask)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0)
+    assert perplexity(card, ids.cuda()) == pytest.approx(
+        perplexity(cpu, ids), rel=1e-5)

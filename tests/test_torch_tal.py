@@ -393,13 +393,13 @@ def _detections(seed, n=300):
 
 
 @pytest.mark.parametrize("soft", [True, False], ids=["soft", "hard"])
-def test_batched_nms_matches_jax(monkeypatch, soft):
-    """Against the JAX package's numpy NMS (its float32 C++ op turned
-    off): the port keeps that path, in float64."""
+def test_batched_nms_matches_jax(soft):
+    """Against the JAX package's default NMS path, its float32 C++ op
+    (``csrc/nms_1d.cc`` through ``ops/native.py``), which the port's
+    float32 arithmetic copies."""
     from video_mamba_suite_tpu.ops import native
 
-    monkeypatch.setattr(native, "nms_1d_native", lambda *a: None)
-    monkeypatch.setattr(native, "soft_nms_1d_native", lambda *a: None)
+    assert native._nms_lib() is not None
     segs, scores, cls = _detections(14 + soft)
     kw = dict(iou_threshold=0.1 if soft else 0.5, min_score=0.001,
               max_seg_num=60, use_soft_nms=soft, multiclass=True,
@@ -411,6 +411,58 @@ def test_batched_nms_matches_jax(monkeypatch, soft):
     got = batched_nms(segs, scores, cls, **dict(kw, multiclass=False))
     want = jax_nms.batched_nms(segs, scores, cls,
                                **dict(kw, multiclass=False))
+    np.testing.assert_allclose(_rows(*got), _rows(*want), **NMS_TOL)
+
+
+def _threshold_pairs(threshold, steps=40):
+    """Pairs of 10-long segments [0, 10], [t, t + 10] whose IoU
+    (10 - t) / (10 + t) steps across ``threshold`` in relative steps of
+    3e-9 of t: every IoU lies within 1e-6 of the threshold, and some
+    within float32's rounding of it."""
+    t0 = 10 * (1 - threshold) / (1 + threshold)
+    for k in range(-steps, steps + 1):
+        t = t0 * (1 + 3e-9 * k)
+        yield np.array([[0.0, 10.0], [t, t + 10.0]])
+
+
+@pytest.mark.parametrize("soft", [True, False], ids=["soft", "hard"])
+def test_nms_at_the_iou_threshold_matches_jax_default(monkeypatch, soft):
+    """Where an IoU sits within 1e-6 of the threshold, the port keeps what
+    the JAX default path (its float32 C++ op) keeps, with the same
+    scores, also on ``_detections`` with some segments moved onto the
+    threshold. The JAX float64 fallback decides some of these pairs the
+    other way, so a float64 port would not match the default."""
+    from video_mamba_suite_tpu.ops import native
+
+    scores, cls = np.array([0.9, 0.8]), np.array([0, 0])
+    kw = dict(min_score=0.001, max_seg_num=60, use_soft_nms=soft,
+              multiclass=True, sigma=0.5, voting_thresh=0.0)
+    splits = 0
+    for threshold in (0.1, 0.3, 0.5, 0.7):
+        kw["iou_threshold"] = threshold
+        for segs in _threshold_pairs(threshold):
+            want = jax_nms.batched_nms(segs, scores, cls, **kw)
+            got = batched_nms(segs, scores, cls, **kw)
+            np.testing.assert_array_equal(got[2], want[2])
+            np.testing.assert_allclose(_rows(*got), _rows(*want),
+                                       **NMS_TOL)
+            with monkeypatch.context() as m:
+                m.setattr(native, "nms_1d_native", lambda *a: None)
+                m.setattr(native, "soft_nms_1d_native", lambda *a: None)
+                fallback = jax_nms.batched_nms(segs, scores, cls, **kw)
+            splits += len(fallback[0]) != len(want[0])
+    assert soft or splits > 0
+    segs, det_scores, det_cls = _detections(14 + soft)
+    # move every tenth segment onto the threshold of its predecessor
+    t = 0.5 if not soft else 0.1
+    for i in range(1, len(segs), 10):
+        start, length = segs[i - 1, 0], segs[i - 1, 1] - segs[i - 1, 0]
+        shift = length * (1 - t) / (1 + t)
+        segs[i] = [start + shift, start + shift + length]
+        det_cls[i] = det_cls[i - 1]
+    kw.update(iou_threshold=t, voting_thresh=0.7)
+    want = jax_nms.batched_nms(segs, det_scores, det_cls, **kw)
+    got = batched_nms(segs, det_scores, det_cls, **kw)
     np.testing.assert_allclose(_rows(*got), _rows(*want), **NMS_TOL)
 
 

@@ -11,6 +11,7 @@ from .models import (
     CLIP,
     GenerationConfig,
     MambaDBM,
+    MambaHarnessLM,
     MambaLMHeadModel,
     MambaVim,
     TimeMamba,
@@ -20,13 +21,24 @@ from .models import (
     build_vivim_tiny_k400,
     from_pretrained,
     generate,
+    perplexity,
+    quantize_lm_for_decode,
+    sequence_loglikelihood,
 )
 from .tasks.anticipation import (
     AnticipationTrainer,
     LSTRMamba,
     build_anticipation_trainer,
 )
-from .tasks.egocentric import MirFinetuner, build_clip_mir
+from .tasks.egocentric import (
+    ClipPretrainer,
+    ClsFinetuner,
+    MirFinetuner,
+    VideoClassifier,
+    build_clip_mir,
+    build_clip_pretrainer,
+    build_ek100_cls,
+)
 from .tasks.tal import ActionMambaDetector, TalTrainer, build_tal_trainer
 from .tasks.recognition import (
     RecognitionTrainer,
@@ -38,10 +50,13 @@ from .train import train_step
 from .utils import make_optimizer
 
 __all__ = ["ActionMambaDetector", "AnticipationTrainer", "CLIP",
-           "GenerationConfig", "LSTRMamba", "MambaDBM", "MambaLMHeadModel",
-           "MambaVim", "MirFinetuner", "RecognitionTrainer", "TalTrainer",
-           "TimeMamba", "ViViM", "build_anticipation_trainer",
-           "build_clip_mir", "build_mamba_lm", "build_tal_trainer",
-           "build_timemamba_b", "build_vivim_k400_trainer",
-           "build_vivim_tiny_k400", "evaluate", "from_pretrained",
-           "generate", "make_optimizer", "predict", "train_step"]
+           "ClipPretrainer", "ClsFinetuner", "GenerationConfig", "LSTRMamba",
+           "MambaDBM", "MambaHarnessLM", "MambaLMHeadModel", "MambaVim",
+           "MirFinetuner", "RecognitionTrainer", "TalTrainer", "TimeMamba",
+           "VideoClassifier", "ViViM", "build_anticipation_trainer",
+           "build_clip_mir", "build_clip_pretrainer", "build_ek100_cls",
+           "build_mamba_lm", "build_tal_trainer", "build_timemamba_b",
+           "build_vivim_k400_trainer", "build_vivim_tiny_k400", "evaluate",
+           "from_pretrained", "generate", "make_optimizer", "perplexity",
+           "predict", "quantize_lm_for_decode", "sequence_loglikelihood",
+           "train_step"]

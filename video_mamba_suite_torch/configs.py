@@ -69,7 +69,8 @@ ANTICIPATION_EK100_SHORT = dict(
 # tanh-gated adapters; embeddings of 512; text tower context 77, CLIP's BPE
 # vocabulary of 49408, width 512, 8 heads, 12 layers. The preset's recipe
 # (upstream main_lavila_finetune_mir.py's defaults: lr 1e-5, weight decay
-# 0.01, batch 64) is for the fine-tuning step.
+# 0.01, batch 64) is for the fine-tuning step, which ``MirFinetuner`` runs
+# with AdamW (b2 0.98), a warmup-cosine schedule and clip 1.0.
 CLIP_TIMEMAMBA_B_EK100_MIR = dict(
     model=dict(
         embed_dim=512, vision_tower="timemamba",
@@ -81,6 +82,39 @@ CLIP_TIMEMAMBA_B_EK100_MIR = dict(
                       heads=8, layers=12)),
     opt=dict(lr=1e-5, weight_decay=0.01),
     batch_size=64,
+)
+
+# CLIP pretraining on Ego4D with CLIP-TimeMamba-B: the JAX package's preset
+# ``ego_timemamba_pretrain`` (configs/presets.py:113-124, from upstream's
+# scripts/pretrain/run_slurm_pretrain_bs512_timemamba_like_frozen.sh):
+# the MIR model's widths at 4 frames (frozen-in-time residuals, tanh-gated
+# adapters), embeddings of 512, text context 77; AdamW lr 3e-5, weight
+# decay 0.01, b2 0.98, cosine schedule, clip 1.0; 5 epochs with 1 of
+# warmup; batch 256 over the whole job.
+EGO_TIMEMAMBA_PRETRAIN = dict(
+    model=dict(CLIP_TIMEMAMBA_B_EK100_MIR["model"],
+               vision_cfg=dict(CLIP_TIMEMAMBA_B_EK100_MIR["model"]
+                               ["vision_cfg"], num_frames=4)),
+    opt=dict(lr=3e-5, weight_decay=0.01),
+    epochs=5,
+    warmup_epochs=1,
+    batch_size=256,
+)
+
+# EK100 action classification: the JAX package's preset ``ego_ek100_cls``
+# (configs/presets.py:136-145, upstream main_lavila_finetune_cls.py's
+# defaults): a ViViM-T backbone (width 192, depth 24, 16 frames at 224²,
+# patch 16) without projection under a dropout-0.5 linear head over the
+# 3806 EK100 actions; AdamW lr 1e-4, weight decay 0.05, label smoothing
+# 0.1, mixup 0.8, cutmix 1.0; 30 epochs; batch 32.
+EGO_EK100_CLS = dict(
+    model=dict(img_size=224, patch_size=16, num_frames=16, depth=24,
+               embed_dim=192),
+    num_classes=3806,
+    opt=dict(lr=1e-4, weight_decay=0.05),
+    aug=dict(smoothing=0.1, mixup_alpha=0.8, cutmix_alpha=1.0),
+    epochs=30,
+    batch_size=32,
 )
 
 # Temporal action localization, ActionMamba on THUMOS-14 (the JAX package's

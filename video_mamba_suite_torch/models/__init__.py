@@ -22,6 +22,8 @@ from .common import (
     MaskedConv1D,
     MaskMambaBlock,
     PatchifyConv,
+    W8Dense,
+    W8Embed,
     max_pool_1d,
     sinusoid_positions,
 )
@@ -33,9 +35,11 @@ from .convert import (
     lstr_mamba_from_jax,
     mamba_lm_from_jax,
     mask_mamba_block_from_jax,
+    quantized_lm_from_jax,
     tal_detector_from_jax,
     text_transformer_from_jax,
     timemamba_from_jax,
+    video_classifier_from_jax,
     vim_mixer_from_jax,
     vivim_from_jax,
 )
@@ -44,6 +48,12 @@ from .hf import (
     dbm_mixer_from_state_dict,
     from_pretrained,
     mamba_lm_from_state_dict,
+)
+from .lm_eval import (
+    MambaHarnessLM,
+    perplexity,
+    register,
+    sequence_loglikelihood,
 )
 from .mamba import (
     Block,
@@ -54,6 +64,7 @@ from .mamba import (
     make_block,
 )
 from .mixer_seq import MambaLMHeadModel, MixerModel, build_mamba_lm
+from .quant_decode import quantize_lm_for_decode
 from .timemamba import Mlp, SpaceTimeBlock, TimeMamba, build_timemamba_b
 from .vivim import (
     PatchEmbed,
@@ -64,6 +75,9 @@ from .vivim import (
 )
 
 __all__ = [
+    "MambaHarnessLM", "W8Dense", "W8Embed", "perplexity",
+    "quantize_lm_for_decode", "quantized_lm_from_jax", "register",
+    "sequence_loglikelihood", "video_classifier_from_jax",
     "AffineDropPath", "LayerNorm1D", "MambaDBM", "MaskMambaBlock",
     "MaskedConv1D", "dbm_mixer_from_jax", "dbm_mixer_from_state_dict",
     "mask_mamba_block_from_jax", "max_pool_1d", "tal_detector_from_jax",

@@ -138,7 +138,10 @@ class CLIP(nn.Module):
     ``text_cfg`` the text tower's; both towers project to ``embed_dim``.
     The forward returns the L2-normalised video and text embeddings (fp32)
     and exp(logit_scale); ``freeze_temperature`` stops the scale's
-    gradient."""
+    gradient. In training mode the video tower's dropout and drop-path
+    draw their masks from the ``torch.Generator`` passed to ``forward``
+    (the JAX ``deterministic=False`` with a "dropout" rng); the text tower
+    has none."""
 
     def __init__(self, embed_dim: int = 512, vision_tower: str = "timemamba",
                  vision_cfg: Optional[dict] = None,
@@ -161,14 +164,17 @@ class CLIP(nn.Module):
         self.freeze_temperature = freeze_temperature
         self.to(device)
 
-    def encode_image(self, image: torch.Tensor) -> torch.Tensor:
-        return self.visual(image)
+    def encode_image(self, image: torch.Tensor,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+        return self.visual(image, generator)
 
     def encode_text(self, text: torch.Tensor) -> torch.Tensor:
         return self.textual(text)
 
-    def forward(self, image: torch.Tensor, text: torch.Tensor):
-        img = self.encode_image(image).float()
+    def forward(self, image: torch.Tensor, text: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        img = self.encode_image(image, generator).float()
         txt = self.encode_text(text).float()
         img = img / img.norm(dim=-1, keepdim=True).clamp_min(1e-8)
         txt = txt / txt.norm(dim=-1, keepdim=True).clamp_min(1e-8)

@@ -151,6 +151,83 @@ class Embedding(nn.Module):
         return F.embedding(ids, self.weight)
 
 
+def _absmax_int8(w: torch.Tensor, dim: int):
+    """Symmetric absmax int8 along ``dim`` (the reduced axis): (int8
+    tensor, fp32 scales) with the scales floored at 1e-8; the rounding is
+    half to even, as ``jnp.round``."""
+    w = w.detach().float()
+    scale = (w.abs().amax(dim=dim) / 127.0).clamp_min(1e-8)
+    return torch.round(w / scale.unsqueeze(dim)).to(torch.int8), scale
+
+
+def bf16_matmul_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., in) @ w (out, in)^T with both rounded to bf16 and the
+    product accumulated and returned in fp32 (``jnp.dot`` of bf16 inputs
+    with ``preferred_element_type=float32``): no rounding to bf16 before
+    a scale is applied. cuBLAS writes the fp32 result on the card; on the
+    CPU the bf16 values are widened to fp32, whose products are exact."""
+    x = x.to(torch.bfloat16)
+    w = w.to(torch.bfloat16)
+    if x.is_cuda:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
+                       out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[0])
+    return F.linear(x.float(), w.float())
+
+
+class _Int8Weight:
+    """Offline int8 storage of a module's 2-D ``weight``: ``quantize_``
+    replaces it by int8 with a fp32 scale per row (dim 0) in the buffer
+    ``qscale``, None until then."""
+
+    def _init_int8(self) -> None:
+        self.register_buffer("qscale", None)
+
+    def quantize_(self) -> None:
+        """Quantize ``weight`` in place, one scale per row."""
+        q, scale = _absmax_int8(self.weight, dim=1)
+        self.weight = nn.Parameter(q, requires_grad=False)
+        self.qscale = scale
+
+
+class W8Dense(_Int8Weight, Dense):
+    """``Dense`` that can hold offline-quantized int8 weights (the JAX
+    ``W8Dense``). Until ``quantize_`` it is exactly ``Dense``. After it,
+    ``weight`` is int8 (out, in) with a fp32 scale per output channel in
+    ``qscale``, and the forward is bf16(x) @ bf16(int8 weight) in fp32,
+    times the scale, plus the bias, in the compute dtype (x's without
+    one). Inference only: the int8 weight takes no gradient."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._init_int8()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.qscale is None:
+            return super().forward(x)
+        y = bf16_matmul_fp32(x, self.weight) * self.qscale
+        if self.bias is not None:
+            y = y + self.bias
+        return y.to(self.dtype or x.dtype)
+
+
+class W8Embed(_Int8Weight, Embedding):
+    """``Embedding`` that can hold an offline-quantized int8 table (the
+    JAX ``W8Embed``). Until ``quantize_`` it is exactly ``Embedding``.
+    After it, ``weight`` is int8 with a fp32 scale per row in ``qscale``,
+    and a lookup returns bf16(rows) * bf16(their scales), in bf16."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._init_int8()
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.qscale is None:
+            return super().forward(ids)
+        rows = self.weight[ids].to(torch.bfloat16)
+        return rows * self.qscale[ids].to(torch.bfloat16)[..., None]
+
+
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm``: eps 1e-6, statistics and affine in fp32, the
     result cast to ``dtype`` (None: promoted with the fp32 parameters)."""

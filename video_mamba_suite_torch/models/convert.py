@@ -106,6 +106,56 @@ def mamba_lm_from_jax(params: Dict[str, Any], n_layer: int
     return out
 
 
+def _serving_tensor(x) -> torch.Tensor:
+    """A leaf of a quantized JAX tree in its own dtype: int8 stays int8,
+    bf16 (numpy's ml_dtypes) becomes torch's bf16 through fp32, exactly."""
+    x = np.asarray(x)
+    if x.dtype == np.int8:
+        return torch.from_numpy(x.copy())
+    if x.dtype.name == "bfloat16":
+        return _tensor(x.astype(np.float32)).to(torch.bfloat16)
+    return _tensor(x)
+
+
+def quantized_lm_from_jax(variables: Dict[str, Any], n_layer: int
+                          ) -> Dict[str, torch.Tensor]:
+    """The JAX ``quantize_lm_for_decode`` output {"params": ..., "qscale":
+    ...} → a quantized port ``MambaLMHeadModel``'s state_dict: the int8
+    embedding and the int8 in_proj / out_proj weights (transposed to (out,
+    in)) with their fp32 scales under ``qscale``, every other leaf in its
+    JAX dtype. It loads into a model of the same widths after
+    ``quantize_lm_for_decode`` with the same ``cast``."""
+    params = variables["params"]["backbone"]
+    scales = variables["qscale"]["backbone"]
+    out = {"backbone.embedding.weight": _serving_tensor(
+               params["embedding"]["embedding"]),
+           "backbone.embedding.qscale": _tensor(
+               scales["embedding"]["embedding"])}
+    for i in range(n_layer):
+        tree = params[f"layers_{i}"]
+        prefix = f"backbone.layers.{i}."
+        for name in ("norm_w", "norm_b"):
+            if name in tree:
+                out[prefix + name] = _serving_tensor(tree[name])
+        mixer = tree["mixer"]
+        for proj in ("in_proj", "out_proj"):
+            out[f"{prefix}mixer.{proj}.weight"] = _serving_tensor(
+                np.asarray(mixer[proj]["kernel"]).T)
+            out[f"{prefix}mixer.{proj}.qscale"] = _tensor(
+                scales[f"layers_{i}"]["mixer"][proj]["kernel"])
+        fwd = mixer["fwd"]
+        for name in ("conv_w", "conv_bias", "dt_bias", "A_log", "D"):
+            if name in fwd:
+                out[f"{prefix}mixer.fwd.{name}"] = _serving_tensor(fwd[name])
+        for name in ("x_proj", "dt_proj"):
+            out[f"{prefix}mixer.fwd.{name}"] = _serving_tensor(
+                np.asarray(fwd[name]).T)
+    for name in ("norm_f_w", "norm_f_b"):
+        if name in params:
+            out["backbone." + name] = _serving_tensor(params[name])
+    return out
+
+
 def _block(tree, prefix, out):
     for norm in ("norm1", "norm2", "norm3"):
         _layernorm(tree[norm], f"{prefix}{norm}.", out)
@@ -286,16 +336,32 @@ def clip_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """A JAX ``CLIP`` tree {visual, textual, logit_scale} → the port's
     ``CLIP`` state_dict. The video tower is a TimeMamba or a ViViM, per
     layer or stacked (``scan_blocks=True``, as the JAX CLI builds the
-    egocentric models); its depth is read from the tree."""
+    egocentric models), with or without ``image_projection``; its depth
+    is read from the tree."""
     params = params.get("params", params)
-    visual = params["visual"]
-    if "proj" in visual["patch_embed"]:                          # ViViM
-        tower = vivim_from_jax(visual, _tower_depth(visual, "mixer"))
-    else:
-        tower = timemamba_from_jax(visual, _tower_depth(visual, "block"))
-    out = {"visual." + key: value for key, value in tower.items()}
+    out = {"visual." + key: value for key, value in
+           _tower_from_jax(params["visual"]).items()}
     out.update(text_transformer_from_jax(params["textual"], "textual."))
     out["logit_scale"] = _tensor(params["logit_scale"])
+    return out
+
+
+def _tower_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A video tower's tree, TimeMamba or ViViM (per layer or stacked),
+    with or without its projection; the depth is read from the tree."""
+    if "proj" in tree["patch_embed"]:                             # ViViM
+        return vivim_from_jax(tree, _tower_depth(tree, "mixer"))
+    return timemamba_from_jax(tree, _tower_depth(tree, "block"))
+
+
+def video_classifier_from_jax(params: Dict[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """A JAX ``VideoClassifier`` tree {vision_tower, fc_cls} → the port's
+    ``VideoClassifier`` state_dict."""
+    params = params.get("params", params)
+    out = {"vision_tower." + key: value for key, value in
+           _tower_from_jax(params["vision_tower"]).items()}
+    _dense(params["fc_cls"], "fc_cls.", out)
     return out
 
 

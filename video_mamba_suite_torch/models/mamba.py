@@ -26,7 +26,7 @@ from ..ops.mamba_inner import mamba_inner, mamba_inner_bidir
 from ..ops.norms import fused_add_norm, rms_norm
 from ..ops.selective_scan_short import use_short_scan
 from ..ops.selective_state_update import selective_state_update
-from .common import Dense, init_weight, resolve_device
+from .common import Dense, W8Dense, init_weight, resolve_device
 
 
 D_CONV = 4                                   # depthwise conv width
@@ -247,13 +247,16 @@ class MambaCausal(nn.Module):
         self.d_state, self.d_conv = d_state, d_conv
         self.d_inner = int(expand * d_model)
         self.dt_rank = math.ceil(d_model / 16)
-        self.in_proj = Dense(d_model, 2 * self.d_inner, bias=False,
-                             dtype=dtype, init="torch_linear",
-                             generator=generator)
+        # W8Dense: exactly Dense until quantize_lm_for_decode stores the
+        # projections as int8 (models/quant_decode.py)
+        self.in_proj = W8Dense(d_model, 2 * self.d_inner, bias=False,
+                               dtype=dtype, init="torch_linear",
+                               generator=generator)
         self.fwd = ScanParams(self.d_inner, d_state, self.dt_rank,
                               generator=generator, d_conv=d_conv)
-        self.out_proj = Dense(self.d_inner, d_model, bias=False, dtype=dtype,
-                              init="torch_linear", generator=generator)
+        self.out_proj = W8Dense(self.d_inner, d_model, bias=False,
+                                dtype=dtype, init="torch_linear",
+                                generator=generator)
         self.to(device)
 
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,10 @@
 Embedding → n_layer × ``Block(MambaCausal)`` → final norm, and a head tied
 to the embedding. ``forward`` runs whole sequences, ``prefill`` runs a
 prompt and returns each layer's decode state, ``step`` advances one token.
-The MoE interleave (``moe_every > 0``) is not ported yet.
+The embedding and the mixers' in and out projections are ``W8Embed`` and
+``W8Dense``: the plain modules until ``quantize_lm_for_decode`` stores
+them as int8 (``models/quant_decode.py``). The MoE interleave
+(``moe_every > 0``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch
 from torch import nn
 
 from ..ops.norms import fused_add_norm
-from .common import Embedding, resolve_device
+from .common import W8Embed, bf16_matmul_fp32, resolve_device
 from .mamba import D_CONV, make_block
 
 State = Tuple[torch.Tensor, torch.Tensor]
@@ -37,8 +40,8 @@ class MixerModel(nn.Module):
                 "the MoE interleave (moe_every > 0) is not ported yet "
                 "(ROADMAP item 8)")
         self.rms_norm, self.norm_eps = rms_norm, norm_eps
-        self.embedding = Embedding(vocab_size, d_model, generator=generator,
-                                   init_std=initializer_range)
+        self.embedding = W8Embed(vocab_size, d_model, generator=generator,
+                                 init_std=initializer_range)
         self.layers = nn.ModuleList(
             make_block(d_model, mixer="causal", rms_norm_block=rms_norm,
                        residual_in_fp32=residual_in_fp32, norm_eps=norm_eps,
@@ -85,8 +88,9 @@ class MixerModel(nn.Module):
 class MambaLMHeadModel(nn.Module):
     """The Mamba LM with its head tied to the embedding: logits = hidden @
     E^T in hidden's dtype, over the vocabulary padded up to a multiple of
-    ``pad_vocab_size_multiple`` (``padded_vocab``). The residual stream is
-    fp32, as in the JAX model."""
+    ``pad_vocab_size_multiple`` (``padded_vocab``). With an int8 table the
+    logits are bf16(hidden) @ bf16(E)^T in fp32 times each row's scale, in
+    fp32. The residual stream is fp32, as in the JAX model."""
 
     def __init__(self, d_model: int, n_layer: int, vocab_size: int,
                  d_state: int = 16, d_conv: int = D_CONV, expand: int = 2,
@@ -112,8 +116,12 @@ class MambaLMHeadModel(nn.Module):
         return -(-self.vocab_size // m) * m
 
     def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        emb = self.backbone.embedding.weight
-        return hidden @ emb.to(hidden.dtype).t()
+        embedding = self.backbone.embedding
+        if embedding.qscale is not None:
+            # the per-row scales become the logits' per-column scales
+            return bf16_matmul_fp32(hidden, embedding.weight) \
+                * embedding.qscale
+        return hidden @ embedding.weight.to(hidden.dtype).t()
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         """(batch, L) ids → (batch, L, padded_vocab) logits."""

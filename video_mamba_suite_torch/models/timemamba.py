@@ -132,7 +132,9 @@ class SpaceTimeBlock(nn.Module):
 
 class TimeMamba(nn.Module):
     """Video encoder: patch embed → depth × SpaceTimeBlock → LayerNorm on
-    the cls token → projection to ``output_dim``.
+    the cls token → projection to ``output_dim``; with ``output_dim`` None
+    there is no projection and the normed cls token (``embed_dim`` wide)
+    comes out, as a classifier's backbone takes it.
 
     ``dtype`` is the compute dtype (parameters stay fp32); the final norm
     and projection run in fp32, as in the JAX package. Built on ``device``
@@ -149,7 +151,7 @@ class TimeMamba(nn.Module):
                  num_frames: int = 8, ln_pre: bool = False,
                  is_tanh_gating: bool = False,
                  attention_style: str = "frozen-in-time",
-                 output_dim: int = 512, drop_rate: float = 0.0,
+                 output_dim: Optional[int] = 512, drop_rate: float = 0.0,
                  drop_path_rate: float = 0.0, attn_flash=None,
                  dtype: Optional[torch.dtype] = None, device="cuda",
                  seed: int = 0):
@@ -178,15 +180,17 @@ class TimeMamba(nn.Module):
                            attn_flash=attn_flash, dtype=dtype, generator=g)
             for i in range(depth))
         self.norm = LayerNorm(embed_dim)
-        self.image_projection = nn.Parameter(nn.init.normal_(
-            torch.empty(embed_dim, output_dim), 0.0, embed_dim ** -0.5,
-            generator=g))
+        self.image_projection = None if output_dim is None else \
+            nn.Parameter(nn.init.normal_(
+                torch.empty(embed_dim, output_dim), 0.0, embed_dim ** -0.5,
+                generator=g))
         self.to(device)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """x (B, T, H, W, 3) → (B, output_dim) fp32. ``generator`` (on x's
-        device) draws the dropout and drop-path masks in training mode."""
+        """x (B, T, H, W, 3) → (B, output_dim) fp32 (``embed_dim`` without
+        a projection). ``generator`` (on x's device) draws the dropout and
+        drop-path masks in training mode."""
         B, T, H, W, C = x.shape
         feat = self.patch_embed(x.reshape(B * T, H, W, C))
         BT, hh, ww, D = feat.shape
@@ -204,6 +208,8 @@ class TimeMamba(nn.Module):
         for blk in self.blocks:
             cls_tokens, patches = blk(cls_tokens, patches, generator)
         h = self.norm(cls_tokens)[:, 0]                      # fp32
+        if self.image_projection is None:
+            return h
         return h @ self.image_projection
 
     def flops_per_clip(self) -> float:
@@ -233,7 +239,9 @@ class TimeMamba(nn.Module):
             total += 2.0 * rows * D * 4 * D               # qkv + out
             total += 2 * 2.0 * frames * (n + 1) ** 2 * D  # scores, w·v
             total += 2 * 2.0 * (tokens + 1) * D * hidden  # fc1 + fc2
-        return total + 2.0 * D * self.image_projection.shape[1]
+        if self.image_projection is not None:
+            total += 2.0 * D * self.image_projection.shape[1]
+        return total
 
 
 def build_timemamba_b(device="cuda", dtype: Optional[torch.dtype]

@@ -1,7 +1,16 @@
 """1-D segment NMS on the host: hard and soft (linear or gaussian),
 class-aware, with segment voting (the port's own copy of the JAX package's
-``tasks/tal/nms.py``, its numpy path). It runs once a video at eval time
-on at most a few thousand segments."""
+``tasks/tal/nms.py``). It runs once a video at eval time on at most a few
+thousand segments.
+
+The JAX ``nms_1d`` and ``soft_nms_1d`` run a float32 C++ op whenever it
+loads (its ``csrc/nms_1d.cc``), which is their default; the float64 numpy
+path is only their fallback. Both functions here compute as that op does:
+scores and IoUs in float32, the IoU 0 where the union is not positive,
+one expf for the gaussian decay, a stable sort by float32 score. So where
+an IoU lies within float32's rounding of the threshold they keep the
+segments that the JAX default keeps.
+"""
 
 from __future__ import annotations
 
@@ -11,16 +20,24 @@ import numpy as np
 
 
 def _iou_1d(seg: np.ndarray, segs: np.ndarray) -> np.ndarray:
-    left = np.maximum(seg[0], segs[:, 0])
-    right = np.minimum(seg[1], segs[:, 1])
-    inter = np.clip(right - left, 0, None)
+    """float32 IoU of ``seg`` (2,) with each row of ``segs`` (n, 2), as the
+    C++ op: 0 where the union is not positive."""
+    inter = np.maximum(np.float32(0), np.minimum(seg[1], segs[:, 1])
+                       - np.maximum(seg[0], segs[:, 0]))
     union = (seg[1] - seg[0]) + (segs[:, 1] - segs[:, 0]) - inter
-    return inter / np.maximum(union, 1e-8)
+    positive = union > 0
+    return np.where(positive, inter / np.where(positive, union,
+                                               np.float32(1)),
+                    np.float32(0))
 
 
 def nms_1d(segs: np.ndarray, scores: np.ndarray,
            iou_threshold: float) -> np.ndarray:
-    """Hard NMS: the kept indices by descending score."""
+    """Hard NMS: the kept indices by descending score (float32 scores,
+    ties in input order)."""
+    segs = np.asarray(segs, np.float32)
+    scores = np.asarray(scores, np.float32)
+    thr = np.float32(iou_threshold)
     order = np.argsort(-scores, kind="stable")
     keep = []
     alive = np.ones(len(segs), bool)
@@ -32,7 +49,7 @@ def nms_1d(segs: np.ndarray, scores: np.ndarray,
         rest = order[alive[order]]
         if rest.size:
             ious = _iou_1d(segs[i], segs[rest])
-            alive[rest[ious > iou_threshold]] = False
+            alive[rest[ious > thr]] = False
     return np.array(keep, np.int64)
 
 
@@ -40,39 +57,44 @@ def soft_nms_1d(segs: np.ndarray, scores: np.ndarray,
                 iou_threshold: float = 0.1, sigma: float = 0.5,
                 min_score: float = 0.001, method: int = 2
                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Soft NMS: take the highest score, decay the scores of the segments
-    that overlap it (method 1 linear, 2 gaussian, else hard), repeat while
-    a score reaches ``min_score``. Returns (segments, scores, indices) in
-    the order taken."""
-    segs = segs.copy().astype(np.float64)
-    scores = scores.copy().astype(np.float64)
-    out_segs, out_scores, out_inds = [], [], []
-    alive = np.ones(len(segs), bool)
-    for _ in range(len(segs)):
+    """Soft NMS: take the highest score (the first of equal ones), decay
+    the scores of the segments still alive by their overlap with it
+    (method 1 linear, 2 gaussian, else hard), repeat while a score reaches
+    ``min_score``. Scores decay in float32. Returns (the segments as
+    given, their decayed scores as float64, indices) in the order
+    taken."""
+    segs32 = np.asarray(segs, np.float32)
+    scores32 = np.array(scores, np.float32)
+    thr, sig = np.float32(iou_threshold), np.float32(sigma)
+    floor = np.float32(min_score)
+    inds = []
+    alive = np.ones(len(segs32), bool)
+    for _ in range(len(segs32)):
         live = np.where(alive)[0]
         if live.size == 0:
             break
-        i = live[np.argmax(scores[live])]
-        if scores[i] < min_score:
+        i = live[np.argmax(scores32[live])]
+        if scores32[i] < floor:
             break
-        out_segs.append(segs[i].copy())
-        out_scores.append(scores[i])
-        out_inds.append(i)
+        inds.append(i)
         alive[i] = False
         rest = np.where(alive)[0]
         if rest.size == 0:
             break
-        ious = _iou_1d(segs[i], segs[rest])
+        ious = _iou_1d(segs32[i], segs32[rest])
         if method == 1:
-            w = np.where(ious > iou_threshold, 1.0 - ious, 1.0)
+            w = np.where(ious > thr, np.float32(1) - ious, np.float32(1))
         elif method == 2:
-            w = np.exp(-(ious * ious) / sigma)
+            # expf of the float32 argument: float64 exp rounded once
+            w = np.exp((-(ious * ious) / sig).astype(np.float64)).astype(
+                np.float32)
         else:
-            w = np.where(ious > iou_threshold, 0.0, 1.0)
-        scores[rest] *= w
-        alive[rest[scores[rest] < min_score]] = False
-    return (np.array(out_segs).reshape(-1, 2), np.array(out_scores),
-            np.array(out_inds, np.int64))
+            w = np.where(ious > thr, np.float32(0), np.float32(1))
+        scores32[rest] *= w
+        alive[rest[scores32[rest] < floor]] = False
+    inds = np.array(inds, np.int64)
+    return (np.asarray(segs, np.float64)[inds].reshape(-1, 2),
+            scores32[inds].astype(np.float64), inds)
 
 
 def seg_voting(nms_segs: np.ndarray, all_segs: np.ndarray,
