@@ -155,9 +155,30 @@ Phases, each of which fails the run:
      (TF32 off), the loss and every gradient; the int8 Mamba-130M's
      logits at prompts 16 (K5) and 80 (K3), forward, prefill and 4 decode
      steps. The new phases' launches add to the kernels line's counts.
+ 23. TAS on GTEA: ``build_tas_trainer(configs.TAS_GTEA)`` at the preset's
+     full widths (10 masked ViM encoder layers at d_model 64, 3 decoders
+     of 10 layers, 2048-d features, 11 classes, dropout and drop-path on
+     the trainer's generator; fp32) on one synthetic video of 1500
+     features: 2 warm-ups (every parameter a finite gradient), then 5
+     timed ``TasTrainer.train_step`` calls with exactly 20 K3 (writing
+     checkpoints) and 20 K4 each and no plain version; ms/step, peak
+     memory, a profile window; then ``evaluate`` over 4 synthetic videos
+     (20 K3 a video, no checkpoints): ms a video, acc, edit, F1@{10,25,50}.
+ 24. TAS on 50Salads (``configs.TAS_50SALADS``, 19 classes): the same on
+     a video of 6000 features, ``evaluate`` over 2.
+ 25. upstream checkpoints: an upstream-layout CLIP-TimeMamba-B state dict
+     at the ego_ek100_mir widths saved beside an ``argparse.Namespace``,
+     read by ``load_state_dict``, converted by ``clip_from_state_dict`` and
+     loaded strictly into ``build_clip_mir``'s model: one MIR request,
+     exactly 12 K1 and 12 K10; an upstream ViViM-T state dict whose
+     8-frame temporal embedding ``inflate_temporal_embed`` takes to 16,
+     through ``vivim_from_state_dict``: one recognition request, 48 K3.
+ 26. card against CPU: one TAS step with dropout off at full width, depth
+     3 and one decoder, 300 steps, fp32 (TF32 off): the loss and every
+     gradient. The new phases' launches add to the kernels line's counts.
 Prints a ``{"kernels": [...]}`` line (K1-K11) and, last, ``{"ok": true,
 ...}``. ``chip_smoke.py --phases NAME ...`` builds the kernels and runs
-the named phases of ``PHASES`` alone (17-22), printing no result line.
+the named phases of ``PHASES`` alone (17-26), printing no result line.
 """
 
 from __future__ import annotations
@@ -257,6 +278,10 @@ K3_CASES = [
      {"groups": 2, "reverse": True}),
     # ActionMamba's THUMOS-14 stem: the DBM mixer's anti-causal direction
     ("tal-thumos-reverse", (2, 2304, 512, 16), "float32", {"reverse": True}),
+    # ASFormer-Mamba's encoder (d_inner 128, one video): a 50Salads video
+    # of 6000 features and a GTEA one of 1499 (no multiple of 16) backwards
+    ("tas-50salads", (1, 6000, 128, 16), "float32", {}),
+    ("tas-gtea-reverse", (1, 1499, 128, 16), "float32", {"reverse": True}),
 ]
 # each output within atol · (its largest magnitude) + rtol · |value|: a long
 # scan's outputs reach tens, and a value near 0 carries the rounding of
@@ -290,6 +315,8 @@ K4_CASES = [
      {"reverse": True, "h0": True}),
     ("grouped4-bf16", (4, 64, 384, 16), "bfloat16", {"groups": 4}),
     ("tal-thumos-reverse", (2, 2304, 512, 16), "float32", {"reverse": True}),
+    ("tas-50salads", (1, 6000, 128, 16), "float32", {}),
+    ("tas-gtea-reverse", (1, 1499, 128, 16), "float32", {"reverse": True}),
 ]
 # each gradient within atol · (its largest magnitude) + rtol · |value|, as
 # K2: fp32 sums (dA over 3152 steps and the rows, dB and dC over the
@@ -716,6 +743,28 @@ CARD_CPU_MIR_GRAD_REL_TOL = 2e-3
 # flips where the two sides' scans differ in the last fp32 bit, through
 # 24 layers; held at about three times the reading
 CARD_CPU_W8_REL_TOL = 5e-2
+# ASFormer-Mamba (temporal action segmentation) and upstream checkpoints
+TAS_STEPS = 5                    # timed TAS train steps of each preset
+TAS_EVAL_VIDEOS = {"tas-gtea": 4, "tas-50salads": 2}  # videos of each
+                                 # evaluate (the host's edit and F1 loops
+                                 # grow with the segments of 6000 frames)
+TAS_GTEA_LENGTH = 1500           # features of the GTEA phase's video
+TAS_50SALADS_LENGTH = 6000       # 50Salads: 12000 frames at sample rate 2
+TAS_LAYERS = 10                  # encoder layers: 2 K3 (and 2 K4) each
+TAS_STEP_LAUNCHES = {"chunked_scan_fwd": 2 * TAS_LAYERS,
+                     "chunked_scan_bwd": 2 * TAS_LAYERS}
+CARD_CPU_TAS_DEPTH = 3           # encoder and decoder layers, card vs CPU
+CARD_CPU_TAS_LENGTH = 300        # steps of its video
+# one TAS step at full width, depth 3, one decoder, fp32, TF32 off, card
+# against CPU: the loss relative; each gradient's largest difference over
+# its largest CPU value, or over a hundredth of the model's largest
+# gradient where its own is smaller (a key conv's bias gets a gradient of
+# rounding noise: the softmax ignores a shift of all of a query's scores)
+CARD_CPU_TAS_REL_TOL = 1e-5
+CARD_CPU_TAS_GRAD_REL_TOL = 1e-3
+CARD_CPU_TAS_GRAD_FLOOR = 1e-2
+CKPT_SEED = 0                    # upstream state dicts of the ckpt-mir phase
+CKPT_VIVIM_FRAMES = 8            # its ViViM-T checkpoint's temporal rows
 LM_INT8_REQUESTS = 3             # timed requests of each int8 / bf16 leg
 LM_PROFILE_NEW = 16              # new tokens of a profiled LM request (the
                                  # profiler's processing of a 128-token
@@ -4607,11 +4656,385 @@ def card_against_cpu_lm_int8():
         raise AssertionError(f"card and CPU int8 LM disagree: {worst}")
 
 
+# ---------------------------------------------------------------------------
+# temporal action segmentation (ASFormer-Mamba) and upstream checkpoints
+
+
+def tas_video(config, length, videos, seed):
+    """``videos`` synthetic videos of ``length`` features at the
+    configuration's width and classes (items of ``make_synthetic_dataset``:
+    (features (C, L), labels))."""
+    from video_mamba_suite_torch.tasks.tas import make_synthetic_dataset
+
+    return make_synthetic_dataset(
+        videos, config["dataset"]["num_classes"],
+        config["model"]["input_dim"], length, length + 1, seed=seed)
+
+
+def tas_evaluate(tag, trainer, config, length):
+    """``TasTrainer.evaluate`` over ``TAS_EVAL_VIDEOS[tag]`` synthetic videos
+    of ``length`` features (one forward a video: 20 K3 without checkpoints,
+    no plain version), ms a video (the forward, the labels to the host and
+    the metrics) and the frame accuracy, edit score and F1@{10,25,50} (no
+    target: random weights, synthetic data). Returns the launches."""
+    import torch
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+    from video_mamba_suite_torch.tasks.tas import collate
+
+    items = tas_video(config, length, TAS_EVAL_VIDEOS[tag], seed=52)
+    feats, _, mask = (torch.as_tensor(a).cuda() for a in collate(items[:1]))
+    trainer.predict(feats, mask)                              # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    with count_plain_calls() as plain, count_checkpoint_writes() as ck:
+        t0 = time.perf_counter()
+        scores = trainer.evaluate(items)
+        seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    want = {"chunked_scan_fwd": 2 * TAS_LAYERS * len(items)}
+    writes = ck["chunked_scan_fwd with checkpoints"]
+    log(f"[{tag}] evaluate over {len(items)} synthetic videos of {length} "
+        f"features on {card_line()}: {1e3 * seconds / len(items):.2f} "
+        f"ms/video; " + ", ".join(f"{k} {v:.2f}" for k, v in scores.items())
+        + f" (random weights: no target); launches {launches}")
+    if launches != want or writes or sum(plain.values()) or \
+            set(scores) != {"acc", "edit", "F1@10", "F1@25", "F1@50"} or \
+            not all(0 <= v <= 100 for v in scores.values()):
+        raise AssertionError(f"{tag} evaluate: {scores}, launches "
+                             f"{launches} (want {want}), checkpoint writes "
+                             f"{writes}, plain versions {dict(plain)}")
+    profile_seen("video", lambda: trainer.predict(feats, mask),
+                 tag=f"profile-{tag}-eval")
+    return launches
+
+
+def run_tas(tag, config, length, steps):
+    """ASFormer-Mamba at a preset's full widths (``build_tas_trainer``:
+    2048-d features, 10 masked ViM encoder layers at d_model 64, 3
+    decoders of 10 layers, dropout 0.5 and drop-path 0.3 from the
+    trainer's generator on the card, Adam with L2; fp32) on one synthetic
+    video of ``length`` features staged on the card once: 2 warm-ups
+    (every parameter a finite gradient), then ``steps`` timed
+    ``train_step`` calls with exactly 20 K3 (writing checkpoints) and 20
+    K4 each and no plain version; ms/step, peak memory, a profile window
+    (busy share); then ``tas_evaluate``. Returns the launches."""
+    import torch
+    from video_mamba_suite_torch import build_tas_trainer
+    from video_mamba_suite_torch.tasks.tas import collate
+
+    t0 = time.perf_counter()
+    trainer = build_tas_trainer(config, seed=0)
+    batch = [torch.as_tensor(a).cuda() for a in
+             collate(tas_video(config, length, 1, seed=50))]
+    log(f"[{tag}] built and staged in {time.perf_counter() - t0:.1f} s: "
+        f"{sum(p.numel() for p in trainer.model.parameters()) / 1e6:.3f} M "
+        f"parameters, one video of {length} x "
+        f"{config['model']['input_dim']} features, "
+        f"{config['dataset']['num_classes']} classes")
+    launches = train_phase(tag, trainer, batch, steps, TAS_STEP_LAUNCHES, 1)
+    for kernel, count in tas_evaluate(tag, trainer, config, length).items():
+        launches[kernel] = launches.get(kernel, 0) + count
+    return launches
+
+
+def run_tas_gtea():
+    """ASFormer-Mamba on GTEA (``configs.TAS_GTEA``, 11 classes): a video
+    of 1500 features."""
+    from video_mamba_suite_torch.configs import TAS_GTEA
+
+    return run_tas("tas-gtea", TAS_GTEA, TAS_GTEA_LENGTH, TAS_STEPS)
+
+
+def run_tas_50salads():
+    """ASFormer-Mamba on 50Salads (``configs.TAS_50SALADS``, 19 classes):
+    a video of 6000 features, the length of a 12000-frame video after the
+    preset's sample rate 2."""
+    from video_mamba_suite_torch.configs import TAS_50SALADS
+
+    return run_tas("tas-50salads", TAS_50SALADS, TAS_50SALADS_LENGTH,
+                   TAS_STEPS)
+
+
+def upstream_vim_shapes(prefix, d_model, expand):
+    """Upstream bimamba-v2 mixer keys and shapes (d_state 16, conv 4)."""
+    d_in, rank = d_model * expand, math.ceil(d_model / 16)
+    shapes = {"in_proj.weight": (2 * d_in, d_model),
+              "out_proj.weight": (d_model, d_in)}
+    for suf, a_log, d in (("", "A_log", "D"), ("_b", "A_b_log", "D_b")):
+        shapes.update({f"conv1d{suf}.weight": (d_in, 1, 4),
+                       f"conv1d{suf}.bias": (d_in,),
+                       f"x_proj{suf}.weight": (rank + 32, d_in),
+                       f"dt_proj{suf}.weight": (d_in, rank),
+                       f"dt_proj{suf}.bias": (d_in,),
+                       a_log: (d_in, 16), d: (d_in,)})
+    return {prefix + k: v for k, v in shapes.items()}
+
+
+def upstream_ln(name, d):
+    return {name + ".weight": (d,), name + ".bias": (d,)}
+
+
+def upstream_attn_mlp(prefix, d, fc1, fc2):
+    """nn.MultiheadAttention and a 4x MLP."""
+    return {prefix + k: v for k, v in {
+        "attn.in_proj_weight": (3 * d, d), "attn.in_proj_bias": (3 * d,),
+        "attn.out_proj.weight": (d, d), "attn.out_proj.bias": (d,),
+        f"mlp.{fc1}.weight": (4 * d, d), f"mlp.{fc1}.bias": (4 * d,),
+        f"mlp.{fc2}.weight": (d, 4 * d), f"mlp.{fc2}.bias": (d,)}.items()}
+
+
+def upstream_clip_shapes(model_cfg):
+    """The keys and shapes of an upstream avion CLIP-TimeMamba checkpoint at
+    ``model_cfg``'s widths (timemamba.py with ln_pre, no patch bias, tanh
+    gates; open_clip's text tower)."""
+    v, t = model_cfg["vision_cfg"], model_cfg["text_cfg"]
+    d, p, out = v["embed_dim"], v["patch_size"], model_cfg["embed_dim"]
+    n = (v["img_size"] // p) ** 2
+    shapes = {"visual.patch_embed.proj.weight": (d, 3, p, p),
+              "visual.cls_token": (1, 1, d), "visual.pos_embed": (1, n + 1, d),
+              "visual.image_projection": (d, out),
+              **upstream_ln("visual.ln_pre", d), **upstream_ln("visual.norm", d),
+              "logit_scale": ()}
+    for i in range(v["depth"]):
+        b = f"visual.blocks.{i}."
+        for norm in ("norm1", "norm2", "norm3"):
+            shapes.update(upstream_ln(b + norm, d))
+        shapes.update(upstream_attn_mlp(b, d, "fc1", "fc2"))
+        shapes.update(upstream_vim_shapes(b + "time_mamba.", d, 1))
+        shapes[b + "alpha_timeattn"] = ()
+    w = t["width"]
+    shapes.update({"textual.token_embedding.weight": (t["vocab_size"], w),
+                   "textual.positional_embedding": (t["context_length"], w),
+                   "textual.text_projection": (w, out),
+                   **upstream_ln("textual.ln_final", w)})
+    for i in range(t["layers"]):
+        b = f"textual.transformer.resblocks.{i}."
+        shapes.update(upstream_ln(b + "ln_1", w))
+        shapes.update(upstream_ln(b + "ln_2", w))
+        shapes.update(upstream_attn_mlp(b, w, "c_fc", "c_proj"))
+    return shapes
+
+
+def upstream_vivim_shapes(cfg, frames):
+    """The keys and shapes of an upstream ViViM checkpoint at ``cfg``'s
+    widths whose temporal embedding holds ``frames`` rows."""
+    d, p = cfg["embed_dim"], cfg["patch_size"]
+    n = (cfg["img_size"] // p) ** 2
+    shapes = {"patch_embed.proj.weight": (d, 3, p, p),
+              "patch_embed.proj.bias": (d,), "cls_token": (1, 1, d),
+              "pos_embed": (1, n + 1, d), "temporal_embedding": (frames, 1, d),
+              **upstream_ln("norm_f", d),
+              "head.weight": (cfg["num_classes"], d),
+              "head.bias": (cfg["num_classes"],)}
+    for i in range(cfg["depth"]):
+        shapes.update(upstream_ln(f"layers.{i}.norm", d))
+        shapes.update(upstream_vim_shapes(f"layers.{i}.mixer.", d, 2))
+    return shapes
+
+
+def upstream_state_dict(shapes, seed):
+    """fp32 CPU tensors for ``shapes`` from a generator seeded with
+    ``seed``, in the ranges upstream's inits give: weights N(0, 0.02²),
+    A_log = log(1..16), dt biases the inverse softplus of U(0.001, 0.1), D
+    and norm weights 1, biases 0, tanh gates 0.5, the CLIP scale log(1 /
+    0.07)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for name, shape in shapes.items():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("A_log", "A_b_log"):
+            t = torch.log(torch.arange(1, shape[-1] + 1,
+                                       dtype=torch.float32)).repeat(
+                                           shape[0], 1)
+        elif name.endswith("dt_proj.bias") or name.endswith("dt_proj_b.bias"):
+            dt = 0.001 + 0.099 * torch.rand(shape, generator=g)
+            t = dt + torch.log(-torch.expm1(-dt))
+        elif leaf in ("D", "D_b") or (len(shape) == 1 and leaf == "weight"
+                                      and "proj" not in name
+                                      and "conv" not in name):
+            t = torch.ones(shape)
+        elif leaf == "bias" and ("norm" in name or "ln_" in name):
+            t = torch.zeros(shape)
+        elif leaf == "alpha_timeattn":
+            t = torch.full(shape, 0.5)
+        elif leaf == "logit_scale":
+            t = torch.tensor(math.log(1 / 0.07))
+        else:
+            t = 0.02 * torch.randn(shape, generator=g)
+        sd[name] = t
+    return sd
+
+
+def run_ckpt_mir():
+    """Upstream checkpoints into the towers on the card: an upstream-layout
+    CLIP-TimeMamba-B state dict at the ego_ek100_mir widths (drawn from
+    ``CKPT_SEED``) saved beside an ``argparse.Namespace`` and an epoch,
+    read back by ``load_state_dict`` (weights only), converted by
+    ``clip_from_state_dict`` and loaded with ``strict=True`` into
+    ``build_clip_mir``'s model (bf16 video tower on K10); one MIR request
+    of 8 clips and 8 captions: exactly 12 K1 and 12 K10. Then an upstream
+    ViViM-T K400 state dict with an 8-frame temporal embedding, inflated
+    to 16 frames by ``inflate_temporal_embed``, through
+    ``vivim_from_state_dict`` into ``build_vivim_tiny_k400``'s model; one
+    recognition request of 8 clips: exactly 48 K3. Returns the
+    launches."""
+    import argparse
+    import os
+    import tempfile
+
+    import torch
+    from video_mamba_suite_torch import build_clip_mir, build_vivim_tiny_k400
+    from video_mamba_suite_torch.configs import (
+        CLIP_TIMEMAMBA_B_EK100_MIR,
+        VIVIM_T_K400,
+    )
+    from video_mamba_suite_torch.models import (
+        clip_from_state_dict,
+        inflate_temporal_embed,
+        load_state_dict,
+        vivim_from_state_dict,
+    )
+    from video_mamba_suite_torch.models.convert import patch_weight
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+    from video_mamba_suite_torch.tasks.recognition import predict
+
+    m = CLIP_TIMEMAMBA_B_EK100_MIR["model"]
+    model = build_clip_mir(attn_flash="row", vision_dtype=torch.bfloat16,
+                           seed=0).model
+    t0 = time.perf_counter()
+    sd = upstream_state_dict(upstream_clip_shapes(m), CKPT_SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "clip_timemamba_b_mir.pth")
+        torch.save({"state_dict": sd, "epoch": 0, "args": argparse.Namespace(
+            model="CLIP_TimeMamba_B", lr=1e-5, clip_length=16)}, path)
+        size = os.path.getsize(path)
+        t1 = time.perf_counter()
+        loaded = load_state_dict(path)
+        t_load = time.perf_counter() - t1
+    converted = clip_from_state_dict(loaded, "timemamba",
+                                     m["vision_cfg"]["depth"],
+                                     m["text_cfg"]["layers"])
+    model.load_state_dict(converted, strict=True)
+    if not torch.equal(model.visual.patch_embed.weight.cpu(), patch_weight(
+            sd["visual.patch_embed.proj.weight"])):
+        raise AssertionError("the loaded patch embedding is not the "
+                             "checkpoint's")
+    log(f"[ckpt-mir] CLIP-TimeMamba-B upstream state dict: {len(sd)} "
+        f"tensors, {size / 1e6:.1f} MB with its argparse.Namespace; "
+        f"load_state_dict {t_load:.2f} s, drawn, saved, read and converted "
+        f"in {time.perf_counter() - t0:.1f} s; {len(converted)} port "
+        f"tensors loaded strictly")
+    clips, ids = mir_inputs(BATCH, MIR_CAPTIONS, seed=36)
+    reset_launches()
+    with torch.inference_mode(), count_plain_calls() as plain:
+        t0 = time.perf_counter()
+        img, txt, scale = model(clips, ids)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    want = {"short_bidir_fwd": 12, "row_mha_fwd": 12}
+    log(f"[ckpt-mir] one MIR request on the loaded weights: {ms:.2f} ms "
+        f"(first request), scale {scale.item():.4f}, launches {launches}")
+    if launches != want or sum(plain.values()) or \
+            not (torch.isfinite(img).all() and torch.isfinite(txt).all()) \
+            or abs(scale.item() - 1 / 0.07) > 1e-3:
+        raise AssertionError(f"ckpt-mir MIR request: launches {launches} "
+                             f"(want {want}), plain {dict(plain)}, scale "
+                             f"{scale.item()}")
+    del model, sd, loaded, converted
+
+    set_tf32(True)
+    vivim = build_vivim_tiny_k400(seed=0)
+    sd = upstream_state_dict(upstream_vivim_shapes(
+        VIVIM_T_K400, CKPT_VIVIM_FRAMES), CKPT_SEED + 1)
+    short = sd["temporal_embedding"]
+    sd["temporal_embedding"] = inflate_temporal_embed(
+        short, VIVIM_T_K400["num_frames"], "bilinear")
+    vivim.load_state_dict(vivim_from_state_dict(sd, VIVIM_T_K400["depth"]),
+                          strict=True)
+    x = vivim_clips(BATCH, seed=37)
+    reset_launches()
+    with count_plain_calls() as plain:
+        probs = predict(vivim, x)
+        torch.cuda.synchronize()
+    vivim_launches = dict(LAUNCHES)
+    log(f"[ckpt-mir] ViViM-T K400 from an upstream state dict, temporal "
+        f"embedding {tuple(short.shape)} inflated to "
+        f"{tuple(sd['temporal_embedding'].shape)}: one request of {BATCH} "
+        f"clips, probabilities {tuple(probs.shape)}, launches "
+        f"{vivim_launches}")
+    if vivim_launches != {"chunked_scan_fwd": VIVIM_LAUNCHES} or \
+            sum(plain.values()) or not torch.isfinite(probs).all():
+        raise AssertionError(f"ckpt-mir ViViM-T request launched "
+                             f"{vivim_launches}, plain {dict(plain)}")
+    launches.update(vivim_launches)
+    return launches
+
+
+def card_against_cpu_tas():
+    """One ASFormer-Mamba ``train_step`` with dropout off
+    (``deterministic=True``) at full width (``TAS_GTEA``: 2048-d features,
+    64 maps, 11 classes), ``CARD_CPU_TAS_DEPTH`` layers and one decoder,
+    on a synthetic video of ``CARD_CPU_TAS_LENGTH`` features, fp32 with
+    TF32 off: the card through K3 and K4 against the CPU through the
+    plain versions; the loss and every parameter's gradient."""
+    import torch
+    from video_mamba_suite_torch import build_tas_trainer
+    from video_mamba_suite_torch.configs import TAS_GTEA
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+    from video_mamba_suite_torch.tasks.tas import collate
+
+    set_tf32(False)
+    kw = dict(num_layers=CARD_CPU_TAS_DEPTH, num_decoders=1, seed=7)
+    cpu = build_tas_trainer(TAS_GTEA, device="cpu", **kw)
+    card = build_tas_trainer(TAS_GTEA, **kw)
+    batch = collate(tas_video(TAS_GTEA, CARD_CPU_TAS_LENGTH, 1, seed=51))
+    t0 = time.perf_counter()
+    reset_launches()
+    got = card.train_step(*batch, deterministic=True)
+    launches = dict(LAUNCHES)
+    want = cpu.train_step(*batch, deterministic=True)
+    loss_err = abs(got - want) / abs(want)
+    cpu_grads = {n: p.grad for n, p in cpu.model.named_parameters()}
+    floor = CARD_CPU_TAS_GRAD_FLOOR * max(
+        g.abs().max().item() for g in cpu_grads.values())
+    worst, worst_name, missing = 0.0, "", []
+    for name, p in card.model.named_parameters():
+        w = cpu_grads[name]
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            missing.append(name)
+            continue
+        rel = ((p.grad.cpu() - w).abs().max()
+               / max(w.abs().max().item(), floor)).item()
+        if rel >= worst:
+            worst, worst_name = rel, name
+    log(f"[card-vs-cpu] ASFormer-Mamba step fp32, full width, depth "
+        f"{CARD_CPU_TAS_DEPTH}, 1 decoder, {CARD_CPU_TAS_LENGTH} steps, "
+        f"TF32 off, dropout off: loss {got:.6f} against {want:.6f} (rel "
+        f"{loss_err:.3e}, tol {CARD_CPU_TAS_REL_TOL}); largest gradient "
+        f"difference over the CPU gradient's scale (floor "
+        f"{CARD_CPU_TAS_GRAD_FLOOR} of the largest) {worst:.3e} "
+        f"({worst_name}; tol {CARD_CPU_TAS_GRAD_REL_TOL}) over "
+        f"{len(cpu_grads)} parameters; card launches {launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    steps = 2 * CARD_CPU_TAS_DEPTH
+    if launches != {"chunked_scan_fwd": steps, "chunked_scan_bwd": steps}:
+        raise AssertionError(f"the card's TAS step launched {launches}")
+    if missing or not loss_err <= CARD_CPU_TAS_REL_TOL or \
+            not worst <= CARD_CPU_TAS_GRAD_REL_TOL:
+        raise AssertionError(f"card and CPU TAS steps disagree (no or "
+                             f"non-finite gradient: {missing})")
+
+
 PHASES = {"mir-train": run_mir_train, "pretrain": run_clip_pretrain,
           "cls": run_ek100_cls, "lm-int8": run_lm_int8,
           "lm-loglik": run_lm_loglik,
           "card-vs-cpu-mir": card_against_cpu_mir_step,
-          "card-vs-cpu-int8": card_against_cpu_lm_int8}
+          "card-vs-cpu-int8": card_against_cpu_lm_int8,
+          "tas-gtea": run_tas_gtea, "tas-50salads": run_tas_50salads,
+          "ckpt-mir": run_ckpt_mir, "card-vs-cpu-tas": card_against_cpu_tas}
 
 
 def main() -> int:
@@ -4714,6 +5137,14 @@ def main() -> int:
     card_against_cpu_mir_step()
     card_against_cpu_lm_int8()
     mark("card against CPU, PR 16")
+    # temporal action segmentation and upstream checkpoints; their launches
+    # add to the other paths'
+    for name in ("tas-gtea", "tas-50salads", "ckpt-mir"):
+        for kernel, count in PHASES[name]().items():
+            launches[kernel] += count
+        mark(name)
+    card_against_cpu_tas()
+    mark("card-vs-cpu-tas")
 
     kernels = [dict(
         name=name, route="cuda", source=source, replaces=replaces,

@@ -1114,3 +1114,53 @@ def test_loglikelihood_on_card_matches_cpu(cuda_device):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0)
     assert perplexity(card, ids.cuda()) == pytest.approx(
         perplexity(cpu, ids), rel=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seqlen,routes", [
+    (40, (("K1", "short_bidir_fwd"), ("K2", "short_bidir_bwd"))),
+    (100, (("K3", "chunked_scan_fwd"), ("K4", "chunked_scan_bwd")))],
+    ids=["fused-l40", "two-l100"])
+def test_tas_step_on_card_matches_cpu(cuda_device, seqlen, routes):
+    """One ASFormer-Mamba train step with dropout off (2 encoder layers of
+    width 16, one decoder, a padded second video) on the card against the
+    CPU: the loss and every parameter's gradient. At 40 steps each encoder
+    layer runs one K1 and one K2, at 100 two K3 (with checkpoints) and two
+    K4; the profiler sees the routed kernels."""
+    from video_mamba_suite_torch.tasks.tas import TasTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(num_classes=5, input_dim=12, num_layers=2, num_f_maps=16,
+              num_decoders=1, seed=3)
+    cpu, card = (TasTrainer(**kw, device=dev) for dev in ("cpu", "cuda"))
+    g = torch.Generator().manual_seed(seqlen)
+    feats = torch.randn(2, seqlen, 12, generator=g)
+    targets = torch.randint(5, (2, seqlen), generator=g)
+    mask = torch.ones(2, seqlen)
+    mask[1, seqlen - 11:] = 0.0
+    targets[1, seqlen - 11:] = -100
+    before = dict(LAUNCHES)
+    got = card.train_step(feats, targets, mask, deterministic=True)
+    torch.cuda.synchronize()
+    calls = 2 if seqlen <= 64 else 4
+    assert _grown(before) == {name: calls for _, name in routes}
+    want = cpu.train_step(feats, targets, mask, deterministic=True)
+    assert got == pytest.approx(want, rel=1e-5)
+    grads = {n: p.grad for n, p in cpu.model.named_parameters()}
+    floor = 1e-2 * max(w.abs().max().item() for w in grads.values())
+    for name, p in card.model.named_parameters():
+        gp, w = p.grad.cpu(), grads[name]
+        assert torch.isfinite(gp).all(), name
+        err = (gp - w).abs().max() / max(w.abs().max().item(), floor)
+        assert err < 1e-3, (name, err)
+    model = card.model.eval()
+    x, m = feats.cuda(), mask.cuda()
+    want_kernels = [k for kernel, _ in routes
+                    for k in chip_smoke.ROUTES[(kernel, "float32")]]
+    names = chip_smoke.kernel_names(
+        lambda: model(x, m).sum().backward(),
+        want=want_kernels)
+    for kernel, _ in routes:
+        chip_smoke.check_route(kernel, f"ASFormer-Mamba at {seqlen}",
+                               "float32", names)

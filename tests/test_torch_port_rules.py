@@ -262,3 +262,59 @@ def test_tal_cpu_build_has_the_preset_widths(name):
     assert trainer.schedule(0) == 0.0
     assert trainer.schedule(5 * steps) == pytest.approx(lr)
     assert trainer.optimizer.param_groups[0]["weight_decay"] == 0.05
+
+
+def test_tas_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default build succeeds")
+    from video_mamba_suite_torch import MaTransformer, build_tas_trainer
+    from video_mamba_suite_torch.configs import TAS_GTEA
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_tas_trainer(TAS_GTEA, num_layers=1, num_decoders=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MaTransformer(num_decoders=1, num_layers=1, num_f_maps=8,
+                      input_dim=4, num_classes=3)
+
+
+@pytest.mark.parametrize("name,classes,sample_rate", [
+    ("TAS_GTEA", 11, 1), ("TAS_50SALADS", 19, 2), ("TAS_BREAKFAST", 48, 1)])
+def test_tas_cpu_build_has_the_preset_widths(name, classes, sample_rate):
+    """build_tas_trainer(config, device="cpu") is ASFormer-Mamba at the
+    preset's widths (the JAX presets tas_gtea, tas_50salads,
+    tas_breakfast): 2048-d features, 10 encoder layers of masked ViM
+    blocks at d_model 64 (d_inner 128), 3 decoders of 10 layers, Adam 5e-4
+    with L2 1e-5; the GTEA build trains and predicts a 70-step video on
+    the CPU through the plain versions."""
+    from video_mamba_suite_torch import build_tas_trainer, configs
+    from video_mamba_suite_torch.ops import LAUNCHES
+
+    config = getattr(configs, name)
+    assert config["loader"] == dict(batch_size=1, sample_rate=sample_rate)
+    trainer = build_tas_trainer(config, device="cpu")
+    model = trainer.model
+    assert model.encoder.conv_1x1.weight.shape == (64, 2048, 1)
+    assert len(model.encoder.layers) == 10 and len(model.decoders) == 3
+    assert all(len(d.layers) == 10 for d in model.decoders)
+    mixer = model.encoder.layers[9].mamba_block.mamba
+    assert mixer.fwd.A_log.shape == (128, 16)
+    assert model.encoder.layers[9].feed_forward.dilation == 512
+    assert model.decoders[2].conv_out.weight.shape == (classes, 64, 1)
+    assert model.decoders[2].layers[0].alpha == pytest.approx(math.exp(-6))
+    assert model.encoder.layers[0].mamba_block.drop_path.rate == 0.3
+    assert model.encoder.channel_masking_rate == 0.3
+    group = trainer.optimizer.param_groups[0]
+    assert isinstance(trainer.optimizer, torch.optim.Adam)
+    assert (group["lr"], group["weight_decay"]) == (5e-4, 1e-5)
+    if name != "TAS_GTEA":
+        return
+    g = torch.Generator().manual_seed(0)
+    feats = torch.randn(1, 70, 2048, generator=g)
+    targets = torch.randint(classes, (1, 70), generator=g)
+    mask = torch.ones(1, 70)
+    before = dict(LAUNCHES)
+    loss = trainer.train_step(feats, targets, mask)
+    preds, probs = trainer.predict(feats, mask)
+    assert dict(LAUNCHES) == before
+    assert math.isfinite(loss) and preds.shape == (1, 70)
+    assert probs.shape == (1, 70, classes)

@@ -40,6 +40,7 @@ from .tasks.egocentric import (
     build_ek100_cls,
 )
 from .tasks.tal import ActionMambaDetector, TalTrainer, build_tal_trainer
+from .tasks.tas import MaTransformer, TasTrainer, build_tas_trainer
 from .tasks.recognition import (
     RecognitionTrainer,
     build_vivim_k400_trainer,
@@ -51,11 +52,13 @@ from .utils import make_optimizer
 
 __all__ = ["ActionMambaDetector", "AnticipationTrainer", "CLIP",
            "ClipPretrainer", "ClsFinetuner", "GenerationConfig", "LSTRMamba",
-           "MambaDBM", "MambaHarnessLM", "MambaLMHeadModel", "MambaVim",
-           "MirFinetuner", "RecognitionTrainer", "TalTrainer", "TimeMamba",
+           "MaTransformer", "MambaDBM", "MambaHarnessLM", "MambaLMHeadModel",
+           "MambaVim", "MirFinetuner", "RecognitionTrainer", "TalTrainer",
+           "TasTrainer", "TimeMamba",
            "VideoClassifier", "ViViM", "build_anticipation_trainer",
            "build_clip_mir", "build_clip_pretrainer", "build_ek100_cls",
-           "build_mamba_lm", "build_tal_trainer", "build_timemamba_b",
+           "build_mamba_lm", "build_tal_trainer", "build_tas_trainer",
+           "build_timemamba_b",
            "build_vivim_k400_trainer", "build_vivim_tiny_k400", "evaluate",
            "from_pretrained", "generate", "make_optimizer", "perplexity",
            "predict", "quantize_lm_for_decode", "sequence_loglikelihood",

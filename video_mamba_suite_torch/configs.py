@@ -165,3 +165,29 @@ TAL_ANET = dict(
     test_cfg=dict(multiclass_nms=False, nms_sigma=0.75, max_seg_num=100,
                   voting_thresh=0.9, ext_score_fusion=True),
 )
+
+# Temporal action segmentation, ASFormer-Mamba on GTEA (the JAX package's
+# preset ``tas_gtea``, upstream temporal-action-segmentation main.py's
+# defaults): I3D features of 2048 channels a frame, 11 classes; an encoder
+# of 10 masked ViM layers (MaskMambaBlock, d_model 64, drop-path 0.3) and
+# 3 attention decoders of 10 layers, 64 feature maps, input channels
+# masked at 0.3; Adam 5e-4 with L2 weight decay 1e-5, 120 epochs; one
+# whole video a batch.
+_TAS_MODEL = dict(num_decoders=3, num_layers=10, num_f_maps=64,
+                  input_dim=2048, channel_masking_rate=0.3, mixer="vim")
+_TAS_OPT = dict(learning_rate=5e-4, weight_decay=1e-5, epochs=120)
+TAS_GTEA = dict(
+    model=dict(_TAS_MODEL, drop_path_rate=0.3), opt=dict(_TAS_OPT),
+    loader=dict(batch_size=1, sample_rate=1), dataset=dict(num_classes=11),
+)
+# 50Salads (``tas_50salads``): 19 classes, every 2nd frame of the 30 fps
+# features. The drop-path is the model's default 0.3, as in the preset.
+TAS_50SALADS = dict(
+    model=dict(_TAS_MODEL), opt=dict(_TAS_OPT),
+    loader=dict(batch_size=1, sample_rate=2), dataset=dict(num_classes=19),
+)
+# Breakfast (``tas_breakfast``): 48 classes.
+TAS_BREAKFAST = dict(
+    model=dict(_TAS_MODEL), opt=dict(_TAS_OPT),
+    loader=dict(batch_size=1, sample_rate=1), dataset=dict(num_classes=48),
+)

@@ -24,29 +24,42 @@ from .common import (
     PatchifyConv,
     W8Dense,
     W8Embed,
+    instance_norm_1d,
     max_pool_1d,
     sinusoid_positions,
+    sliding_window_attention,
 )
 from .convert import (
     causal_mixer_from_jax,
+    causal_mixer_from_state_dict,
     clip_from_jax,
+    clip_from_state_dict,
     clip_image_tower_from_jax,
+    clip_image_tower_from_state_dict,
     dbm_mixer_from_jax,
+    inflate_pos_embed,
+    inflate_temporal_embed,
     lstr_mamba_from_jax,
     mamba_lm_from_jax,
     mask_mamba_block_from_jax,
     quantized_lm_from_jax,
     tal_detector_from_jax,
+    tas_from_jax,
     text_transformer_from_jax,
+    text_transformer_from_state_dict,
     timemamba_from_jax,
+    timemamba_from_state_dict,
     video_classifier_from_jax,
     vim_mixer_from_jax,
+    vim_mixer_from_state_dict,
     vivim_from_jax,
+    vivim_from_state_dict,
 )
 from .generation import GenerationConfig, generate, sample_logits
 from .hf import (
     dbm_mixer_from_state_dict,
     from_pretrained,
+    load_state_dict,
     mamba_lm_from_state_dict,
 )
 from .lm_eval import (
@@ -75,6 +88,12 @@ from .vivim import (
 )
 
 __all__ = [
+    "causal_mixer_from_state_dict", "clip_from_state_dict",
+    "clip_image_tower_from_state_dict", "inflate_pos_embed",
+    "inflate_temporal_embed", "instance_norm_1d", "load_state_dict",
+    "sliding_window_attention", "tas_from_jax",
+    "text_transformer_from_state_dict", "timemamba_from_state_dict",
+    "vim_mixer_from_state_dict", "vivim_from_state_dict",
     "MambaHarnessLM", "W8Dense", "W8Embed", "perplexity",
     "quantize_lm_for_decode", "quantized_lm_from_jax", "register",
     "sequence_loglikelihood", "video_classifier_from_jax",

@@ -2,7 +2,9 @@
 of the JAX package's ``models/common.py``: ``make_dense``,
 ``PatchifyConv``, ``FusedMHA``, ``W8Embed``, ``sinusoid_positions``, the
 masked 1-D blocks ``AffineDropPath``, ``MaskedConv1D``, ``LayerNorm1D``,
-``max_pool_1d`` and ``MaskMambaBlock``, and flax's ``nn.LayerNorm``).
+``max_pool_1d`` and ``MaskMambaBlock``, the segmentation heads' masked
+``instance_norm_1d`` and ``sliding_window_attention``, and flax's
+``nn.LayerNorm``).
 
 Every block follows the JAX package's dtype policy: parameters stay fp32
 and ``dtype`` is the compute dtype (None promotes the input with the
@@ -443,6 +445,72 @@ class LayerNorm1D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x, self.norm_w, self.norm_b, eps=1e-5)
+
+
+def instance_norm_1d(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """InstanceNorm1d without affine on (B, L, C): each channel of each
+    sample normalised over time, in fp32, cast back to x's dtype (the JAX
+    ``instance_norm_1d``). With ``mask`` (B, L) the statistics take the
+    valid steps only, so a padded batch gives what the unpadded one gives
+    (upstream's norm takes the padding too; the JAX package is the spec
+    here)."""
+    xf = x.float()
+    if mask is None:
+        mean = xf.mean(dim=1, keepdim=True)
+        var = xf.var(dim=1, unbiased=False, keepdim=True)
+    else:
+        m = mask.float()[..., None]
+        cnt = m.sum(dim=1, keepdim=True).clamp_min(1.0)
+        mean = (xf * m).sum(dim=1, keepdim=True) / cnt
+        var = ((xf - mean).square() * m).sum(dim=1, keepdim=True) / cnt
+    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def _log_mask(mask: torch.Tensor) -> torch.Tensor:
+    """log(mask + 1e-6): a masked key's score drops by about 13.8, not to
+    -inf, so a window whose keys are all masked gets uniform weights
+    (multiplied by 0 after the softmax) and no NaN."""
+    return torch.log(mask.float() + 1e-6)
+
+
+def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, mask: torch.Tensor, bl: int
+                             ) -> torch.Tensor:
+    """ASFormer's sliding-window attention, all blocks at once (the JAX
+    ``sliding_window_attention``): q, k (B, L, dq), v (B, L, dv), mask
+    (B, L) → (B, L, dv). Query block i (``bl`` steps) attends to the
+    keys of the window [i·bl − bl//2, (i+1)·bl + bl//2), query row r of
+    the block to window columns [r, r + bl), masked keys through
+    ``_log_mask``; the softmax weights are multiplied by the window's mask
+    and the output by the query mask. Scores and softmax in the inputs'
+    dtype (fp32 in the suite) through plain matmuls."""
+    B, L, dq = q.shape
+    dv = v.shape[-1]
+    nb = -(-L // bl)
+    half = bl // 2
+    win = bl + 2 * half
+    # keys padded by `half` on the left and to (nb + 1)·bl in all, so the
+    # window of block i lies inside blocks i and i + 1
+    right = (nb + 1) * bl - L - half
+    qb = F.pad(q, (0, 0, 0, nb * bl - L)).reshape(B, nb, bl, dq)
+
+    def windows(t):
+        """(B, L, c) → (B, nb, win, c)."""
+        blocks = F.pad(t, (0, 0, half, right)).reshape(B, nb + 1, bl, -1)
+        return torch.cat([blocks[:, :nb], blocks[:, 1:]], dim=2)[:, :, :win]
+
+    kb, vb = windows(k), windows(v)
+    mb = windows(mask.float()[..., None])[..., 0]              # (B, nb, win)
+    rows = torch.arange(bl, device=q.device)[:, None]
+    cols = torch.arange(win, device=q.device)[None]
+    wmask = ((cols >= rows) & (cols < rows + bl)).float()      # (bl, win)
+    scores = (qb @ kb.transpose(-1, -2)) / math.sqrt(dq)
+    full_mask = wmask[None, None] * mb[:, :, None, :]
+    scores = scores + _log_mask(full_mask)
+    attn = torch.softmax(scores, dim=-1) * full_mask
+    out = (attn @ vb).reshape(B, nb * bl, dv)[:, :L]
+    return out * mask.to(out.dtype)[..., None]
 
 
 def max_pool_1d(x: torch.Tensor, mask: torch.Tensor, kernel: int = 3,

@@ -1,9 +1,15 @@
-"""JAX parameter trees → the port's ``state_dict``.
+"""JAX parameter trees and upstream PyTorch state_dicts → the port's
+``state_dict``.
 
-Takes the JAX package's flax parameter tree as numpy arrays (the mapping
-its ``models/convert.py`` builds from upstream checkpoints, read in
-reverse) and returns tensors keyed by the port's parameter names. Dense
-kernels go from flax's (in, out) to torch's (out, in).
+``*_from_jax`` take the JAX package's flax parameter tree as numpy arrays
+(the mapping its ``models/convert.py`` builds from upstream checkpoints,
+read in reverse); Dense kernels go from flax's (in, out) to torch's (out,
+in). ``*_from_state_dict`` take an upstream checkpoint's state_dict (as
+``models.hf.load_state_dict`` reads it) and give the same tensors the JAX
+``convert_*`` followed by ``*_from_jax`` give; ``inflate_pos_embed`` and
+``inflate_temporal_embed`` resize embeddings for another resolution or
+frame count. Every result loads into its port module with
+``strict=True``.
 """
 
 from __future__ import annotations
@@ -435,3 +441,322 @@ def tal_detector_from_jax(params: Dict[str, Any]
     for i in range(_numbered(params, "scale")):
         out[f"scale.{i}.scale"] = _tensor(params[f"scale{i}"]["scale"])
     return out
+
+
+
+def tas_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``MaTransformer`` tree {encoder: {conv_1x1, layer{i}:
+    {ConvFeedForward_0, mamba_block}, conv_out}, decoder{s}: {conv_1x1,
+    layer{i}: {ConvFeedForward_0, query_conv, key_conv, value_conv,
+    conv_out, conv_1x1}, conv_out}} → the port's ``MaTransformer``
+    state_dict (of the parts the tree holds); flax Conv kernels (k, in,
+    out) become (out, in, k)."""
+    params = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    stages = [("encoder", "encoder.")] + [
+        (f"decoder{s}", f"decoders.{s}.")
+        for s in range(_numbered(params, "decoder"))]
+    for name, prefix in stages:
+        tree = params[name]
+        for conv in ("conv_1x1", "conv_out"):
+            if conv in tree:
+                _conv1d(tree[conv], f"{prefix}{conv}.", out)
+        for i in range(_numbered(tree, "layer")):
+            layer, key = tree[f"layer{i}"], f"{prefix}layers.{i}."
+            _conv1d(layer["ConvFeedForward_0"]["Conv_0"],
+                    key + "feed_forward.", out)
+            if "mamba_block" in layer:
+                out.update(mask_mamba_block_from_jax(
+                    layer["mamba_block"], key + "mamba_block."))
+            for conv in ("query_conv", "key_conv", "value_conv",
+                         "conv_out", "conv_1x1"):
+                if conv in layer:
+                    _conv1d(layer[conv], f"{key}{conv}.", out)
+    return out
+
+# ---------------------------------------------------------------------------
+# upstream PyTorch state_dicts → the port's state_dict (the JAX package's
+# ``convert_*`` functions, without the detour through a flax tree)
+
+
+def _get(sd, name: str) -> torch.Tensor:
+    return sd[name].detach().float()
+
+
+def _get_if(sd, name: str, out: Dict[str, torch.Tensor], key: str) -> None:
+    if name in sd:
+        out[key] = _get(sd, name)
+
+
+def _prefixed(tree: Dict[str, torch.Tensor], prefix: str
+              ) -> Dict[str, torch.Tensor]:
+    return {prefix + key: value for key, value in tree.items()}
+
+
+def patch_weight(w: torch.Tensor) -> torch.Tensor:
+    """An upstream patch-embedding conv weight (D, C, p, p) → the port's
+    ``PatchifyConv`` weight (D, p·p·C), its taps in (row, col, channel)
+    order."""
+    return w.permute(0, 2, 3, 1).reshape(w.shape[0], -1)
+
+
+def _sd_scan(sd, prefix: str, suffix: str, a_log: str, d: str,
+             out: Dict[str, torch.Tensor], key: str) -> None:
+    """One scan direction of an upstream mixer (``conv1d``, ``x_proj`` and
+    ``dt_proj`` with ``suffix``, ``a_log`` and ``d``) → a ``ScanParams``
+    bundle under ``key``. The conv taps (d_inner, 1, W) become (W,
+    d_inner); the projections keep torch's (out, in)."""
+    out[key + "conv_w"] = _get(
+        sd, f"{prefix}conv1d{suffix}.weight")[:, 0, :].t().contiguous()
+    _get_if(sd, f"{prefix}conv1d{suffix}.bias", out, key + "conv_bias")
+    out[key + "x_proj"] = _get(sd, f"{prefix}x_proj{suffix}.weight")
+    out[key + "dt_proj"] = _get(sd, f"{prefix}dt_proj{suffix}.weight")
+    out[key + "dt_bias"] = _get(sd, f"{prefix}dt_proj{suffix}.bias")
+    out[key + "A_log"] = _get(sd, prefix + a_log)
+    out[key + "D"] = _get(sd, prefix + d)
+
+
+def _sd_dense(sd, src: str, out: Dict[str, torch.Tensor], key: str) -> None:
+    """A torch ``Linear`` (weight (out, in), optional bias) → a ``Dense``."""
+    out[key + "weight"] = _get(sd, src + "weight")
+    _get_if(sd, src + "bias", out, key + "bias")
+
+
+def causal_mixer_from_state_dict(sd: Dict[str, Any], prefix: str = ""
+                                 ) -> Dict[str, torch.Tensor]:
+    """An upstream causal Mamba mixer's state_dict (``mamba_simple.Mamba``:
+    ``in_proj``, ``conv1d`` (d_inner, 1, W), ``x_proj``, ``dt_proj``,
+    ``A_log``, ``D``, ``out_proj``; keys under ``prefix``) → the port's
+    ``MambaCausal`` state_dict (the JAX ``convert_mamba_mixer``)."""
+    out: Dict[str, torch.Tensor] = {}
+    _sd_dense(sd, prefix + "in_proj.", out, "in_proj.")
+    _sd_scan(sd, prefix, "", "A_log", "D", out, "fwd.")
+    _sd_dense(sd, prefix + "out_proj.", out, "out_proj.")
+    return out
+
+
+def vim_mixer_from_state_dict(sd: Dict[str, Any], prefix: str = ""
+                              ) -> Dict[str, torch.Tensor]:
+    """An upstream ViM mixer's state_dict (bimamba v2: the causal mixer's
+    keys and their ``conv1d_b``, ``x_proj_b``, ``dt_proj_b``, ``A_b_log``,
+    ``D_b`` mirror; keys under ``prefix``) → the port's ``MambaVim``
+    state_dict (the JAX ``convert_vim_mixer``). With a ``norm.weight`` (the
+    scan-norm ViM's RMSNorm over d_inner) → the port's ``MambaScanNorm``
+    (``convert_scan_norm_mixer``)."""
+    out = causal_mixer_from_state_dict(sd, prefix)
+    _sd_scan(sd, prefix, "_b", "A_b_log", "D_b", out, "bwd.")
+    _get_if(sd, prefix + "norm.weight", out, "scan_norm_w")
+    return out
+
+
+def _sd_layernorm(sd, src: str, out: Dict[str, torch.Tensor], key: str
+                  ) -> None:
+    out[key + "weight"] = _get(sd, src + "weight")
+    _get_if(sd, src + "bias", out, key + "bias")
+
+
+def _sd_attention(sd, src: str, out: Dict[str, torch.Tensor], key: str
+                  ) -> None:
+    """A torch ``nn.MultiheadAttention``: ``in_proj_weight`` (3D, D), its
+    rows in q; k; v order, is ``FusedMHA``'s fused ``qkv`` weight as it
+    stands (the JAX ``convert_attention``)."""
+    out[key + "qkv.weight"] = _get(sd, src + "in_proj_weight")
+    _get_if(sd, src + "in_proj_bias", out, key + "qkv.bias")
+    _sd_dense(sd, src + "out_proj.", out, key + "out.")
+
+
+def _sd_mlp(sd, src: str, out: Dict[str, torch.Tensor], key: str,
+            fc1: str = "fc1", fc2: str = "fc2") -> None:
+    _sd_dense(sd, f"{src}{fc1}.", out, key + "fc1.")
+    _sd_dense(sd, f"{src}{fc2}.", out, key + "fc2.")
+
+
+def timemamba_from_state_dict(sd: Dict[str, Any], depth: int,
+                              prefix: str = "") -> Dict[str, torch.Tensor]:
+    """An upstream TimeMamba tower's state_dict (avion ``timemamba.py``:
+    ``patch_embed.proj`` (D, 3, p, p), ``cls_token``, ``pos_embed``,
+    optional ``ln_pre``, ``blocks.{i}.{norm1, norm2, norm3, attn
+    (nn.MultiheadAttention), mlp, time_mamba (ViM), alpha_timeattn?}``,
+    ``norm``, optional ``image_projection``; keys under ``prefix``) → the
+    port's ``TimeMamba`` state_dict (the JAX ``convert_timemamba``)."""
+    out = {"patch_embed.weight": patch_weight(
+               _get(sd, prefix + "patch_embed.proj.weight")),
+           "cls_token": _get(sd, prefix + "cls_token"),
+           "pos_embed": _get(sd, prefix + "pos_embed")}
+    _get_if(sd, prefix + "patch_embed.proj.bias", out, "patch_embed.bias")
+    if prefix + "ln_pre.weight" in sd:
+        _sd_layernorm(sd, prefix + "ln_pre.", out, "ln_pre.")
+    for i in range(depth):
+        src, key = f"{prefix}blocks.{i}.", f"blocks.{i}."
+        for norm in ("norm1", "norm2", "norm3"):
+            _sd_layernorm(sd, f"{src}{norm}.", out, f"{key}{norm}.")
+        _sd_attention(sd, src + "attn.", out, key + "attn.")
+        _sd_mlp(sd, src + "mlp.", out, key + "mlp.")
+        out.update(_prefixed(vim_mixer_from_state_dict(
+            sd, src + "time_mamba."), key + "time_mamba."))
+        _get_if(sd, src + "alpha_timeattn", out, key + "alpha_timeattn")
+    _sd_layernorm(sd, prefix + "norm.", out, "norm.")
+    _get_if(sd, prefix + "image_projection", out, "image_projection")
+    return out
+
+
+def vivim_from_state_dict(sd: Dict[str, Any], depth: int, prefix: str = ""
+                          ) -> Dict[str, torch.Tensor]:
+    """An upstream ViViM / VisionMamba state_dict (``patch_embed.proj``,
+    ``cls_token``, ``pos_embed``, ``temporal_embedding`` or
+    ``temporal_embed``, ``layers.{i}.{norm, mixer (ViM)}``, ``norm_f``,
+    optional ``head`` and ``image_projection``; keys under ``prefix``) →
+    the port's ``ViViM`` state_dict (the JAX ``convert_vivim``). The
+    temporal embedding becomes (T, 1, D); the norms' biases are taken
+    where present (an RMSNorm model has none)."""
+    out = {"patch_embed.proj.weight": patch_weight(
+               _get(sd, prefix + "patch_embed.proj.weight")),
+           "cls_token": _get(sd, prefix + "cls_token"),
+           "pos_embed": _get(sd, prefix + "pos_embed")}
+    _get_if(sd, prefix + "patch_embed.proj.bias", out,
+            "patch_embed.proj.bias")
+    for name in ("temporal_embedding", "temporal_embed"):
+        if prefix + name in sd:
+            te = _get(sd, prefix + name)
+            out["temporal_embed"] = te.reshape(te.shape[0], 1, te.shape[-1])
+            break
+    for i in range(depth):
+        src, key = f"{prefix}layers.{i}.", f"layers.{i}."
+        out[key + "norm_w"] = _get(sd, src + "norm.weight")
+        _get_if(sd, src + "norm.bias", out, key + "norm_b")
+        out.update(_prefixed(vim_mixer_from_state_dict(sd, src + "mixer."),
+                             key + "mixer."))
+    out["norm_f_w"] = _get(sd, prefix + "norm_f.weight")
+    _get_if(sd, prefix + "norm_f.bias", out, "norm_f_b")
+    if prefix + "head.weight" in sd:
+        out["head.weight"] = _get(sd, prefix + "head.weight")
+        out["head.bias"] = _get(sd, prefix + "head.bias")
+    _get_if(sd, prefix + "image_projection", out, "image_projection")
+    return out
+
+
+def _sd_resblocks(sd, prefix: str, layers: int,
+                  out: Dict[str, torch.Tensor]) -> None:
+    """open_clip's ``transformer.resblocks.{i}`` (``ln_1``, ``attn``,
+    ``ln_2``, ``mlp.c_fc``, ``mlp.c_proj``) → ``resblocks.{i}``."""
+    for i in range(layers):
+        src, key = f"{prefix}transformer.resblocks.{i}.", f"resblocks.{i}."
+        for norm in ("ln_1", "ln_2"):
+            _sd_layernorm(sd, f"{src}{norm}.", out, f"{key}{norm}.")
+        _sd_attention(sd, src + "attn.", out, key + "attn.")
+        _sd_mlp(sd, src + "mlp.", out, key + "mlp.", "c_fc", "c_proj")
+
+
+def text_transformer_from_state_dict(sd: Dict[str, Any], layers: int,
+                                     prefix: str = "textual."
+                                     ) -> Dict[str, torch.Tensor]:
+    """An upstream CLIP text tower's state_dict (open_clip layout under
+    ``prefix``: ``token_embedding``, ``positional_embedding``,
+    ``transformer.resblocks.{i}``, ``ln_final``, optional
+    ``text_projection``) → the port's ``TextTransformer`` state_dict (the
+    JAX ``convert_text_transformer``)."""
+    out = {"token_embedding.weight": _get(
+               sd, prefix + "token_embedding.weight"),
+           "positional_embedding": _get(sd, prefix + "positional_embedding")}
+    _sd_resblocks(sd, prefix, layers, out)
+    _sd_layernorm(sd, prefix + "ln_final.", out, "ln_final.")
+    _get_if(sd, prefix + "text_projection", out, "text_projection")
+    return out
+
+
+def clip_image_tower_from_state_dict(sd: Dict[str, Any], layers: int,
+                                     prefix: str = "visual."
+                                     ) -> Dict[str, torch.Tensor]:
+    """A published CLIP ViT image encoder's state_dict (open_clip / clip
+    layout under ``prefix``: ``conv1`` (D, 3, p, p), ``class_embedding``,
+    ``positional_embedding``, ``ln_pre``, ``transformer.resblocks.{i}``,
+    ``ln_post``, optional ``proj``) → the port's ``ClipImageTower``
+    state_dict (the JAX ``convert_clip_image_tower``)."""
+    out = {"conv1.weight": patch_weight(_get(sd, prefix + "conv1.weight")),
+           "class_embedding": _get(sd, prefix + "class_embedding"),
+           "positional_embedding": _get(sd, prefix + "positional_embedding")}
+    for norm in ("ln_pre", "ln_post"):
+        _sd_layernorm(sd, f"{prefix}{norm}.", out, f"{norm}.")
+    _sd_resblocks(sd, prefix, layers, out)
+    _get_if(sd, prefix + "proj", out, "proj")
+    return out
+
+
+def clip_from_state_dict(sd: Dict[str, Any], vision: str, vision_depth: int,
+                         text_layers: int) -> Dict[str, torch.Tensor]:
+    """An upstream avion CLIP state_dict (``visual.`` a TimeMamba or a
+    ViViM tower, ``vision`` "timemamba" or "vivim", with its
+    ``image_projection``; ``textual.`` the text tower; ``logit_scale``) →
+    the port's ``CLIP`` state_dict (the JAX ``convert_clip``), the scale a
+    0-d tensor."""
+    if vision == "timemamba":
+        visual = timemamba_from_state_dict(sd, vision_depth, "visual.")
+    elif vision == "vivim":
+        visual = vivim_from_state_dict(sd, vision_depth, "visual.")
+    else:
+        raise ValueError(f"unknown vision tower {vision!r}")
+    out = _prefixed(visual, "visual.")
+    out.update(_prefixed(text_transformer_from_state_dict(sd, text_layers),
+                         "textual."))
+    out["logit_scale"] = _get(sd, "logit_scale").reshape(())
+    return out
+
+
+def _interp_rows(x: torch.Tensor, new_len: int) -> torch.Tensor:
+    """Linear interpolation along dim 0 in float64 (torch's bilinear
+    ``F.interpolate`` of a (1, 1, T, D) image with align_corners=False
+    reduces to this); x itself where the length does not change."""
+    old_len = x.shape[0]
+    if old_len == new_len:
+        return x
+    pos = (torch.arange(new_len, dtype=torch.float64) + 0.5) * old_len \
+        / new_len - 0.5
+    pos = pos.clamp(0, old_len - 1)
+    lo = pos.floor().long()
+    hi = (lo + 1).clamp(max=old_len - 1)
+    w = (pos - lo)[:, None]
+    x = x.double()
+    return (1 - w) * x[lo] + w * x[hi]
+
+
+def inflate_temporal_embed(embed: torch.Tensor, num_frames: int,
+                           mode: str = "bilinear") -> torch.Tensor:
+    """A temporal embedding (T, 1, D) or (T, D) for ``num_frames`` frames
+    (the JAX ``inflate_temporal_embed``): cut when it has more rows; with
+    fewer, padded with zeros (``mode`` "zeros") or interpolated ("interp",
+    "bilinear") in float64 and cast back to its dtype."""
+    squeeze = embed.dim() == 3
+    e = embed[:, 0] if squeeze else embed
+    t_old, d = e.shape
+    if t_old >= num_frames:
+        out = e[:num_frames]
+    elif mode == "zeros":
+        out = torch.cat([e, e.new_zeros(num_frames - t_old, d)])
+    elif mode in ("interp", "bilinear"):
+        out = _interp_rows(e, num_frames).to(e.dtype)
+    else:
+        raise NotImplementedError(mode)
+    return out[:, None] if squeeze else out
+
+
+def inflate_pos_embed(pos: torch.Tensor, new_num_patches: int
+                      ) -> torch.Tensor:
+    """A positional embedding (1, 1 + n, D) over a square grid of n patches
+    resized to ``new_num_patches`` (a square too, else ValueError): the
+    class slot kept, the grid resized bilinearly along rows, then columns,
+    in float64 and cast back to the input's dtype (the JAX
+    ``inflate_pos_embed`` returns the float64 result)."""
+    cls_tok, grid = pos[:, :1], pos[0, 1:]
+    n_old, d = grid.shape
+    side_old = int(round(n_old ** 0.5))
+    side_new = int(round(new_num_patches ** 0.5))
+    if side_old * side_old != n_old or side_new * side_new != new_num_patches:
+        raise ValueError("pos-embed inflation needs square grids")
+    if side_old == side_new:
+        return pos
+    g = _interp_rows(grid.reshape(side_old, side_old * d), side_new)
+    g = g.reshape(side_new, side_old, d).permute(1, 0, 2)
+    g = _interp_rows(g.reshape(side_old, side_new * d), side_new)
+    g = g.reshape(side_new, side_new, d).permute(1, 0, 2)
+    return torch.cat([cls_tok.double(), g.reshape(1, -1, d)],
+                     dim=1).to(pos.dtype)

@@ -2,7 +2,9 @@
 ``MambaLMHeadModel`` (counterpart of the JAX package's ``models/hf.py``
 ``from_pretrained`` with ``models/convert.py`` ``convert_mamba_lm``), and
 an upstream DBM mixer's state_dict into a ``MambaDBM``
-(``convert_dbm_mixer``).
+(``convert_dbm_mixer``). ``load_state_dict`` reads any upstream checkpoint
+file (the JAX ``load_torch_checkpoint``); ``models/convert.py``'s
+``*_from_state_dict`` carry the towers' state dicts over.
 
 Only local files are read: a directory holding ``config.json`` and
 ``pytorch_model.bin`` (or ``model.pt`` / ``checkpoint.pt``), or a bare
@@ -13,17 +15,23 @@ ported (no network); a name that is not a local path raises
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
+import pickle
 from typing import Any, Dict, Optional
 
 import torch
 
 from .common import resolve_device
+from .convert import causal_mixer_from_state_dict
 from .mixer_seq import MambaLMHeadModel, build_mamba_lm
 
 _CONFIG_NAME = "config.json"
 _WEIGHTS_NAMES = ("pytorch_model.bin", "model.pt", "checkpoint.pt")
+# classes a weights-only load accepts beside tensors and containers: the
+# ``argparse.Namespace`` that training scripts save next to the weights
+SAFE_GLOBALS = (argparse.Namespace,)
 
 
 def load_config(path: str) -> Dict[str, Any]:
@@ -38,8 +46,14 @@ def load_config(path: str) -> Dict[str, Any]:
 
 def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """The state_dict of a checkpoint file, or of the first weights file
-    in a local directory, loaded on the CPU with ``weights_only=True``
-    (unwrapped from a ``state_dict``, ``model`` or ``module`` entry)."""
+    in a local directory, loaded on the CPU (unwrapped from a
+    ``state_dict``, ``model`` or ``module`` entry), as the JAX
+    ``load_torch_checkpoint`` loads it.
+
+    The load is ``weights_only=True`` with ``SAFE_GLOBALS`` allowed, so a
+    file that keeps its training ``argparse.Namespace`` beside the weights
+    loads; a file holding any other class raises ``UnpicklingError``
+    naming it (the JAX loader unpickles anything)."""
     if os.path.isdir(path):
         found = [os.path.join(path, n) for n in _WEIGHTS_NAMES
                  if os.path.isfile(os.path.join(path, n))]
@@ -49,7 +63,17 @@ def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
     elif not os.path.isfile(path):
         raise FileNotFoundError(f"{path!r} is not a local file or "
                                 "directory (the hub is not read)")
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    try:
+        with torch.serialization.safe_globals(list(SAFE_GLOBALS)):
+            ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as err:
+        allowed = {f"{c.__module__}.{c.__qualname__}" for c in SAFE_GLOBALS}
+        refused = [name for name in
+                   torch.serialization.get_unsafe_globals_in_checkpoint(path)
+                   if name not in allowed]
+        raise pickle.UnpicklingError(
+            f"{path!r} holds classes a weights-only load refuses: "
+            f"{', '.join(refused) or err}") from err
     for key in ("state_dict", "model", "module"):
         if isinstance(ckpt, dict) and key in ckpt:
             ckpt = ckpt[key]
@@ -71,25 +95,13 @@ def mamba_lm_from_state_dict(sd: Dict[str, torch.Tensor], n_layer: int
     if "backbone.norm_f.bias" in sd:
         out["backbone.norm_f_b"] = get("backbone.norm_f.bias")
     for i in range(n_layer):
-        src, dst = f"backbone.layers.{i}.", f"backbone.layers.{i}."
-        out[dst + "norm_w"] = get(src + "norm.weight")
-        if src + "norm.bias" in sd:
-            out[dst + "norm_b"] = get(src + "norm.bias")
-        m, p = src + "mixer.", dst + "mixer."
-        out[p + "in_proj.weight"] = get(m + "in_proj.weight")
-        out[p + "out_proj.weight"] = get(m + "out_proj.weight")
-        for name in ("in_proj", "out_proj"):
-            if f"{m}{name}.bias" in sd:
-                out[f"{p}{name}.bias"] = get(f"{m}{name}.bias")
-        out[p + "fwd.conv_w"] = get(m + "conv1d.weight")[:, 0, :].t(
-            ).contiguous()
-        if m + "conv1d.bias" in sd:
-            out[p + "fwd.conv_bias"] = get(m + "conv1d.bias")
-        out[p + "fwd.x_proj"] = get(m + "x_proj.weight")
-        out[p + "fwd.dt_proj"] = get(m + "dt_proj.weight")
-        out[p + "fwd.dt_bias"] = get(m + "dt_proj.bias")
-        out[p + "fwd.A_log"] = get(m + "A_log")
-        out[p + "fwd.D"] = get(m + "D")
+        layer = f"backbone.layers.{i}."
+        out[layer + "norm_w"] = get(layer + "norm.weight")
+        if layer + "norm.bias" in sd:
+            out[layer + "norm_b"] = get(layer + "norm.bias")
+        for key, value in causal_mixer_from_state_dict(
+                sd, layer + "mixer.").items():
+            out[layer + "mixer." + key] = value
     return out
 
 
@@ -100,25 +112,11 @@ def dbm_mixer_from_state_dict(sd: Dict[str, torch.Tensor],
     W), ``x_proj``, ``dt_proj``, ``A_log`` and ``D`` shared by both
     directions, ``out_proj.weight`` (d_model, 2·d_inner); keys under
     ``prefix``) → the port's ``MambaDBM`` state_dict (the JAX
-    ``convert_dbm_mixer``). Linear weights keep torch's (out, in) layout;
-    the conv taps become (W, d_inner)."""
-    def get(name):
-        return sd[prefix + name].detach().float()
-
-    out = {"in_proj.weight": get("in_proj.weight"),
-           "out_proj.weight": get("out_proj.weight"),
-           "shared.conv_w": get("conv1d.weight")[:, 0, :].t().contiguous(),
-           "shared.x_proj": get("x_proj.weight"),
-           "shared.dt_proj": get("dt_proj.weight"),
-           "shared.dt_bias": get("dt_proj.bias"),
-           "shared.A_log": get("A_log"),
-           "shared.D": get("D")}
-    if prefix + "conv1d.bias" in sd:
-        out["shared.conv_bias"] = get("conv1d.bias")
-    for name in ("in_proj", "out_proj"):
-        if f"{prefix}{name}.bias" in sd:
-            out[f"{name}.bias"] = get(f"{name}.bias")
-    return out
+    ``convert_dbm_mixer``): the causal mixer's keys, its one scan bundle
+    named ``shared``."""
+    return {("shared." + key[4:] if key.startswith("fwd.") else key): value
+            for key, value in causal_mixer_from_state_dict(sd,
+                                                           prefix).items()}
 
 
 def from_pretrained(path: str, config: Optional[Dict[str, Any]] = None,

@@ -1,2 +1,3 @@
-"""Task pipelines of the PyTorch port: ``recognition``, ``anticipation``
-and ``egocentric``."""
+"""Task pipelines of the PyTorch port: ``recognition``, ``anticipation``,
+``egocentric``, ``tal`` (action localization) and ``tas`` (action
+segmentation)."""
