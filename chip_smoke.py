@@ -176,9 +176,32 @@ Phases, each of which fails the run:
  26. card against CPU: one TAS step with dropout off at full width, depth
      3 and one decoder, 300 steps, fp32 (TF32 off): the loss and every
      gradient. The new phases' launches add to the kernels line's counts.
+ 27. UniVTG-Mamba on QVHighlights: ``build_vtg_trainer(configs.
+     VTG_QVHIGHLIGHTS)`` at the preset's full widths (512-d text and
+     2816-d video into 1024, 6 DBM layers, input dropout 0.5, drop-path
+     0.1, AdamW with clip 0.1; fp32, TF32 off) on a batch of 32 synthetic
+     samples
+     padded to 32 + 75 steps: 2 warm-ups, then 5 timed ``train_step``
+     calls with exactly 12 K3 (writing checkpoints) and 12 K4 each and no
+     plain version; ms/step, peak memory, a profile window; then
+     ``predict`` of 8 samples (12 K3, no checkpoints) timed and
+     ``evaluate`` over 32 (its mAP, mIoU, R1, HL metrics; no target).
+ 28. TVSum highlight detection: ``build_hl_trainer(configs.VTG_TVSUM)``,
+     4 videos x (1 + 512) steps a step: the same launches; then
+     ``predict_scores`` of one video (12 K3) timed and the top-5 mAP over
+     4 synthetic videos and 20 annotators.
+ 29. VLP and QFVS at the QVHighlights model widths: ``VlpPretrainer.
+     zero_shot_class_scores`` of 8 samples x 20 class names (12 K3 a
+     call), then ``QfvsTrainer`` steps on 4 items of 3 x 8 frames, three
+     forwards of at most 64 steps a step: exactly 18 K1 and 18 K2; its
+     ``evaluate`` (18 K1).
+ 30. card against CPU: UniVTG-Mamba at the QVHighlights widths, depth 2,
+     8 x 107 steps, fp32 (TF32 off): every forward output, then one step
+     with dropout off: each loss term and every gradient. The launches
+     of 27-29 add to the kernels line's counts.
 Prints a ``{"kernels": [...]}`` line (K1-K11) and, last, ``{"ok": true,
 ...}``. ``chip_smoke.py --phases NAME ...`` builds the kernels and runs
-the named phases of ``PHASES`` alone (17-26), printing no result line.
+the named phases of ``PHASES`` alone (17-30), printing no result line.
 """
 
 from __future__ import annotations
@@ -194,6 +217,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -282,6 +306,12 @@ K3_CASES = [
     # of 6000 features and a GTEA one of 1499 (no multiple of 16) backwards
     ("tas-50salads", (1, 6000, 128, 16), "float32", {}),
     ("tas-gtea-reverse", (1, 1499, 128, 16), "float32", {"reverse": True}),
+    # UniVTG-Mamba's DBM layers (d_inner 1024): a QVHighlights batch of 32
+    # x (32 query + 75 clip steps) in both directions, and a TVSum batch
+    # of 4 x (1 + 512) anti-causally
+    ("vtg-qvhl", (32, 107, 1024, 16), "float32", {}),
+    ("vtg-qvhl-reverse", (32, 107, 1024, 16), "float32", {"reverse": True}),
+    ("vtg-tvsum-reverse", (4, 513, 1024, 16), "float32", {"reverse": True}),
 ]
 # each output within atol · (its largest magnitude) + rtol · |value|: a long
 # scan's outputs reach tens, and a value near 0 carries the rounding of
@@ -317,6 +347,9 @@ K4_CASES = [
     ("tal-thumos-reverse", (2, 2304, 512, 16), "float32", {"reverse": True}),
     ("tas-50salads", (1, 6000, 128, 16), "float32", {}),
     ("tas-gtea-reverse", (1, 1499, 128, 16), "float32", {"reverse": True}),
+    ("vtg-qvhl", (32, 107, 1024, 16), "float32", {}),
+    ("vtg-qvhl-reverse", (32, 107, 1024, 16), "float32", {"reverse": True}),
+    ("vtg-tvsum-reverse", (4, 513, 1024, 16), "float32", {"reverse": True}),
 ]
 # each gradient within atol · (its largest magnitude) + rtol · |value|, as
 # K2: fp32 sums (dA over 3152 steps and the rows, dB and dC over the
@@ -765,6 +798,29 @@ CARD_CPU_TAS_GRAD_REL_TOL = 1e-3
 CARD_CPU_TAS_GRAD_FLOOR = 1e-2
 CKPT_SEED = 0                    # upstream state dicts of the ckpt-mir phase
 CKPT_VIVIM_FRAMES = 8            # its ViViM-T checkpoint's temporal rows
+VTG_STEPS = 5                    # timed UniVTG-Mamba steps of each cell
+VTG_LAYERS = 6                   # DBM layers of the presets: 2 K3 (2 K4) each
+VTG_STEP_LAUNCHES = {"chunked_scan_fwd": 2 * VTG_LAYERS,
+                     "chunked_scan_bwd": 2 * VTG_LAYERS}
+VTG_QUERY_TOKENS = 16            # query tokens of a synthetic QVHighlights
+                                 # sample (padded to the preset's 32)
+VTG_EVAL_SAMPLES = 32            # samples of the evaluate phase (4 batches)
+VTG_PREDICTS = 5                 # timed predict batches of 8
+TVSUM_EVAL_VIDEOS = 4            # synthetic videos of the TVSum eval
+TVSUM_ANNOTATORS = 20            # the TVSum protocol's annotators
+VLP_CLASSES = 20                 # class names of the zero-shot phase
+VLP_CLASS_TOKENS = 8             # tokens of a class name
+QFVS_ITEMS = 4                   # QFVS items of a step (3 x 8 frames each)
+QFVS_STEP_LAUNCHES = {"short_bidir_fwd": 3 * VTG_LAYERS,
+                      "short_bidir_bwd": 3 * VTG_LAYERS}
+CARD_CPU_VTG_DEPTH = 2           # layers of the card-vs-CPU UniVTG-Mamba
+CARD_CPU_VTG_BATCH = 8           # its samples (107 steps each)
+# card against CPU, fp32 with TF32 off: forward outputs within 1e-5 of
+# their scale and the losses within 1e-5; gradients as the TAS step's,
+# within 1e-3 of each parameter's scale (floor 1e-2 of the largest)
+CARD_CPU_VTG_REL_TOL = 1e-5
+CARD_CPU_VTG_GRAD_REL_TOL = 1e-3
+CARD_CPU_VTG_GRAD_FLOOR = 1e-2
 LM_INT8_REQUESTS = 3             # timed requests of each int8 / bf16 leg
 LM_PROFILE_NEW = 16              # new tokens of a profiled LM request (the
                                  # profiler's processing of a 128-token
@@ -1325,9 +1381,10 @@ def k4_inputs(shape, dtype, seed, **opts):
 
 def k4_check(label, shape, dtype, opts):
     """Launch K4 once on the card at one of ``K4_CASES`` and hold its nine
-    gradients against the plain version's. Returns (arguments,
-    checkpoints, gradients, max_abs_err); raises AssertionError on a
-    miss."""
+    gradients against the plain version's, whose one call is timed
+    between CUDA events (an eager loop of seconds at the long cases: the
+    plain time). Returns (arguments, checkpoints, gradients, max_abs_err,
+    plain ms); raises AssertionError on a miss."""
     import torch
     from video_mamba_suite_torch.ops import (
         LAUNCHES,
@@ -1341,7 +1398,13 @@ def k4_check(label, shape, dtype, opts):
     torch.cuda.synchronize()
     if LAUNCHES["chunked_scan_bwd"] != n0 + 1:
         raise AssertionError("K4's wrapper did not count its launch")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     want = chunked_scan_bwd_ref(**args)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
     atol, rtol = K4_TOL[dtype]
     names = ("du", "ddelta", "dA", "dB", "dC", "dD", "dz", "ddelta_bias",
              "dinitial_state")
@@ -1374,7 +1437,7 @@ def k4_check(label, shape, dtype, opts):
     if not ok:
         raise AssertionError(f"K4 disagrees with its plain version at "
                              f"{label} {shape}")
-    return args, states, got, abs_err
+    return args, states, got, abs_err, plain_ms
 
 
 def k4_bound_ms(args, states, grads):
@@ -1400,25 +1463,20 @@ def k4_bound_ms(args, states, grads):
 def check_k4():
     """Every case of ``K4_CASES``, each with the kernels the profiler saw
     run (``ROUTES``: the local pass, the combine and the main pass, each
-    with its device time), the kernel's time, the plain version's (one
-    call: an eager loop and its autograd) and the bound. Returns the
-    main-path case's (the first) numbers."""
-    from video_mamba_suite_torch.ops import (
-        chunked_scan_bwd,
-        chunked_scan_bwd_ref,
-    )
+    with its device time), the kernel's time, the plain version's (its
+    one call in ``k4_check``: an eager loop and its autograd) and the
+    bound. Returns the main-path case's (the first) numbers."""
+    from video_mamba_suite_torch.ops import chunked_scan_bwd
 
     log_resources("chunked_scan_bwd", "k4")
     result = {}
     for case in K4_CASES:
-        args, states, got, err = k4_check(*case)
+        args, states, got, err, plain_ms = k4_check(*case)
         check_scan_route("K4", case[0], case[2],
                          lambda: chunked_scan_bwd(**args, states=states),
                          "k4")
         ms = cuda_time_ms(lambda: chunked_scan_bwd(**args, states=states),
                           iters=10)
-        plain_ms = cuda_time_ms(lambda: chunked_scan_bwd_ref(**args),
-                                iters=1, warmup=1)
         bound_ms, bound_by = k4_bound_ms(args, states, got)
         log(f"[k4] {case[0]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by})")
@@ -5028,13 +5086,364 @@ def card_against_cpu_tas():
                              f"non-finite gradient: {missing})")
 
 
+# ---------------------------------------------------------------------------
+# video temporal grounding (UniVTG-Mamba): moment retrieval, highlight
+# detection, VLP zero-shot scores and QFVS
+
+
+def vtg_samples(config, n, seed):
+    """``n`` synthetic moment-retrieval samples at a preset's widths and
+    padding (``make_synthetic_vtg``: the query planted in its window):
+    ``VTG_QUERY_TOKENS`` query tokens, the preset's clips of
+    ``clip_len`` seconds."""
+    from video_mamba_suite_torch.tasks.vtg import make_synthetic_vtg
+
+    m, d = config["model"], config["dataset"]
+    return make_synthetic_vtg(
+        num_samples=n, ctx_l=m["max_v_l"], txt_len=VTG_QUERY_TOKENS,
+        txt_dim=d["t_feat_dim"], vid_dim=d["v_feat_dim"],
+        clip_len=m["clip_len"], seed=seed)
+
+
+def on_card(batch):
+    """A batch dict of numpy arrays staged on the card once."""
+    import torch
+
+    return {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+
+
+def loss_total_steps(trainer):
+    """``trainer`` as ``train_phase`` drives it: its ``train_step``
+    returning the total loss alone."""
+    return types.SimpleNamespace(
+        model=trainer.model,
+        train_step=lambda *a: trainer.train_step(*a)["loss_total"])
+
+
+def forward_launches(tag, fn, want, repeat):
+    """``repeat`` calls of ``fn`` after one warm-up, timed one by one, with
+    exactly ``want`` launches a call, no checkpoint and no plain version.
+    Returns (sorted seconds, the result of the last call, the
+    launches)."""
+    import torch
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+
+    fn()
+    torch.cuda.synchronize()
+    reset_launches()
+    times = []
+    with count_plain_calls() as plain, count_checkpoint_writes() as ck:
+        for _ in range(repeat):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    want_all = {k: v * repeat for k, v in want.items()}
+    writes = ck["chunked_scan_fwd with checkpoints"]
+    if launches != want_all or writes or sum(plain.values()):
+        raise AssertionError(f"{tag} launched {launches} in {repeat} calls "
+                             f"(want {want_all}), checkpoint writes "
+                             f"{writes}, plain versions {dict(plain)}")
+    return sorted(times), out, launches
+
+
+def run_vtg_qvhl():
+    """UniVTG-Mamba on QVHighlights at the preset's full widths
+    (``build_vtg_trainer(configs.VTG_QVHIGHLIGHTS)``: 512-d query and
+    2816-d clip features projected to 1024, 6 DBM layers, input dropout
+    0.5 and drop-path 0.1 from the trainer's generator on the card,
+    AdamW with clip 0.1; fp32, TF32 off in the matmuls and cuDNN's
+    convolutions) on a batch of 32 synthetic samples padded
+    to 32 + 75 steps, staged on the card once: 2 warm-ups, then
+    ``VTG_STEPS`` timed steps with exactly 12 K3 (writing checkpoints)
+    and 12 K4 each, no plain version; ms/step, peak memory, a profile
+    window (busy share). Then ``predict`` of 8 samples (12 K3, no
+    checkpoints) timed, and ``evaluate`` over ``VTG_EVAL_SAMPLES``: its
+    mAP, mIoU, R1 and HL metrics (random weights: no target). Returns the
+    launches."""
+    import torch
+    from video_mamba_suite_torch import build_vtg_trainer
+    from video_mamba_suite_torch.configs import VTG_QVHIGHLIGHTS
+    from video_mamba_suite_torch.tasks.vtg import collate_vtg
+
+    config = VTG_QVHIGHLIGHTS
+    set_tf32(False)
+    t0 = time.perf_counter()
+    trainer = build_vtg_trainer(config, seed=0)
+    bs = config["loader"]["batch_size"]
+    batch = on_card(collate_vtg(vtg_samples(config, bs, seed=60),
+                                trainer.max_q_l, trainer.max_v_l))
+    log(f"[vtg-qvhl] built and staged in {time.perf_counter() - t0:.1f} s: "
+        f"{sum(p.numel() for p in trainer.model.parameters()) / 1e6:.3f} M "
+        f"parameters; a batch of {bs} x ({trainer.max_q_l} query + "
+        f"{trainer.max_v_l} clip steps), {config['dataset']['t_feat_dim']}"
+        f"-d text, {config['dataset']['v_feat_dim']}-d video")
+    launches = train_phase("vtg-qvhl", loss_total_steps(trainer), (batch,),
+                           VTG_STEPS, VTG_STEP_LAUNCHES, bs)
+    log(f"[vtg-qvhl] last step's losses: " + ", ".join(
+        f"{k} {v:.5f}" for k, v in trainer.train_step(batch).items()))
+    samples = vtg_samples(config, VTG_EVAL_SAMPLES, seed=61)
+    want = {"chunked_scan_fwd": 2 * VTG_LAYERS}
+    times, _, fwd = forward_launches(
+        "vtg-qvhl predict", lambda: trainer.predict(samples[:8]), want,
+        VTG_PREDICTS)
+    log(f"[vtg-qvhl] predict of 8 samples on {card_line()}: median "
+        f"{1e3 * statistics.median(times):.2f} ms (min "
+        f"{1e3 * times[0]:.2f}, max {1e3 * times[-1]:.2f}); launches {fwd}")
+    batches = -(-len(samples) // 8)
+    times, scores, ev = forward_launches(
+        "vtg-qvhl evaluate", lambda: trainer.evaluate(samples),
+        {k: v * batches for k, v in want.items()}, 1)
+    log(f"[vtg-qvhl] evaluate over {len(samples)} synthetic samples: "
+        f"{1e3 * times[0]:.2f} ms; " + ", ".join(
+            f"{k} {v:.2f}" for k, v in scores.items())
+        + " (random weights: no target)")
+    if set(scores) != {"mAP_avg", "mIoU@1", "R1@0.5", "R1@0.7", "HL_hit1",
+                       "HL_mAP"} or \
+            not all(0 <= v <= 100 for v in scores.values()):
+        raise AssertionError(f"vtg-qvhl evaluate: {scores}")
+    profile_seen("batch", lambda: trainer.predict(samples[:8]),
+                 tag="profile-vtg-qvhl-predict")
+    for counts in (fwd, ev):
+        for kernel, count in counts.items():
+            launches[kernel] = launches.get(kernel, 0) + count
+    return launches
+
+
+def tvsum_videos(n, length, vid_dim, seed):
+    """``n`` synthetic highlight videos (the JAX CLI's synthetic TVSum
+    items at the preset's widths): features with a planted segment of
+    higher saliency, 20 annotators' scores of 0-2 (3-5 in the segment),
+    the saliency their sum above its median."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    videos = []
+    for _ in range(n):
+        feat = 0.1 * rng.standard_normal((length, vid_dim)).astype(
+            np.float32)
+        anno = rng.integers(0, 3, (length, TVSUM_ANNOTATORS)).astype(
+            np.float32)
+        s = int(rng.integers(0, length - 64))
+        feat[s:s + 64] += 1.0
+        anno[s:s + 64] += 3.0
+        agg = anno.sum(1)
+        videos.append(dict(vid_feat=feat, anno=anno, saliency=(
+            agg > np.median(agg)).astype(np.float32)))
+    return videos
+
+
+def run_vtg_tvsum():
+    """Highlight detection on TVSum at the preset's widths
+    (``build_hl_trainer(configs.VTG_TVSUM)``: no query (one zero text
+    token), 2816-d features of up to 512 clips, 6 DBM layers of width
+    1024; fp32, TF32 off): 2 warm-ups, then ``VTG_STEPS`` timed steps of 4 videos
+    x (1 + 512) steps with exactly 12 K3 (writing checkpoints) and 12 K4
+    each; then ``predict_scores`` of one video timed (12 K3 a video) and
+    the top-5 mAP over ``TVSUM_EVAL_VIDEOS`` synthetic videos and 20
+    annotators (random weights: no target). Returns the launches."""
+    from video_mamba_suite_torch import build_hl_trainer
+    from video_mamba_suite_torch.configs import VTG_TVSUM
+    from video_mamba_suite_torch.tasks.vtg import collate_hl, tvsum_map_at_k
+
+    config = VTG_TVSUM
+    set_tf32(False)
+    t0 = time.perf_counter()
+    trainer = build_hl_trainer(config, seed=0)
+    bs, L = config["loader"]["batch_size"], trainer.max_v_l
+    vid_dim = config["dataset"]["v_feat_dim"]
+    batch = on_card(collate_hl(tvsum_videos(bs, L, vid_dim, seed=62), L,
+                               trainer.txt_dim))
+    log(f"[vtg-tvsum] built and staged in {time.perf_counter() - t0:.1f} "
+        f"s: a batch of {bs} videos x (1 + {L}) steps, {vid_dim}-d video")
+    launches = train_phase("vtg-tvsum", loss_total_steps(trainer), (batch,),
+                           VTG_STEPS, VTG_STEP_LAUNCHES, bs)
+    videos = tvsum_videos(TVSUM_EVAL_VIDEOS, L, vid_dim, seed=63)
+    want = {"chunked_scan_fwd": 2 * VTG_LAYERS}
+    times, _, fwd = forward_launches(
+        "vtg-tvsum predict_scores", lambda: trainer.predict_scores(
+            videos[:1]), want, VTG_PREDICTS)
+    scores = trainer.predict_scores(videos)
+    m5 = tvsum_map_at_k(scores, [v["anno"] for v in videos], k=5)
+    log(f"[vtg-tvsum] predict_scores of one video of {L} clips on "
+        f"{card_line()}: median {1e3 * statistics.median(times):.2f} ms "
+        f"(min {1e3 * times[0]:.2f}, max {1e3 * times[-1]:.2f}); launches "
+        f"{fwd}; top-5 mAP over {len(videos)} synthetic videos and "
+        f"{TVSUM_ANNOTATORS} annotators {100 * m5:.2f} (random weights: no "
+        f"target)")
+    if not 0 <= m5 <= 1:
+        raise AssertionError(f"vtg-tvsum: top-5 mAP {m5}")
+    for kernel, count in fwd.items():
+        launches[kernel] = launches.get(kernel, 0) + count
+    return launches
+
+
+def run_vtg_vlp_qfvs():
+    """VLP zero-shot class scores and QFVS at the QVHighlights model widths
+    (embed 1024, 6 layers; 512-d text, 2816-d video; no preset gives QFVS
+    widths; fp32, TF32 off). ``VlpPretrainer.zero_shot_class_scores`` of
+    8 synthetic VLP
+    samples (point, interval and curve; 32 + 75 steps: 12 K3 a call)
+    against ``VLP_CLASSES`` class names of ``VLP_CLASS_TOKENS`` tokens,
+    timed. Then ``QfvsTrainer`` (its ViM mixer, no input dropout,
+    drop-path 0.1 from the generator) on ``QFVS_ITEMS`` synthetic items
+    of 3 segments x 8 frames: three forwards a step (concept 1, concept 2
+    and the oracle: 1 or 2 query tokens + 24 frames, at most 64 steps),
+    so exactly 18 K1 and 18 K2 a step; ``evaluate`` (18 K1: the three
+    forwards) and its P / R / F (no target). Returns the launches."""
+    import numpy as np
+    from video_mamba_suite_torch.configs import VTG_QVHIGHLIGHTS
+    from video_mamba_suite_torch.tasks.vtg import (
+        QfvsTrainer,
+        VlpPretrainer,
+        collate_qfvs,
+        make_synthetic_qfvs,
+        make_synthetic_vlp,
+        vtg_trainer_kwargs,
+    )
+
+    config = VTG_QVHIGHLIGHTS
+    d, m = config["dataset"], config["model"]
+    set_tf32(False)
+    vlp = VlpPretrainer(**vtg_trainer_kwargs(config), seed=0)
+    samples = make_synthetic_vlp(
+        num_samples=8, ctx_l=m["max_v_l"], vid_dim=d["v_feat_dim"],
+        txt_dim=d["t_feat_dim"], q_l=VTG_QUERY_TOKENS, seed=64)
+    rng = np.random.default_rng(65)
+    cls = rng.standard_normal((VLP_CLASSES, VLP_CLASS_TOKENS,
+                               d["t_feat_dim"])).astype(np.float32)
+    times, scores, launches = forward_launches(
+        "vlp zero-shot", lambda: vlp.zero_shot_class_scores(samples, cls),
+        {"chunked_scan_fwd": 2 * VTG_LAYERS}, VTG_PREDICTS)
+    if scores.shape != (8, m["max_v_l"], VLP_CLASSES) or \
+            not np.isfinite(scores).all() or np.abs(scores).max() > 1 + 1e-5:
+        raise AssertionError(f"zero-shot scores {scores.shape}, largest "
+                             f"{np.abs(scores).max()}")
+    log(f"[vtg-vlp] zero_shot_class_scores of 8 samples x "
+        f"{VLP_CLASSES} classes on {card_line()}: median "
+        f"{1e3 * statistics.median(times):.2f} ms (min "
+        f"{1e3 * times[0]:.2f}, max {1e3 * times[-1]:.2f}); launches "
+        f"{launches}; scores in [{scores.min():.3f}, {scores.max():.3f}]")
+    del vlp
+    trainer = QfvsTrainer(txt_dim=d["t_feat_dim"], vid_dim=d["v_feat_dim"],
+                          embed_dim=m["embed_dim"], depth=m["depth"], seed=0)
+    items, tags = make_synthetic_qfvs(
+        num_items=QFVS_ITEMS, vid_dim=d["v_feat_dim"],
+        txt_dim=d["t_feat_dim"], seed=66)
+    batch = collate_qfvs(items)
+    log(f"[vtg-qfvs] {QFVS_ITEMS} items x {batch[0].shape[1]} frames, "
+        f"{d['v_feat_dim']}-d video, concepts of {d['t_feat_dim']}")
+    step = train_phase("vtg-qfvs", loss_total_steps(trainer), batch,
+                       VTG_STEPS, QFVS_STEP_LAUNCHES, QFVS_ITEMS)
+    times, scores, ev = forward_launches(
+        "vtg-qfvs evaluate", lambda: trainer.evaluate(items, tags),
+        {"short_bidir_fwd": 3 * VTG_LAYERS}, 1)
+    log(f"[vtg-qfvs] evaluate over {QFVS_ITEMS} items: "
+        f"{1e3 * times[0]:.2f} ms; " + ", ".join(
+            f"{k} {v:.2f}" for k, v in scores.items())
+        + " (random weights: no target)")
+    if not all(0 <= v <= 100 for v in scores.values()):
+        raise AssertionError(f"vtg-qfvs evaluate: {scores}")
+    for counts in (step, ev):
+        for kernel, count in counts.items():
+            launches[kernel] = launches.get(kernel, 0) + count
+    return launches
+
+
+def _rel_err(got, want, valid=None):
+    """Largest |got - want| over the largest |want| (on ``valid`` only)."""
+    got, want = got.detach().float().cpu(), want.detach().float()
+    if valid is not None:
+        got, want = got[valid], want[valid]
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def card_against_cpu_vtg():
+    """UniVTG-Mamba at the QVHighlights preset's full widths and
+    ``CARD_CPU_VTG_DEPTH`` layers, fp32 with TF32 off, on
+    ``CARD_CPU_VTG_BATCH`` samples of 32 + 75 steps: the card through K3
+    and K4 against the CPU through the plain versions, the same weights.
+    The eval forward's outputs (the saliency on valid clips), then one
+    ``train_step`` with dropout off: every loss term and every
+    parameter's gradient."""
+    import torch
+    from video_mamba_suite_torch import build_vtg_trainer
+    from video_mamba_suite_torch.configs import VTG_QVHIGHLIGHTS
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+    from video_mamba_suite_torch.tasks.vtg import collate_vtg
+
+    set_tf32(False)
+    kw = dict(depth=CARD_CPU_VTG_DEPTH, seed=9)
+    cpu = build_vtg_trainer(VTG_QVHIGHLIGHTS, device="cpu", **kw)
+    card = build_vtg_trainer(VTG_QVHIGHLIGHTS, **kw)
+    samples = vtg_samples(VTG_QVHIGHLIGHTS, CARD_CPU_VTG_BATCH, seed=67)
+    samples[1]["vid_feat"] = samples[1]["vid_feat"][:60]   # a ragged video
+    batch = collate_vtg(samples, card.max_q_l, card.max_v_l)
+    t0 = time.perf_counter()
+    reset_launches()
+    with torch.no_grad():
+        got = card.forward(batch)
+        torch.cuda.synchronize()
+        fwd_launches = dict(LAUNCHES)
+        want = cpu.forward(batch)
+    valid = torch.as_tensor(batch["src_vid_mask"]) > 0
+    errs = {k: _rel_err(got[k], want[k],
+                        valid if k == "saliency_scores" else None)
+            for k in want if k != "src_vid_mask"}
+    reset_launches()
+    got_losses = card.train_step(batch, deterministic=True)
+    step_launches = dict(LAUNCHES)
+    want_losses = cpu.train_step(batch, deterministic=True)
+    loss_err = max(abs(got_losses[k] - v) / abs(v)
+                   for k, v in want_losses.items())
+    cpu_grads = {n: p.grad for n, p in cpu.model.named_parameters()}
+    floor = CARD_CPU_VTG_GRAD_FLOOR * max(
+        g.abs().max().item() for g in cpu_grads.values())
+    worst, worst_name, missing = 0.0, "", []
+    for name, p in card.model.named_parameters():
+        w = cpu_grads[name]
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            missing.append(name)
+            continue
+        rel = ((p.grad.cpu() - w).abs().max()
+               / max(w.abs().max().item(), floor)).item()
+        if rel >= worst:
+            worst, worst_name = rel, name
+    log(f"[card-vs-cpu] UniVTG-Mamba (QVHighlights widths) fp32, depth "
+        f"{CARD_CPU_VTG_DEPTH}, {CARD_CPU_VTG_BATCH} x 107 steps, TF32 off: "
+        f"forward, largest error over scale "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tol {CARD_CPU_VTG_REL_TOL}); step with dropout off: losses "
+        f"within {loss_err:.3e} (tol {CARD_CPU_VTG_REL_TOL}); largest "
+        f"gradient difference over the CPU gradient's scale (floor "
+        f"{CARD_CPU_VTG_GRAD_FLOOR} of the largest) {worst:.3e} "
+        f"({worst_name}; tol {CARD_CPU_VTG_GRAD_REL_TOL}) over "
+        f"{len(cpu_grads)} parameters; card launches: forward "
+        f"{fwd_launches}, step {step_launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    n = 2 * CARD_CPU_VTG_DEPTH
+    if fwd_launches != {"chunked_scan_fwd": n} or \
+            step_launches != {"chunked_scan_fwd": n, "chunked_scan_bwd": n}:
+        raise AssertionError(f"the card's UniVTG-Mamba launched "
+                             f"{fwd_launches} and {step_launches}")
+    if missing or not loss_err <= CARD_CPU_VTG_REL_TOL or \
+            not all(e <= CARD_CPU_VTG_REL_TOL for e in errs.values()) or \
+            not worst <= CARD_CPU_VTG_GRAD_REL_TOL:
+        raise AssertionError(f"card and CPU UniVTG-Mamba disagree (no or "
+                             f"non-finite gradient: {missing})")
+
+
 PHASES = {"mir-train": run_mir_train, "pretrain": run_clip_pretrain,
           "cls": run_ek100_cls, "lm-int8": run_lm_int8,
           "lm-loglik": run_lm_loglik,
           "card-vs-cpu-mir": card_against_cpu_mir_step,
           "card-vs-cpu-int8": card_against_cpu_lm_int8,
           "tas-gtea": run_tas_gtea, "tas-50salads": run_tas_50salads,
-          "ckpt-mir": run_ckpt_mir, "card-vs-cpu-tas": card_against_cpu_tas}
+          "ckpt-mir": run_ckpt_mir, "card-vs-cpu-tas": card_against_cpu_tas,
+          "vtg-qvhl": run_vtg_qvhl, "vtg-tvsum": run_vtg_tvsum,
+          "vtg-vlp-qfvs": run_vtg_vlp_qfvs,
+          "card-vs-cpu-vtg": card_against_cpu_vtg}
 
 
 def main() -> int:
@@ -5145,6 +5554,13 @@ def main() -> int:
         mark(name)
     card_against_cpu_tas()
     mark("card-vs-cpu-tas")
+    # video temporal grounding; its launches add to the other paths'
+    for name in ("vtg-qvhl", "vtg-tvsum", "vtg-vlp-qfvs"):
+        for kernel, count in PHASES[name]().items():
+            launches[kernel] += count
+        mark(name)
+    card_against_cpu_vtg()
+    mark("card-vs-cpu-vtg")
 
     kernels = [dict(
         name=name, route="cuda", source=source, replaces=replaces,

@@ -9,9 +9,22 @@ import shutil
 from pathlib import Path
 
 import pytest
+import torch
 
 import chip_smoke
 from video_mamba_suite_torch.ops import _build
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: one intra-op thread runs them faster
+    and keeps the test workers beside this file from being
+    oversubscribed."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -36,6 +36,18 @@ from video_mamba_suite_torch.tasks.anticipation import (
     anticipation_loss,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: one intra-op thread runs them faster
+    and keeps the test workers beside this file from being
+    oversubscribed."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # the module, which the package's names of its functions shadow
 chunked = importlib.import_module(
     "video_mamba_suite_torch.ops.selective_scan_chunked")
@@ -1163,4 +1175,61 @@ def test_tas_step_on_card_matches_cpu(cuda_device, seqlen, routes):
         want=want_kernels)
     for kernel, _ in routes:
         chip_smoke.check_route(kernel, f"ASFormer-Mamba at {seqlen}",
+                               "float32", names)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mamba_type,max_v_l,routes", [
+    ("vim", 40, (("K1", "short_bidir_fwd"), ("K2", "short_bidir_bwd"))),
+    ("dbm", 100, (("K3", "chunked_scan_fwd"), ("K4", "chunked_scan_bwd")))],
+    ids=["vim-fused-l46", "dbm-two-l106"])
+def test_vtg_step_on_card_matches_cpu(cuda_device, mamba_type, max_v_l,
+                                      routes):
+    """One UniVTG-Mamba train step with dropout off (width 32, 2 layers,
+    6 query tokens, a ragged query and a ragged video) on the card
+    against the CPU: every loss term and every parameter's gradient. At
+    6 + 40 steps each ViM layer runs one K1 and one K2, at 6 + 100 each
+    DBM layer two K3 (with checkpoints) and two K4; the profiler sees the
+    routed kernels."""
+    from video_mamba_suite_torch.tasks.vtg import (
+        VtgTrainer,
+        collate_vtg,
+        make_synthetic_vtg,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(txt_dim=8, vid_dim=12, embed_dim=32, depth=2,
+              mamba_type=mamba_type, max_q_l=6, max_v_l=max_v_l, seed=3)
+    cpu, card = (VtgTrainer(**kw, device=dev) for dev in ("cpu", "cuda"))
+    samples = make_synthetic_vtg(num_samples=3, ctx_l=max_v_l, txt_len=6,
+                                 txt_dim=8, vid_dim=12, seed=max_v_l)
+    samples[1]["txt_feat"] = samples[1]["txt_feat"][:3]
+    samples[2]["vid_feat"] = samples[2]["vid_feat"][:max_v_l - 9]
+    batch = collate_vtg(samples, 6, max_v_l)
+    before = dict(LAUNCHES)
+    got = card.train_step(batch, deterministic=True)
+    torch.cuda.synchronize()
+    calls = 2 if max_v_l + 6 <= 64 else 4
+    assert _grown(before) == {name: calls for _, name in routes}
+    want = cpu.train_step(batch, deterministic=True)
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-5, abs=1e-6), k
+    grads = {n: p.grad for n, p in cpu.model.named_parameters()}
+    floor = 1e-2 * max(w.abs().max().item() for w in grads.values())
+    for name, p in card.model.named_parameters():
+        gp, w = p.grad.cpu(), grads[name]
+        assert torch.isfinite(gp).all(), name
+        err = (gp - w).abs().max() / max(w.abs().max().item(), floor)
+        assert err < 1e-3, (name, err)
+    model = card.model.eval()
+    inputs = [torch.as_tensor(batch[k]).cuda() for k in
+              ("src_txt", "src_txt_mask", "src_vid", "src_vid_mask")]
+    want_kernels = [k for kernel, _ in routes
+                    for k in chip_smoke.ROUTES[(kernel, "float32")]]
+    names = chip_smoke.kernel_names(
+        lambda: model(*inputs)["pred_logits"].sum().backward(),
+        want=want_kernels)
+    for kernel, _ in routes:
+        chip_smoke.check_route(kernel, f"UniVTG-Mamba at {max_v_l + 6}",
                                "float32", names)

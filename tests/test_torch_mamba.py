@@ -32,6 +32,29 @@ from video_mamba_suite_torch.ops import (
     rms_norm,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: one intra-op thread runs them faster
+    and keeps the test workers beside this file from being
+    oversubscribed."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_without_most_optimizations():
+    """The JAX references here compile once each for small inputs: XLA's
+    optimization passes would cost more CPU than they save, on cores the
+    test workers share."""
+    before = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", before)
+
+
 F32 = dict(atol=1e-4, rtol=1e-4)
 # the modules of the long-sequence slice: fp32 at 2e-5
 TIGHT = dict(atol=2e-5, rtol=2e-5)

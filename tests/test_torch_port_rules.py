@@ -10,6 +10,17 @@ import pytest
 import torch
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: one intra-op thread runs them faster
+    and keeps the test workers beside this file from being
+    oversubscribed."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_port_imports_no_jax():
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
@@ -318,3 +329,72 @@ def test_tas_cpu_build_has_the_preset_widths(name, classes, sample_rate):
     assert dict(LAUNCHES) == before
     assert math.isfinite(loss) and preds.shape == (1, 70)
     assert probs.shape == (1, 70, classes)
+
+
+def test_vtg_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default build succeeds")
+    from video_mamba_suite_torch import (
+        QfvsTrainer,
+        UniVTGMamba,
+        build_hl_trainer,
+        build_vtg_trainer,
+    )
+    from video_mamba_suite_torch.configs import VTG_QVHIGHLIGHTS, VTG_TVSUM
+    from video_mamba_suite_torch.tasks.vtg import (
+        VlpPretrainer,
+        vtg_trainer_kwargs,
+    )
+
+    small = dict(embed_dim=16, depth=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_vtg_trainer(VTG_QVHIGHLIGHTS, **small)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_hl_trainer(VTG_TVSUM, **small)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VlpPretrainer(**dict(vtg_trainer_kwargs(VTG_QVHIGHLIGHTS), **small))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        QfvsTrainer(txt_dim=4, vid_dim=4, **small)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        UniVTGMamba(txt_dim=4, vid_dim=4, **small)
+
+
+@pytest.mark.parametrize("name,vid_dim,max_v_l", [
+    ("VTG_QVHIGHLIGHTS", 2816, 75), ("VTG_CHARADES", 4096, 75),
+    ("VTG_TACOS", 2816, 128), ("VTG_EGO4D", 2304, 255),
+    ("VTG_TVSUM", 2816, 512)])
+def test_vtg_cpu_build_has_the_preset_widths(name, vid_dim, max_v_l):
+    """build_vtg_trainer(config, device="cpu") (build_hl_trainer for
+    TVSum) is UniVTG-Mamba at the preset's widths (the JAX presets
+    vtg_qvhighlights, vtg_charades, vtg_tacos, vtg_ego4d, vtg_tvsum): 512-d
+    text and the dataset's video features projected to 1024, 6 DBM layers
+    (expand 1), input dropout 0.5, drop-path 0.1, queries of 32 tokens,
+    AdamW 1e-4 with decay 1e-4 and clip 0.1."""
+    from video_mamba_suite_torch import (
+        build_hl_trainer,
+        build_vtg_trainer,
+        configs,
+    )
+    from video_mamba_suite_torch.models import MambaDBM
+
+    config = getattr(configs, name)
+    build = build_hl_trainer if name == "VTG_TVSUM" else build_vtg_trainer
+    trainer = build(config, device="cpu")
+    model = trainer.model
+    assert model.vid_proj[0].dense.weight.shape == (1024, vid_dim)
+    assert model.vid_proj[1].dense.weight.shape == (1024, 1024)
+    assert model.txt_proj[0].dense.weight.shape == (1024, 512)
+    assert model.vid_proj[0].rate == 0.5 and model.drop_path_rate == 0.1
+    assert len(model.layers) == 6
+    mixer = model.layers[5].mixer
+    assert isinstance(mixer, MambaDBM)
+    assert mixer.in_proj.weight.shape == (4096, 1024)
+    assert mixer.shared.A_log.shape == (1024, 16)
+    assert trainer.max_v_l == max_v_l
+    if name != "VTG_TVSUM":
+        assert trainer.max_q_l == 32
+    group = trainer.optimizer.param_groups[0]
+    assert (group["lr"], group["weight_decay"]) == (1e-4, 1e-4)
+    assert trainer.grad_clip == 0.1
+    assert config["loader"]["batch_size"] == (4 if name == "VTG_TVSUM"
+                                              else 32)

@@ -3,6 +3,7 @@ device times from: it records its body and idles on the host at both ends."""
 
 import time
 
+import pytest
 import torch
 from torch.profiler import ProfilerActivity
 
@@ -10,6 +11,17 @@ from video_mamba_suite_torch.utils.profiler_window import (
     padded_profile,
     stray_us,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: one intra-op thread runs them faster
+    and keeps the test workers beside this file from being
+    oversubscribed."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def test_padded_profile_records_its_body_inside_the_padding():

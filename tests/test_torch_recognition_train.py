@@ -13,6 +13,7 @@ parameters and EMA after each step.
 """
 
 import copy
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +51,29 @@ from video_mamba_suite_torch.utils import (
     make_schedule,
     no_weight_decay_mask,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: one intra-op thread runs them faster
+    and keeps the test workers beside this file from being
+    oversubscribed."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_without_most_optimizations():
+    """The JAX references here compile once each for small inputs: XLA's
+    optimization passes would cost more CPU than they save, on cores the
+    test workers share."""
+    before = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", before)
+
 
 SMALL = dict(img_size=64, patch_size=16, num_frames=4, depth=2,
              embed_dim=32, num_classes=5, drop_path_rate=0.0)
@@ -188,7 +212,11 @@ def test_reduce_on_plateau_matches_jax():
             [want.step(m) for m in metrics]
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_small(seed=0, mixer="vim"):
+    """A small JAX ViViM and its initial parameters as numpy arrays, one
+    compiled init per (seed, mixer) for the file (the tests read them and
+    build new trees from them)."""
     model = JaxViViM(**SMALL, mixer=mixer)
     params = jax.jit(model.init)(jax.random.PRNGKey(seed),
                                  jnp.asarray(_videos(0)[:1]))

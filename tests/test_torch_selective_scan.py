@@ -7,6 +7,7 @@ interpret mode. The same numpy inputs feed both frameworks. The CUDA kernel
 itself is held against the plain version in ``test_torch_kernels_cuda.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +23,29 @@ from video_mamba_suite_torch.ops import (
     selective_scan_bidir_ref,
     selective_scan_ref,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: one intra-op thread runs them faster
+    and keeps the test workers beside this file from being
+    oversubscribed."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_without_most_optimizations():
+    """The JAX references here compile once each for small inputs: XLA's
+    optimization passes would cost more CPU than they save, on cores the
+    test workers share."""
+    before = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", before)
+
 
 # fp32: the JAX kernel tests' own tolerance. bf16 I/O: one to two bf16 ulps
 # after a scan whose state and arithmetic are fp32.

@@ -34,6 +34,29 @@ from test_torch_short_scan_bwd import (
     _jax_vjp,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: one intra-op thread runs them faster
+    and keeps the test workers beside this file from being
+    oversubscribed."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_without_most_optimizations():
+    """The JAX references here compile once each for small inputs: XLA's
+    optimization passes would cost more CPU than they save, on cores the
+    test workers share."""
+    before = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", before)
+
+
 UNIT = 16      # walk steps a unit (kUnitSteps, K6; kUnit, K5)
 PIECE = 4      # steps a piece of the adjoint walk (scan_lanes.cuh kPiece)
 LANES = 4      # lanes a channel: each sums a quarter of the states

@@ -7,6 +7,10 @@ length, so the case has a file of its own; the forward against the JAX
 plain scan.
 """
 
+import jax
+import pytest
+import torch
+
 from test_torch_short_scan_bwd import ORDER, _assert_grads, _jax_vjp
 from test_torch_short_scan_units import (
     _case,
@@ -15,6 +19,28 @@ from test_torch_short_scan_units import (
     assert_close,
 )
 from video_mamba_suite_tpu.ops import selective_scan as jax_selective_scan
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: one intra-op thread runs them faster
+    and keeps the test workers beside this file from being
+    oversubscribed."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_without_most_optimizations():
+    """The JAX references here compile once each for small inputs: XLA's
+    optimization passes would cost more CPU than they save, on cores the
+    test workers share."""
+    before = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", before)
 
 
 def test_unit_adjoint_matches_jax_short_kernel_l64_causal():

@@ -16,6 +16,29 @@ from video_mamba_suite_tpu.models.timemamba import TimeMamba as JaxTimeMamba
 from video_mamba_suite_torch.models import TimeMamba, timemamba_from_jax
 from video_mamba_suite_torch.models.timemamba import Mlp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: one intra-op thread runs them faster
+    and keeps the test workers beside this file from being
+    oversubscribed."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_without_most_optimizations():
+    """The JAX references here compile once each for small inputs: XLA's
+    optimization passes would cost more CPU than they save, on cores the
+    test workers share."""
+    before = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", before)
+
+
 SMALL = dict(img_size=32, patch_size=16, embed_dim=32, depth=2, num_heads=2,
              num_frames=8, ln_pre=True, output_dim=16)
 F32 = dict(atol=1e-4, rtol=1e-4)

@@ -30,6 +30,29 @@ from video_mamba_suite_torch.models import (
 from video_mamba_suite_torch.models.common import dropout
 from video_mamba_suite_torch.utils import no_weight_decay_mask
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: one intra-op thread runs them faster
+    and keeps the test workers beside this file from being
+    oversubscribed."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_without_most_optimizations():
+    """The JAX references here compile once each for small inputs: XLA's
+    optimization passes would cost more CPU than they save, on cores the
+    test workers share."""
+    before = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", before)
+
+
 LR = 1e-4
 # Readings over two steps: loss 3.6e-7 apart (relative 3.1e-7); every
 # gradient within 4.0e-6 of its parameter's largest gradient. Parameters

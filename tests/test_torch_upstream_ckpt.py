@@ -78,6 +78,17 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _jax_without_most_optimizations():
+    """The JAX references here compile once each for small inputs: XLA's
+    optimization passes would cost more CPU than they save, on cores the
+    test workers share."""
+    before = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", before)
+
+
 class _TrainingState:
     """A class no weights-only load allows."""
 

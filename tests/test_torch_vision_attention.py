@@ -22,6 +22,29 @@ from video_mamba_suite_torch.ops import (
 from video_mamba_suite_tpu.models.common import FusedMHA as JaxFusedMHA
 from video_mamba_suite_tpu.ops import vision_attention as jva
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: one intra-op thread runs them faster
+    and keeps the test workers beside this file from being
+    oversubscribed."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_without_most_optimizations():
+    """The JAX references here compile once each for small inputs: XLA's
+    optimization passes would cost more CPU than they save, on cores the
+    test workers share."""
+    before = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", before)
+
+
 # largest |port - JAX|: as the JAX tests hold the kernels against their
 # einsum reference (fp32: sums in another order; bf16: the output's and the
 # weights' roundings on either side of a tie, one to two ulps of values

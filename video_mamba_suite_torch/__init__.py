@@ -41,6 +41,15 @@ from .tasks.egocentric import (
 )
 from .tasks.tal import ActionMambaDetector, TalTrainer, build_tal_trainer
 from .tasks.tas import MaTransformer, TasTrainer, build_tas_trainer
+from .tasks.vtg import (
+    HlTrainer,
+    QfvsTrainer,
+    UniVTGMamba,
+    VlpPretrainer,
+    VtgTrainer,
+    build_hl_trainer,
+    build_vtg_trainer,
+)
 from .tasks.recognition import (
     RecognitionTrainer,
     build_vivim_k400_trainer,
@@ -51,14 +60,15 @@ from .train import train_step
 from .utils import make_optimizer
 
 __all__ = ["ActionMambaDetector", "AnticipationTrainer", "CLIP",
-           "ClipPretrainer", "ClsFinetuner", "GenerationConfig", "LSTRMamba",
-           "MaTransformer", "MambaDBM", "MambaHarnessLM", "MambaLMHeadModel",
-           "MambaVim", "MirFinetuner", "RecognitionTrainer", "TalTrainer",
-           "TasTrainer", "TimeMamba",
-           "VideoClassifier", "ViViM", "build_anticipation_trainer",
+           "ClipPretrainer", "ClsFinetuner", "GenerationConfig", "HlTrainer",
+           "LSTRMamba", "MaTransformer", "MambaDBM", "MambaHarnessLM",
+           "MambaLMHeadModel", "MambaVim", "MirFinetuner", "QfvsTrainer",
+           "RecognitionTrainer", "TalTrainer", "TasTrainer", "TimeMamba",
+           "UniVTGMamba", "VideoClassifier", "ViViM", "VlpPretrainer",
+           "VtgTrainer", "build_anticipation_trainer",
            "build_clip_mir", "build_clip_pretrainer", "build_ek100_cls",
-           "build_mamba_lm", "build_tal_trainer", "build_tas_trainer",
-           "build_timemamba_b",
+           "build_hl_trainer", "build_mamba_lm", "build_tal_trainer",
+           "build_tas_trainer", "build_timemamba_b", "build_vtg_trainer",
            "build_vivim_k400_trainer", "build_vivim_tiny_k400", "evaluate",
            "from_pretrained", "generate", "make_optimizer", "perplexity",
            "predict", "quantize_lm_for_decode", "sequence_loglikelihood",

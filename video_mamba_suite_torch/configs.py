@@ -191,3 +191,64 @@ TAS_BREAKFAST = dict(
     model=dict(_TAS_MODEL), opt=dict(_TAS_OPT),
     loader=dict(batch_size=1, sample_rate=1), dataset=dict(num_classes=48),
 )
+
+# Video temporal grounding, UniVTG-Mamba on QVHighlights (the JAX package's
+# preset ``vtg_qvhighlights``, from upstream main/config.py and
+# scripts/qvhl_pretrain_mamba.sh): SlowFast + CLIP video features of 2816
+# channels a 2 s clip, CLIP text features of 512 a token; width 1024, 6
+# DBM layers, input dropout 0.5, drop-path 0.1; queries padded to 32
+# tokens and videos to 75 clips; AdamW 1e-4, weight decay 1e-4, clip 0.1,
+# 200 epochs, batch 32; the criterion's weights.
+VTG_QVHIGHLIGHTS = dict(
+    model=dict(embed_dim=1024, depth=6, mamba_type="dbm",
+               input_dropout=0.5, drop_path_rate=0.1,
+               max_q_l=32, max_v_l=75, clip_len=2.0),
+    dataset=dict(v_feat_dim=2816, t_feat_dim=512),
+    opt=dict(learning_rate=1e-4, weight_decay=1e-4, epochs=200,
+             grad_clip=0.1),
+    loader=dict(batch_size=32),
+    loss=dict(loss_b=10.0, loss_g=1.0, loss_f=10.0, loss_s_inter=0.1,
+              loss_s_intra=0.1, eos_coef=0.1, temperature=0.07),
+)
+# Charades-STA (``vtg_charades``): 4096-d video features a 1 s clip.
+VTG_CHARADES = dict(
+    model=dict(embed_dim=1024, depth=6, mamba_type="dbm",
+               input_dropout=0.5, max_q_l=32, max_v_l=75, clip_len=1.0),
+    dataset=dict(v_feat_dim=4096, t_feat_dim=512),
+    opt=dict(learning_rate=1e-4, weight_decay=1e-4, epochs=100,
+             grad_clip=0.1),
+    loader=dict(batch_size=32),
+)
+# TACoS (``vtg_tacos``): SlowFast + CLIP features, videos of up to 128
+# clips.
+VTG_TACOS = dict(
+    model=dict(embed_dim=1024, depth=6, mamba_type="dbm",
+               input_dropout=0.5, max_q_l=32, max_v_l=128, clip_len=2.0),
+    dataset=dict(v_feat_dim=2816, t_feat_dim=512),
+    opt=dict(learning_rate=1e-4, weight_decay=1e-4, epochs=100,
+             grad_clip=0.1),
+    loader=dict(batch_size=32),
+)
+# Ego4D-NLQ (``vtg_ego4d``): EgoVLP / InternVideo features of 2304
+# channels, videos of up to 255 clips.
+VTG_EGO4D = dict(
+    model=dict(embed_dim=1024, depth=6, mamba_type="dbm",
+               input_dropout=0.5, max_q_l=32, max_v_l=255, clip_len=2.0),
+    dataset=dict(v_feat_dim=2304, t_feat_dim=512),
+    opt=dict(learning_rate=1e-4, weight_decay=1e-4, epochs=100,
+             grad_clip=0.1),
+    loader=dict(batch_size=32),
+)
+# Highlight detection on TVSum (``vtg_tvsum``, upstream train_hl.py and
+# config_hl.py): the saliency-only objective on one domain's split,
+# videos of up to 512 clips, batch 4, the TVSum top-5 mAP.
+VTG_TVSUM = dict(
+    model=dict(embed_dim=1024, depth=6, mamba_type="dbm",
+               max_v_l=512, clip_len=2.0),
+    dataset=dict(v_feat_dim=2816, t_feat_dim=512, domain="BK",
+                 highlight=True),
+    opt=dict(learning_rate=1e-4, weight_decay=1e-4, epochs=100,
+             grad_clip=0.1),
+    loader=dict(batch_size=4),
+    loss=dict(loss_f=4.0, loss_s_intra=0.1, eos_coef=0.1),
+)

@@ -54,6 +54,7 @@ from .convert import (
     vim_mixer_from_state_dict,
     vivim_from_jax,
     vivim_from_state_dict,
+    vtg_from_jax,
 )
 from .generation import GenerationConfig, generate, sample_logits
 from .hf import (
@@ -78,6 +79,7 @@ from .mamba import (
 )
 from .mixer_seq import MambaLMHeadModel, MixerModel, build_mamba_lm
 from .quant_decode import quantize_lm_for_decode
+from .rope import rope_rotate
 from .timemamba import Mlp, SpaceTimeBlock, TimeMamba, build_timemamba_b
 from .vivim import (
     PatchEmbed,
@@ -96,6 +98,7 @@ __all__ = [
     "vim_mixer_from_state_dict", "vivim_from_state_dict",
     "MambaHarnessLM", "W8Dense", "W8Embed", "perplexity",
     "quantize_lm_for_decode", "quantized_lm_from_jax", "register",
+    "rope_rotate", "vtg_from_jax",
     "sequence_loglikelihood", "video_classifier_from_jax",
     "AffineDropPath", "LayerNorm1D", "MambaDBM", "MaskMambaBlock",
     "MaskedConv1D", "dbm_mixer_from_jax", "dbm_mixer_from_state_dict",

@@ -474,6 +474,38 @@ def tas_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                     _conv1d(layer[conv], f"{key}{conv}.", out)
     return out
 
+def vtg_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``UniVTGMamba`` tree {vid_proj{i}, txt_proj{i}: {LayerNorm_0?,
+    Dense_0}, token_type, norm{i}_w, norm{i}_b, mixer{i} (a ``MambaVim``
+    or a ``MambaDBM``), norm_f_w, norm_f_b, class_embed, span_embed:
+    {Conv_{j}}, weightedpool} → the port's ``UniVTGMamba`` state_dict;
+    flax Conv kernels (k, in, out) become (out, in, k)."""
+    params = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    for proj in ("vid_proj", "txt_proj"):
+        for i in range(_numbered(params, proj)):
+            tree, key = params[f"{proj}{i}"], f"{proj}.{i}."
+            if "LayerNorm_0" in tree:
+                _layernorm(tree["LayerNorm_0"], key + "norm.", out)
+            _dense(tree["Dense_0"], key + "dense.", out)
+    out["token_type.weight"] = _tensor(params["token_type"]["embedding"])
+    for i in range(_numbered(params, "mixer")):
+        key = f"layers.{i}."
+        out[key + "norm_w"] = _tensor(params[f"norm{i}_w"])
+        out[key + "norm_b"] = _tensor(params[f"norm{i}_b"])
+        mixer = params[f"mixer{i}"]
+        convert = (dbm_mixer_from_jax if "shared" in mixer
+                   else vim_mixer_from_jax)
+        out.update(convert(mixer, key + "mixer."))
+    out["norm_f_w"] = _tensor(params["norm_f_w"])
+    out["norm_f_b"] = _tensor(params["norm_f_b"])
+    for head in ("class_embed", "span_embed"):
+        for j in range(_numbered(params[head], "Conv_")):
+            _conv1d(params[head][f"Conv_{j}"], f"{head}.convs.{j}.", out)
+    out["weightedpool.weight"] = _tensor(params["weightedpool"]["weight"])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # upstream PyTorch state_dicts → the port's state_dict (the JAX package's
 # ``convert_*`` functions, without the detour through a flax tree)
