@@ -199,9 +199,32 @@ Phases, each of which fails the run:
      8 x 107 steps, fp32 (TF32 off): every forward output, then one step
      with dropout off: each loss term and every gradient. The launches
      of 27-29 add to the kernels line's counts.
+ 31. PDVC-Mamba dense captioning on ActivityNet Captions:
+     ``build_captioning_trainer(configs.DVC_ANET_C3D)`` at the preset's
+     full widths (500-d features into 512, 2 ViM layers over the 480
+     pyramid tokens, 2 deformable decoder layers, 10 queries, the LSTM-DSA
+     caption head, captions of 30 tokens; fp32, TF32 off) on 16 synthetic
+     videos read by ``load_activitynet_captions`` (the vocabulary built
+     from their sentences) and ``collate_captioning``, batch 1: 2
+     warm-ups, then 10 timed ``train_step`` calls with exactly 4 K3
+     (writing checkpoints) and 4 K4 each and no plain version; ms/step,
+     peak memory, a profile window, the Hungarian assignment's host ms;
+     ``predict`` of one video (4 K3) timed, then every video predicted and
+     ``evaluate_dvc``, ``soda_c`` and ``evaluate_para`` (no target).
+ 32. YouCook2 (``configs.DVC_YC2_TSN``: 3072-d features, 100 queries, the
+     plain LSTM head, counts up to 20) on 4 synthetic videos: the same.
+ 33. the JAX CLI's synthetic captioning task through ``CaptioningTrainer``:
+     200 steps of 2 K3 and 2 K4 at 2 x 96 x 64; the loss falls and the
+     last loss_bbox is under 0.2; ``predict`` and ``evaluate_dvc``,
+     CIDEr and METEOR printed as ``cap_cider`` and ``cap_meteor``.
+ 34. card against CPU: PDVC-Mamba at the ActivityNet widths and depth, one
+     video of 256 features, fp32 (TF32 off), dropout off: every forward
+     output, the caption logits and the greedy tokens, then under the
+     CPU's match each loss term and every gradient. The launches of 31-33
+     add to the kernels line's counts.
 Prints a ``{"kernels": [...]}`` line (K1-K11) and, last, ``{"ok": true,
 ...}``. ``chip_smoke.py --phases NAME ...`` builds the kernels and runs
-the named phases of ``PHASES`` alone (17-30), printing no result line.
+the named phases of ``PHASES`` alone (17-34), printing no result line.
 """
 
 from __future__ import annotations
@@ -212,6 +235,7 @@ import copy
 import importlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -312,6 +336,10 @@ K3_CASES = [
     ("vtg-qvhl", (32, 107, 1024, 16), "float32", {}),
     ("vtg-qvhl-reverse", (32, 107, 1024, 16), "float32", {"reverse": True}),
     ("vtg-tvsum-reverse", (4, 513, 1024, 16), "float32", {"reverse": True}),
+    # PDVC-Mamba's ViM encoder at the ActivityNet preset (d_inner 1024):
+    # one video's 256 + 128 + 64 + 32 = 480 pyramid tokens, both directions
+    ("dvc-anet", (1, 480, 1024, 16), "float32", {}),
+    ("dvc-anet-reverse", (1, 480, 1024, 16), "float32", {"reverse": True}),
 ]
 # each output within atol · (its largest magnitude) + rtol · |value|: a long
 # scan's outputs reach tens, and a value near 0 carries the rounding of
@@ -350,6 +378,8 @@ K4_CASES = [
     ("vtg-qvhl", (32, 107, 1024, 16), "float32", {}),
     ("vtg-qvhl-reverse", (32, 107, 1024, 16), "float32", {"reverse": True}),
     ("vtg-tvsum-reverse", (4, 513, 1024, 16), "float32", {"reverse": True}),
+    ("dvc-anet", (1, 480, 1024, 16), "float32", {}),
+    ("dvc-anet-reverse", (1, 480, 1024, 16), "float32", {"reverse": True}),
 ]
 # each gradient within atol · (its largest magnitude) + rtol · |value|, as
 # K2: fp32 sums (dA over 3152 steps and the rows, dB and dC over the
@@ -821,6 +851,27 @@ CARD_CPU_VTG_BATCH = 8           # its samples (107 steps each)
 CARD_CPU_VTG_REL_TOL = 1e-5
 CARD_CPU_VTG_GRAD_REL_TOL = 1e-3
 CARD_CPU_VTG_GRAD_FLOOR = 1e-2
+DVC_STEPS = 10                   # timed PDVC-Mamba steps of each preset
+DVC_ENCODER_LAYERS = 2           # ViM layers of the presets: 2 K3 (2 K4) each
+DVC_STEP_LAUNCHES = {"chunked_scan_fwd": 2 * DVC_ENCODER_LAYERS,
+                     "chunked_scan_bwd": 2 * DVC_ENCODER_LAYERS}
+DVC_VIDEOS = {"dvc-anet": 16, "dvc-yc2": 4}   # synthetic videos of a phase
+DVC_FEATURES = (120, 400)        # features a video: subsampled and padded
+DVC_EVENTS = (1, 10)             # events a video
+DVC_WORDS = (6, 20)              # words an event's sentence
+DVC_CORPUS_WORDS = 400           # distinct words of the synthetic corpus
+DVC_PREDICTS = 5                 # timed predict batches
+DVC_SYNTH_STEPS = 200            # steps of the JAX CLI's synthetic task
+DVC_SYNTH_BBOX = 0.2             # its last loss_bbox must fall under this
+# full-width fp32 PDVC-Mamba (ActivityNet preset, TF32 off) card against
+# CPU: the forward's outputs and the caption head's logits (from the same
+# inputs) within 1e-5 of their scale, each loss term within 1e-5
+# relative, each gradient within 1e-3 of the parameter's largest (floor
+# 1e-2 of the largest of all: the attention key bias and the DSA head's
+# alpha_net bias have an exact gradient of 0)
+CARD_CPU_DVC_REL_TOL = 1e-5
+CARD_CPU_DVC_GRAD_REL_TOL = 1e-3
+CARD_CPU_DVC_GRAD_FLOOR = 1e-2
 LM_INT8_REQUESTS = 3             # timed requests of each int8 / bf16 leg
 LM_PROFILE_NEW = 16              # new tokens of a profiled LM request (the
                                  # profiler's processing of a 128-token
@@ -5434,6 +5485,389 @@ def card_against_cpu_vtg():
                              f"non-finite gradient: {missing})")
 
 
+def dvc_corpus(directory, videos, input_dim, seed):
+    """``videos`` synthetic ActivityNet-Captions videos written into
+    ``directory``: the annotation json and one .npy a video of
+    ``DVC_FEATURES`` features of ``input_dim`` channels (so both the
+    subsampling to 256 and the padding occur), ``DVC_EVENTS`` events each
+    with a sentence of ``DVC_WORDS`` words from a corpus of
+    ``DVC_CORPUS_WORDS`` words. Returns the json's path."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(DVC_CORPUS_WORDS)]
+    db = {}
+    for v in range(videos):
+        vid = f"v_{v:03d}"
+        length = int(rng.integers(DVC_FEATURES[0], DVC_FEATURES[1] + 1))
+        np.save(os.path.join(directory, vid + ".npy"), rng.standard_normal(
+            (length, input_dim)).astype(np.float32))
+        duration = float(rng.uniform(30.0, 200.0))
+        stamps, sentences = [], []
+        for _ in range(int(rng.integers(DVC_EVENTS[0], DVC_EVENTS[1] + 1))):
+            s = float(rng.uniform(0.0, 0.8 * duration))
+            stamps.append([s, float(min(duration, s + rng.uniform(
+                0.05, 0.4) * duration))])
+            n = int(rng.integers(DVC_WORDS[0], DVC_WORDS[1] + 1))
+            sentences.append(" ".join(rng.choice(words, n)))
+        db[vid] = dict(duration=duration, timestamps=stamps,
+                       sentences=sentences)
+    path = os.path.join(directory, "captions.json")
+    with open(path, "w") as f:
+        json.dump(db, f)
+    return path
+
+
+@contextlib.contextmanager
+def timed_lsa():
+    """Host seconds of each Hungarian assignment (``host_lsa``) while the
+    block runs."""
+    matcher = importlib.import_module(
+        "video_mamba_suite_torch.tasks.captioning.matcher")
+    original, seconds = matcher.host_lsa, []
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = original(*a, **k)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    matcher.host_lsa = timed
+    try:
+        yield seconds
+    finally:
+        matcher.host_lsa = original
+
+
+def run_dvc(tag, config):
+    """PDVC-Mamba at a dense-captioning preset's full widths
+    (``build_captioning_trainer``: 2 ViM layers of width 512 over the
+    256 + 128 + 64 + 32 = 480 pyramid tokens; fp32, TF32 off) on the real
+    data path: ``DVC_VIDEOS[tag]`` synthetic ActivityNet-Captions videos
+    read by ``load_activitynet_captions`` (the vocabulary built from
+    their sentences, videos subsampled to 256 features, captions of up to
+    the preset's 30 tokens) and ``collate_captioning``, batch 1. 2
+    warm-ups, then ``DVC_STEPS`` timed steps, each with exactly 4 K3
+    (writing checkpoints) and 4 K4 and no plain version; ms/step, peak
+    memory, a profile window (busy share) and the Hungarian assignment's
+    host ms apart. Then ``predict`` of one video timed (4 K3, no
+    checkpoints), and ``predict`` of every video with ``evaluate_dvc``,
+    ``soda_c`` and ``evaluate_para`` and their host seconds (random
+    weights: no target). Returns the launches."""
+    import tempfile
+
+    from video_mamba_suite_torch.tasks.captioning import (
+        build_captioning_trainer,
+        collate_captioning,
+        evaluate_dvc,
+        evaluate_para,
+        load_activitynet_captions,
+        soda_c,
+        vocab_list,
+    )
+
+    set_tf32(False)
+    model_cfg = config["model"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as directory:
+        anno = dvc_corpus(directory, DVC_VIDEOS[tag], model_cfg["input_dim"],
+                          seed=70 + len(tag))
+        max_seq = config.get("dataset", {}).get("max_seq_len", 256)
+        items, tok = load_activitynet_captions(
+            anno, directory, max_seq_len=max_seq,
+            max_caption_len=model_cfg["max_caption_len"])
+    trainer = build_captioning_trainer(config, tok.vocab_size, seed=0)
+    model = trainer.model
+    batch = collate_captioning(items[:1], trainer.max_seq_len)
+    log(f"[{tag}] built in {time.perf_counter() - t0:.1f} s: "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.3f} M "
+        f"parameters, {model.caption_decoder_type} caption head, vocabulary "
+        f"{tok.vocab_size}; {len(items)} videos of {DVC_FEATURES[0]}-"
+        f"{DVC_FEATURES[1]} features x {model_cfg['input_dim']} cut or "
+        f"padded to {trainer.max_seq_len} (levels "
+        f"{model.level_shapes(trainer.max_seq_len)}), "
+        f"{int(batch[4].sum())} events in the step's video")
+    launches = train_phase(tag, loss_total_steps(trainer), batch, DVC_STEPS,
+                           DVC_STEP_LAUNCHES, 1)
+    with timed_lsa() as lsa:
+        for _ in range(DVC_STEPS):
+            losses = trainer.train_step(*batch)
+    lsa = sorted(lsa)
+    log(f"[{tag}] Hungarian assignment on the host: median "
+        f"{1e3 * statistics.median(lsa):.3f} ms (min {1e3 * lsa[0]:.3f}, "
+        f"max {1e3 * lsa[-1]:.3f}) of a step; last losses " + ", ".join(
+            f"{k} {v:.5f}" for k, v in losses.items()))
+    vocab = vocab_list(tok)
+    one = items[0]
+    feats, mask = collate_captioning([one], trainer.max_seq_len)[:2]
+    want = {"chunked_scan_fwd": 2 * DVC_ENCODER_LAYERS}
+    times, events, fwd = forward_launches(
+        f"{tag} predict", lambda: trainer.predict(
+            feats, mask, one["duration"], vocab=vocab), want, DVC_PREDICTS)
+    log(f"[{tag}] predict of one video ({model.max_caption_len}-token "
+        f"greedy captions of {model.query_embed.shape[0]} queries) on "
+        f"{card_line()}: median {1e3 * statistics.median(times):.2f} ms "
+        f"(min {1e3 * times[0]:.2f}, max {1e3 * times[-1]:.2f}); launches "
+        f"{fwd}; first event {events[0][0]}")
+    profile_seen("predict", lambda: trainer.predict(
+        feats, mask, one["duration"], vocab=vocab),
+        tag=f"profile-{tag}-predict")
+
+    def predict_all():
+        preds = {}
+        for it in items:
+            f, m = collate_captioning([it], trainer.max_seq_len)[:2]
+            preds[it["video_id"]] = trainer.predict(f, m, it["duration"],
+                                                    vocab=vocab)[0]
+        return preds
+
+    times, preds, ev = forward_launches(
+        f"{tag} predict all", predict_all,
+        {k: v * len(items) for k, v in want.items()}, 1)
+    gts = {it["video_id"]: it["gt_events"] for it in items}
+    para = {v: ". ".join(e["sentence"] for e in g) for v, g in gts.items()}
+    scores = {}
+    for name, fn in (("evaluate_dvc", lambda: evaluate_dvc(preds, gts)),
+                     ("soda_c", lambda: {"SODA_c": soda_c(preds, gts)}),
+                     ("evaluate_para", lambda: evaluate_para(preds, para))):
+        t0 = time.perf_counter()
+        result = fn()
+        log(f"[{tag}] {name} over {len(items)} videos: "
+            f"{time.perf_counter() - t0:.3f} s on the host; " + ", ".join(
+                f"{k} {v:.4f}" for k, v in result.items())
+            + " (random weights: no target)")
+        scores.update({f"{name}:{k}": v for k, v in result.items()})
+    if not all(math.isfinite(v) for v in scores.values()) or \
+            len(preds) != len(items):
+        raise AssertionError(f"{tag} evaluate: {scores}")
+    log(f"[{tag}] predict of {len(items)} videos one by one: "
+        f"{1e3 * times[0]:.2f} ms; launches {ev}")
+    for counts in (fwd, ev):
+        for kernel, count in counts.items():
+            launches[kernel] = launches.get(kernel, 0) + count
+    return launches
+
+
+def run_dvc_anet():
+    from video_mamba_suite_torch.configs import DVC_ANET_C3D
+
+    return run_dvc("dvc-anet", DVC_ANET_C3D)
+
+
+def run_dvc_yc2():
+    from video_mamba_suite_torch.configs import DVC_YC2_TSN
+
+    return run_dvc("dvc-yc2", DVC_YC2_TSN)
+
+
+def run_dvc_synthetic():
+    """The JAX CLI's synthetic captioning task (its ``run_captioning``
+    without annotations: 2 videos of 64 12-d features with a bump over
+    one event each, captions [0, 3, 4, 5, 6, 0]; PDVC width 32, 6
+    queries, 2 levels = 96 tokens, 1 encoder and 2 decoder layers,
+    captions of 5 tokens, vocabulary 12; lr 3e-4, dropout on) through the
+    port's trainer: ``DVC_SYNTH_STEPS`` steps, each with 2 K3 and 2 K4 at
+    2 x 96 x 64. Fails unless loss_total falls and the last loss_bbox is
+    under ``DVC_SYNTH_BBOX``. Then ``predict`` (top 3) and
+    ``evaluate_dvc``: CIDEr and METEOR as ``cap_cider`` and
+    ``cap_meteor``. Returns the launches."""
+    import numpy as np
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+    from video_mamba_suite_torch.tasks.captioning import (
+        PDVC,
+        CaptioningTrainer,
+        evaluate_dvc,
+    )
+
+    set_tf32(False)
+    rng = np.random.default_rng(0)
+    B, T, C = 2, 64, 12
+    model = PDVC(input_dim=C, num_classes=1, vocab_size=12, num_queries=6,
+                 d_model=32, n_levels=2, num_encoder_layers=1,
+                 num_decoder_layers=2, max_caption_len=5)
+    trainer = CaptioningTrainer(model, lr=3e-4)
+    feats = 0.2 * rng.standard_normal((B, T, C)).astype(np.float32)
+    gt_boxes = np.zeros((B, 4, 2), np.float32)
+    gt_labels = np.zeros((B, 4), np.int32)
+    gt_valid = np.zeros((B, 4), bool)
+    captions = np.full((B, 4, 6), -100, np.int64)
+    gt_json = {}
+    for b in range(B):
+        s, e = 16 + 8 * b, 32 + 8 * b
+        feats[b, s:e] += 2.0
+        gt_boxes[b, 0] = [(s + e) / 2 / T, (e - s) / T]
+        gt_valid[b, 0] = True
+        captions[b, 0] = [0, 3, 4, 5, 6, 0]
+        gt_json[f"v{b}"] = [dict(timestamp=[float(s), float(e)],
+                                 sentence="3 4 5 6")]
+    mask = np.ones((B, T), np.float32)
+    reset_launches()
+    t0 = time.perf_counter()
+    with count_plain_calls() as plain:
+        history = [trainer.train_step(feats, mask, gt_boxes, gt_labels,
+                                      gt_valid, captions)
+                   for _ in range(DVC_SYNTH_STEPS)]
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    want = {"chunked_scan_fwd": 2 * DVC_SYNTH_STEPS,
+            "chunked_scan_bwd": 2 * DVC_SYNTH_STEPS}
+    first, last = history[0], history[-1]
+    log(f"[dvc-synthetic] {DVC_SYNTH_STEPS} steps on {card_line()}: "
+        f"{1e3 * seconds / DVC_SYNTH_STEPS:.2f} ms/step; loss_total "
+        f"{first['loss_total']:.4f} -> {last['loss_total']:.4f}, loss_bbox "
+        f"{first['loss_bbox']:.4f} -> {last['loss_bbox']:.4f}; launches "
+        f"{launches}, plain-version calls {dict(plain)}")
+    if launches != want or sum(plain.values()):
+        raise AssertionError(f"dvc-synthetic launched {launches} (want "
+                             f"{want}), plain versions {dict(plain)}")
+    if not last["loss_total"] < first["loss_total"] or \
+            not last["loss_bbox"] < DVC_SYNTH_BBOX:
+        raise AssertionError(f"dvc-synthetic did not learn: {first} -> "
+                             f"{last}")
+    reset_launches()
+    events = trainer.predict(feats, mask, duration=float(T), topk=3)
+    result = evaluate_dvc({f"v{b}": events[b] for b in range(B)}, gt_json)
+    launches["chunked_scan_fwd"] += LAUNCHES["chunked_scan_fwd"]
+    log(f"[dvc-synthetic] eval: {result}; cap_cider {result['CIDEr']:.4f}, "
+        f"cap_meteor {result['METEOR']:.4f} (the bench.py gates' names); "
+        f"first event {events[0][0]}")
+    return launches
+
+
+def card_against_cpu_dvc():
+    """PDVC-Mamba at the ActivityNet preset's full widths and depth (2 ViM
+    layers of width 512, 2 decoder layers, the DSA head, captions of 30
+    tokens), fp32 with TF32 off, dropout off, on one video of 256
+    features (60 of them padding) with 6 events: the card through K3 and
+    K4 against the CPU through the plain versions, the same weights.
+    Every output of the forward (each layer's logits, boxes and counts,
+    the query features, the memory), the teacher-forced caption logits of
+    the matched events (the card's head on the CPU's query features,
+    boxes and memory; end to end they are logged), the greedy tokens
+    (equal); then under the CPU's match, each loss term and every
+    parameter's gradient."""
+    import numpy as np
+    import torch
+    from video_mamba_suite_torch.configs import DVC_ANET_C3D
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+    from video_mamba_suite_torch.tasks.captioning import (
+        build_captioning_trainer,
+        hungarian_match,
+        match_cost,
+    )
+
+    set_tf32(False)
+    vocab = 200
+    cpu = build_captioning_trainer(DVC_ANET_C3D, vocab, device="cpu", seed=9)
+    card = build_captioning_trainer(DVC_ANET_C3D, vocab, seed=9)
+    rng = np.random.default_rng(71)
+    T, G, L = card.max_seq_len, card.max_events, \
+        card.model.max_caption_len
+    feats = rng.standard_normal((1, T, 500)).astype(np.float32)
+    mask = np.ones((1, T), np.float32)
+    mask[0, T - 60:], feats[0, T - 60:] = 0.0, 0.0
+    boxes = np.zeros((1, G, 2), np.float32)
+    boxes[0, :6] = np.stack([rng.uniform(0.2, 0.8, 6),
+                             rng.uniform(0.05, 0.3, 6)], -1)
+    labels = np.zeros((1, G), np.int64)
+    valid = np.zeros((1, G), bool)
+    valid[0, :6] = True
+    captions = np.full((1, G, L), -100, np.int64)
+    for g in range(6):
+        n = int(rng.integers(6, L - 1))
+        captions[0, g, :n + 2] = [1, *rng.integers(4, vocab, n), 2]
+    t0 = time.perf_counter()
+
+    def run(trainer, match=None):
+        on = trainer._on
+        x = [on(feats, torch.float32), on(mask, torch.float32),
+             on(boxes, torch.float32), on(labels, torch.long),
+             on(valid, torch.bool), on(captions, torch.long)]
+        trainer.model.eval()
+        out = trainer.model(x[0], x[1])
+        if match is None:
+            cost = match_cost(out["pred_logits"].detach(),
+                              out["pred_boxes"].detach(), x[3], x[2], x[4])
+            match = hungarian_match(cost, valid.sum(1)).cpu()
+        idx = match.to(trainer.device)
+        logits = trainer.matched_caption_logits(out, x[5], idx, T)
+        losses = trainer.losses(out, x[0], x[2], x[3], x[4], x[5], idx)
+        trainer.model.zero_grad(set_to_none=True)
+        losses["loss_total"].backward()
+        with torch.no_grad():
+            caps = trainer.forward_captions(x[0], x[1])[1]
+        return out, logits, losses, caps, match
+
+    want_out, want_logits, want_losses, want_caps, match = run(cpu)
+    reset_launches()
+    got_out, got_logits, got_losses, got_caps, _ = run(card, match)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    errs = {}
+    for i, (g, w) in enumerate(zip(got_out["aux_outputs"] + [got_out],
+                                   want_out["aux_outputs"] + [want_out])):
+        for k in ("pred_logits", "pred_boxes", "pred_count"):
+            errs[f"{k}[{i}]"] = _rel_err(g[k], w[k])
+    for k in ("query_feats", "memory"):
+        errs[k] = _rel_err(got_out[k], want_out[k])
+    # the caption head on the CPU's query features, boxes and memory (its
+    # own 30 steps), and end to end (each device's own forward feeding
+    # it: the head's recurrence carries the decoder's differences on)
+    cap_valid = torch.as_tensor(valid)
+    with torch.no_grad():
+        same_inputs = {k: want_out[k].detach().cuda() for k in
+                       ("query_feats", "pred_boxes", "memory")}
+        head_logits = card.matched_caption_logits(
+            same_inputs, torch.as_tensor(captions).cuda(),
+            match.cuda(), T)
+    errs["caption_logits"] = _rel_err(head_logits[cap_valid.cuda()],
+                                      want_logits[cap_valid])
+    end_to_end = _rel_err(got_logits[cap_valid.cuda()],
+                          want_logits[cap_valid])
+    loss_err = max(abs(got_losses[k].item() - v.item()) / abs(v.item())
+                   for k, v in want_losses.items())
+    same_tokens = torch.equal(got_caps.cpu(), want_caps)
+    cpu_grads = {n: p.grad for n, p in cpu.model.named_parameters()}
+    floor = CARD_CPU_DVC_GRAD_FLOOR * max(
+        g.abs().max().item() for g in cpu_grads.values() if g is not None)
+    worst, worst_name, missing = 0.0, "", []
+    for name, p in card.model.named_parameters():
+        w = cpu_grads[name]
+        if (p.grad is None) != (w is None) or (
+                p.grad is not None and not torch.isfinite(p.grad).all()):
+            missing.append(name)
+            continue
+        if w is None:
+            continue
+        rel = ((p.grad.cpu() - w).abs().max()
+               / max(w.abs().max().item(), floor)).item()
+        if rel >= worst:
+            worst, worst_name = rel, name
+    log(f"[card-vs-cpu] PDVC-Mamba (ActivityNet widths, depth 2 + 2, DSA "
+        f"head) fp32, 1 x {T} features ({T - 60} valid), 6 events of "
+        f"{L}-token captions, TF32 off, dropout off: forward and caption "
+        f"logits, largest error over scale " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tol {CARD_CPU_DVC_REL_TOL}; the caption logits end to end "
+        f"{end_to_end:.3e}); greedy tokens "
+        f"{'equal' if same_tokens else 'DIFFER'}; under the CPU's match "
+        f"{match.tolist()}: losses within {loss_err:.3e} (tol "
+        f"{CARD_CPU_DVC_REL_TOL}); largest gradient difference over the "
+        f"CPU gradient's scale (floor {CARD_CPU_DVC_GRAD_FLOOR} of the "
+        f"largest) {worst:.3e} ({worst_name}; tol "
+        f"{CARD_CPU_DVC_GRAD_REL_TOL}) over {len(cpu_grads)} parameters; "
+        f"card launches {launches}; {time.perf_counter() - t0:.1f} s")
+    n = 2 * DVC_ENCODER_LAYERS
+    if launches != {"chunked_scan_fwd": 2 * n, "chunked_scan_bwd": n}:
+        raise AssertionError(f"the card's PDVC-Mamba launched {launches}")
+    if missing or not same_tokens or \
+            not loss_err <= CARD_CPU_DVC_REL_TOL or \
+            not all(e <= CARD_CPU_DVC_REL_TOL for e in errs.values()) or \
+            not worst <= CARD_CPU_DVC_GRAD_REL_TOL:
+        raise AssertionError(f"card and CPU PDVC-Mamba disagree (no or "
+                             f"non-finite gradient: {missing})")
+
+
 PHASES = {"mir-train": run_mir_train, "pretrain": run_clip_pretrain,
           "cls": run_ek100_cls, "lm-int8": run_lm_int8,
           "lm-loglik": run_lm_loglik,
@@ -5443,7 +5877,10 @@ PHASES = {"mir-train": run_mir_train, "pretrain": run_clip_pretrain,
           "ckpt-mir": run_ckpt_mir, "card-vs-cpu-tas": card_against_cpu_tas,
           "vtg-qvhl": run_vtg_qvhl, "vtg-tvsum": run_vtg_tvsum,
           "vtg-vlp-qfvs": run_vtg_vlp_qfvs,
-          "card-vs-cpu-vtg": card_against_cpu_vtg}
+          "card-vs-cpu-vtg": card_against_cpu_vtg,
+          "dvc-anet": run_dvc_anet, "dvc-yc2": run_dvc_yc2,
+          "dvc-synthetic": run_dvc_synthetic,
+          "card-vs-cpu-dvc": card_against_cpu_dvc}
 
 
 def main() -> int:
@@ -5561,6 +5998,13 @@ def main() -> int:
         mark(name)
     card_against_cpu_vtg()
     mark("card-vs-cpu-vtg")
+    # dense video captioning; its launches add to the other paths'
+    for name in ("dvc-anet", "dvc-yc2", "dvc-synthetic"):
+        for kernel, count in PHASES[name]().items():
+            launches[kernel] += count
+        mark(name)
+    card_against_cpu_dvc()
+    mark("card-vs-cpu-dvc")
 
     kernels = [dict(
         name=name, route="cuda", source=source, replaces=replaces,

@@ -1233,3 +1233,103 @@ def test_vtg_step_on_card_matches_cpu(cuda_device, mamba_type, max_v_l,
     for kernel, _ in routes:
         chip_smoke.check_route(kernel, f"UniVTG-Mamba at {max_v_l + 6}",
                                "float32", names)
+
+
+def _pdvc_batch(T, input_dim, G, L, vocab, seed):
+    """One or two videos of T features (the second's last 11 padded), G
+    event slots (the last invalid), captions of BOS 1, words, EOS 2."""
+    g = torch.Generator().manual_seed(seed)
+    B = 2
+    feats = torch.randn(B, T, input_dim, generator=g)
+    mask = torch.ones(B, T)
+    mask[1, T - 11:] = 0.0
+    feats[1, T - 11:] = 0.0
+    boxes = torch.stack([0.2 + 0.6 * torch.rand(B, G, generator=g),
+                         0.05 + 0.3 * torch.rand(B, G, generator=g)], -1)
+    valid = torch.ones(B, G, dtype=torch.bool)
+    valid[:, -1] = False
+    captions = torch.full((B, G, L), -100, dtype=torch.long)
+    captions[..., 0], captions[..., L - 2] = 1, 2
+    captions[..., 1:L - 2] = torch.randint(4, vocab, (B, G, L - 3),
+                                           generator=g)
+    return (feats.numpy(), mask.numpy(), boxes.numpy(),
+            torch.zeros(B, G, dtype=torch.long).numpy(), valid.numpy(),
+            captions.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,mixer,T,routes", [
+    ("standard", "vim", 64,
+     (("K3", "chunked_scan_fwd"), ("K4", "chunked_scan_bwd"))),
+    ("light", "dbm", 32,
+     (("K1", "short_bidir_fwd"), ("K2", "short_bidir_bwd")))],
+    ids=["dsa-vim-l96", "light-dbm-l48"])
+def test_pdvc_step_on_card_matches_cpu(cuda_device, kind, mixer, T, routes):
+    """One PDVC-Mamba step with dropout off (width 32, 2 levels, 1 encoder
+    and 2 decoder layers, a padded second video, an invalid event) on the
+    card against the CPU: every loss term and every parameter's
+    gradient. At 64 + 32 tokens the ViM layer runs two K3 (with
+    checkpoints) and two K4, at 32 + 16 the DBM layer one K1 and one
+    K2."""
+    from video_mamba_suite_torch.tasks.captioning import (
+        PDVC,
+        CaptioningTrainer,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(input_dim=12, vocab_size=20, num_queries=6, d_model=32,
+              n_levels=2, num_encoder_layers=1, num_decoder_layers=2,
+              max_caption_len=6, mixer=mixer, caption_decoder_type=kind,
+              seed=3)
+    cpu, card = (CaptioningTrainer(PDVC(**kw, device=dev))
+                 for dev in ("cpu", "cuda"))
+    batch = _pdvc_batch(T, 12, 4, 7, 20, seed=T)
+    before = dict(LAUNCHES)
+    got = card.train_step(*batch, deterministic=True)
+    torch.cuda.synchronize()
+    calls = 1 if T + T // 2 <= 64 else 2
+    assert _grown(before) == {name: calls for _, name in routes}
+    want = cpu.train_step(*batch, deterministic=True)
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-5, abs=1e-6), k
+    grads = {n: p.grad for n, p in cpu.model.named_parameters()}
+    floor = 1e-2 * max(w.abs().max().item() for w in grads.values())
+    for name, p in card.model.named_parameters():
+        gp, w = p.grad.cpu(), grads[name]
+        assert torch.isfinite(gp).all(), name
+        err = (gp - w).abs().max() / max(w.abs().max().item(), floor)
+        assert err < 1e-3, (name, err)
+
+
+@pytest.mark.cuda
+def test_pdvc_anet_step_launches_k3_and_k4(cuda_device):
+    """A train step of PDVC-Mamba at the ActivityNet preset's widths
+    (``build_captioning_trainer(configs.DVC_ANET_C3D)``: 256 + 128 + 64 +
+    32 = 480 tokens through 2 ViM layers of d_inner 1024, the DSA head,
+    30-token captions) launches exactly 4 K3, all writing checkpoints,
+    and 4 K4 and no plain version; a ``predict`` exactly 4 K3 without
+    checkpoints."""
+    from video_mamba_suite_torch.configs import DVC_ANET_C3D
+    from video_mamba_suite_torch.tasks.captioning import (
+        build_captioning_trainer,
+    )
+
+    trainer = build_captioning_trainer(DVC_ANET_C3D, 50, seed=1)
+    feats, mask, boxes, labels, valid, captions = _pdvc_batch(
+        256, 500, 10, 30, 50, seed=5)
+    batch = (feats[:1], mask[:1], boxes[:1], labels[:1], valid[:1],
+             captions[:1])
+    with chip_smoke.count_plain_calls() as plain, \
+            chip_smoke.count_checkpoint_writes() as ck:
+        before = dict(LAUNCHES)
+        losses = trainer.train_step(*batch)
+        step = _grown(before)
+        before = dict(LAUNCHES)
+        trainer.predict(feats[:1], mask[:1], 120.0)
+        fwd = _grown(before)
+    assert step == {"chunked_scan_fwd": 4, "chunked_scan_bwd": 4}
+    assert fwd == {"chunked_scan_fwd": 4}
+    assert ck["chunked_scan_fwd with checkpoints"] == 4
+    assert not sum(plain.values())
+    assert all(v == v for v in losses.values())

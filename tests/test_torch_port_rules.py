@@ -398,3 +398,48 @@ def test_vtg_cpu_build_has_the_preset_widths(name, vid_dim, max_v_l):
     assert trainer.grad_clip == 0.1
     assert config["loader"]["batch_size"] == (4 if name == "VTG_TVSUM"
                                               else 32)
+
+
+def test_captioning_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default build succeeds")
+    from video_mamba_suite_torch import PDVC, build_captioning_trainer
+    from video_mamba_suite_torch.configs import DVC_ANET_C3D
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_captioning_trainer(DVC_ANET_C3D, 50)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PDVC(input_dim=8, d_model=16, n_levels=2, num_encoder_layers=1,
+             num_decoder_layers=1)
+
+
+@pytest.mark.parametrize("name,input_dim,queries,events,head", [
+    ("DVC_ANET_C3D", 500, 10, 10, "DSACaptioner"),
+    ("DVC_YC2_TSN", 3072, 100, 20, "LSTMCaptioner")])
+def test_captioning_cpu_build_has_the_preset_widths(name, input_dim, queries,
+                                                    events, head):
+    """build_captioning_trainer(config, vocab, device="cpu") keeps the
+    preset's widths (read as the JAX CLI reads them, its defaults where
+    the preset names none): width 512, 4 levels, 2 ViM encoder layers
+    (d_inner 1024) and 2 decoder layers, the preset's queries, counts and
+    caption head, captions of 30 tokens, AdamW 5e-5 with decay 1e-4,
+    batches of 256 features and 10 events."""
+    from video_mamba_suite_torch import build_captioning_trainer, configs
+    from video_mamba_suite_torch.tasks import captioning
+
+    trainer = build_captioning_trainer(getattr(configs, name), 50,
+                                       device="cpu")
+    m = trainer.model
+    assert type(m.caption_head).__name__ == head
+    assert m.input_proj.weight.shape == (512, input_dim)
+    assert m.query_embed.shape == (queries, 1024)
+    assert m.count_head.weight.shape == (events + 1, 512)
+    assert len(m.level_convs) == 3 and m.max_caption_len == 30
+    assert len(m.transformer.enc) == 2 and len(m.transformer.dec) == 2
+    assert m.transformer.enc[1].mamba.fwd.A_log.shape == (1024, 16)
+    assert m.caption_head.logit.weight.shape[0] == 50
+    assert captioning.pdvc_level_shapes(trainer.max_seq_len, 4) == \
+        (256, 128, 64, 32)
+    assert trainer.max_events == 10
+    group = trainer.optimizer.param_groups[0]
+    assert (group["lr"], group["weight_decay"]) == (5e-5, 1e-4)

@@ -39,6 +39,11 @@ from .tasks.egocentric import (
     build_clip_pretrainer,
     build_ek100_cls,
 )
+from .tasks.captioning import (
+    PDVC,
+    CaptioningTrainer,
+    build_captioning_trainer,
+)
 from .tasks.tal import ActionMambaDetector, TalTrainer, build_tal_trainer
 from .tasks.tas import MaTransformer, TasTrainer, build_tas_trainer
 from .tasks.vtg import (
@@ -60,12 +65,13 @@ from .train import train_step
 from .utils import make_optimizer
 
 __all__ = ["ActionMambaDetector", "AnticipationTrainer", "CLIP",
-           "ClipPretrainer", "ClsFinetuner", "GenerationConfig", "HlTrainer",
-           "LSTRMamba", "MaTransformer", "MambaDBM", "MambaHarnessLM",
-           "MambaLMHeadModel", "MambaVim", "MirFinetuner", "QfvsTrainer",
-           "RecognitionTrainer", "TalTrainer", "TasTrainer", "TimeMamba",
-           "UniVTGMamba", "VideoClassifier", "ViViM", "VlpPretrainer",
-           "VtgTrainer", "build_anticipation_trainer",
+           "CaptioningTrainer", "ClipPretrainer", "ClsFinetuner",
+           "GenerationConfig", "HlTrainer", "LSTRMamba", "MaTransformer",
+           "MambaDBM", "MambaHarnessLM", "MambaLMHeadModel", "MambaVim",
+           "MirFinetuner", "PDVC", "QfvsTrainer", "RecognitionTrainer",
+           "TalTrainer", "TasTrainer", "TimeMamba", "UniVTGMamba",
+           "VideoClassifier", "ViViM", "VlpPretrainer", "VtgTrainer",
+           "build_anticipation_trainer", "build_captioning_trainer",
            "build_clip_mir", "build_clip_pretrainer", "build_ek100_cls",
            "build_hl_trainer", "build_mamba_lm", "build_tal_trainer",
            "build_tas_trainer", "build_timemamba_b", "build_vtg_trainer",

@@ -252,3 +252,37 @@ VTG_TVSUM = dict(
     loader=dict(batch_size=4),
     loss=dict(loss_f=4.0, loss_s_intra=0.1, eos_coef=0.1),
 )
+
+# Dense video captioning, PDVC-Mamba on ActivityNet Captions (the JAX
+# package's preset ``dvc_anet_c3d``, from upstream cfgs/anet_c3d_pdvc.yml):
+# C3D features of 500 channels, one class; width 512, 10 event queries, 4
+# levels, 2 ViM encoder and 2 decoder layers; the LSTM-DSA caption head
+# ("standard"), captions of up to 30 tokens, counts up to 10 events; AdamW
+# 5e-5, weight decay 1e-4, clip 0.1, 30 epochs, batch 1; the criterion's
+# weights. ``build_captioning_trainer`` pads videos to the JAX CLI's 256
+# features (levels 256, 128, 64 and 32: 480 tokens) and 10 events.
+DVC_ANET_C3D = dict(
+    model=dict(d_model=512, num_queries=10, n_levels=4,
+               num_encoder_layers=2, num_decoder_layers=2,
+               max_eseq_length=10, max_caption_len=30, mixer="vim",
+               input_dim=500, num_classes=1,
+               caption_decoder_type="standard"),
+    opt=dict(learning_rate=5e-5, weight_decay=1e-4, epochs=30,
+             grad_clip=0.1),
+    loader=dict(batch_size=1),
+    loss=dict(count_weight=0.5, bbox_weight=5.0, giou_weight=2.0,
+              label_weight=2.0, caption_weight=1.0),
+)
+# YouCook2 with TSN features (``dvc_yc2_tsn``). The JAX preset table
+# writes this key twice and the later entry wins, so this is that entry:
+# 3072-d features, 100 queries, counts up to 20 events, no caption head
+# named (the plain LSTM, "light"), no clip and no loss section (the
+# trainer's clip 0.1 and the criterion's weights apply).
+DVC_YC2_TSN = dict(
+    model=dict(d_model=512, num_queries=100, n_levels=4,
+               num_encoder_layers=2, num_decoder_layers=2,
+               max_eseq_length=20, max_caption_len=30, mixer="vim",
+               input_dim=3072, num_classes=1),
+    opt=dict(learning_rate=5e-5, weight_decay=1e-4, epochs=30),
+    loader=dict(batch_size=1),
+)

@@ -42,6 +42,7 @@ from .convert import (
     lstr_mamba_from_jax,
     mamba_lm_from_jax,
     mask_mamba_block_from_jax,
+    pdvc_from_jax,
     quantized_lm_from_jax,
     tal_detector_from_jax,
     tas_from_jax,
@@ -98,7 +99,7 @@ __all__ = [
     "vim_mixer_from_state_dict", "vivim_from_state_dict",
     "MambaHarnessLM", "W8Dense", "W8Embed", "perplexity",
     "quantize_lm_for_decode", "quantized_lm_from_jax", "register",
-    "rope_rotate", "vtg_from_jax",
+    "pdvc_from_jax", "rope_rotate", "vtg_from_jax",
     "sequence_loglikelihood", "video_classifier_from_jax",
     "AffineDropPath", "LayerNorm1D", "MambaDBM", "MaskMambaBlock",
     "MaskedConv1D", "dbm_mixer_from_jax", "dbm_mixer_from_state_dict",

@@ -506,6 +506,106 @@ def vtg_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _box_mlp(tree, prefix, out):
+    for name in ("l0", "l1", "l2"):
+        _dense(tree[name], f"{prefix}{name}.", out)
+
+
+def _ffn(tree, prefix, out):
+    _dense(tree["linear1"], prefix + "linear1.", out)
+    _dense(tree["linear2"], prefix + "linear2.", out)
+    _layernorm(tree["norm"], prefix + "norm.", out)
+
+
+def _query_attention(tree, prefix, out):
+    """flax ``MultiHeadDotProductAttention`` {query, key, value: kernel (d,
+    H, dh), bias (H, dh); out: kernel (H, dh, d), bias (d,)} → Dense
+    weights (H·dh, d) and (d, H·dh), heads major."""
+    for name in ("query", "key", "value"):
+        kernel = np.asarray(tree[name]["kernel"])
+        out[f"{prefix}{name}.weight"] = _tensor(
+            kernel.reshape(kernel.shape[0], -1).T)
+        out[f"{prefix}{name}.bias"] = _tensor(
+            np.asarray(tree[name]["bias"]).reshape(-1))
+    kernel = np.asarray(tree["out"]["kernel"])
+    out[prefix + "out.weight"] = _tensor(
+        kernel.reshape(-1, kernel.shape[-1]).T)
+    out[prefix + "out.bias"] = _tensor(tree["out"]["bias"])
+
+
+def _lstm_cell(tree, prefix, out):
+    """flax ``OptimizedLSTMCell`` {ii, if, ig, io: kernel (in, H); hi, hf,
+    hg, ho: kernel (H, H), bias} → ``weight_ih`` (4H, in), ``weight_hh``
+    (4H, H), ``bias_hh`` (4H,), the gates in the order i, f, g, o."""
+    gates = "ifgo"
+    out[prefix + "weight_ih"] = _tensor(np.concatenate(
+        [np.asarray(tree[f"i{g}"]["kernel"]) for g in gates], axis=1).T)
+    out[prefix + "weight_hh"] = _tensor(np.concatenate(
+        [np.asarray(tree[f"h{g}"]["kernel"]) for g in gates], axis=1).T)
+    out[prefix + "bias_hh"] = _tensor(np.concatenate(
+        [np.asarray(tree[f"h{g}"]["bias"]) for g in gates]))
+
+
+def _leaf_sizes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_leaf_sizes(v) for v in tree.values())
+    return int(np.asarray(tree).size)
+
+
+def pdvc_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``PDVC`` tree {input_proj0, level_conv{l}, transformer:
+    {level_embed, enc{i}: {mamba, norm1, ffn}, reference_points, dec{i}:
+    {self_attn, norm2, cross_attn, norm1, ffn}, refine{i}}, query_embed,
+    class_head, count_head, bbox_head, caption_head?} → the port's
+    ``PDVC`` state_dict; the encoder's mixers through
+    ``vim_mixer_from_jax`` or ``dbm_mixer_from_jax``. Raises
+    ``ValueError`` unless every value of the tree is carried over."""
+    params = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    _dense(params["input_proj0"], "input_proj.", out)
+    for l in range(_numbered(params, "level_conv")):
+        _conv1d(params[f"level_conv{l}"], f"level_convs.{l}.", out)
+    tr = params["transformer"]
+    out["transformer.level_embed"] = _tensor(tr["level_embed"])
+    for i in range(_numbered(tr, "enc")):
+        tree, key = tr[f"enc{i}"], f"transformer.enc.{i}."
+        mixer = tree["mamba"]
+        convert = (dbm_mixer_from_jax if "shared" in mixer
+                   else vim_mixer_from_jax)
+        out.update(convert(mixer, key + "mamba."))
+        _layernorm(tree["norm1"], key + "norm1.", out)
+        _ffn(tree["ffn"], key + "ffn.", out)
+    _dense(tr["reference_points"], "transformer.reference_points.", out)
+    for i in range(_numbered(tr, "dec")):
+        tree, key = tr[f"dec{i}"], f"transformer.dec.{i}."
+        _query_attention(tree["self_attn"], key + "self_attn.", out)
+        for norm in ("norm1", "norm2"):
+            _layernorm(tree[norm], f"{key}{norm}.", out)
+        for dense in ("value_proj", "sampling_offsets",
+                      "attention_weights", "output_proj"):
+            _dense(tree["cross_attn"][dense], f"{key}cross_attn.{dense}.",
+                   out)
+        _ffn(tree["ffn"], key + "ffn.", out)
+        _box_mlp(tr[f"refine{i}"], f"transformer.refine.{i}.", out)
+    out["query_embed"] = _tensor(params["query_embed"])
+    _dense(params["class_head"], "class_head.", out)
+    _dense(params["count_head"], "count_head.", out)
+    _box_mlp(params["bbox_head"], "bbox_head.", out)
+    head = params.get("caption_head")
+    if head is not None:
+        out["caption_head.word_embed.weight"] = _tensor(
+            head["word_embed"]["embedding"])
+        _lstm_cell(head["cell"], "caption_head.cell.", out)
+        for name, tree in head.items():
+            if name not in ("word_embed", "cell"):
+                _dense(tree, f"caption_head.{name}.", out)
+    carried = sum(t.numel() for t in out.values())
+    if carried != _leaf_sizes(params):
+        raise ValueError(f"the PDVC tree holds {_leaf_sizes(params)} values, "
+                         f"{carried} were carried over")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # upstream PyTorch state_dicts → the port's state_dict (the JAX package's
 # ``convert_*`` functions, without the detour through a flax tree)

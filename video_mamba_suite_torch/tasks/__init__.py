@@ -1,3 +1,4 @@
 """Task pipelines of the PyTorch port: ``recognition``, ``anticipation``,
 ``egocentric``, ``tal`` (action localization), ``tas`` (action
-segmentation) and ``vtg`` (temporal grounding and highlights)."""
+segmentation), ``vtg`` (temporal grounding and highlights) and
+``captioning`` (dense video captioning)."""
