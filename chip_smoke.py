@@ -222,9 +222,35 @@ Phases, each of which fails the run:
      output, the caption logits and the greedy tokens, then under the
      CPU's match each loss term and every gradient. The launches of 31-33
      add to the kernels line's counts.
+ 35. the task CLI's synthetic trajectories (``cli-synthetic``):
+     ``cli.main`` in this process for the seven tasks and the egocentric
+     MIR and classification modes (``CLI_RUNS``: bench.py's epochs where
+     it runs the task, else the CLI's 5); each run launches at least one
+     of K1-K6 and no plain version; its launches, wall seconds and the
+     numbers bench.py reads (``vtg_r1_05``, ``vtg_map_avg``,
+     ``mir_avg_map``, ``tas_f1_50``, ``cap_cider``, ``cap_meteor``,
+     ``ant_mean_ap``, ``rec_top1``; printed, not gated).
+ 36. THUMOS-14 through the CLI (``cli-tal-thumos``): a THUMOS-layout
+     dataset (4 training and 2 validation videos of 3264 steps x 3200
+     features from seed 0) under a temporary directory; ``tal --preset
+     tal_thumos`` for one epoch in this process (14 K3 with checkpoints +
+     14 K4 a step, 14 K3 a validation video); ``python -m
+     video_mamba_suite_torch.cli ... --epochs 3 --ckpt D`` in a child sent
+     SIGTERM once it prints ``epoch 0:``, which exits 0 with its last
+     printed epoch on disk; the rerun resumes after it and prints the mAP
+     line.
+ 37. card against CPU, the CLI's checkpoint (``card-vs-cpu-ckpt``): phase
+     36's newest checkpoint restored into a ``TalTrainer`` on the card and
+     one on the CPU, every restored tensor equal to the file's bit for
+     bit, both on one validation video (fp32, TF32 off, EMA weights)
+     within 1e-5 of each output's scale (its largest magnitude over the
+     pyramid's levels). The launches of 35-36 add to the kernels
+     line's counts. (Phase 16's THUMOS eval also times its parts apart:
+     forward, decode, soft-NMS and voting by numpy and by the native op.)
 Prints a ``{"kernels": [...]}`` line (K1-K11) and, last, ``{"ok": true,
 ...}``. ``chip_smoke.py --phases NAME ...`` builds the kernels and runs
-the named phases of ``PHASES`` alone (17-34), printing no result line.
+the named phases of ``PHASES`` alone (17-37; 37 after 36), printing no
+result line.
 """
 
 from __future__ import annotations
@@ -4170,7 +4196,9 @@ def run_tal_eval(trainer, config):
     without checkpoints, then the decode on the card, soft-NMS and voting
     on the host) over ``TAL_EVAL_VIDEOS`` synthetic videos of the
     preset's length, ms per video; then ``evaluate``'s mAP over them (a
-    number with no target: random weights, synthetic data)."""
+    number with no target: random weights, synthetic data); then its
+    parts timed apart, NMS by numpy and by the native op
+    (``tal_eval_breakdown``)."""
     import numpy as np
     import torch
     from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
@@ -4220,6 +4248,7 @@ def run_tal_eval(trainer, config):
     with torch.inference_mode():
         profile_seen("video forward", lambda: model(feats, mask),
                      tag="profile-tal-eval")
+    tal_eval_breakdown(trainer, items, "tal-eval")
 
 
 def card_against_cpu_tal():
@@ -5868,6 +5897,531 @@ def card_against_cpu_dvc():
                              f"non-finite gradient: {missing})")
 
 
+# ---------------------------------------------------------------------------
+# the task CLI: the synthetic trajectories, THUMOS-14 through the
+# CLI with preemption and resume, and the card's checkpoint on the CPU
+
+# K1-K6: the scan kernels a CLI run must launch at least one of
+CLI_SCAN_KERNELS = ("short_bidir_fwd", "short_bidir_bwd", "chunked_scan_fwd",
+                    "chunked_scan_bwd", "short_scan_fwd", "short_scan_bwd")
+CLI_NUM = r"(?:np\.float64\()?([0-9.eE+-]+)"
+# (label, argv, [(name, pattern)]): the synthetic runs at bench.py's
+# bench_cli_trajectories epochs where it runs the task (VTG 50, MIR 20,
+# TAS 50, captioning 20, anticipation 40, recognition 100), else the CLI's
+# default 5; the numbers each prints, under bench.py's gate names where it
+# has one (printed only: no gate here)
+CLI_RUNS = [
+    ("vtg", ["vtg", "--synthetic", "--epochs", "50"],
+     [("vtg_r1_05", r"'R1@0.5': ([0-9.eE+-]+)"),
+      ("vtg_map_avg", r"'mAP_avg': ([0-9.eE+-]+)")]),
+    ("mir", ["egocentric", "--synthetic", "--epochs", "20", "--set",
+             "train.mode=mir"],
+     [("mir_avg_map", r"avg_map ([0-9.eE+-]+)")]),
+    ("tas", ["tas", "--synthetic", "--epochs", "50"],
+     [("tas_f1_50", r"eval: \{[^}]*'F1@50': " + CLI_NUM)]),
+    ("captioning", ["captioning", "--synthetic", "--epochs", "20"],
+     [("cap_cider", r"eval: \{[^}]*'CIDEr': " + CLI_NUM),
+      ("cap_meteor", r"eval: \{[^}]*'METEOR': " + CLI_NUM)]),
+    ("anticipation", ["anticipation", "--synthetic", "--epochs", "40"],
+     [("ant_mean_ap", r"eval: \{[^}]*'mean_AP': " + CLI_NUM)]),
+    ("recognition", ["recognition", "--synthetic", "--epochs", "100"],
+     [("rec_top1", r"eval: \{[^}]*'top1': " + CLI_NUM)]),
+    ("tal", ["tal", "--synthetic"],
+     [("tal avg mAP", r"mAP per tIoU: .*, avg ([0-9.]+)")]),
+    ("pretrain", ["egocentric", "--synthetic"],
+     [("retrieval acc", r"retrieval acc ([0-9.]+)")]),
+    ("cls", ["egocentric", "--synthetic", "--set", "train.mode=cls"],
+     [("action top-1", r"action top-1 ([0-9.]+)")]),
+]
+TAL_CLI_TRAIN = 4                # training videos of the THUMOS-layout set
+TAL_CLI_VAL = 2                  # its validation videos
+TAL_CLI_BATCH = 2                # the preset's batch
+# steps a video: TalDataset (as the JAX one) reads a (T, C) file as time
+# by channels only where T > C, so with THUMOS's 3200 channels a video
+# needs more than 3200 steps; training takes windows of 2304 of them
+TAL_CLI_LENGTH = 3264
+TAL_CLI_EPOCHS = 3               # epochs of the preempted and resumed runs
+TAL_CLI_CHILD_TIMEOUT = 600      # seconds the preempted child may take
+TAL_LAYERS = 7                   # DBM layers of the preset: 2 K3 (2 K4) each
+# the restored model's logits and offsets, card against CPU: each within
+# this of the output's largest magnitude over the pyramid's levels. A
+# coarse level's own largest offset is a third to two thirds of the
+# finest's while the difference stays about 5e-6 at every level, so
+# against its own scale a level reaches 1.0e-5 (PERF.md §6)
+CARD_CPU_CKPT_REL_TOL = 1e-5
+TAL_EVAL_REPEATS = 3             # timed passes of the eval breakdown
+CLI_TAL = {}                     # phase 36's dataset and checkpoint
+
+
+def cli_run(argv):
+    """``cli.main(argv)`` in this process: (its stdout, the kernel
+    launches and plain-version calls of the run, its wall seconds)."""
+    import io
+
+    import torch
+    from video_mamba_suite_torch import cli
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+
+    buf = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with count_plain_calls() as plain, contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    return (buf.getvalue(), dict(LAUNCHES), dict(plain),
+            time.perf_counter() - t0)
+
+
+def _first_number(pattern, text):
+    m = re.search(pattern, text)
+    return float(m.group(1)) if m else float("nan")
+
+
+def _ends(text):
+    """The first and last lines of a run's output."""
+    lines = text.strip().splitlines()
+    return lines[:1] + lines[-2:] if len(lines) > 3 else lines
+
+
+def run_cli_synthetic():
+    """Phase 35: the CLI's synthetic trajectories through ``cli.main`` in
+    this process (``CLI_RUNS``: the seven tasks, the MIR and
+    classification modes). Each run launches at least one of K1-K6 and no
+    plain version; prints its launches, wall seconds and the numbers
+    ``bench.py`` reads. Returns the launches."""
+    launches = collections.Counter()
+    card = card_line()
+    for label, argv, numbers in CLI_RUNS:
+        out, counts, plain, seconds = cli_run(argv)
+        values = {name: _first_number(p, out) for name, p in numbers}
+        log(f"[cli-synthetic] {label} ({' '.join(argv)}) on {card}: "
+            f"{seconds:.2f} s; launches {counts}; plain-version calls "
+            f"{plain}; {', '.join(f'{k} {v}' for k, v in values.items())}")
+        for line in _ends(out):
+            log(f"[cli-synthetic] {label} | {line[:300]}")
+        if not any(counts.get(k) for k in CLI_SCAN_KERNELS) or \
+                sum(plain.values()) or not all(
+                    math.isfinite(v) for v in values.values()):
+            raise AssertionError(f"the CLI's {label} run launched {counts}, "
+                                 f"plain versions {plain}, printed "
+                                 f"{values}")
+        launches.update(counts)
+    return dict(launches)
+
+
+def write_tal_dataset(root, train, val, length, channels, classes, seed):
+    """A THUMOS-layout dataset under ``root``: ``anno.json`` (TalDataset's
+    database: subset, duration, 30 fps, two actions a video) and
+    ``feats/<video>.npy`` of (``length``, ``channels``) float16 features
+    from ``seed``. Returns the CLI's ``--set`` pairs that name it."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    feat_dir = os.path.join(root, "feats")
+    os.makedirs(feat_dir, exist_ok=True)
+    fps, stride = 30.0, 4
+    duration = length * stride / fps
+    db = {}
+    for i in range(train + val):
+        vid = f"video_{i}"
+        np.save(os.path.join(feat_dir, vid + ".npy"),
+                rng.standard_normal((length, channels), np.float32)
+                .astype(np.float16))
+        actions = []
+        for _ in range(2):
+            start = rng.uniform(0.05, 0.75) * duration
+            end = min(start + rng.uniform(0.05, 0.2) * duration, duration)
+            actions.append(dict(segment=[start, end],
+                                label_id=int(rng.integers(classes))))
+        db[vid] = dict(subset="training" if i < train else "validation",
+                       duration=duration, fps=fps, annotations=actions)
+    anno = os.path.join(root, "anno.json")
+    with open(anno, "w") as f:
+        json.dump({"database": db}, f)
+    return [f"dataset.json_file={anno}", f"dataset.feat_folder={feat_dir}"]
+
+
+def cli_preempted(argv, timeout):
+    """``python -m video_mamba_suite_torch.cli argv`` in a child process,
+    sent SIGTERM once it prints ``epoch 0:``: (its exit code, its output,
+    its seconds, the seconds from the signal to its exit). The child is
+    killed at ``timeout``."""
+    import signal
+    import threading
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "video_mamba_suite_torch.cli", *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=here)
+    watchdog = threading.Timer(timeout, proc.kill)
+    watchdog.start()
+    lines, sent = [], None
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if sent is None and line.startswith("epoch 0:"):
+                proc.send_signal(signal.SIGTERM)
+                sent = time.perf_counter()
+        rc = proc.wait()
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    end = time.perf_counter()
+    return (rc, "".join(lines), end - t0,
+            None if sent is None else end - sent)
+
+
+def _epochs(text):
+    return [int(e) for e in re.findall(r"^epoch (\d+):", text, re.M)]
+
+
+def run_cli_tal_thumos():
+    """Phase 36: ``tal --preset tal_thumos`` through the CLI on a
+    THUMOS-layout dataset written from ``--seed`` 0 (``TAL_CLI_TRAIN``
+    training and ``TAL_CLI_VAL`` validation videos of ``TAL_CLI_LENGTH``
+    steps x 3200 features): one epoch in this process (14 K3 with
+    checkpoints + 14 K4 a step, 14 K3 a validation video, no plain
+    version); then ``--epochs 3 --ckpt D`` in a child process, sent
+    SIGTERM once it prints ``epoch 0:``: it exits 0 with ``latest_step(D)``
+    the last epoch it printed, before the last; then the same command in
+    this process resumes after that epoch, trains only the epochs after
+    it and prints the mAP line. Returns the launches of this process's
+    runs."""
+    import atexit
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from video_mamba_suite_torch.configs import TAL_THUMOS
+    from video_mamba_suite_torch.utils import latest_step
+
+    root = tempfile.mkdtemp(prefix="cli-tal-thumos-")
+    atexit.register(shutil.rmtree, root, ignore_errors=True)
+    d = TAL_THUMOS["dataset"]
+    t0 = time.perf_counter()
+    sets = write_tal_dataset(root, TAL_CLI_TRAIN, TAL_CLI_VAL,
+                             TAL_CLI_LENGTH, d["input_dim"],
+                             d["num_classes"], seed=0)
+    write_s = time.perf_counter() - t0
+    base = ["tal", "--preset", "tal_thumos", "--set", *sets]
+    card = card_line()
+
+    out, counts, plain, seconds = cli_run(base + ["--epochs", "1"])
+    steps = TAL_CLI_TRAIN // TAL_CLI_BATCH
+    want = {"chunked_scan_fwd": 2 * TAL_LAYERS * (steps + TAL_CLI_VAL),
+            "chunked_scan_bwd": 2 * TAL_LAYERS * steps}
+    log(f"[cli-tal-thumos] dataset of {TAL_CLI_TRAIN} + {TAL_CLI_VAL} "
+        f"videos x {TAL_CLI_LENGTH} steps x {d['input_dim']} written in "
+        f"{write_s:.1f} s; one epoch ({steps} steps) and the eval of "
+        f"{TAL_CLI_VAL} videos in this process on {card}: {seconds:.2f} s; "
+        f"launches {counts} (want {want}); plain-version calls {plain}")
+    for line in _ends(out):
+        log(f"[cli-tal-thumos] | {line[:300]}")
+    if counts != want or sum(plain.values()) or "epoch 0:" not in out or \
+            "mAP per tIoU" not in out:
+        raise AssertionError(f"the CLI's THUMOS epoch launched {counts}, "
+                             f"plain versions {plain}: {out}")
+    launches = collections.Counter(counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ckpt = os.path.join(root, "ckpt")
+    argv = base + ["--epochs", str(TAL_CLI_EPOCHS), "--ckpt", ckpt]
+    rc, child, child_s, after_signal = cli_preempted(argv,
+                                                     TAL_CLI_CHILD_TIMEOUT)
+    printed = _epochs(child)
+    last = latest_step(ckpt)
+    log(f"[cli-tal-thumos] child `python -m video_mamba_suite_torch.cli "
+        f"{' '.join(argv[:3])} ... --epochs {TAL_CLI_EPOCHS} --ckpt D`, "
+        f"SIGTERM at 'epoch 0:': exit {rc} after {child_s:.1f} s "
+        f"({after_signal if after_signal is None else round(after_signal, 2)}"
+        f" s after the signal); epochs printed {printed}, latest_step(D) "
+        f"{last}, mAP line {'mAP per tIoU' in child}")
+    for line in child.strip().splitlines()[-4:]:
+        log(f"[cli-tal-thumos] child | {line[:300]}")
+    if rc != 0 or after_signal is None or not printed or \
+            last != printed[-1] or last >= TAL_CLI_EPOCHS - 1 or \
+            "mAP per tIoU" not in child:
+        raise AssertionError(f"the preempted CLI run exited {rc}, printed "
+                             f"epochs {printed}, left step {last}:\n"
+                             f"{child}")
+
+    out, counts, plain, seconds = cli_run(argv)
+    resumed = f"[resume] restored epoch {last} from {ckpt}"
+    trained = _epochs(out)
+    steps_after = steps * (TAL_CLI_EPOCHS - 1 - last)
+    want = {"chunked_scan_fwd": 2 * TAL_LAYERS * (steps_after
+                                                  + TAL_CLI_VAL),
+            "chunked_scan_bwd": 2 * TAL_LAYERS * steps_after}
+    log(f"[cli-tal-thumos] rerun in this process: {seconds:.2f} s; "
+        f"'{resumed}' {resumed in out}; epochs trained {trained}; "
+        f"latest_step(D) {latest_step(ckpt)}; launches {counts} (want "
+        f"{want}); plain-version calls {plain}")
+    for line in _ends(out):
+        log(f"[cli-tal-thumos] rerun | {line[:300]}")
+    if resumed not in out or \
+            trained != list(range(last + 1, TAL_CLI_EPOCHS)) or \
+            latest_step(ckpt) != TAL_CLI_EPOCHS - 1 or counts != want or \
+            sum(plain.values()) or "mAP per tIoU" not in out:
+        raise AssertionError(f"the resumed CLI run printed {out}; "
+                             f"launches {counts}, plain {plain}")
+    launches.update(counts)
+    CLI_TAL.update(root=root, sets=sets, ckpt=ckpt)
+    return dict(launches)
+
+
+def tal_cli_architecture(sets):
+    """The ``TalTrainer`` arguments that fix the modules' shapes, as the
+    CLI reads them from the ``tal_thumos`` preset under ``sets``."""
+    from video_mamba_suite_torch import cli
+    from video_mamba_suite_torch.configs import PRESETS
+    from video_mamba_suite_torch.utils import Config
+
+    cfg = Config(PRESETS["tal_thumos"]).override(cli._parse_overrides(sets))
+    d, m = cfg["dataset"], cfg.get("model", {})
+    return dict(input_dim=d["input_dim"],
+                num_classes=d.get("num_classes", 20),
+                max_seq_len=d.get("max_seq_len", 2304),
+                embd_dim=m.get("embd_dim", 512),
+                backbone_arch=tuple(m.get("backbone_arch", (2, 2, 5))),
+                regression_range=m.get("regression_range"),
+                mixer=m.get("mixer", "dbm"))
+
+
+def _leaves(state, path="state"):
+    """(path, value) of every leaf of a nested state dict."""
+    if isinstance(state, dict):
+        for k, v in state.items():
+            yield from _leaves(v, f"{path}.{k}")
+    elif isinstance(state, (list, tuple)):
+        for i, v in enumerate(state):
+            yield from _leaves(v, f"{path}[{i}]")
+    else:
+        yield path, state
+
+
+def _mismatched(saved, restored, skip=()):
+    """The leaves of ``restored`` that differ from ``saved`` bit for bit
+    (tensors under ``torch.equal``, dtype and shape too; other leaves
+    under ``==``), leaving aside paths that start with one of ``skip``."""
+    import torch
+
+    want = dict(_leaves(saved))
+    got = dict(_leaves(restored))
+    bad = sorted(set(want) ^ set(got))
+    for path, w in want.items():
+        if path not in got or path.startswith(skip):
+            continue
+        g = got[path]
+        if isinstance(w, torch.Tensor):
+            if not (isinstance(g, torch.Tensor) and g.dtype == w.dtype
+                    and g.shape == w.shape and torch.equal(g.cpu(), w)):
+                bad.append(path)
+        elif g != w:
+            bad.append(path)
+    return [p for p in bad if not p.startswith(skip)]
+
+
+def restore_card_and_cpu(ckpt, sets):
+    """The newest checkpoint of ``ckpt`` (a CLI run of ``tal --preset
+    tal_thumos --set sets``) restored into a ``TalTrainer`` on the card
+    and one on the CPU, and both run, fp32 with TF32 off, on the first
+    validation video: (the restored step, the leaves of each trainer's
+    state that differ from the file's bit for bit (the CPU's generator
+    aside: a card's generator state cannot continue on the CPU), the
+    largest difference of the logits and of the offsets (the EMA
+    weights) over the output's scale, its largest magnitude over every
+    level (and, logged beside it, each level's difference over that
+    level's own scale), the card trainer, the video)."""
+    import warnings
+
+    import torch
+    from video_mamba_suite_torch.tasks.tal import (
+        TalDataset,
+        TalTrainer,
+        collate_tal,
+    )
+    from video_mamba_suite_torch.utils import (
+        latest_step,
+        restore_checkpoint,
+    )
+
+    set_tf32(False)
+    step = latest_step(ckpt)
+    saved = restore_checkpoint(ckpt, step, map_location="cpu")
+    kw = tal_cli_architecture(sets)
+    card, cpu = TalTrainer(**kw), TalTrainer(**kw, device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the CPU's generator
+        restored = (card.restore(ckpt), cpu.restore(ckpt))
+    bad = {"card": _mismatched(saved, card.state_dict()),
+           "cpu": _mismatched(saved, cpu.state_dict(),
+                              skip=("state.generator",))}
+    if restored != (step, step):
+        bad["step"] = [f"restored {restored}, saved {step}"]
+    files = {s.split("=", 1)[0]: s.split("=", 1)[1] for s in sets}
+    item = TalDataset(files["dataset.json_file"],
+                      files["dataset.feat_folder"], split=["validation"],
+                      feat_stride=4, num_frames=16,
+                      max_seq_len=kw["max_seq_len"], is_training=False)[0]
+    outs = []
+    for trainer in (card, cpu):
+        model = trainer.inference_model()
+        feats, mask, *_ = collate_tal(
+            [item], kw["max_seq_len"], trainer.max_num_gt, training=False,
+            max_div_factor=model.scale_factor ** model.backbone_arch[2])
+        with torch.inference_mode():
+            outs.append(model(torch.as_tensor(feats).to(trainer.device),
+                              torch.as_tensor(mask).to(trainer.device)))
+    errs = {}
+    for i, kind in enumerate(("logits", "offsets")):
+        diffs = [(g.detach().float().cpu() - w).abs().max().item()
+                 for g, w in zip(outs[0][i], outs[1][i])]
+        scales = [w.abs().max().item() for w in outs[1][i]]
+        errs[kind] = max(diffs) / max(scales)
+        errs[f"{kind} by level"] = max(d / s for d, s in zip(diffs, scales))
+    return step, bad, errs, card, item
+
+
+def card_against_cpu_ckpt():
+    """Phase 37: the newest checkpoint of phase 36's CLI runs (saved on
+    the card) restored into a ``TalTrainer`` on the card and one on the
+    CPU at the THUMOS preset: every restored tensor equals the file's bit
+    for bit, and both run the first validation video within
+    ``CARD_CPU_CKPT_REL_TOL`` of the logits' and the offsets' scales
+    (fp32, TF32 off)."""
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+
+    if not CLI_TAL:
+        raise AssertionError("card-vs-cpu-ckpt reads the checkpoint of "
+                             "cli-tal-thumos: run that phase first")
+    t0 = time.perf_counter()
+    reset_launches()
+    step, bad, errs, card, item = restore_card_and_cpu(CLI_TAL["ckpt"],
+                                                       CLI_TAL["sets"])
+    launches = dict(LAUNCHES)
+    err = max(errs["logits"], errs["offsets"])
+    log(f"[card-vs-cpu-ckpt] the CLI's THUMOS checkpoint (epoch {step}) "
+        f"restored on the card and on the CPU: leaves differing from the "
+        f"file {bad}; one validation video of {TAL_CLI_LENGTH} steps, fp32 "
+        f"TF32 off, EMA weights: logits {errs['logits']:.3e}, offsets "
+        f"{errs['offsets']:.3e} of the output's scale (tol "
+        f"{CARD_CPU_CKPT_REL_TOL}); of each level's own scale at most "
+        f"{errs['logits by level']:.3e} and {errs['offsets by level']:.3e}; "
+        f"the card's launches {launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if any(bad.values()) or not err <= CARD_CPU_CKPT_REL_TOL:
+        raise AssertionError(f"the restored checkpoint differs: {bad}, "
+                             f"outputs {err}")
+
+
+@contextlib.contextmanager
+def nms_by_numpy(on: bool):
+    """While the block runs, with ``on``, the TAL NMS runs its numpy plain
+    versions (``nms_1d_ref``, ``soft_nms_1d_ref``) in place of the native
+    op."""
+    nms = importlib.import_module("video_mamba_suite_torch.tasks.tal.nms")
+    native = nms.nms_1d, nms.soft_nms_1d
+    if on:
+        nms.nms_1d, nms.soft_nms_1d = nms.nms_1d_ref, nms.soft_nms_1d_ref
+    try:
+        yield
+    finally:
+        nms.nms_1d, nms.soft_nms_1d = native
+
+
+def tal_eval_breakdown(trainer, items, tag):
+    """``predict_video``'s parts timed apart, ms per video (the median of
+    ``TAL_EVAL_REPEATS`` passes over ``items``): the collate on the host,
+    the copy to the card, the forward (synchronised), the decode (top-k
+    on the card, one copy to the host), then the host's soft-NMS without
+    voting and with it, by the plain numpy versions and by the native op
+    (the two give the same detections); and ``predict_video`` whole."""
+    import numpy as np
+    import torch
+    from video_mamba_suite_torch.tasks.tal import (
+        batched_nms,
+        collate_tal,
+        decode_single_video,
+    )
+
+    model = trainer.inference_model()
+    cfg = trainer.test_cfg
+    nms_kw = dict(iou_threshold=cfg["iou_threshold"],
+                  min_score=cfg["min_score"], max_seg_num=cfg["max_seg_num"],
+                  use_soft_nms=cfg["nms_method"] == "soft",
+                  multiclass=cfg["multiclass_nms"], sigma=cfg["nms_sigma"])
+    parts = collections.defaultdict(list)
+    candidates = []
+    for _ in range(TAL_EVAL_REPEATS):
+        for item in items:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.predict_video(item)
+            parts["predict_video (native)"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            feats, mask, *_ = collate_tal(
+                [item], trainer.max_seq_len, trainer.max_num_gt,
+                training=False,
+                max_div_factor=model.scale_factor ** model.backbone_arch[2])
+            t1 = time.perf_counter()
+            feats = torch.as_tensor(feats).cuda()
+            mask = torch.as_tensor(mask).cuda()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            parts["collate"].append(t1 - t0)
+            parts["to card"].append(t2 - t1)
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                cls_logits, offsets, fpn_masks = model(feats, mask)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                segs, scores, cls = decode_single_video(
+                    trainer.points(feats.shape[1]),
+                    [m[0] for m in fpn_masks], [c[0] for c in cls_logits],
+                    [o[0] for o in offsets], cfg["pre_nms_thresh"],
+                    cfg["pre_nms_topk"], cfg["duration_thresh"])
+            t2 = time.perf_counter()
+            parts["forward"].append(t1 - t0)
+            parts["decode"].append(t2 - t1)
+            candidates.append(len(scores))
+            results = {}
+            for impl, plain in (("numpy", True), ("native", False)):
+                ta = time.perf_counter()
+                with nms_by_numpy(plain):
+                    batched_nms(segs, scores, cls, voting_thresh=0.0,
+                                **nms_kw)
+                    tb = time.perf_counter()
+                    results[impl] = batched_nms(
+                        segs, scores, cls,
+                        voting_thresh=cfg["voting_thresh"], **nms_kw)
+                tc = time.perf_counter()
+                parts[f"soft-NMS {impl}"].append(tb - ta)
+                parts[f"soft-NMS + voting {impl}"].append(tc - tb)
+            got, want = results["native"], results["numpy"]
+            if not (np.array_equal(got[2], want[2])
+                    and np.allclose(got[0], want[0], rtol=1e-6)
+                    and np.allclose(got[1], want[1], rtol=1e-6)):
+                raise AssertionError("the native and numpy NMS disagree")
+    ms = {k: 1e3 * statistics.median(v) for k, v in parts.items()}
+    for impl in ("numpy", "native"):
+        ms[f"voting {impl}"] = (ms[f"soft-NMS + voting {impl}"]
+                                - ms[f"soft-NMS {impl}"])
+        ms[f"host total {impl}"] = (ms["collate"] + ms["decode"]
+                                    + ms[f"soft-NMS + voting {impl}"])
+    log(f"[{tag}] THUMOS eval's parts, ms a video (median of "
+        f"{TAL_EVAL_REPEATS} passes over {len(items)} videos, "
+        f"{statistics.median(candidates):.0f} candidates into NMS, "
+        f"{card_line()}): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    return ms
+
+
 PHASES = {"mir-train": run_mir_train, "pretrain": run_clip_pretrain,
           "cls": run_ek100_cls, "lm-int8": run_lm_int8,
           "lm-loglik": run_lm_loglik,
@@ -5880,7 +6434,10 @@ PHASES = {"mir-train": run_mir_train, "pretrain": run_clip_pretrain,
           "card-vs-cpu-vtg": card_against_cpu_vtg,
           "dvc-anet": run_dvc_anet, "dvc-yc2": run_dvc_yc2,
           "dvc-synthetic": run_dvc_synthetic,
-          "card-vs-cpu-dvc": card_against_cpu_dvc}
+          "card-vs-cpu-dvc": card_against_cpu_dvc,
+          "cli-synthetic": run_cli_synthetic,
+          "cli-tal-thumos": run_cli_tal_thumos,
+          "card-vs-cpu-ckpt": card_against_cpu_ckpt}
 
 
 def main() -> int:
@@ -6005,6 +6562,13 @@ def main() -> int:
         mark(name)
     card_against_cpu_dvc()
     mark("card-vs-cpu-dvc")
+    # the task CLI; its launches in this process add to the other paths'
+    for name in ("cli-synthetic", "cli-tal-thumos"):
+        for kernel, count in PHASES[name]().items():
+            launches[kernel] += count
+        mark(name)
+    card_against_cpu_ckpt()
+    mark("card-vs-cpu-ckpt")
 
     kernels = [dict(
         name=name, route="cuda", source=source, replaces=replaces,

@@ -1333,3 +1333,46 @@ def test_pdvc_anet_step_launches_k3_and_k4(cuda_device):
     assert ck["chunked_scan_fwd with checkpoints"] == 4
     assert not sum(plain.values())
     assert all(v == v for v in losses.values())
+
+
+@pytest.mark.cuda
+def test_cli_synthetic_run_on_card_launches_kernels(cuda_device):
+    """``cli.main`` of the synthetic VTG task (one epoch, width 32, 6 + 32
+    steps through 2 ViM layers) on the card, as chip_smoke.py's
+    cli-synthetic phase runs it: K1 and K2 launched, no plain version."""
+    out, counts, plain, _ = chip_smoke.cli_run(
+        ["vtg", "--synthetic", "--epochs", "1"])
+    assert counts.get("short_bidir_fwd") and counts.get("short_bidir_bwd")
+    assert not sum(plain.values())
+    assert "epoch 0:" in out and "'R1@0.5'" in out
+
+
+# the small THUMOS-layout run of the checkpoint test: 16 features, 128
+# steps, a 3-level pyramid of width 32 (K3/K4 at 128 steps, K1/K2 below)
+SMALL_TAL = ["dataset.input_dim=16", "dataset.num_classes=3",
+             "dataset.max_seq_len=128", "model.embd_dim=32",
+             "model.backbone_arch=[1,1,2]",
+             "model.regression_range=[[0,8],[8,32],[32,10000]]"]
+
+
+@pytest.mark.cuda
+def test_card_checkpoint_restores_on_cpu_exactly(cuda_device, tmp_path):
+    """A TAL checkpoint the CLI saves on the card (chip_smoke.py's
+    cli-tal-thumos and card-vs-cpu-ckpt helpers, at small widths) restores
+    into trainers on the card and on the CPU with every tensor equal to
+    the file's bit for bit, and both run a validation video within
+    ``CARD_CPU_CKPT_REL_TOL`` of scale."""
+    sets = chip_smoke.write_tal_dataset(str(tmp_path), 2, 1, 160, 16, 3,
+                                        seed=3) + SMALL_TAL
+    ckpt = str(tmp_path / "ckpt")
+    out, counts, plain, _ = chip_smoke.cli_run(
+        ["tal", "--preset", "tal_thumos", "--epochs", "2", "--ckpt", ckpt,
+         "--set", *sets])
+    assert "epoch 1:" in out and "mAP per tIoU" in out
+    assert counts.get("chunked_scan_bwd") and counts.get("short_bidir_bwd")
+    assert not sum(plain.values())
+    step, bad, errs, _, _ = chip_smoke.restore_card_and_cpu(ckpt, sets)
+    assert step == 1
+    assert bad == {"card": [], "cpu": []}
+    assert max(errs["logits"], errs["offsets"]) <= \
+        chip_smoke.CARD_CPU_CKPT_REL_TOL, errs

@@ -443,3 +443,75 @@ def test_captioning_cpu_build_has_the_preset_widths(name, input_dim, queries,
     assert trainer.max_events == 10
     group = trainer.optimizer.param_groups[0]
     assert (group["lr"], group["weight_decay"]) == (5e-5, 1e-4)
+
+
+def test_cli_and_trainer_core_import_no_jax(tmp_path):
+    """The task CLI, the trainer core's modules and the native NMS import
+    neither JAX nor the JAX package, also while the CLI runs two tasks
+    and checkpoints one."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for name in ("cli", "__main__", "utils.config", "utils.checkpoint",
+                     "utils.trainer", "utils.preemption", "utils.meters",
+                     "utils.logging", "utils.profiling", "tasks.tal.nms"):
+            importlib.import_module("video_mamba_suite_torch." + name)
+        from video_mamba_suite_torch.cli import main
+        main(["anticipation", "--synthetic", "--epochs", "1",
+              "--device", "cpu"])
+        main(["recognition", "--synthetic", "--epochs", "1",
+              "--device", "cpu", "--ckpt", {str(tmp_path)!r}])
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                            "video_mamba_suite_tpu"))
+        assert not bad, bad
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "eval:" in res.stdout
+    assert (tmp_path / "0").is_dir()
+
+
+@pytest.mark.parametrize("argv", [
+    ["tas"], ["tal"], ["vtg"], ["vtg", "--set", "dataset.highlight=true"],
+    ["captioning"], ["anticipation"], ["recognition"], ["egocentric"],
+    ["egocentric", "--set", "train.mode=mir"],
+    ["egocentric", "--set", "train.mode=cls"]],
+    ids=lambda a: "-".join(a[:1] + a[-1:]))
+def test_cli_builds_on_cuda_by_default(argv, monkeypatch):
+    """Without --device, every module the CLI builds is asked for
+    "cuda"; without a card the run raises rather than go on on the CPU."""
+    import importlib
+
+    from video_mamba_suite_torch import cli
+
+    devices = []
+
+    class Stop(Exception):
+        pass
+
+    def recorder(name, stop):
+        def build(*args, **kwargs):
+            devices.append((name, kwargs.get("device", "absent")))
+            if stop:
+                raise Stop(name)
+            return object()
+        return build
+
+    for module, name, stop in [
+            ("tasks.tas", "TasTrainer", True), ("tasks.tal", "TalTrainer", True),
+            ("tasks.vtg", "VtgTrainer", True),
+            ("tasks.vtg.hl", "HlTrainer", True),
+            ("tasks.captioning", "PDVC", True),
+            ("tasks.anticipation", "LSTRMamba", True),
+            ("models.vivim", "ViViM", True), ("models.clip", "CLIP", True)]:
+        mod = importlib.import_module(f"video_mamba_suite_torch.{module}")
+        monkeypatch.setattr(mod, name, recorder(name, stop))
+    args = argv[:1] + ["--synthetic", "--epochs", "2"] + argv[1:]
+    with pytest.raises(Stop):
+        cli.main(args)
+    assert len(devices) == 1 and devices[0][1] == "cuda", devices
+    monkeypatch.undo()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(args)

@@ -286,3 +286,101 @@ DVC_YC2_TSN = dict(
     opt=dict(learning_rate=5e-5, weight_decay=1e-4, epochs=30),
     loader=dict(batch_size=1),
 )
+
+
+def _without(d: dict, *keys) -> dict:
+    return {k: v for k, v in d.items() if k not in keys}
+
+
+_RECOGNITION_K400 = dict(
+    opt=dict(learning_rate=1e-3, weight_decay=0.05, layer_decay=0.75,
+             epochs=30, warmup_epochs=5, ema_decay=0.9999),
+    aug=dict(mixup=0.8, cutmix=1.0, smoothing=0.1,
+             aa="rand-m7-n4-mstd0.5-inc1", reprob=0.25, remode="pixel",
+             recount=1),
+    loader=dict(batch_size=256),
+    test=dict(num_temporal_views=4, num_spatial_views=3),
+)
+_RECOGNITION_MODEL = dict(embed_dim=192, depth=24, num_frames=16,
+                          patch_size=16, img_size=224, num_classes=400,
+                          drop_path_rate=0.1)
+_TAL_PYRAMID = dict(backbone_arch=[2, 2, 5], embd_dim=512,
+                    fpn_type="identity", mixer="dbm", scale_factor=2)
+
+# The JAX package's ``configs/presets.py`` ``PRESETS`` as Python resolves
+# it (``"dvc_yc2_tsn"`` is written twice there and the later entry wins):
+# the presets the CLI's ``--preset`` names. The constants above are the
+# entries they equal; ``TAL_THUMOS`` and ``TAL_ANET`` add the training
+# split's size (and ``TAL_ANET`` the trainer's default ``train_cfg``),
+# which the presets leave to the data.
+PRESETS = {
+    "tal_thumos": dict(TAL_THUMOS,
+                       dataset=_without(TAL_THUMOS["dataset"],
+                                        "train_videos")),
+    "tas_gtea": TAS_GTEA,
+    "vtg_qvhighlights": VTG_QVHIGHLIGHTS,
+    "dvc_anet_c3d": DVC_ANET_C3D,
+    "dvc_yc2_tsn": DVC_YC2_TSN,
+    "anticipation_ek100": dict(
+        model=dict(d_model=1024, mamba_layers=2,
+                   long_memory_num_samples=512, work_memory_num_samples=32,
+                   anticipation_num_samples=4, num_classes=3807,
+                   dropout_cls=0.2),
+        opt=dict(learning_rate=7e-5, weight_decay=5e-5, epochs=25),
+        loader=dict(batch_size=16),
+    ),
+    "ego_timemamba_pretrain": dict(
+        model=dict(tower="timemamba", embed_dim=768, depth=12, num_heads=12,
+                   num_frames=4, project_embed_dim=512, ln_pre=True,
+                   attention_style="frozen-in-time", is_tanh_gating=True),
+        opt=dict(learning_rate=3e-5, weight_decay=0.01, b2=0.98, epochs=5,
+                 warmup_epochs=1),
+        loader=dict(batch_size=256, context_length=77),
+    ),
+    "ego_ek100_mir": dict(
+        train=dict(mode="mir"),
+        model=dict(vision_tower="timemamba", embed_dim=512, depth=12,
+                   num_frames=16, vision_width=768, is_tanh_gating=True),
+        opt=dict(learning_rate=1e-5, weight_decay=0.01, epochs=10),
+        loader=dict(batch_size=64, context_length=77),
+    ),
+    "ego_ek100_cls": dict(
+        train=dict(mode="cls"),
+        model=dict(embed_dim=192, depth=24, num_frames=16, patch_size=16,
+                   img_size=224),
+        dataset=dict(num_classes=3806),
+        opt=dict(learning_rate=1e-4, weight_decay=0.05, epochs=30),
+        aug=dict(smoothing=0.1, mixup=0.8, cutmix=1.0),
+        loader=dict(batch_size=32),
+    ),
+    "recognition_k400_vivim_tiny": dict(_RECOGNITION_K400,
+                                        model=_RECOGNITION_MODEL),
+    "recognition_k400_vivim_small": dict(
+        _RECOGNITION_K400, model=dict(_RECOGNITION_MODEL, embed_dim=384)),
+    "recognition_k400_vivim_tiny_scan_norm": dict(
+        _RECOGNITION_K400, model=dict(_RECOGNITION_MODEL, mixer="scan_norm")),
+    "tal_anet": dict(_without(TAL_ANET, "train_cfg"),
+                     dataset=_without(TAL_ANET["dataset"], "train_videos")),
+    "tal_hacs": dict(
+        dataset=dict(num_classes=1, input_dim=3200, feat_stride=8,
+                     num_frames=8, max_seq_len=960),
+        model=_TAL_PYRAMID,
+        opt=dict(learning_rate=1e-3, epochs=15, weight_decay=0.05),
+        loader=dict(batch_size=16),
+        test_cfg=dict(multiclass_nms=False, ext_score_fusion=True),
+    ),
+    "tal_fineaction": dict(
+        dataset=dict(num_classes=1, input_dim=1408, feat_stride=16,
+                     num_frames=16, max_seq_len=192),
+        model=_TAL_PYRAMID,
+        opt=dict(learning_rate=1e-3, epochs=20, weight_decay=0.05),
+        loader=dict(batch_size=16),
+        test_cfg=dict(multiclass_nms=False, ext_score_fusion=True),
+    ),
+    "tas_50salads": TAS_50SALADS,
+    "tas_breakfast": TAS_BREAKFAST,
+    "vtg_charades": VTG_CHARADES,
+    "vtg_tacos": VTG_TACOS,
+    "vtg_ego4d": VTG_EGO4D,
+    "vtg_tvsum": VTG_TVSUM,
+}

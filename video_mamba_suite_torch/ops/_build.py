@@ -9,6 +9,10 @@ environment has no nvcc.
 
 Every kernel wrapper adds one to ``LAUNCHES[<name>]`` each time it
 launches its kernel, so a run can show which kernels its path went through.
+
+The host sources ``csrc/<name>.cc`` (plain C++ for the host, such as the
+1-D NMS) are compiled the same way by the C++ compiler, into
+``build/<name>-host-<hash>.so`` (``build_host``, ``load_host``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# the host sources (``csrc/*.cc``, plain C++ called from the host): the
+# JAX package's flags less OpenMP and -march=native, which they do not use
+HOST_CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -148,6 +156,51 @@ def entry(source: str, name: str, argtypes) -> ctypes.CDLL:
     err = getattr(lib, name + "_error_string")
     err.restype = ctypes.c_char_p
     err.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _host_target(name: str) -> Path:
+    """A host library's path, keyed by its source and the flags."""
+    key = hashlib.sha1((CSRC_DIR / f"{name}.cc").read_bytes())
+    key.update(" ".join(HOST_CXX_FLAGS).encode())
+    return BUILD_DIR / f"{name}-host-{key.hexdigest()[:12]}.so"
+
+
+def build_host(name: str) -> Path:
+    """Compile the host source ``csrc/<name>.cc`` with the C++ compiler
+    (``$CXX``, else ``c++``) unless it is built already, and return the
+    library's path. A failed build raises."""
+    target = _host_target(name)
+    if target.exists():
+        return target
+    cxx = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError(f"no C++ compiler found to build {name}.cc")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([cxx, *HOST_CXX_FLAGS, "-o", tmp,
+                               str(CSRC_DIR / f"{name}.cc")],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{cxx} failed for {name}.cc:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, target)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return target
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library for ``csrc/<name>.cc``, built first if
+    needed."""
+    key = name + ".cc"
+    lib = _LIBS.get(key)
+    if lib is None:
+        lib = ctypes.CDLL(str(build_host(name)))
+        _LIBS[key] = lib
     return lib
 
 

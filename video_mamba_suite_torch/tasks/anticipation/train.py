@@ -10,8 +10,8 @@ scores, per-frame mAP and top-5 recall.
 
 On the card each causal block's scan runs K3 forward (writing checkpoints)
 and K4 backward at the preset's 548 tokens, and K5 forward and K6 backward
-at 64 tokens or fewer. Checkpointing to disk (the JAX ``save``/``restore``
-through its ``TrainerCore``) is not ported.
+at 64 tokens or fewer. ``save`` / ``restore`` checkpoint the trainer's
+whole state through its ``TrainerCore``.
 """
 
 from __future__ import annotations
@@ -24,6 +24,11 @@ import torch
 
 from ...utils.optim import make_optimizer
 from ...utils.schedules import lambda_lr, make_schedule
+from ...utils.trainer import (
+    Checkpointing,
+    TrainerCore,
+    load_generator_state,
+)
 from .metrics import perframe_average_precision, topk_recall
 from .model import LSTRMamba
 
@@ -63,18 +68,21 @@ def predict(model: LSTRMamba, visual, motion=None) -> torch.Tensor:
         model.train(was_training)
 
 
-class AnticipationTrainer:
+class AnticipationTrainer(Checkpointing):
     """Trains an ``LSTRMamba`` with the JAX trainer's recipe and defaults:
     AdamW with weight decay on every parameter (the JAX optimizer gets no
     mask) at ``make_schedule("cosine", lr, total_steps, warmup_steps)``.
     The trainer owns a generator on the model's device, seeded with
-    ``seed``, for the classifier dropout's masks."""
+    ``seed``, for the classifier dropout's masks. ``use_mesh`` raises, as
+    ``TrainerCore`` does."""
 
     def __init__(self, model: LSTRMamba, lr: float = 7e-5,
                  weight_decay: float = 5e-5, warmup_steps: int = 50,
-                 total_steps: int = 5000, seed: int = 0):
+                 total_steps: int = 5000, seed: int = 0,
+                 use_mesh: bool = False):
         self.model = model
         self.device = next(model.parameters()).device
+        self.core = TrainerCore(use_mesh=use_mesh, device=self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(
             seed)
         self.schedule = make_schedule("cosine", lr, total_steps,
@@ -123,7 +131,7 @@ class AnticipationTrainer:
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.lr_scheduler.load_state_dict(state["lr_scheduler"])
-        self.generator.set_state(state["generator"])
+        load_generator_state(self.generator, state["generator"])
 
 
 def build_anticipation_trainer(config: dict, device="cuda", seed: int = 0,

@@ -14,7 +14,7 @@ and ``predict``'s ranked events with greedy captions.
 At the ActivityNet preset's 256 features the encoder scans 256 + 128 +
 64 + 32 = 480 tokens: 2 layers x 2 directions of K3 on the card (with
 checkpoints when a backward follows) and as many K4 in the backward.
-Checkpointing to disk (the JAX ``save``/``restore``) is not ported.
+``save`` / ``restore`` checkpoint the trainer's whole state.
 """
 
 from __future__ import annotations
@@ -25,25 +25,32 @@ import numpy as np
 import torch
 
 from ...utils.optim import make_optimizer
+from ...utils.trainer import (
+    Checkpointing,
+    TrainerCore,
+    load_generator_state,
+)
 from .criterion import pdvc_losses
 from .matcher import hungarian_match, match_cost
 from .model import PDVC
 
 
-class CaptioningTrainer:
+class CaptioningTrainer(Checkpointing):
     """The JAX ``CaptioningTrainer`` around a built ``PDVC``: AdamW at
     ``lr`` with ``weight_decay`` on every parameter (the JAX optimizer
     gets no mask), the gradients clipped to a global norm of
     ``grad_clip``; the dropouts draw from a generator on the model's
     device seeded with ``seed``. ``max_seq_len`` and ``max_events`` are
-    the padding of its batches (``collate_captioning``)."""
+    the padding of its batches (``collate_captioning``). ``use_mesh``
+    raises, as ``TrainerCore`` does."""
 
     def __init__(self, model: PDVC, lr: float = 5e-5,
                  weight_decay: float = 1e-4, grad_clip: float = 0.1,
-                 seed: int = 0, max_seq_len: int = 256,
-                 max_events: int = 10):
+                 seed: int = 0, use_mesh: bool = False,
+                 max_seq_len: int = 256, max_events: int = 10):
         self.model = model
         self.device = next(model.parameters()).device
+        self.core = TrainerCore(use_mesh=use_mesh, device=self.device)
         self.max_seq_len, self.max_events = max_seq_len, max_events
         self.optimizer = make_optimizer(model, "adamw", lr=lr,
                                         weight_decay=weight_decay,
@@ -53,11 +60,13 @@ class CaptioningTrainer:
 
     def state_dict(self):
         return dict(params=self.model.state_dict(),
-                    opt_state=self.optimizer.state_dict())
+                    opt_state=self.optimizer.state_dict(),
+                    generator=self.generator.get_state())
 
     def load_state_dict(self, state):
         self.model.load_state_dict(state["params"])
         self.optimizer.load_state_dict(state["opt_state"])
+        load_generator_state(self.generator, state["generator"])
 
     def _on(self, x, dtype) -> torch.Tensor:
         return torch.as_tensor(x).to(self.device, dtype)

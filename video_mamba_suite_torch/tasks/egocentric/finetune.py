@@ -17,8 +17,8 @@ Both trainers apply every parameter's update each step, as optax does: a
 parameter the loss does not reach (the temperature in the ranking loss)
 takes a zero gradient and so its weight decay. Weight decay falls on every
 parameter: the JAX trainers build their optimizer without the no-decay
-mask. Checkpointing to disk (the JAX ``save`` / ``restore``) is not
-ported.
+mask. ``save`` / ``restore`` checkpoint a trainer's whole state: its
+weights, optimizer, schedule and generators.
 
 ``build_clip_mir`` and ``build_ek100_cls`` are the entry points: random
 weights from a seed at the presets' widths, on the card.
@@ -38,6 +38,11 @@ from ...models.common import Dense, dropout
 from ...models.vivim import ViViM
 from ...utils.optim import make_optimizer
 from ...utils.schedules import lambda_lr, make_schedule
+from ...utils.trainer import (
+    Checkpointing,
+    TrainerCore,
+    load_generator_state,
+)
 from ..recognition.augment import (
     MixDraw,
     apply_mixup_cutmix,
@@ -53,9 +58,15 @@ def _device(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-class _AdamWTrainer:
+class _AdamWTrainer(Checkpointing):
     """The optax chain clip_by_global_norm → adamw(warmup-cosine) of the
-    JAX egocentric trainers over ``self.model``'s parameters."""
+    JAX egocentric trainers over ``self.model``'s parameters, and their
+    checkpoints: the state dict holds the generators named in
+    ``GENERATORS`` (each trainer's dropout and mixup draws), so that a
+    resumed run continues as the uninterrupted one would. ``use_mesh``
+    raises, as ``TrainerCore`` does."""
+
+    GENERATORS = ("generator",)
 
     def _build_optimizer(self, lr: float, weight_decay: float,
                          warmup_steps: int, total_steps: int,
@@ -87,12 +98,16 @@ class _AdamWTrainer:
     def state_dict(self):
         return dict(params=self.model.state_dict(),
                     opt_state=self.optimizer.state_dict(),
-                    lr_scheduler=self.lr_scheduler.state_dict())
+                    lr_scheduler=self.lr_scheduler.state_dict(),
+                    **{name: getattr(self, name).get_state()
+                       for name in self.GENERATORS})
 
     def load_state_dict(self, state):
         self.model.load_state_dict(state["params"])
         self.optimizer.load_state_dict(state["opt_state"])
         self.lr_scheduler.load_state_dict(state["lr_scheduler"])
+        for name in self.GENERATORS:
+            load_generator_state(getattr(self, name), state[name])
 
 
 class MirFinetuner(_AdamWTrainer):
@@ -104,13 +119,15 @@ class MirFinetuner(_AdamWTrainer):
     def __init__(self, model: CLIP, lr: float = 1e-5,
                  weight_decay: float = 0.01, warmup_steps: int = 100,
                  total_steps: int = 10000, margin: float = 0.2,
-                 grad_clip: float = 1.0, seed: int = 0):
+                 grad_clip: float = 1.0, use_mesh: bool = False,
+                 seed: int = 0):
         self.model = model
         self.margin = margin
         self.generator = torch.Generator(
             device=_device(model)).manual_seed(seed)
         self._build_optimizer(lr, weight_decay, warmup_steps, total_steps,
                               grad_clip, 0.98)
+        self.core = TrainerCore(use_mesh=use_mesh, device=_device(model))
 
     def init(self, params: Optional[dict] = None) -> None:
         """Adopt a pretrained CLIP state_dict ``params`` (the resume path),
@@ -240,12 +257,15 @@ class ClsFinetuner(_AdamWTrainer):
     JAX draw gives NaN with one at 0), and its box centre shares a row and
     a column draw, as the JAX one does."""
 
+    GENERATORS = ("generator", "drop_generator")
+
     def __init__(self, vision_tower: nn.Module, num_classes: int,
                  lr: float = 1e-4, weight_decay: float = 0.05,
                  warmup_steps: int = 100, total_steps: int = 10000,
                  dropout: float = 0.5, smoothing: float = 0.1,
                  mixup_alpha: float = 0.0, cutmix_alpha: float = 0.0,
-                 grad_clip: float = 1.0, seed: int = 0):
+                 grad_clip: float = 1.0, use_mesh: bool = False,
+                 seed: int = 0):
         self.model = VideoClassifier(vision_tower, num_classes, dropout,
                                      seed=seed)
         self.num_classes = num_classes
@@ -257,6 +277,8 @@ class ClsFinetuner(_AdamWTrainer):
             device=_device(vision_tower)).manual_seed(seed)
         self._build_optimizer(lr, weight_decay, warmup_steps, total_steps,
                               grad_clip, 0.999)
+        self.core = TrainerCore(use_mesh=use_mesh,
+                                device=_device(vision_tower))
 
     def init(self, pretrained_visual: Optional[dict] = None) -> None:
         """Graft a pretrained tower's state_dict into the classifier (its

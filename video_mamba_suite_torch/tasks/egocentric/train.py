@@ -2,8 +2,8 @@
 of the JAX package's ``tasks/egocentric/train.py``): the symmetric InfoNCE
 of ``clip_loss`` over the batch, AdamW (b2 0.98) under a warmup-cosine
 schedule, clip 1.0, dropout and drop-path masks from a generator on the
-model's device. Checkpointing to disk (the JAX ``save`` / ``restore``) is
-not ported.
+model's device; ``save`` / ``restore`` checkpoint the trainer's whole
+state.
 
     trainer = build_clip_pretrainer()             # on the card
     loss = trainer.train_step(videos, token_ids)  # (B, T, H, W, 3), (B, L)
@@ -18,6 +18,7 @@ import torch
 
 from ...configs import EGO_TIMEMAMBA_PRETRAIN
 from ...models.clip import CLIP
+from ...utils.trainer import TrainerCore
 from .finetune import _AdamWTrainer, _clip, _device
 from .losses import clip_loss
 
@@ -29,12 +30,13 @@ class ClipPretrainer(_AdamWTrainer):
     def __init__(self, model: CLIP, lr: float = 3e-5,
                  weight_decay: float = 0.01, warmup_steps: int = 100,
                  total_steps: int = 10000, grad_clip: float = 1.0,
-                 seed: int = 0):
+                 use_mesh: bool = False, seed: int = 0):
         self.model = model
         self.generator = torch.Generator(
             device=_device(model)).manual_seed(seed)
         self._build_optimizer(lr, weight_decay, warmup_steps, total_steps,
                               grad_clip, 0.98)
+        self.core = TrainerCore(use_mesh=use_mesh, device=_device(model))
 
     def train_step(self, videos, texts) -> float:
         """One step on clips (B, T, H, W, 3) and their captions' token ids

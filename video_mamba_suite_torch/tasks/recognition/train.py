@@ -8,8 +8,8 @@ schedule, and an EMA of the parameters.
     loss = trainer.train_step(videos, labels)     # (B, T, H, W, C), (B,)
 
 On the card each mixer's scans run K3 forward (writing checkpoints) and K4
-backward. Checkpointing to disk (the JAX ``save``/``restore`` through its
-``TrainerCore``) is not ported.
+backward. ``save`` / ``restore`` checkpoint the trainer's whole state
+through its ``TrainerCore``.
 """
 
 from __future__ import annotations
@@ -24,6 +24,11 @@ from torch import nn
 from ...utils.ema import ModelEma
 from ...utils.optim import chain_step, make_optimizer
 from ...utils.schedules import lambda_lr, make_schedule
+from ...utils.trainer import (
+    Checkpointing,
+    TrainerCore,
+    load_generator_state,
+)
 from .augment import mixup_cutmix, one_hot_smooth
 from .optim import layer_decay_param_groups
 from .serve import evaluate
@@ -38,20 +43,20 @@ def soft_target_cross_entropy(logits: torch.Tensor,
     return -torch.mean(torch.sum(targets * logp, dim=-1))
 
 
-class RecognitionTrainer:
+class RecognitionTrainer(Checkpointing):
     """Fine-tunes a ViViM classifier (``model.head`` with ``num_classes``
     outputs) with the JAX trainer's recipe and defaults.
 
     The trainer owns two generators seeded with ``seed``: one on the CPU
     for the mixup / cutmix draws and one on the model's device for the
-    drop-path masks."""
+    drop-path masks. ``use_mesh`` raises, as ``TrainerCore`` does."""
 
     def __init__(self, model: nn.Module, num_classes: int, lr: float = 1e-3,
                  weight_decay: float = 0.05, layer_decay: float = 0.75,
                  warmup_steps: int = 100, total_steps: int = 10000,
                  mixup_alpha: float = 0.8, cutmix_alpha: float = 1.0,
                  smoothing: float = 0.1, ema_decay: float = 0.9999,
-                 seed: int = 0):
+                 seed: int = 0, use_mesh: bool = False):
         if model.head is None or model.head.weight.shape[0] != num_classes:
             raise ValueError(f"the model has no {num_classes}-class head")
         self.model = model
@@ -60,6 +65,7 @@ class RecognitionTrainer:
         self.cutmix_alpha = cutmix_alpha
         self.smoothing = smoothing
         self.device = next(model.parameters()).device
+        self.core = TrainerCore(use_mesh=use_mesh, device=self.device)
         self.generator = torch.Generator().manual_seed(seed)
         self.drop_generator = torch.Generator(
             device=self.device).manual_seed(seed)
@@ -134,8 +140,8 @@ class RecognitionTrainer:
         self.optimizer.load_state_dict(state["optimizer"])
         self.lr_scheduler.load_state_dict(state["lr_scheduler"])
         self.ema.load_state_dict(state["ema"])
-        self.generator.set_state(state["generator"])
-        self.drop_generator.set_state(state["drop_generator"])
+        load_generator_state(self.generator, state["generator"])
+        load_generator_state(self.drop_generator, state["drop_generator"])
 
 
 def build_vivim_k400_trainer(device="cuda", seed: int = 0, **overrides

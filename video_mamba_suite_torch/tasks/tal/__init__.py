@@ -17,7 +17,14 @@ from .model import (
     label_points,
     tal_losses,
 )
-from .nms import batched_nms, nms_1d, seg_voting, soft_nms_1d
+from .nms import (
+    batched_nms,
+    nms_1d,
+    nms_1d_ref,
+    seg_voting,
+    soft_nms_1d,
+    soft_nms_1d_ref,
+)
 from .train import TalTrainer, build_tal_trainer, fuse_external_scores
 
 __all__ = [
@@ -26,6 +33,7 @@ __all__ = [
     "TalDataset", "TalTrainer", "batched_nms", "build_tal_trainer",
     "collate_tal", "ctr_diou_loss_1d", "ctr_giou_loss_1d",
     "decode_single_video", "fuse_external_scores", "label_points",
-    "make_synthetic_tal", "nms_1d", "seg_voting", "sigmoid_focal_loss",
-    "soft_nms_1d", "tal_losses", "truncate_feats",
+    "make_synthetic_tal", "nms_1d", "nms_1d_ref", "seg_voting",
+    "sigmoid_focal_loss", "soft_nms_1d", "soft_nms_1d_ref", "tal_losses",
+    "truncate_feats",
 ]

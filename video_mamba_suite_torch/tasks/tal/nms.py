@@ -3,20 +3,74 @@ class-aware, with segment voting (the port's own copy of the JAX package's
 ``tasks/tal/nms.py``). It runs once a video at eval time on at most a few
 thousand segments.
 
-The JAX ``nms_1d`` and ``soft_nms_1d`` run a float32 C++ op whenever it
-loads (its ``csrc/nms_1d.cc``), which is their default; the float64 numpy
-path is only their fallback. Both functions here compute as that op does:
-scores and IoUs in float32, the IoU 0 where the union is not positive,
-one expf for the gaussian decay, a stable sort by float32 score. So where
-an IoU lies within float32's rounding of the threshold they keep the
-segments that the JAX default keeps.
+``nms_1d`` and ``soft_nms_1d`` run the native op ``csrc/nms_1d.cc`` (the
+JAX package's own C++ op, the default path of its ``nms_1d`` /
+``soft_nms_1d``), built with the host's C++ compiler on first use and
+loaded with ctypes; a failed build raises, nothing falls back.
+``nms_1d_ref`` and ``soft_nms_1d_ref`` are their plain versions in numpy,
+which compute as the op does: scores and IoUs in float32, the IoU 0 where
+the union is not positive, a stable sort by float32 score, float32
+decays. So where an IoU lies within float32's rounding of the threshold
+they keep the segments that the op keeps; a gaussian decay's float64 exp
+rounded once can differ from the op's expf by one float32 ulp.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import numpy as np
+
+from ...ops._build import load_host
+
+
+def _native() -> ctypes.CDLL:
+    """The native op, built and loaded on first use."""
+    lib = load_host("nms_1d")
+    lib.nms_1d.restype = ctypes.c_int64
+    lib.soft_nms_1d.restype = ctypes.c_int64
+    return lib
+
+
+def _f32p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def _i64p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def nms_1d(segs: np.ndarray, scores: np.ndarray,
+           iou_threshold: float) -> np.ndarray:
+    """Hard NMS by the native op: the kept indices by descending score
+    (float32 scores, ties in input order)."""
+    segs = np.ascontiguousarray(segs, np.float32).reshape(-1, 2)
+    scores = np.ascontiguousarray(scores, np.float32)
+    keep = np.empty(len(scores), np.int64)
+    kept = _native().nms_1d(_f32p(segs), _f32p(scores),
+                            ctypes.c_int64(len(scores)),
+                            ctypes.c_float(iou_threshold), _i64p(keep))
+    return keep[:kept]
+
+
+def soft_nms_1d(segs: np.ndarray, scores: np.ndarray,
+                iou_threshold: float = 0.1, sigma: float = 0.5,
+                min_score: float = 0.001, method: int = 2
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Soft NMS by the native op (``soft_nms_1d_ref`` says what it
+    computes). Returns (the segments as given, their decayed scores as
+    float64, indices) in the order taken."""
+    segs32 = np.array(segs, np.float32).reshape(-1, 2)
+    scores32 = np.array(scores, np.float32)
+    inds = np.empty(len(scores32), np.int64)
+    kept = _native().soft_nms_1d(
+        _f32p(segs32), _f32p(scores32), ctypes.c_int64(len(scores32)),
+        ctypes.c_float(iou_threshold), ctypes.c_float(sigma),
+        ctypes.c_float(min_score), ctypes.c_int64(method), _i64p(inds))
+    inds = inds[:kept]
+    return (np.asarray(segs, np.float64)[inds].reshape(-1, 2),
+            scores32[inds].astype(np.float64), inds)
 
 
 def _iou_1d(seg: np.ndarray, segs: np.ndarray) -> np.ndarray:
@@ -31,9 +85,9 @@ def _iou_1d(seg: np.ndarray, segs: np.ndarray) -> np.ndarray:
                     np.float32(0))
 
 
-def nms_1d(segs: np.ndarray, scores: np.ndarray,
-           iou_threshold: float) -> np.ndarray:
-    """Hard NMS: the kept indices by descending score (float32 scores,
+def nms_1d_ref(segs: np.ndarray, scores: np.ndarray,
+               iou_threshold: float) -> np.ndarray:
+    """Hard NMS, plain version: the kept indices by descending score (float32 scores,
     ties in input order)."""
     segs = np.asarray(segs, np.float32)
     scores = np.asarray(scores, np.float32)
@@ -53,11 +107,11 @@ def nms_1d(segs: np.ndarray, scores: np.ndarray,
     return np.array(keep, np.int64)
 
 
-def soft_nms_1d(segs: np.ndarray, scores: np.ndarray,
-                iou_threshold: float = 0.1, sigma: float = 0.5,
-                min_score: float = 0.001, method: int = 2
-                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Soft NMS: take the highest score (the first of equal ones), decay
+def soft_nms_1d_ref(segs: np.ndarray, scores: np.ndarray,
+                    iou_threshold: float = 0.1, sigma: float = 0.5,
+                    min_score: float = 0.001, method: int = 2
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Soft NMS, plain version: take the highest score (the first of equal ones), decay
     the scores of the segments still alive by their overlap with it
     (method 1 linear, 2 gaussian, else hard), repeat while a score reaches
     ``min_score``. Scores decay in float32. Returns (the segments as

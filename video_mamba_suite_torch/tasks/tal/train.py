@@ -10,8 +10,8 @@ soft-NMS and mAP.
 
 At THUMOS-14's 2304 steps every mixer of the pyramid scans through K3
 (writing checkpoints) and K4 on the card; ActivityNet's levels of 48, 24
-and 12 steps through K1 and K2. Checkpointing to disk (the JAX
-``save``/``restore``) is not ported.
+and 12 steps through K1 and K2. ``save`` / ``restore`` checkpoint the
+trainer's whole state (``state_dict``).
 """
 
 from __future__ import annotations
@@ -26,6 +26,11 @@ from ...data.sampler import sharded_epoch_order
 from ...utils.ema import ModelEma
 from ...utils.optim import make_optimizer
 from ...utils.schedules import lambda_lr, make_schedule
+from ...utils.trainer import (
+    Checkpointing,
+    TrainerCore,
+    load_generator_state,
+)
 from .data import collate_tal
 from .metrics import ANETdetection
 from .model import (
@@ -58,7 +63,7 @@ def fuse_external_scores(segs, scores, ext_scores, topk_per_prop: int = 2,
             np.asarray(out_labels)[order])
 
 
-class TalTrainer:
+class TalTrainer(Checkpointing):
     """Trains an ``ActionMambaDetector`` with the JAX trainer's recipe and
     defaults: AdamW with weight decay on every parameter (the JAX
     optimizer gets no mask) at ``make_schedule("cosine", lr, total_steps,
@@ -68,7 +73,7 @@ class TalTrainer:
     ``init_loss_norm``. ``drop_path_rate`` is the detector's (the
     preset's 0.1); the trainer owns a generator on the device, seeded with
     ``seed``, for its masks. Builds on ``device``, CUDA unless the caller
-    passes "cpu"."""
+    passes "cpu"; ``use_mesh`` raises, as ``TrainerCore`` does."""
 
     def __init__(self, input_dim: int, num_classes: int,
                  max_seq_len: int = 2304, embd_dim: int = 512,
@@ -80,7 +85,8 @@ class TalTrainer:
                  center_sample_radius: float = 1.5, mixer: str = "dbm",
                  max_num_gt: int = 32, seed: int = 0,
                  test_cfg: Optional[dict] = None,
-                 drop_path_rate: float = 0.1, device="cuda"):
+                 drop_path_rate: float = 0.1, use_mesh: bool = False,
+                 device="cuda"):
         kwargs = dict(max_seq_len=max_seq_len, embd_dim=embd_dim,
                       fpn_dim=embd_dim, head_dim=embd_dim,
                       backbone_arch=tuple(backbone_arch), mixer=mixer,
@@ -90,6 +96,7 @@ class TalTrainer:
         self.model = ActionMambaDetector(input_dim, num_classes, **kwargs,
                                          device=device, seed=seed)
         self.device = next(self.model.parameters()).device
+        self.core = TrainerCore(use_mesh=use_mesh, device=self.device)
         self.num_classes = num_classes
         self.max_seq_len = max_seq_len
         self.max_num_gt = max_num_gt
@@ -137,6 +144,32 @@ class TalTrainer:
         self.ema = ModelEma(self.model, self.ema_decay)
         if feats is not None:
             self.points(feats.shape[1])
+
+    def state_dict(self) -> dict:
+        """What JAX ``save`` writes (parameters, EMA, optimizer state, the
+        loss normaliser), and the schedule's and the generator's states
+        and the step and epoch counts, so that a resumed run continues as
+        the uninterrupted one would. Before the first step the EMA is the
+        weights."""
+        ema = self.ema or ModelEma(self.model, self.ema_decay)
+        return dict(params=self.model.state_dict(), ema=ema.state_dict(),
+                    opt_state=self.optimizer.state_dict(),
+                    loss_norm=self.loss_norm,
+                    lr_scheduler=self.lr_scheduler.state_dict(),
+                    generator=self.generator.get_state(),
+                    steps=self._steps, epoch=self._epoch)
+
+    def load_state_dict(self, state: dict) -> None:
+        self.model.load_state_dict(state["params"])
+        if self.ema is None:
+            self.init()
+        self.ema.load_state_dict(state["ema"])
+        self.optimizer.load_state_dict(state["opt_state"])
+        self.loss_norm = state["loss_norm"].to(self.device)
+        self.lr_scheduler.load_state_dict(state["lr_scheduler"])
+        load_generator_state(self.generator, state["generator"])
+        self._steps, self._epoch = state["steps"], state["epoch"]
+        self._eval_step = -1
 
     def _on(self, *arrays):
         return [torch.as_tensor(a).to(self.device) for a in arrays]

@@ -12,8 +12,8 @@ than 3 epochs without a lower summed loss, and the frame metrics.
 At the presets' widths every encoder layer scans its videos of more than
 64 steps through K3 on the card (twice, one per direction; with
 checkpoints when a backward follows) and K4 in the backward: 20 K3 and 20
-K4 a step. Checkpointing to disk (the JAX ``save``/``restore``) is not
-ported.
+K4 a step. ``save`` / ``restore`` checkpoint the trainer's whole state
+(``state_dict``).
 """
 
 from __future__ import annotations
@@ -26,6 +26,11 @@ import torch.nn.functional as F
 
 from ...utils.optim import make_optimizer
 from ...utils.schedules import ReduceLROnPlateau
+from ...utils.trainer import (
+    Checkpointing,
+    TrainerCore,
+    load_generator_state,
+)
 from .data import IGNORE_INDEX, TasBatchGenerator, collate
 from .metrics import evaluate_segmentation
 from .model import MaTransformer
@@ -56,19 +61,21 @@ def tas_loss(stage_logits: torch.Tensor, targets: torch.Tensor,
     return total
 
 
-class TasTrainer:
+class TasTrainer(Checkpointing):
     """Trains a ``MaTransformer`` (its drop-path the model's 0.3) with the
     JAX trainer's recipe and defaults: Adam at ``lr`` with L2 weight decay ``weight_decay`` on every
     parameter, the rate scaled by ``ReduceLROnPlateau(0.5, patience 3)``
     on each epoch's summed loss. The dropouts and drop-paths draw from a
     generator on the device seeded with ``seed``. Builds on ``device``,
-    CUDA unless the caller passes "cpu"."""
+    CUDA unless the caller passes "cpu"; ``use_mesh`` raises, as
+    ``TrainerCore`` does."""
 
     def __init__(self, num_classes: int, input_dim: int,
                  num_layers: int = 10, num_f_maps: int = 64,
                  num_decoders: int = 3, channel_masking_rate: float = 0.3,
                  lr: float = 5e-4, weight_decay: float = 1e-5,
-                 mixer: str = "vim", seed: int = 0, device="cuda"):
+                 mixer: str = "vim", seed: int = 0, use_mesh: bool = False,
+                 device="cuda"):
         self.model = MaTransformer(
             num_decoders=num_decoders, num_layers=num_layers,
             num_f_maps=num_f_maps, input_dim=input_dim,
@@ -76,6 +83,7 @@ class TasTrainer:
             channel_masking_rate=channel_masking_rate, mixer=mixer,
             device=device, seed=seed)
         self.device = next(self.model.parameters()).device
+        self.core = TrainerCore(use_mesh=use_mesh, device=self.device)
         self.num_classes = num_classes
         self.lr = lr
         self.weight_decay = weight_decay
@@ -97,13 +105,15 @@ class TasTrainer:
         return dict(params=self.model.state_dict(),
                     opt_state=self.optimizer.state_dict(),
                     plateau=vars(self.plateau).copy(),
-                    lr_scale=self._lr_scale)
+                    lr_scale=self._lr_scale,
+                    generator=self.generator.get_state())
 
     def load_state_dict(self, state):
         self.model.load_state_dict(state["params"])
         self.optimizer.load_state_dict(state["opt_state"])
         vars(self.plateau).update(state["plateau"])
         self._lr_scale = state["lr_scale"]
+        load_generator_state(self.generator, state["generator"])
 
     def set_lr_scale(self, scale: float) -> None:
         """The optimizer's rate becomes ``lr`` × ``scale``."""

@@ -11,7 +11,7 @@ protocol's top-5 mAP averaged over the 20 annotators.
 
 At the preset's 1 + 512 steps every DBM layer scans through K3 on the
 card (K4 in the backward): 12 K3 and 12 K4 a step, 12 K3 a video.
-Checkpointing to disk (the JAX ``save``/``restore``) is not ported.
+``save`` / ``restore`` checkpoint the trainer's whole state.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ...data.sampler import sharded_epoch_order
+from ...utils.trainer import Checkpointing
 from .losses import unit_rows, weighted_bce
 from .train import UniVtgTrainer
 
@@ -125,7 +126,7 @@ def collate_hl(samples: List[dict], max_v_l: int, txt_dim: int) -> Dict:
 HL_TARGET_KEYS = ("vid_mask", "saliency_scores", "saliency_pos_labels")
 
 
-class HlTrainer(UniVtgTrainer):
+class HlTrainer(Checkpointing, UniVtgTrainer):
     """The JAX ``HlTrainer``: UniVTG-Mamba (input dropout 0.5, drop-path
     0.1, the model's defaults) trained on one domain with ``hl_losses`` on
     ``collate_hl`` batches, AdamW clipped at ``grad_clip``; eval scores
@@ -135,12 +136,12 @@ class HlTrainer(UniVtgTrainer):
     def __init__(self, txt_dim: int, vid_dim: int, embed_dim: int = 256,
                  depth: int = 4, mamba_type: str = "vim", lr: float = 1e-4,
                  weight_decay: float = 1e-4, grad_clip: float = 0.1,
-                 max_v_l: int = 512, seed: int = 0, eval_mode: str = "add",
-                 device="cuda"):
+                 max_v_l: int = 512, seed: int = 0, use_mesh: bool = False,
+                 eval_mode: str = "add", device="cuda"):
         super().__init__(dict(txt_dim=txt_dim, vid_dim=vid_dim,
                               embed_dim=embed_dim, depth=depth,
                               mamba_type=mamba_type),
-                         lr, weight_decay, grad_clip, seed, device)
+                         lr, weight_decay, grad_clip, seed, device, use_mesh)
         self.txt_dim, self.max_v_l = txt_dim, max_v_l
         self.eval_mode = eval_mode
 

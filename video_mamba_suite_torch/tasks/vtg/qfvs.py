@@ -129,20 +129,26 @@ class QfvsTrainer(UniVtgTrainer):
     """The JAX ``QfvsTrainer``: a ViM ``UniVTGMamba`` without input dropout
     (drop-path the model's 0.1), AdamW without clipping, three concept
     forwards a step, and the top-p% summary. Builds on ``device``, CUDA
-    unless the caller passes "cpu"."""
+    unless the caller passes "cpu". ``save`` checkpoints the trainer's
+    state (the JAX trainer has no ``restore``)."""
 
     def __init__(self, txt_dim: int, vid_dim: int, embed_dim: int = 32,
                  depth: int = 2, lr: float = 1e-4, weight_decay: float = 1e-4,
                  f_loss_coef: float = 1.0, s_loss_intra_coef: float = 0.1,
                  loss_gather: bool = True, score_gather: bool = True,
-                 top_percent: float = 0.15, seed: int = 0, device="cuda"):
+                 top_percent: float = 0.15, use_mesh: bool = False,
+                 seed: int = 0, device="cuda"):
         super().__init__(dict(txt_dim=txt_dim, vid_dim=vid_dim,
                               embed_dim=embed_dim, depth=depth,
                               input_dropout=0.0),
-                         lr, weight_decay, None, seed, device)
+                         lr, weight_decay, None, seed, device, use_mesh)
         self.coefs = (f_loss_coef, s_loss_intra_coef)
         self.loss_gather, self.score_gather = loss_gather, score_gather
         self.top_percent = top_percent
+
+    def save(self, directory: str, step: int) -> None:
+        """Checkpoint the trainer's state as ``step``."""
+        self.core.save(directory, step, self.state_dict())
 
     def _query(self, vid, vmask, txt, train: bool = False) -> Dict:
         """The model on video features, their mask and a query (B, Lq,

@@ -11,8 +11,8 @@ seconds with the MR and HL metrics.
 At the QVHighlights preset's 32 + 75 steps every DBM layer scans through
 K3 on the card, once a direction (with checkpoints when a backward
 follows), and K4 in the backward: 12 K3 and 12 K4 a step, 12 K3 a
-forward. Checkpointing to disk (the JAX ``save``/``restore``) is not
-ported.
+forward. ``save`` / ``restore`` checkpoint the trainer's whole state
+(``state_dict``).
 """
 
 from __future__ import annotations
@@ -24,6 +24,11 @@ import torch
 
 from ...data.sampler import sharded_epoch_order
 from ...utils.optim import make_optimizer
+from ...utils.trainer import (
+    Checkpointing,
+    TrainerCore,
+    load_generator_state,
+)
 from .data import collate_vtg
 from .losses import vtg_losses
 from .metrics import compute_hl_ap, compute_hl_hit1, compute_mr_ap, compute_mr_r1
@@ -43,12 +48,15 @@ class UniVtgTrainer:
     the global norm; a generator on the device seeded with ``seed`` for
     the dropouts and drop-paths; ``train_step`` on a batch dict through
     the subclass's ``loss``. Builds on ``device``, CUDA unless the caller
-    passes "cpu"."""
+    passes "cpu"; ``use_mesh`` raises, as ``TrainerCore`` does. The
+    state dict holds the generator's state and the epoch count, so that
+    a resumed run continues as the uninterrupted one would."""
 
     def __init__(self, model_kw: dict, lr: float, weight_decay: float,
-                 grad_clip, seed: int, device):
+                 grad_clip, seed: int, device, use_mesh: bool = False):
         self.model = UniVTGMamba(**model_kw, device=device, seed=seed)
         self.device = next(self.model.parameters()).device
+        self.core = TrainerCore(use_mesh=use_mesh, device=self.device)
         self.lr, self.weight_decay = lr, weight_decay
         self.grad_clip = grad_clip
         self.seed = seed
@@ -67,11 +75,15 @@ class UniVtgTrainer:
 
     def state_dict(self):
         return dict(params=self.model.state_dict(),
-                    opt_state=self.optimizer.state_dict())
+                    opt_state=self.optimizer.state_dict(),
+                    generator=self.generator.get_state(),
+                    epoch=self._epoch)
 
     def load_state_dict(self, state):
         self.model.load_state_dict(state["params"])
         self.optimizer.load_state_dict(state["opt_state"])
+        load_generator_state(self.generator, state["generator"])
+        self._epoch = state["epoch"]
 
     def _on(self, batch: Dict, keys) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(batch[k]).to(self.device) for k in keys}
@@ -114,7 +126,7 @@ class UniVtgTrainer:
         return dict(zip(losses, values.tolist()))
 
 
-class VtgTrainer(UniVtgTrainer):
+class VtgTrainer(Checkpointing, UniVtgTrainer):
     """The JAX ``VtgTrainer``: moment retrieval with ``vtg_losses`` (its
     default weights) on ``collate_vtg`` batches padded to ``max_q_l`` /
     ``max_v_l``; the model's drop-path is its 0.1; AdamW clipped at
@@ -125,12 +137,12 @@ class VtgTrainer(UniVtgTrainer):
                  weight_decay: float = 1e-4, grad_clip: float = 0.1,
                  max_q_l: int = 32, max_v_l: int = 75,
                  input_dropout: float = 0.5, seed: int = 0,
-                 device="cuda"):
+                 use_mesh: bool = False, device="cuda"):
         super().__init__(dict(txt_dim=txt_dim, vid_dim=vid_dim,
                               embed_dim=embed_dim, depth=depth,
                               mamba_type=mamba_type,
                               input_dropout=input_dropout),
-                         lr, weight_decay, grad_clip, seed, device)
+                         lr, weight_decay, grad_clip, seed, device, use_mesh)
         self.max_q_l, self.max_v_l = max_q_l, max_v_l
 
     def loss(self, out: Dict, batch: Dict) -> Dict[str, torch.Tensor]:
