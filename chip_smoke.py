@@ -247,9 +247,39 @@ Phases, each of which fails the run:
      pyramid's levels). The launches of 35-36 add to the kernels
      line's counts. (Phase 16's THUMOS eval also times its parts apart:
      forward, decode, soft-NMS and voting by numpy and by the native op.)
+ 38. recognition on video files (``cli-recognition-video``): ``recognition
+     --preset recognition_k400_vivim_tiny`` on a K400-layout csv of 16
+     ``.npy`` videos of 48 frames at 224² (uint8 from seed 0; the card's
+     machine decodes no other format), batch 8 (the preset's 256 cut to
+     8), one epoch: 2 steps of exactly 48 K3 with checkpoints and 48 K4,
+     no plain version, the preset's RandAugment and erasing on the host;
+     per step the decode, augment and step ms, and the step's device
+     busy share from a profile window; then the same two steps' work fed
+     through ``PrefetchLoader`` (2 workers, pinned copies): ms a step.
+ 39. the egocentric modes on video files (``cli-ego-video``): 16 ``.npy``
+     clips of 32 frames at 224² with captions in a metadata json and
+     labels in a csv; ``egocentric --preset ego_ek100_mir`` (batch 8 of
+     64: 12 K1 + 12 K10 + 12 K2 a step, then the retrieval evaluation, 12
+     K1 + 12 K10 a batch, and its avg_map), ``--preset
+     ego_timemamba_pretrain`` (batch 8 of 256) and ``--preset
+     ego_ek100_cls`` (batch 8 of 32: 48 K3 + 48 K4 a step, evaluate 48
+     K3 a batch), one epoch each: per step the decode and step ms, and
+     the busy share.
+ 40. VTG on a raw video (``vtg-run-on-video``): a 60 s ``.npy`` video
+     (1800 frames of 128 x 170) through ``VtgFeatureExtractor`` at CLIP
+     ViT-B/32's widths (random weights from a seed) and ``ground_video``
+     with the QVHighlights preset's model at 514-d video and 512-d text:
+     30 clips, exactly 2 K3 a DBM layer; ms for the features and for the
+     grounding.
+ 41. card against CPU, the device stages (``card-vs-cpu-video``):
+     ``preprocess_clip`` (train mode at fixed offsets, 16 x 256 x 340 to
+     224²) within 1e-4; one ``ground_video`` at phase 40's widths, depth
+     2, fp32 (TF32 off): spans and saliency within 1e-4 of their scale,
+     the windows ranked alike. The launches of 38-40 add to the kernels
+     line's counts.
 Prints a ``{"kernels": [...]}`` line (K1-K11) and, last, ``{"ok": true,
 ...}``. ``chip_smoke.py --phases NAME ...`` builds the kernels and runs
-the named phases of ``PHASES`` alone (17-37; 37 after 36), printing no
+the named phases of ``PHASES`` alone (17-41; 37 after 36), printing no
 result line.
 """
 
@@ -6422,6 +6452,426 @@ def tal_eval_breakdown(trainer, items, tag):
     return ms
 
 
+# ---------------------------------------------------------------------------
+# the video data stack: the CLI's raw-video modes on .npy videos, VTG's
+# run-on-video, and the device stages card against CPU
+
+VIDEO_FILES = 16                 # videos (clips) of each raw-video run
+VIDEO_BATCH = 8                  # their batch: two steps an epoch
+REC_VIDEO_FRAMES = 48            # frames of a K400-layout video (224²)
+EGO_VIDEO_FRAMES = 32            # frames of an egocentric clip (224²)
+PREFETCH_WORKERS = 2             # PrefetchLoader threads of the A/B
+VIVIM_STEP = {"chunked_scan_fwd": VIVIM_LAUNCHES,
+              "chunked_scan_bwd": VIVIM_LAUNCHES}
+# UniVTG's run-on-video: a 60 s video at 30 fps, CLIP ViT-B/32's widths
+ROV_FRAMES, ROV_HEIGHT, ROV_WIDTH = 1800, 128, 170
+ROV_IMAGE = dict(img_size=224, patch_size=32, width=768, layers=12,
+                 heads=12, output_dim=512)
+ROV_TEXT = dict(context_length=77, vocab_size=49408, width=512, heads=8,
+                layers=12, output_dim=512)
+ROV_QUERY = "a person opens the fridge and takes out a bottle of water"
+ROV_DEPTH = 2                    # towers' and model's depth, card vs CPU
+# preprocess_clip card against CPU: 16 frames of 256 x 340 to 224², train
+# mode at fixed offsets; each value within this (normalised values reach
+# about 2; the two devices' resize kernels sum in other orders)
+PREPROCESS_CLIP_SHAPE = (16, 256, 340)
+CARD_CPU_PREPROCESS_TOL = 1e-4
+# ground_video card against CPU (fp32, TF32 off): spans as fractions of
+# the duration, saliency against its largest magnitude
+CARD_CPU_ROV_TOL = 1e-4
+
+
+def write_npy_videos(root, names, frames, height, width, seed):
+    """uint8 (frames, height, width, 3) ``.npy`` videos from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for name in names:
+        np.save(os.path.join(root, name), rng.integers(
+            0, 256, (frames, height, width, 3), dtype=np.uint8))
+
+
+@contextlib.contextmanager
+def timed_calls(**targets):
+    """Wrap each ``key=(owner, attribute)`` so that every call goes to
+    ``events`` as (key, wall seconds), in the order the calls end;
+    ``last[key]`` keeps the last call's arguments."""
+    events, last = [], {}
+    originals = {k: getattr(o, a) for k, (o, a) in targets.items()}
+
+    def wrap(key, fn):
+        def inner(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            events.append((key, time.perf_counter() - t0))
+            last[key] = a
+            return out
+        return inner
+
+    for key, (owner, attr) in targets.items():
+        setattr(owner, attr, wrap(key, originals[key]))
+    try:
+        yield events, last
+    finally:
+        for key, (owner, attr) in targets.items():
+            setattr(owner, attr, originals[key])
+
+
+def step_breakdown(events):
+    """Per ``step`` event: the seconds of the last ``VIDEO_BATCH`` decode
+    and augment calls before it (the step's rows) and its own."""
+    steps, pending = [], collections.defaultdict(list)
+    for key, seconds in events:
+        if key == "step":
+            steps.append(({k: sum(v[-VIDEO_BATCH:]) for k, v in
+                           pending.items()}, seconds))
+            pending.clear()
+        else:
+            pending[key].append(seconds)
+    return steps
+
+
+def video_cli_phase(tag, argv, dataset_cls, trainer_cls, per_step, extra,
+                    augment=False):
+    """``cli.main(argv)`` on ``.npy`` videos with the host's decode (the
+    dataset's ``__getitem__``), augment and the trainer's ``train_step``
+    timed call by call: exactly ``per_step`` launches a step plus
+    ``extra`` (the run's evaluation), no plain version; per step the
+    decode and augment ms of its rows and the step's ms; then the step's
+    device busy share from a profile window of one more step on the last
+    batch. Returns (the launches, the printed text, the trainer)."""
+    import torch
+    from video_mamba_suite_torch.data import video_augment
+
+    targets = dict(decode=(dataset_cls, "__getitem__"),
+                   step=(trainer_cls, "train_step"))
+    if augment:
+        targets["augment"] = (video_augment, "train_augment_clip")
+    with timed_calls(**targets) as (events, last):
+        out, launches, plain, seconds = cli_run(argv)
+    steps = step_breakdown(events)
+    want = dict(extra)
+    for k, v in per_step.items():
+        want[k] = v * len(steps) + extra.get(k, 0)
+    if len(steps) != VIDEO_FILES // VIDEO_BATCH or launches != want or \
+            sum(plain.values()) or "epoch 0: loss" not in out:
+        raise AssertionError(f"{tag}: {len(steps)} steps launched "
+                             f"{launches} (want {want}), plain versions "
+                             f"{plain}: {out[-500:]}")
+    card = card_line()
+    for i, (host, step) in enumerate(steps):
+        log(f"[{tag}] step {i} on {card}: " + ", ".join(
+            f"{1e3 * v:.2f} ms {k}" for k, v in host.items())
+            + f" ({VIDEO_BATCH} videos), {1e3 * step:.2f} ms step")
+    log(f"[{tag}] {' '.join(argv)}: {seconds:.2f} s in all, "
+        f"{sum(k == 'decode' for k, _ in events)} decodes; launches "
+        f"{launches}; plain-version calls {plain}")
+    for line in _ends(out):
+        log(f"[{tag}] | {line[:300]}")
+    trainer, batch = last["step"][0], last["step"][1:]
+    torch.cuda.synchronize()
+    profile_seen("step", lambda: trainer.train_step(*batch),
+                 tag=f"profile-{tag}", calls=1)
+    return launches, out, trainer
+
+
+def run_cli_recognition_video():
+    """The CLI's recognition real-data mode at the recognition_k400_vivim_
+    tiny preset (ViViM-T, 16 frames of 224², 400 classes, mixup / cutmix,
+    RandAugment rand-m7-n4-mstd0.5-inc1 and erasing 0.25 on the host) on a
+    K400-layout csv of 16 ``.npy`` videos of 48 frames, batch 8 (the
+    preset's 256 cut to 8), one epoch: 2 steps of exactly 48 K3 with
+    checkpoints and 48 K4. Then the same two steps' work (decode,
+    augment, step) fed through ``PrefetchLoader`` (2 workers, pinned
+    copies): ms a step. Returns the CLI run's launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from video_mamba_suite_torch.cli import _epoch_order
+    from video_mamba_suite_torch.configs import PRESETS
+    from video_mamba_suite_torch.data import PrefetchLoader
+    from video_mamba_suite_torch.data.video_augment import make_train_augment
+    from video_mamba_suite_torch.data.video_datasets import \
+        VideoClassificationDataset
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+    from video_mamba_suite_torch.tasks.recognition import RecognitionTrainer
+
+    set_tf32(True)
+    with tempfile.TemporaryDirectory(prefix="rec-video-") as root:
+        names = [f"k400_{i:02d}.npy" for i in range(VIDEO_FILES)]
+        write_npy_videos(root, names, REC_VIDEO_FRAMES, 224, 224, seed=0)
+        labels = np.random.default_rng(0).integers(0, 400, VIDEO_FILES)
+        labels[0] = 399                # 400 classes from the csv
+        csv = os.path.join(root, "train.csv")
+        with open(csv, "w") as f:
+            f.writelines(f"{n} {l}\n" for n, l in zip(names, labels))
+        argv = ["recognition", "--preset", "recognition_k400_vivim_tiny",
+                "--epochs", "1", "--set", f"dataset.train_csv={csv}",
+                f"dataset.video_root={root}",
+                f"loader.batch_size={VIDEO_BATCH}"]
+        launches, _, trainer = video_cli_phase(
+            "cli-recognition-video", argv, VideoClassificationDataset,
+            RecognitionTrainer, VIVIM_STEP, {}, augment=True)
+
+        # the same two steps' work through the prefetch loader: each
+        # batch decoded and augmented on a worker (its own augment
+        # generator, so that the workers' draws do not interleave)
+        ds = VideoClassificationDataset(csv, root, num_frames=16)
+        aug_fn = make_train_augment(PRESETS["recognition_k400_vivim_tiny"]
+                                    ["aug"])
+        order = _epoch_order(len(ds), 0)
+
+        def batch_fn(i):
+            rng = np.random.default_rng(i)
+            rows = [ds[j] for j in order[i * VIDEO_BATCH:
+                                         (i + 1) * VIDEO_BATCH]]
+            return (np.stack([aug_fn(r["frames"][0], rng) for r in rows]),
+                    np.array([r["label"] for r in rows], np.int32))
+
+        steps = VIDEO_FILES // VIDEO_BATCH
+        torch.cuda.synchronize()
+        reset_launches()
+        times = []
+        t0 = time.perf_counter()
+        with count_plain_calls() as plain:
+            for videos, labels in PrefetchLoader(batch_fn, steps,
+                                                 num_workers=PREFETCH_WORKERS):
+                loss = trainer.train_step(videos, labels)
+                times.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+        got = dict(LAUNCHES)
+        want = {k: v * steps for k, v in VIVIM_STEP.items()}
+        if got != want or sum(plain.values()) or not math.isfinite(loss):
+            raise AssertionError(f"prefetched recognition steps launched "
+                                 f"{got} (want {want}), plain versions "
+                                 f"{dict(plain)}, loss {loss}")
+        log(f"[cli-recognition-video] {steps} steps through PrefetchLoader "
+            f"({PREFETCH_WORKERS} workers, pinned) on {card_line()}: "
+            + ", ".join(f"{1e3 * t:.2f}" for t in times)
+            + f" ms a step (decode, augment and copy overlapped); loss "
+            f"{loss:.4f}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def write_ego_dataset(root, seed):
+    """16 egocentric ``.npy`` clips (32 frames of 224²), a metadata json
+    of their captions and a csv of action labels."""
+    import numpy as np
+
+    names = [f"ego_{i:02d}.npy" for i in range(VIDEO_FILES)]
+    write_npy_videos(root, names, EGO_VIDEO_FRAMES, 224, 224, seed)
+    verbs = ["cut", "wash", "open", "close", "take", "put", "stir", "pour"]
+    nouns = ["onion", "knife", "fridge", "pan", "tap", "lid", "bowl", "cup"]
+    meta = [dict(video=n, caption=f"{verbs[i % 8]} the {nouns[(3 * i) % 8]}")
+            for i, n in enumerate(names)]
+    with open(os.path.join(root, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    labels = np.random.default_rng(seed).integers(0, 3806, VIDEO_FILES)
+    with open(os.path.join(root, "train.csv"), "w") as f:
+        f.writelines(f"{n} {l}\n" for n, l in zip(names, labels))
+
+
+def run_cli_ego_video():
+    """The CLI's egocentric real-data modes on 16 ``.npy`` clips (32
+    frames of 224²), one epoch each at batch 8: ego_ek100_mir (CLIP-
+    TimeMamba-B, 16 frames, fp32 with TF32, K10 spatial attention; 12 K1
+    + 12 K10 + 12 K2 a step, then the retrieval evaluation: 12 K1 + 12
+    K10 a batch of 8 clips), ego_timemamba_pretrain (4 frames, the same a
+    step) and ego_ek100_cls on a csv (ViViM-T, 3806 actions: 48 K3 with
+    checkpoints + 48 K4 a step, then evaluate: 48 K3 a batch). Returns
+    the launches."""
+    import tempfile
+
+    from video_mamba_suite_torch.data.video_datasets import (
+        VideoCaptionDataset,
+        VideoClassificationDataset,
+    )
+    from video_mamba_suite_torch.tasks.egocentric import (
+        ClipPretrainer,
+        ClsFinetuner,
+        MirFinetuner,
+    )
+
+    set_tf32(True)
+    launches = collections.Counter()
+    clip_eval = {k: v * (VIDEO_FILES // VIDEO_BATCH)
+                 for k, v in CLIP_STEP_LAUNCHES.items()
+                 if k != "short_bidir_bwd"}
+    cls_eval = {"chunked_scan_fwd": VIVIM_LAUNCHES
+                * (VIDEO_FILES // VIDEO_BATCH)}
+    with tempfile.TemporaryDirectory(prefix="ego-video-") as root:
+        write_ego_dataset(root, seed=1)
+        meta = [f"dataset.metadata_json={root}/meta.json",
+                f"dataset.video_root={root}",
+                f"loader.batch_size={VIDEO_BATCH}"]
+        for tag, preset, dataset, trainer, per_step, extra, sets, tail in (
+                ("cli-ego-mir", "ego_ek100_mir", VideoCaptionDataset,
+                 MirFinetuner, CLIP_STEP_LAUNCHES, clip_eval, meta,
+                 r"'avg_map': ([0-9.eE+-]+)"),
+                ("cli-ego-pretrain", "ego_timemamba_pretrain",
+                 VideoCaptionDataset, ClipPretrainer, CLIP_STEP_LAUNCHES,
+                 {}, meta, None),
+                ("cli-ego-cls", "ego_ek100_cls", VideoClassificationDataset,
+                 ClsFinetuner, VIVIM_STEP, cls_eval,
+                 [f"dataset.csv_path={root}/train.csv",
+                  f"dataset.video_root={root}",
+                  f"loader.batch_size={VIDEO_BATCH}"],
+                 r"'action_top1': ([0-9.eE+-]+)")):
+            argv = ["egocentric", "--preset", preset, "--epochs", "1",
+                    "--set"] + sets
+            counts, out, _ = video_cli_phase(tag, argv, dataset, trainer,
+                                             per_step, extra)
+            if tail is not None:
+                value = _first_number(tail, out)
+                log(f"[{tag}] {tail.split(':')[0]} {value}")
+                if not math.isfinite(value):
+                    raise AssertionError(f"{tag}: {out[-300:]}")
+            launches.update(counts)
+    return dict(launches)
+
+
+def rov_video(root, seed=0):
+    """A 60 s ``.npy`` video (1800 frames of 128 x 170 at 30 fps)."""
+    path = os.path.join(root, "video.npy")
+    write_npy_videos(root, ["video.npy"], ROV_FRAMES, ROV_HEIGHT, ROV_WIDTH,
+                     seed)
+    return path
+
+
+def rov_pipeline(device, depth=None, seed=0):
+    """VTG's run-on-video pieces on ``device``: a ``VtgFeatureExtractor``
+    at CLIP ViT-B/32's widths with a word tokenizer of the query, and
+    UniVTG-Mamba at the QVHighlights preset's widths (video 512 + 2
+    temporal endpoint features, text 512); random weights from ``seed``,
+    towers and model cut to ``depth`` where given."""
+    from video_mamba_suite_torch.configs import VTG_QVHIGHLIGHTS
+    from video_mamba_suite_torch.data.tokenizer import WordTokenizer
+    from video_mamba_suite_torch.tasks.vtg import (
+        VtgFeatureExtractor,
+        build_vtg_trainer,
+    )
+
+    image, text = dict(ROV_IMAGE), dict(ROV_TEXT)
+    kw = {}
+    if depth is not None:
+        image["layers"] = text["layers"] = kw["depth"] = depth
+    ex = VtgFeatureExtractor(
+        image_cfg=image, text_cfg=text,
+        tokenizer=WordTokenizer(corpus=[ROV_QUERY], context_length=77),
+        device=device, seed=seed)
+    model = build_vtg_trainer(VTG_QVHIGHLIGHTS, device=device, seed=seed,
+                              txt_dim=512, vid_dim=514, **kw).model
+    return ex, model
+
+
+def run_vtg_run_on_video():
+    """UniVTG's run-on-video on the card: ``VtgFeatureExtractor`` (CLIP
+    ViT-B/32: image 224, patch 32, width 768, 12 layers; text 77 x 512, 12
+    layers; fp32) on a 60 s ``.npy`` video of 128 x 170 (30 clips of 2 s)
+    and ``ground_video`` with the QVHighlights preset's model (DBM, width
+    1024, 6 layers; the 30 clips padded to 75 with 32 query tokens, so
+    each layer scans 107 steps: 2 K3 a layer, no checkpoints). Returns the
+    launches."""
+    import tempfile
+
+    import torch
+    from video_mamba_suite_torch.ops import LAUNCHES, reset_launches
+    from video_mamba_suite_torch.tasks.vtg import ground_video
+
+    set_tf32(True)
+    t0 = time.perf_counter()
+    ex, model = rov_pipeline("cuda")
+    log(f"[vtg-run-on-video] extractor and model built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    want = {"chunked_scan_fwd": 2 * VTG_LAYERS}
+    with tempfile.TemporaryDirectory(prefix="rov-") as root:
+        path = rov_video(root)
+        ground_video(ex, model, path, ROV_QUERY)          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = ex.video_features(path)
+        t1 = time.perf_counter()
+        reset_launches()
+        with count_plain_calls() as plain, count_checkpoint_writes() as ck:
+            t2 = time.perf_counter()
+            out = ground_video(ex, model, path, ROV_QUERY)
+            t3 = time.perf_counter()
+        launches = dict(LAUNCHES)
+    windows = out["pred_relevant_windows"]
+    if feats.shape != (ROV_FRAMES // 60, 512) or launches != want or \
+            sum(plain.values()) or ck["chunked_scan_fwd with checkpoints"] \
+            or len(out["pred_saliency_scores"]) != ROV_FRAMES // 60 or \
+            len(windows) != 5 or not all(
+                math.isfinite(v) for w in windows for v in w):
+        raise AssertionError(f"vtg-run-on-video: features {feats.shape}, "
+                             f"launches {launches} (want {want}), plain "
+                             f"versions {dict(plain)}, windows {windows}")
+    log(f"[vtg-run-on-video] on {card_line()}: video features "
+        f"{1e3 * (t1 - t0):.2f} ms ({feats.shape[0]} frames: decode, resize, "
+        f"ViT-B/32), ground_video {1e3 * (t3 - t2):.2f} ms in all (its own "
+        f"features, the query's, the model); launches {launches}; top "
+        f"window {windows[0]}")
+    return launches
+
+
+def card_against_cpu_video():
+    """The device stages card against CPU in fp32 (TF32 off):
+    ``preprocess_clip``'s train mode at fixed offsets and flip on 16
+    frames of 256 x 340 to 224², and one ``ground_video`` at the
+    run-on-video phase's widths cut to depth 2 (towers and model, the
+    same weights on both): the windows in the same order, their spans
+    (fractions of the duration) and the saliency (against its largest
+    magnitude) within 1e-4."""
+    import tempfile
+
+    import numpy as np
+    from video_mamba_suite_torch.data import video
+    from video_mamba_suite_torch.tasks.vtg import ground_video
+
+    set_tf32(False)
+    frames = np.random.default_rng(3).integers(
+        0, 256, PREPROCESS_CLIP_SHAPE + (3,), dtype=np.uint8)
+    args = (224, True, 20, 31, True, video.CLIP_MEAN, video.CLIP_STD)
+    got = video._preprocess_clip_at(frames, *args, "cuda").cpu().numpy()
+    want = video._preprocess_clip_at(frames, *args, "cpu").numpy()
+    err = float(np.abs(got - want).max())
+    log(f"[card-vs-cpu-video] preprocess_clip {PREPROCESS_CLIP_SHAPE} -> "
+        f"224² (train, top 20, left 31, flipped): max |card - CPU| "
+        f"{err:.3g} (tolerance {CARD_CPU_PREPROCESS_TOL})")
+    if got.shape != (16, 224, 224, 3) or not err <= CARD_CPU_PREPROCESS_TOL:
+        raise AssertionError(f"preprocess_clip card vs CPU: {err}")
+
+    cpu_ex, cpu_model = rov_pipeline("cpu", depth=ROV_DEPTH, seed=5)
+    ex, model = rov_pipeline("cuda", depth=ROV_DEPTH, seed=5)
+    for dst, src in ((ex.image_tower, cpu_ex.image_tower),
+                     (ex.text_tower, cpu_ex.text_tower), (model, cpu_model)):
+        dst.load_state_dict(src.state_dict())
+    with tempfile.TemporaryDirectory(prefix="rov-") as root:
+        path = rov_video(root, seed=4)
+        card = ground_video(ex, model, path, ROV_QUERY, top_k=30)
+        cpu = ground_video(cpu_ex, cpu_model, path, ROV_QUERY, top_k=30)
+    g, w = (np.asarray(r["pred_relevant_windows"]) for r in (card, cpu))
+    duration = 2.0 * (ROV_FRAMES // 60)
+    span_err = float(np.abs(g[:, :2] - w[:, :2]).max() / duration)
+    prob_err = float(np.abs(g[:, 2] - w[:, 2]).max())
+    sg, sw = (np.asarray(r["pred_saliency_scores"]) for r in (card, cpu))
+    sal_err = float(np.abs(sg - sw).max() / np.abs(sw).max())
+    # the windows rank the clips alike where each rank's span agrees
+    log(f"[card-vs-cpu-video] ground_video at depth {ROV_DEPTH} on "
+        f"{card_line()}: {len(g)} windows by rank: span error "
+        f"{span_err:.3g} of the duration, probability error "
+        f"{prob_err:.3g}, saliency error {sal_err:.3g} of its scale "
+        f"(tolerance {CARD_CPU_ROV_TOL})")
+    if g.shape != w.shape or not (span_err <= CARD_CPU_ROV_TOL and
+                                  prob_err <= CARD_CPU_ROV_TOL and
+                                  sal_err <= CARD_CPU_ROV_TOL):
+        raise AssertionError("ground_video card vs CPU")
+    set_tf32(True)
+
+
 PHASES = {"mir-train": run_mir_train, "pretrain": run_clip_pretrain,
           "cls": run_ek100_cls, "lm-int8": run_lm_int8,
           "lm-loglik": run_lm_loglik,
@@ -6437,7 +6887,11 @@ PHASES = {"mir-train": run_mir_train, "pretrain": run_clip_pretrain,
           "card-vs-cpu-dvc": card_against_cpu_dvc,
           "cli-synthetic": run_cli_synthetic,
           "cli-tal-thumos": run_cli_tal_thumos,
-          "card-vs-cpu-ckpt": card_against_cpu_ckpt}
+          "card-vs-cpu-ckpt": card_against_cpu_ckpt,
+          "cli-recognition-video": run_cli_recognition_video,
+          "cli-ego-video": run_cli_ego_video,
+          "vtg-run-on-video": run_vtg_run_on_video,
+          "card-vs-cpu-video": card_against_cpu_video}
 
 
 def main() -> int:
@@ -6569,6 +7023,15 @@ def main() -> int:
         mark(name)
     card_against_cpu_ckpt()
     mark("card-vs-cpu-ckpt")
+    # the video data stack: the CLI's raw-video modes and VTG's
+    # run-on-video; their launches add to the other paths'
+    for name in ("cli-recognition-video", "cli-ego-video",
+                 "vtg-run-on-video"):
+        for kernel, count in PHASES[name]().items():
+            launches[kernel] += count
+        mark(name)
+    card_against_cpu_video()
+    mark("card-vs-cpu-video")
 
     kernels = [dict(
         name=name, route="cuda", source=source, replaces=replaces,

@@ -10,8 +10,11 @@
 - ``--device cpu`` runs each synthetic task (the seven, the MIR and
   classification modes, and highlight detection) and prints the lines the
   JAX CLI prints, in the forms ``bench.py``'s trajectories read.
+- The raw-video modes (recognition, egocentric pretraining, MIR and
+  classification) run on ``.npy`` clips on the CPU, and build and feed
+  their trainers what the JAX CLI does, batch for batch.
 - ``--ckpt`` resumes; a SIGTERM ends the run after the epoch in flight
-  with its checkpoint on disk; the real-data modes that read videos exit.
+  with its checkpoint on disk.
 """
 
 import contextlib
@@ -450,20 +453,205 @@ def test_cli_sigterm_checkpoints_the_epoch_in_flight_and_stops(
     assert latest_step(ckpt) == 2
 
 
-def test_video_real_data_modes_exit_naming_what_they_wait_for():
-    for argv, names in [
-            (["recognition", "--set", "dataset.train_csv=t.csv",
-              "dataset.video_root=v"], "data/video.py"),
-            (["egocentric", "--set", "dataset.metadata_json=m.json",
-              "dataset.video_root=v"], "SimpleTokenizer"),
-            (["egocentric", "--set", "train.mode=mir",
-              "dataset.metadata_json=m.json", "dataset.video_root=v"],
-             "SimpleTokenizer"),
-            (["egocentric", "--set", "train.mode=cls",
-              "dataset.csv_path=c.csv", "dataset.video_root=v"],
-             "data/video_datasets.py")]:
-        with pytest.raises(SystemExit, match=re.escape(names)):
+# --- the raw-video modes ----------------------------------------------------
+
+def _write_clips(root, prefix, seed):
+    """tests/test_cli_real_data.py's four clips: (6, 16, 16, 3) uint8
+    ``.npy`` frame arrays from ``seed``."""
+    vdir = root / "videos"
+    vdir.mkdir()
+    rng = np.random.default_rng(seed)
+    names = []
+    for i in range(4):
+        names.append(f"{prefix}{i}.npy")
+        np.save(vdir / names[-1],
+                rng.integers(0, 255, (6, 16, 16, 3), dtype=np.uint8))
+    return vdir, names
+
+
+def _write_recognition(root):
+    vdir, names = _write_clips(root, "clip", 5)
+    (root / "train.csv").write_text(
+        "\n".join(f"{n} {i % 2}" for i, n in enumerate(names)) + "\n")
+    return ["recognition", "--preset", "recognition_k400_vivim_tiny",
+            "--set", f"dataset.train_csv={root}/train.csv",
+            f"dataset.video_root={vdir}"]
+
+
+def _write_captions(root, prefix, seed, caption, mode=()):
+    vdir, names = _write_clips(root, prefix, seed)
+    (root / "meta.json").write_text(json.dumps(
+        [dict(video=n, caption=caption.format(i))
+         for i, n in enumerate(names)]))
+    return ["egocentric"] + list(mode) + [
+        "--set", f"dataset.metadata_json={root}/meta.json",
+        f"dataset.video_root={vdir}"]
+
+
+def _write_pretrain(root):
+    argv = _write_captions(root, "ego", 6, "person does thing {}")
+    return argv[:1] + ["--preset", "ego_timemamba_pretrain"] + argv[1:]
+
+
+def _write_mir(root):
+    return _write_captions(root, "mir", 7, "cut the {} vegetable",
+                           ["--preset", "ego_ek100_mir"])
+
+
+def _write_cls(root):
+    vdir, names = _write_clips(root, "cls", 8)
+    (root / "train.csv").write_text(
+        "\n".join(f"{n} {i % 2}" for i, n in enumerate(names)) + "\n")
+    return ["egocentric", "--preset", "ego_ek100_cls", "--set",
+            f"dataset.csv_path={root}/train.csv",
+            f"dataset.video_root={vdir}"]
+
+
+EGO_SMALL = ["dataset.context_length=8", "model.num_frames=2",
+             "model.depth=1", "model.vision_width=16", "model.embed_dim=8",
+             "model.vision_tower=vivim", "model.img_size=16",
+             "model.patch_size=8", "model.text_width=16",
+             "model.text_heads=2", "model.text_layers=1",
+             "loader.batch_size=2"]
+# each raw-video mode: its files, tests/test_cli_real_data.py's overrides
+# (without the preset) and the lines its end prints
+VIDEO_MODES = {
+    "recognition": (_write_recognition, [
+        "dataset.num_classes=2", "dataset.crop_size=16",
+        "model.num_frames=2", "model.depth=1", "model.embed_dim=16",
+        "loader.batch_size=2"], ["epoch 0: loss"]),
+    "pretrain": (_write_pretrain, EGO_SMALL, ["epoch 0: loss"]),
+    "mir": (_write_mir, ["train.mode=mir"] + EGO_SMALL,
+            ["epoch 0: loss", "eval: {", "avg_map"]),
+    "cls": (_write_cls, [
+        "train.mode=cls", "dataset.num_classes=2", "model.num_frames=2",
+        "model.depth=1", "model.embed_dim=16", "model.img_size=16",
+        "model.patch_size=8", "loader.batch_size=2"],
+        ["epoch 0: loss", "eval: {", "action_top1"]),
+}
+
+
+def _small_argv(mode, root):
+    writer, small, _ = VIDEO_MODES[mode]
+    argv = writer(root)
+    del argv[argv.index("--preset"):argv.index("--preset") + 2]
+    return argv + small
+
+
+def _run_video_mode(mode, tmp_path):
+    from video_mamba_suite_torch.ops import LAUNCHES
+
+    before = dict(LAUNCHES)
+    out = run(_small_argv(mode, tmp_path)
+              + ["--epochs", "1", "--device", "cpu"])
+    assert dict(LAUNCHES) == before          # the plain versions ran
+    for line in VIDEO_MODES[mode][2]:
+        assert line in out, (line, out)
+    assert "tensor(" not in out
+    loss = float(re.search(r"epoch 0: loss ([0-9.eE+-]+)", out).group(1))
+    assert math.isfinite(loss)
+    return out
+
+
+def test_cli_recognition_runs_on_video_files_on_the_cpu(tmp_path):
+    _run_video_mode("recognition", tmp_path)
+
+
+def test_cli_egocentric_pretraining_runs_on_video_files_on_the_cpu(
+        tmp_path):
+    _run_video_mode("pretrain", tmp_path)
+
+
+def test_cli_egocentric_mir_runs_on_video_files_on_the_cpu(tmp_path):
+    out = _run_video_mode("mir", tmp_path)
+    m = re.search(r"'avg_map': ([0-9.eE+-]+)", out)
+    assert m and 0 <= float(m.group(1)) <= 100
+
+
+def test_cli_egocentric_cls_runs_on_video_files_on_the_cpu(tmp_path):
+    out = _run_video_mode("cls", tmp_path)
+    m = re.search(r"'action_top1': ([0-9.eE+-]+)", out)
+    assert m and 0 <= float(m.group(1)) <= 100
+
+
+def _jax_clip_as_the_port_builds_it(name, kwargs):
+    """The JAX CLI's CLIP arguments with the port's two stated
+    differences on a TimeMamba tower: no ``scan_blocks`` (a JAX compile
+    device, not ported) and the spatial attention on K10
+    (``attn_flash="row"``, the einsum path's function)."""
+    if name == "CLIP" and kwargs.get("vision_tower") == "timemamba":
+        vision = dict(kwargs["vision_cfg"])
+        assert vision.pop("scan_blocks") is True
+        kwargs = dict(kwargs, vision_cfg=dict(vision, attn_flash="row"))
+    return kwargs
+
+
+class _FirstBatch(Exception):
+    pass
+
+
+def record_video_mode(monkeypatch, package, adjust=lambda n, kw: kw):
+    """Replace the constructors of ``package``'s CLI: a model's returns a
+    stand-in, a trainer's a stand-in whose ``train_step`` records its
+    arguments and raises ``_FirstBatch``. Returns the constructor calls
+    and the list the batch goes to."""
+    calls, batches = [], []
+
+    class Trainer:
+        def train_step(self, *args):
+            batches.append(args)
+            raise _FirstBatch
+
+    def recorder(name, trainer):
+        def build(*args, **kwargs):
+            kwargs = adjust(name, kwargs)
+            calls.append((name, args, kwargs))
+            return Trainer() if trainer else _Built(name, args, kwargs)
+        return build
+
+    for table, trainer in ((MODELS, False), (TRAINERS, True)):
+        for module, name in table:
+            mod = importlib.import_module(f"{package}.{module}")
+            monkeypatch.setattr(mod, name, recorder(name, trainer))
+    return calls, batches
+
+
+@pytest.mark.parametrize("mode", list(VIDEO_MODES))
+@pytest.mark.parametrize("preset", [True, False],
+                         ids=["preset", "small"])
+def test_video_modes_build_and_feed_what_the_jax_cli_does(
+        mode, preset, tmp_path, monkeypatch):
+    """Each raw-video mode builds the JAX CLI's model and trainer
+    arguments and hands its trainer's ``train_step`` the same first batch
+    (clips, labels and token ids exactly): with the preset (its
+    RandAugment and erasing for recognition; the batch cut to 2 of the 4
+    files) and with tests/test_cli_real_data.py's small overrides."""
+    jax_cli, _, _ = _jax()
+    if preset:
+        argv = VIDEO_MODES[mode][0](tmp_path) + ["loader.batch_size=2"]
+    else:
+        argv = _small_argv(mode, tmp_path)
+    argv += ["--epochs", "1"]
+    with monkeypatch.context() as m:
+        want, want_batch = record_video_mode(
+            m, "video_mamba_suite_tpu", _jax_clip_as_the_port_builds_it)
+        with pytest.raises(_FirstBatch):
+            jax_cli.main(argv)
+    with monkeypatch.context() as m:
+        got, got_batch = record_video_mode(m, "video_mamba_suite_torch")
+        with pytest.raises(_FirstBatch):
             cli.main(argv + ["--device", "cpu"])
+    assert _aside(got) == _aside(want)
+    for name, _, kwargs in got:
+        if name in BUILDS_A_MODEL:
+            assert kwargs["device"] == "cpu", name
+    assert len(got_batch) == len(want_batch) == 1
+    assert len(got_batch[0]) == len(want_batch[0]) == 2
+    for g, w in zip(got_batch[0], want_batch[0]):
+        assert isinstance(g, np.ndarray) and g.dtype == np.asarray(w).dtype
+        np.testing.assert_array_equal(g, np.asarray(w))
+    if mode == "recognition" and preset:     # RandAugment and erasing ran
+        assert got_batch[0][0].min() < 0 or got_batch[0][0].max() > 1
 
 
 # each feature-file task's real-data run at tiny widths (the overrides of

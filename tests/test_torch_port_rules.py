@@ -515,3 +515,77 @@ def test_cli_builds_on_cuda_by_default(argv, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(args)
+
+
+def test_data_stack_imports_no_jax(tmp_path):
+    """The data layer and the run-on-video pipeline import neither JAX nor
+    the JAX package, also while they decode, augment, read features and
+    prefetch."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        import numpy as np
+        for name in ("data", "data.video", "data.video_augment",
+                     "data.video_datasets", "data.tokenizer",
+                     "data.features", "data.pt_reader", "ops.native",
+                     "tasks.vtg.run_on_video"):
+            importlib.import_module("video_mamba_suite_torch." + name)
+        from video_mamba_suite_torch.data import (
+            FeatureReader, PrefetchLoader, VideoDecoder, preprocess_clip)
+        from video_mamba_suite_torch.data.video_augment import \\
+            make_train_augment
+        clip = np.random.default_rng(0).integers(0, 255, (4, 20, 24, 3),
+                                                 dtype=np.uint8)
+        np.save({str(tmp_path / "v.npy")!r}, clip)
+        frames = VideoDecoder({str(tmp_path / "v.npy")!r}).get_batch([0, 3])
+        preprocess_clip(frames, size=16, device="cpu")
+        make_train_augment(dict(aa="rand-m7-n4-mstd0.5-inc1",
+                                reprob=0.25))(frames)
+        FeatureReader({str(tmp_path)!r})("v")
+        list(PrefetchLoader(lambda i: frames, 2, device="cpu"))
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                            "video_mamba_suite_tpu"))
+        assert not bad, bad
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_data_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default build succeeds")
+    import numpy as np
+
+    from video_mamba_suite_torch.data import PrefetchLoader, preprocess_clip
+    from video_mamba_suite_torch.tasks.vtg import VtgFeatureExtractor
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PrefetchLoader(lambda i: i, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        preprocess_clip(np.zeros((2, 8, 8, 3), np.uint8), size=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VtgFeatureExtractor(
+            image_cfg=dict(img_size=32, patch_size=16, width=16, layers=1,
+                           heads=2, output_dim=8),
+            text_cfg=dict(context_length=8, vocab_size=16, width=16,
+                          heads=2, layers=1, output_dim=8))
+    # the host-only parts need no device
+    assert list(PrefetchLoader(lambda i: i, 2, device_put=False)) == [0, 1]
+
+
+def test_not_ported_parts_name_their_roadmap_item():
+    """What waits for the parallel layer says so: the LM's MoE interleave,
+    a sharded PrefetchLoader and data-parallel trainers name ROADMAP queue
+    1 item 10."""
+    from video_mamba_suite_torch.data import PrefetchLoader
+    from video_mamba_suite_torch.models.mixer_seq import MixerModel
+    from video_mamba_suite_torch.utils.trainer import TrainerCore
+
+    with pytest.raises(NotImplementedError,
+                       match=r"MoE interleave .*ROADMAP queue 1 item 10"):
+        MixerModel(16, 1, 8, moe_every=2, generator=torch.Generator())
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        PrefetchLoader(lambda i: i, 2, sharding="data", device="cpu")
+    with pytest.raises(ValueError, match="queue 1 item 10"):
+        TrainerCore(use_mesh=True)

@@ -621,6 +621,43 @@ def test_trainer_step_matches_jax():
     assert set(stats) == set(want) and np.isfinite(list(stats.values())).all()
 
 
+def test_two_level_trainer_step_matches_jax():
+    """One ``TalTrainer.train_step`` through two pyramid levels above 64
+    steps (``backbone_arch=(1, 1, 1)`` at 256 steps: the stem at 256 and
+    one branch level at 128), so every mixer takes the chunked route (K3
+    and K4 on the card, their plain versions here), against the JAX
+    trainer's jitted step from the same weights: the loss dict, the new
+    normaliser and the parameters after the clipped AdamW update."""
+    T = 256
+    items = make_synthetic_tal(2, 3, 8, T, seed=6)
+    batch = collate_tal(items, T, 32)
+    kw = dict(input_dim=8, num_classes=3, max_seq_len=T, embd_dim=16,
+              regression_range=((0, 8), (8, 10000)), backbone_arch=(1, 1, 1),
+              lr=LR, warmup_steps=0, total_steps=20, grad_clip=1.0)
+    jtr = jax_train.TalTrainer(**kw, impl="ref")
+    module = jtr.model.clone(drop_path_rate=0.0)
+    params = _init(module, 22, jnp.asarray(batch[0]), jnp.asarray(batch[1]),
+                   deterministic=True)
+    jtr.model = _DrawnInit(module, params)
+    want = jtr.train_step(*batch)
+    port = TalTrainer(**kw, drop_path_rate=0.0, device="cpu")
+    assert port.model.level_lengths(T) == [256, 128]
+    port.model.load_state_dict(tal_detector_from_jax(params))
+    got = port.train_step(*batch)
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=REL_TOL), k
+    _close(port.loss_norm, jtr.loss_norm)
+    before = tal_detector_from_jax(params)
+    after = tal_detector_from_jax(jax.device_get(jtr.params))
+    for name, p in port.model.named_parameters():
+        assert np.abs(_np(after[name]) - _np(before[name])).max() > 0, name
+        grad = np.abs(_np(p.grad))
+        big = grad > SMALL_GRAD * grad.max()
+        diff = np.abs(_np(p) - _np(after[name]))
+        assert diff[big].max(initial=0) <= PARAM_ATOL, name
+        assert diff.max() <= 2 * LR, name
+
+
 def test_dbm_converters_agree():
     """An upstream DBM mixer's state_dict reaches the same port weights
     directly (``dbm_mixer_from_state_dict``) and through the JAX tree

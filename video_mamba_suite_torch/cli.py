@@ -20,10 +20,17 @@ and the overrides give the task's dataset paths:
     anticipation --set dataset.visual_dir=... dataset.target_dir=...
                        dataset.sessions=[...]
 
-Recognition and egocentric training read videos; their real-data modes
-need the video decoder and datasets, which the port does not have yet, and
-exit naming them. Without paths (or with --synthetic) each task trains and
-evaluates on its built-in synthetic dataset. --ckpt DIR checkpoints every
+    recognition  --set dataset.train_csv=... dataset.video_root=...
+    egocentric   --set dataset.metadata_json=... dataset.video_root=...
+                 (MIR: train.mode=mir; classification: train.mode=cls
+                  dataset.csv_path=... dataset.video_root=...)
+
+The video modes decode each clip's frames on the host
+(``data.video.VideoDecoder``: ``.npy`` frame arrays, or any video file a
+decode backend reads) at the size the files hold, and recognition runs the
+preset's RandAugment and random erasing there before every step. Without
+paths (or with --synthetic) each task trains and evaluates on its built-in
+synthetic dataset. --ckpt DIR checkpoints every
 epoch and resumes from the newest epoch there; SIGTERM ends the run after
 the epoch in flight, with its checkpoint on disk. Everything runs on the
 card unless --device cpu asks for the plain versions on the CPU; without a
@@ -81,12 +88,6 @@ def _epoch_order(n, ep, seed=0):
 
 
 _WATCHER = None  # the PreemptionWatcher main() installs; loops poll it
-
-_NEEDS_VIDEO = ("the {} real-data mode reads videos: it waits for the "
-                "port's video decoder and datasets (data/video.py, "
-                "data/video_augment.py, data/video_datasets.py{}; ROADMAP "
-                "queue 1 item 8b). Run it with --synthetic, or with the JAX "
-                "package's CLI")
 
 
 def _ckpt_step(tr, ckpt, ep) -> bool:
@@ -548,7 +549,56 @@ def run_recognition(cfg, epochs, synthetic, ckpt=None, device="cuda"):
     from .tasks.recognition import RecognitionTrainer
 
     if not synthetic and _has(cfg, "train_csv"):
-        raise SystemExit(_NEEDS_VIDEO.format("recognition", ""))
+        from .data.video_augment import make_train_augment
+        from .data.video_datasets import VideoClassificationDataset
+
+        d, m = _ds(cfg), cfg.get("model", {})
+        ds = VideoClassificationDataset(
+            d["train_csv"], d.get("video_root", ""),
+            num_frames=m.get("num_frames", 16), is_training=True,
+        )
+        nc = d.get("num_classes", max(l for _, l in ds.items) + 1)
+        size = d.get("crop_size", 224)
+        model = ViViM(img_size=size, patch_size=16,
+                      num_frames=m.get("num_frames", 16),
+                      depth=m.get("depth", 24),
+                      embed_dim=m.get("embed_dim", 192), num_classes=nc,
+                      mixer=m.get("mixer", "vim"), device=device)
+        tr = RecognitionTrainer(
+            model, num_classes=nc, lr=_opt(cfg, "learning_rate", 1e-3),
+            mixup_alpha=cfg.get("aug", {}).get("mixup", 0.8),
+            cutmix_alpha=cfg.get("aug", {}).get("cutmix", 1.0),
+            use_mesh=_mesh(cfg),
+        )
+        # the preset's RandAugment and random erasing (the K400 recipe,
+        # kinetics_sparse.py upstream), on the host before every step
+        aug_fn = make_train_augment(cfg.get("aug", {}))
+        bs = cfg.get("loader", {}).get("batch_size", 8)
+        rng = np.random.default_rng(0)
+
+        def restore():
+            ds[0]                  # the JAX CLI's restore samples a clip
+            return tr.restore(ckpt)
+
+        start = _maybe_resume(ckpt, restore)
+        for ep in range(start, epochs):
+            order = _epoch_order(len(ds), ep)
+            for i in range(0, len(order) - bs + 1, bs):
+                rows = [ds[j] for j in order[i:i + bs]]
+                if aug_fn is not None:
+                    videos = np.stack([
+                        aug_fn(r["frames"][0].astype(np.uint8), rng)
+                        for r in rows])
+                else:
+                    videos = np.stack([
+                        r["frames"][0].astype(np.float32) / 255.0
+                        for r in rows])
+                labels = np.array([r["label"] for r in rows], np.int32)
+                loss = tr.train_step(videos, labels)
+            print(f"epoch {ep}: loss {loss:.4f}", flush=True)
+            if _ckpt_step(tr, ckpt, ep):
+                break
+        return
 
     rng = np.random.default_rng(0)
     n, S = 16, 32
@@ -611,10 +661,48 @@ def _run_ego_mir(cfg, epochs, synthetic, ckpt=None, device="cuda"):
 
     from .tasks.egocentric.finetune import MirFinetuner
 
+    m = cfg.get("model", {})
     if not synthetic and _has(cfg, "metadata_json", "video_root"):
-        raise SystemExit(_NEEDS_VIDEO.format(
-            "egocentric MIR", ", the BPE SimpleTokenizer of "
-            "data/tokenizer.py"))
+        from .data.tokenizer import WordTokenizer
+        from .data.video_datasets import VideoCaptionDataset
+
+        d = _ds(cfg)
+        with open(d["metadata_json"]) as f:
+            metadata = json.load(f)
+        tok = WordTokenizer(corpus=[x.get("caption", "") for x in metadata],
+                            context_length=d.get("context_length", 77))
+        ds = VideoCaptionDataset(metadata, d["video_root"],
+                                 num_frames=m.get("num_frames", 4))
+        model = _build_ego_clip(cfg, tok.vocab_size, device)
+        ft = MirFinetuner(model, lr=_opt(cfg, "learning_rate", 1e-5),
+                          weight_decay=_opt(cfg, "weight_decay", 0.01),
+                          use_mesh=_mesh(cfg))
+        bs = cfg.get("loader", {}).get("batch_size", 8)
+
+        def batch(rows):
+            videos = np.stack(
+                [r["frames"].astype(np.float32) / 255.0 for r in rows])
+            texts = np.stack([np.asarray(tok([r["caption"]])[0], np.int64)
+                              for r in rows])
+            return videos, texts
+
+        batch([ds[0]])             # the JAX CLI's restore sample
+        start = _maybe_resume(ckpt, lambda: ft.restore(ckpt))
+        for ep in range(start, epochs):
+            order = _epoch_order(len(ds), ep)
+            for i in range(0, len(order) - bs + 1, bs):
+                videos, texts = batch([ds[j] for j in order[i:i + bs]])
+                loss = ft.train_step(videos, texts)
+            print(f"epoch {ep}: loss {loss:.4f}", flush=True)
+            if _ckpt_step(ft, ckpt, ep):
+                break
+        # retrieval over the training clips (another set through --set
+        # dataset.metadata_json on a second run)
+        videos, texts = batch([ds[i] for i in range(len(ds))])
+        rel = np.load(d["relevancy_npy"]) if "relevancy_npy" in d else \
+            np.eye(len(ds), dtype=np.float32)
+        print("eval:", ft.evaluate(videos, texts, rel, batch_size=bs))
+        return
 
     model = _synthetic_clip(device)
     ft = MirFinetuner(model, lr=1e-3, use_mesh=_mesh(cfg))
@@ -638,9 +726,53 @@ def _run_ego_cls(cfg, epochs, synthetic, ckpt=None, device="cuda"):
     from .models.vivim import ViViM
     from .tasks.egocentric.finetune import ClsFinetuner
 
+    m = cfg.get("model", {})
     if not synthetic and _has(cfg, "csv_path", "video_root"):
-        raise SystemExit(_NEEDS_VIDEO.format("egocentric classification",
-                                             ""))
+        from .data.video_datasets import VideoClassificationDataset
+
+        d = _ds(cfg)
+        ds = VideoClassificationDataset(
+            d["csv_path"], d["video_root"],
+            num_frames=m.get("num_frames", 16))
+        # the default is computed whether or not it is needed, as in the
+        # JAX CLI: it decodes (and samples) every clip once
+        nc = d.get("num_classes", 1 + max(ds[i]["label"]
+                                          for i in range(len(ds))))
+        tower = ViViM(img_size=m.get("img_size", 224),
+                      patch_size=m.get("patch_size", 16),
+                      num_frames=m.get("num_frames", 16),
+                      depth=m.get("depth", 24),
+                      embed_dim=m.get("embed_dim", 192), num_classes=0,
+                      device=device)
+        bs = cfg.get("loader", {}).get("batch_size", 8)
+        steps = max(len(ds) // bs, 1) * max(epochs, 1)
+        ft = ClsFinetuner(
+            tower, num_classes=nc, lr=_opt(cfg, "learning_rate", 1e-4),
+            weight_decay=_opt(cfg, "weight_decay", 0.05),
+            smoothing=cfg.get("aug", {}).get("smoothing", 0.1),
+            mixup_alpha=cfg.get("aug", {}).get("mixup", 0.0),
+            cutmix_alpha=cfg.get("aug", {}).get("cutmix", 0.0),
+            warmup_steps=min(steps // 10 + 1, 100), total_steps=steps,
+            use_mesh=_mesh(cfg))
+        ds[0]                      # the JAX CLI's restore sample
+        start = _maybe_resume(ckpt, lambda: ft.restore(ckpt))
+        for ep in range(start, epochs):
+            order = _epoch_order(len(ds), ep)
+            for i in range(0, len(order) - bs + 1, bs):
+                rows = [ds[j] for j in order[i:i + bs]]
+                videos = np.stack(
+                    [r["frames"][0].astype(np.float32) / 255.0 for r in rows])
+                labels = np.asarray([r["label"] for r in rows], np.int32)
+                loss = ft.train_step(videos, labels)
+            print(f"epoch {ep}: loss {loss:.4f}", flush=True)
+            if _ckpt_step(ft, ckpt, ep):
+                break
+        videos = np.stack([ds[i]["frames"][0].astype(np.float32) / 255.0
+                           for i in range(len(ds))])
+        labels = np.asarray([ds[i]["label"] for i in range(len(ds))],
+                            np.int32)
+        print("eval:", ft.evaluate(videos, labels))
+        return
 
     rng = np.random.default_rng(2)
     n, n_act = 12, 4
@@ -659,6 +791,40 @@ def _run_ego_cls(cfg, epochs, synthetic, ckpt=None, device="cuda"):
     print(f"loss {loss:.4f}, action top-1 {res['action_top1']:.1f}")
 
 
+def _build_ego_clip(cfg, vocab_size, device):
+    """The CLIP of the egocentric real-data modes, from the config's
+    ``model`` and ``dataset`` keys as the JAX CLI reads them. A TimeMamba
+    tower takes its spatial attention on K10 (``attn_flash="row"``) where
+    the JAX CLI's takes the einsum path (the same function), and has no
+    ``scan_blocks`` (a JAX compile-time device, not ported)."""
+    from .models.clip import CLIP
+
+    m, d = cfg.get("model", {}), _ds(cfg)
+    tower = m.get("vision_tower", "timemamba")
+    vision_cfg = dict(num_frames=m.get("num_frames", 4),
+                      depth=m.get("depth", 12),
+                      embed_dim=m.get("vision_width", 768),
+                      img_size=m.get("img_size", 224),
+                      patch_size=m.get("patch_size", 16))
+    if tower == "timemamba":
+        vision_cfg.update(
+            ln_pre=True,
+            attention_style=m.get("attention_style", "frozen-in-time"),
+            is_tanh_gating=m.get("is_tanh_gating", False),
+            attn_flash="row")
+    return CLIP(
+        embed_dim=m.get("embed_dim", 512),
+        vision_tower=tower,
+        vision_cfg=vision_cfg,
+        text_cfg=dict(context_length=d.get("context_length", 77),
+                      vocab_size=vocab_size,
+                      width=m.get("text_width", 512),
+                      heads=m.get("text_heads", 8),
+                      layers=m.get("text_layers", 12)),
+        device=device,
+    )
+
+
 def run_egocentric(cfg, epochs, synthetic, ckpt=None, device="cuda"):
     import numpy as np
 
@@ -673,9 +839,36 @@ def run_egocentric(cfg, epochs, synthetic, ckpt=None, device="cuda"):
         return _run_ego_cls(cfg, epochs, synthetic, ckpt, device)
 
     if not synthetic and _has(cfg, "metadata_json", "video_root"):
-        raise SystemExit(_NEEDS_VIDEO.format(
-            "egocentric pretraining", ", the BPE SimpleTokenizer of "
-            "data/tokenizer.py"))
+        from .data.tokenizer import WordTokenizer
+        from .data.video_datasets import VideoCaptionDataset
+
+        d, m = _ds(cfg), cfg.get("model", {})
+        with open(d["metadata_json"]) as f:
+            metadata = json.load(f)
+        tok = WordTokenizer(corpus=[x.get("caption", "") for x in metadata],
+                            context_length=d.get("context_length", 77))
+        ds = VideoCaptionDataset(metadata, d["video_root"],
+                                 num_frames=m.get("num_frames", 4))
+        model = _build_ego_clip(cfg, tok.vocab_size, device)
+        tr = ClipPretrainer(model, lr=_opt(cfg, "learning_rate", 3e-5),
+                            use_mesh=_mesh(cfg))
+        bs = cfg.get("loader", {}).get("batch_size", 8)
+        ds[0]                      # the JAX CLI's restore sample
+        start = _maybe_resume(ckpt, lambda: tr.restore(ckpt))
+        for ep in range(start, epochs):
+            order = _epoch_order(len(ds), ep)
+            for i in range(0, len(order) - bs + 1, bs):
+                rows = [ds[j] for j in order[i:i + bs]]
+                videos = np.stack(
+                    [r["frames"].astype(np.float32) / 255.0 for r in rows])
+                texts = np.stack([
+                    np.asarray(tok([r["caption"]])[0], np.int64)
+                    for r in rows])
+                loss = tr.train_step(videos, texts)
+            print(f"epoch {ep}: loss {loss:.4f}", flush=True)
+            if _ckpt_step(tr, ckpt, ep):
+                break
+        return
 
     model = _synthetic_clip(device)
     tr = ClipPretrainer(model, lr=1e-3)

@@ -38,7 +38,7 @@ class MixerModel(nn.Module):
         if moe_every:
             raise NotImplementedError(
                 "the MoE interleave (moe_every > 0) is not ported yet "
-                "(ROADMAP item 8)")
+                "(ROADMAP queue 1 item 10)")
         self.rms_norm, self.norm_eps = rms_norm, norm_eps
         self.embedding = W8Embed(vocab_size, d_model, generator=generator,
                                  init_std=initializer_range)

@@ -38,7 +38,7 @@ NVCC_FLAGS = (
 
 # the host sources (``csrc/*.cc``, plain C++ called from the host): the
 # JAX package's flags less OpenMP and -march=native, which they do not use
-HOST_CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+HOST_CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 LAUNCHES: collections.Counter = collections.Counter()
 
